@@ -10,22 +10,34 @@ Phases (any failure exits non-zero and prints no result line):
    kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once;
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
-   int16 case with 300 bins; frontier with L = 1 and L = 2), each held
-   against its plain PyTorch version on the same inputs (count column
-   exact, grad/hess to rtol 1e-5, atol 1e-4: the in-chunk sum order
-   differs from index_add_'s on the card), launched twice and required
-   bitwise equal, the 1M x 28 uint8 masked case also bitwise equal to
-   the plain version run on the CPU, and timed with CUDA events beside its bound, the plain
-   version and one PyTorch index_add_ call for the same function;
-3. the main path at full width: the bench workload (1,000,000 x 28
-   binary, 63 leaves, 255 bins, learning rate 0.1, 10 rounds) through
-   lightgbm_tpu_torch.train, with launch counts read from zero; the
-   first tree grown again with the plain histogram functions; predict
-   on 100k rows against a host traversal of the saved model text; one
-   tree build profiled with torch.profiler;
+   int16 case with 300 bins; frontier with L = 1 and L = 2), and
+   seg_hist on the packed words of the same shape (7 words) over three
+   segments (the whole array, a chunk-crossing one, a short one across
+   a chunk edge), each held against its plain PyTorch version on the
+   same inputs (count column exact, grad/hess to rtol 1e-5, atol 1e-4:
+   the in-chunk sum order differs from index_add_'s on the card),
+   launched twice and required bitwise equal, one case of each source
+   also bitwise equal to the plain version run on the CPU, and timed
+   with CUDA events beside its bound, the plain version and one PyTorch
+   index_add_ call for the same function;
+3. the masked main path at full width: the bench workload (1,000,000 x
+   28 binary, 63 leaves, 255 bins, learning rate 0.1, 10 rounds)
+   through lightgbm_tpu_torch.train, with launch counts read from zero;
+   the first tree grown again with the plain histogram functions;
+   predict on 100k rows against a host traversal of the saved model
+   text; one tree build profiled with torch.profiler;
 4. a 2-round cache-less run (histogram_pool_size below the cache) that
    drives frontier_hist with L = 2;
-5. a `kernels` JSON line, the card line, and the result line.
+5. the partitioned main path: the same workload with
+   partitioned_build=true (seg_hist at every histogram, no masked or
+   frontier launch), its first tree against the masked path's, no host
+   sync inside build_tree_partitioned, one tree build profiled; then a
+   2-round cache-less partitioned run;
+6. categorical features: the bench matrix plus 4 integer columns of 32
+   categories that enter the label's logit, declared categorical, 3
+   rounds with each builder: categorical splits, the same first tree,
+   predict against the host traversal;
+7. a `kernels` JSON line, the card line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -49,7 +61,11 @@ N_ROWS = 1_000_000
 N_FEATURES = 28
 MAX_BIN = 255
 N_ROUNDS = 10
+N_CAT = 4
+N_CATEGORIES = 32
 DEVICE = "cuda"
+BENCH_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": MAX_BIN,
+                "learning_rate": 0.1, "verbose": 0}
 
 
 def log(msg):
@@ -65,12 +81,20 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
-def make_data(n, seed, f=N_FEATURES):
-    """bench.py make_data's generator (without its label memo-buster)."""
+def make_data(n, seed, f=N_FEATURES, n_cat=0):
+    """bench.py make_data's generator (without its label memo-buster);
+    with n_cat, that many integer columns of N_CATEGORIES categories
+    are appended, each adding a random per-category effect to the
+    logit."""
     rng = np.random.RandomState(seed)
     x = rng.randn(n, f).astype(np.float32)
     w = rng.randn(f).astype(np.float32) / np.sqrt(f)
     logit = x @ w + 0.5 * rng.randn(n).astype(np.float32)
+    if n_cat:
+        cats = rng.randint(0, N_CATEGORIES, size=(n, n_cat))
+        effect = rng.randn(n_cat, N_CATEGORIES).astype(np.float32)
+        logit = logit + effect[np.arange(n_cat), cats].sum(1)
+        x = np.concatenate([x, cats.astype(np.float32)], axis=1)
     return x, (logit > 0).astype(np.float32)
 
 
@@ -124,6 +148,30 @@ def hist_bound_ms(f, n, bin_bytes, num_leaf, b, in_rows):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def seg_bound_ms(w, cnt, b):
+    """Least time for one seg_hist call: the segment's words (4W bytes a
+    row) and statistics (12 bytes a row) read once, the bounds read and
+    the (value, residual) pair written once, over HBM bandwidth; against
+    three float32 adds per (segment row, feature) over the float32
+    rate. Returns (ms, bound_by)."""
+    f = 4 * w
+    nbytes = (4 * w + 12) * cnt + 8 + 2 * f * b * 3 * 4
+    ops = 3.0 * f * cnt
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(torch, got_pair, want_pair):
+    """Kernel pair against plain pair: (max_abs_err, count_exact, close)."""
+    got = (got_pair[0] + got_pair[1]).cpu()
+    want = (want_pair[0] + want_pair[1]).cpu()
+    count_exact = bool(torch.equal(got[..., 2], want[..., 2]))
+    close = bool(torch.allclose(got[..., :2], want[..., :2], rtol=1e-5,
+                                atol=1e-4))
+    return float((got - want).abs().max()), count_exact, close
+
+
 # ----------------------------------------------------------- kernel checks
 
 def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
@@ -157,12 +205,7 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
     hi2, lo2 = kern()
     torch.cuda.synchronize()
     deterministic = bool(torch.equal(hi1, hi2) and torch.equal(lo1, lo2))
-    ph, pl = plain()
-    got, want = (hi1 + lo1).cpu(), (ph + pl).cpu()
-    count_exact = bool(torch.equal(got[..., 2], want[..., 2]))
-    close = bool(torch.allclose(got[..., :2], want[..., :2], rtol=1e-5,
-                                atol=1e-4))
-    err = float((got - want).abs().max())
+    err, count_exact, close = compare(torch, (hi1, lo1), plain())
     res = {"name": name, "shape": {"F": f, "N": n, "B": b,
                                    "bins": str(dtype).replace("torch.", ""),
                                    "L": len(leaf_ids)},
@@ -209,16 +252,84 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
     return res
 
 
+def seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt, b,
+                    cpu_check=False):
+    """seg_hist against seg_hist_plain on the same card inputs; `words`
+    and `ghc` are CPU tensors of the full packed array."""
+    dev = DEVICE
+    bounds = torch.tensor([begin, cnt], dtype=torch.int32)
+    words_d, ghc_d, bounds_d = (t.to(dev) for t in (words, ghc, bounds))
+
+    def kern():
+        return hk.seg_hist(words_d, ghc_d, bounds_d, b)
+
+    def plain():
+        return hk.seg_hist_plain(words_d, ghc_d, bounds_d, b)
+
+    hi1, lo1 = kern()
+    hi2, lo2 = kern()
+    torch.cuda.synchronize()
+    deterministic = bool(torch.equal(hi1, hi2) and torch.equal(lo1, lo2))
+    err, count_exact, close = compare(torch, (hi1, lo1), plain())
+    w, n = words.shape
+    res = {"name": "seg_hist", "shape": {"W": w, "N": n, "B": b,
+                                         "begin": begin, "cnt": cnt},
+           "max_abs_err": err, "count_exact": count_exact,
+           "grad_hess_close": close, "deterministic": deterministic}
+    if cpu_check:
+        ch, cl = hk.seg_hist_plain(words, ghc, bounds, b)
+        res["bitwise_vs_cpu_plain"] = bool(torch.equal(hi1.cpu(), ch)
+                                           and torch.equal(lo1.cpu(), cl))
+    # library yardstick: ONE index_add_ on the segment's flattened
+    # (feature, bin) key, built outside the timed region
+    f = 4 * w
+    seg = slice(begin, begin + cnt)
+    key = (torch.arange(f, device=dev)[:, None] * b
+           + hk.unpack_words(words_d[:, seg]).long()).reshape(-1)
+    src = ghc_d[:, seg].t()[None].expand(f, cnt, 3).reshape(-1, 3).contiguous()
+
+    def library():
+        return torch.zeros(f * b, 3, device=dev).index_add_(0, key, src)
+
+    res["ms"] = timer(kern, 20)
+    res["plain_ms"] = timer(plain, 3)
+    res["library_ms"] = timer(library, 5)
+    res["bound_ms"], res["bound_by"] = seg_bound_ms(w, cnt, b)
+    log(f"seg_hist {res['shape']}: err {err:.3g} count_exact {count_exact} "
+        f"close {close} deterministic {deterministic} ms {res['ms']:.4f} "
+        f"bound {res['bound_ms']:.4f} plain {res['plain_ms']:.3f} "
+        f"library {res['library_ms']:.3f}")
+    check(count_exact, "seg_hist: count column differs from plain")
+    check(close, "seg_hist: grad/hess differ from plain beyond tolerance")
+    check(deterministic, "seg_hist: two launches gave different bits")
+    if cpu_check:
+        check(res["bitwise_vs_cpu_plain"],
+              "seg_hist: differs in bits from the plain version on the CPU")
+    del key, src
+    return res
+
+
+def seg_kernel_cases(torch, hk, timer, rng):
+    """The three segment kinds on one 1,048,576 x 28 packed array."""
+    from lightgbm_tpu_torch.ops.ordered_hist import pack_feature_words
+    n = 1 << 20
+    bins = rng.randint(0, MAX_BIN, size=(N_FEATURES, n)).astype(np.uint8)
+    words = torch.from_numpy(pack_feature_words(bins))
+    inbag = (rng.rand(n) < 0.8).astype(np.float32)
+    ghc = torch.from_numpy(np.stack([rng.randn(n).astype(np.float32) * inbag,
+                                     rng.rand(n).astype(np.float32) * inbag,
+                                     inbag]))
+    return [seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt,
+                            MAX_BIN, cpu_check=cpu)
+            for begin, cnt, cpu in ((0, n, False), (300_001, 200_000, True),
+                                    (4090, 100, False))]
+
+
 # ------------------------------------------------------------------ phases
 
-def phase_main(torch, lgt, hk, x, y):
-    """10 rounds of the bench workload; counts read from zero."""
-    params = {"objective": "binary", "num_leaves": 63, "max_bin": MAX_BIN,
-              "learning_rate": 0.1, "verbose": 0}
-    ds = lgt.Dataset(x, y)
-    t0 = time.time()
-    ds.construct()
-    setup_s = time.time() - t0
+def train_rounds(torch, lgt, params, ds, rounds):
+    """lightgbm_tpu_torch.train for `rounds` rounds, host ms per round
+    (each ends in a device sync)."""
     round_ms = []
     marks = [None]
 
@@ -229,16 +340,22 @@ def phase_main(torch, lgt, hk, x, y):
         marks[0] = now
 
     timing_cb.order = 0
-    hk.reset_launch_counts()
     marks[0] = time.perf_counter()
-    booster = lgt.train(params, ds, N_ROUNDS, verbose_eval=False,
+    booster = lgt.train(params, ds, rounds, verbose_eval=False,
                         callbacks=[timing_cb])
     torch.cuda.synchronize()
+    return booster, round_ms
+
+
+def phase_main(torch, lgt, hk, ds, y):
+    """10 rounds of the bench workload; counts read from zero."""
+    hk.reset_launch_counts()
+    booster, round_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds, N_ROUNDS)
     counts = hk.launch_counts()
     gbdt = booster.gbdt
     train_auc = auc(gbdt.get_training_score(), y)
-    log(f"main path: binning {setup_s:.2f}s, per-round ms "
-        f"{[round(v, 1) for v in round_ms]}, train AUC {train_auc:.5f}, "
+    log(f"main path: per-round ms {[round(v, 1) for v in round_ms]}, "
+        f"median {np.median(round_ms):.2f}, train AUC {train_auc:.5f}, "
         f"launches {counts}")
     leaves = [t.num_leaves for t in gbdt.models]
     check(len(gbdt.models) == N_ROUNDS, "training stopped early")
@@ -247,9 +364,68 @@ def phase_main(torch, lgt, hk, x, y):
     check(counts["frontier_hist"] >= N_ROUNDS,
           f"frontier_hist launched {counts['frontier_hist']} times")
     check(train_auc > 0.8, f"train AUC {train_auc} too low")
-    return booster, {"round_ms": round_ms, "train_auc": train_auc,
-                     "launches": counts, "leaves": leaves,
-                     "binning_s": setup_s}
+    return booster, {"round_ms": round_ms,
+                     "round_ms_median": float(np.median(round_ms)),
+                     "train_auc": train_auc, "launches": counts,
+                     "leaves": leaves}
+
+
+def builder_syncs(torch, build, args, kwargs):
+    """Host syncs inside one tree build. torch.cuda's sync debug mode
+    "warn" flags each synchronizing call at the Python line that made
+    it; "error" raises at the first one. Returns (syncs: 0 or 1, the
+    error's last frames, the warn-mode sites)."""
+    import traceback
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            build(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = sorted({f"{w.filename.split('lightgbm_tpu_torch/')[-1]}:"
+                      f"{w.lineno} {str(w.message)[:100]}" for w in caught
+                      if "synchron" in str(w.message).lower()
+                      and "prototype" not in str(w.message)})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        build(*args, **kwargs)
+    except RuntimeError as e:
+        if "synchroniz" not in str(e).lower():
+            raise
+        return 1, [f"{fr.filename.split('lightgbm_tpu_torch/')[-1]}:"
+                   f"{fr.lineno} {fr.line}"
+                   for fr in traceback.extract_tb(e.__traceback__)[-4:]], flagged
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return 0, [], flagged
+
+
+def builder_args(torch, booster):
+    """A tree build's arguments as the learner gives them (score 0,
+    every feature, every row in the bag)."""
+    gbdt = booster.gbdt
+    learner = gbdt.tree_learner
+    n = gbdt.num_data
+    g, h = gbdt.objective.get_gradients(torch.zeros(1, n, device=gbdt.device))
+    fmask = torch.ones(learner.f_pad, dtype=torch.bool, device=gbdt.device)
+    args = (learner.bins, learner._pad(g[0]), learner._pad(h[0]),
+            learner._pad(torch.ones(n, device=gbdt.device)), fmask,
+            learner.num_bin_pf, learner.is_cat)
+    kwargs = {"num_leaves": 63, "max_bin": learner.max_bin,
+              "params": learner.params, "max_depth": -1, "cache_hists": True}
+    return args, kwargs
+
+
+def same_first_tree(a, b):
+    """(same split features, same thresholds, max leaf rel diff)."""
+    same_feat = np.array_equal(a.split_feature, b.split_feature)
+    same_thr = np.array_equal(a.threshold_in_bin, b.threshold_in_bin)
+    rel = float(np.max(np.abs(a.leaf_value - b.leaf_value)
+                       / np.maximum(np.abs(b.leaf_value), 1e-12)))
+    return same_feat, same_thr, rel
 
 
 def phase_plain_tree(torch, hk, booster):
@@ -265,50 +441,17 @@ def phase_plain_tree(torch, hk, booster):
                                frontier_fn=hk.frontier_hist_plain)
     host, _ = learner.fetch(out)
     plain = learner.host_out_to_tree(host, shrink=gbdt.shrinkage_rate)
-    kern = gbdt.models[0]
-    same_feat = np.array_equal(plain.split_feature, kern.split_feature)
-    same_thr = np.array_equal(plain.threshold_in_bin, kern.threshold_in_bin)
-    rel = float(np.max(np.abs(plain.leaf_value - kern.leaf_value)
-                       / np.maximum(np.abs(kern.leaf_value), 1e-12)))
+    same_feat, same_thr, rel = same_first_tree(plain, gbdt.models[0])
     log(f"plain first tree: same features {same_feat}, same thresholds "
         f"{same_thr}, max leaf rel diff {rel:.3g}")
     check(same_feat and same_thr, "plain histograms grew another tree")
     check(rel <= 1e-5, f"leaf values differ by {rel} relative")
     # the builder itself must not wait for the device: grow one more
     # tree with CUDA sync debugging on and count the flagged syncs
-    fmask = torch.ones(learner.num_features, dtype=torch.bool,
-                       device=gbdt.device)
-    args = (learner.bins, learner._pad(g[0]), learner._pad(h[0]),
-            learner._pad(torch.ones(n, device=gbdt.device)), fmask,
-            learner.num_bin_pf, learner.is_cat)
-    torch.cuda.synchronize()
     from lightgbm_tpu_torch.models.tree_learner import build_tree_device
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            build_tree_device(*args, num_leaves=63, max_bin=learner.max_bin,
-                              params=learner.params, max_depth=-1,
-                              cache_hists=True)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    flagged = sorted({str(w.message)[:160] for w in caught
-                      if "synchron" in str(w.message).lower()})
-    # "error" mode raises at the first real sync, with its traceback
-    import traceback
-    syncs, sites = 0, []
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        build_tree_device(*args, num_leaves=63, max_bin=learner.max_bin,
-                          params=learner.params, max_depth=-1,
-                          cache_hists=True)
-    except RuntimeError:
-        syncs = 1
-        sites = [f"{fr.filename.split('lightgbm_tpu_torch/')[-1]}:"
-                 f"{fr.lineno} {fr.line}"
-                 for fr in traceback.extract_tb(sys.exc_info()[2])[-4:]]
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    args, kwargs = builder_args(torch, booster)
+    syncs, sites, flagged = builder_syncs(torch, build_tree_device, args,
+                                          kwargs)
     log(f"host syncs inside one tree build (error mode): {syncs} {sites}; "
         f"warn-mode messages: {flagged}")
     check(syncs == 0, f"the tree builder waits for the device at {sites}")
@@ -345,17 +488,17 @@ def phase_profile(torch, booster):
            "device_launches": sum(v[0] for v in kernels.values()),
            "top_kernels": [{"name": k[:80], "calls": v[0], "ms": v[1]}
                            for k, v in top]}
-    log(f"one tree build: wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} "
+    log(f"one tree build ({'partitioned' if learner.use_partitioned else 'masked'}): "
+        f"wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} "
         f"ms over {res['device_launches']} device ops; top "
         f"{[(t['name'][:40], t['calls'], round(t['ms'], 3)) for t in res['top_kernels'][:4]]}")
     return res
 
 
-def phase_predict(torch, lgt, booster, x):
-    """Booster.predict (device traversal) on 100k rows against the host
-    float64 traversal of the saved model text."""
+def check_predict(torch, booster, xp, what):
+    """Booster.predict (device traversal) against the host float64
+    traversal of the saved model text."""
     from lightgbm_tpu_torch.models.gbdt import GBDT
-    xp = x[:100_000]
     t0 = time.perf_counter()
     pred = booster.predict(xp)
     torch.cuda.synchronize()
@@ -365,20 +508,26 @@ def phase_predict(torch, lgt, booster, x):
     raw = sum(t.predict(xp.astype(np.float64)) for t in host.models)
     want = 1.0 / (1.0 + np.exp(-2.0 * host.sigmoid * raw))
     err = float(np.max(np.abs(pred - want)))
-    log(f"predict 100k rows: {ms:.1f} ms, max |device - host| {err:.3g}")
+    log(f"{what}: predict {len(xp)} rows {ms:.1f} ms, max |device - host| "
+        f"{err:.3g}")
     check(pred.shape == (len(xp),) and np.all(np.isfinite(pred)),
-          "predictions not finite or of the wrong shape")
-    check(err <= 1e-5, f"device predict differs from host traversal by {err}")
+          f"{what}: predictions not finite or of the wrong shape")
+    check(err <= 1e-5,
+          f"{what}: device predict differs from host traversal by {err}")
     return {"predict_ms": ms, "max_abs_err": err}
 
 
-def phase_cacheless(torch, lgt, hk, ds_args, main_booster):
+def phase_predict(torch, booster, x):
+    """Booster.predict on 100k rows against the host traversal."""
+    return check_predict(torch, booster, x[:100_000], "main path")
+
+
+def phase_cacheless(torch, lgt, hk, ds, main_booster):
     """2 rounds with histogram_pool_size below the (63, 28, 255, 3) f32
     cache (5.4 MB): both children from one frontier pass, L = 2."""
-    params = {"objective": "binary", "num_leaves": 63, "max_bin": MAX_BIN,
-              "learning_rate": 0.1, "verbose": 0, "histogram_pool_size": 1}
+    params = dict(BENCH_PARAMS, histogram_pool_size=1)
     hk.reset_launch_counts()
-    booster = lgt.train(params, lgt.Dataset(*ds_args), 2, verbose_eval=False)
+    booster = lgt.train(params, ds, 2, verbose_eval=False)
     torch.cuda.synchronize()
     counts = hk.launch_counts()
     same = np.array_equal(booster.gbdt.models[0].split_feature,
@@ -389,6 +538,113 @@ def phase_cacheless(torch, lgt, hk, ds_args, main_booster):
     check(counts["frontier_hist"] >= 2 * 63,
           f"frontier_hist launched {counts['frontier_hist']} times")
     return {"launches": counts, "first_tree_features_equal": bool(same)}
+
+
+def phase_partitioned(torch, lgt, hk, ds, y, main_booster):
+    """The bench workload through the leaf-contiguous builder: 10
+    rounds, counts read from zero; its first tree against the masked
+    path's (the JAX package's builder-parity contract,
+    tests/test_partitioned.py:151-156)."""
+    params = dict(BENCH_PARAMS, partitioned_build="true")
+    hk.reset_launch_counts()
+    booster, round_ms = train_rounds(torch, lgt, params, ds, N_ROUNDS)
+    counts = hk.launch_counts()
+    gbdt = booster.gbdt
+    train_auc = auc(gbdt.get_training_score(), y)
+    same_feat, same_thr, rel = same_first_tree(
+        gbdt.models[0], main_booster.gbdt.models[0])
+    log(f"partitioned path: per-round ms {[round(v, 1) for v in round_ms]}, "
+        f"median {np.median(round_ms):.2f}, train AUC {train_auc:.5f}, "
+        f"launches {counts}; first tree vs masked: same features "
+        f"{same_feat}, same thresholds {same_thr}, max leaf rel diff {rel:.3g}")
+    check(gbdt.tree_learner.use_partitioned, "the partitioned builder is off")
+    check(len(gbdt.models) == N_ROUNDS, "training stopped early")
+    check(counts["seg_hist"] >= N_ROUNDS * 63,
+          f"seg_hist launched {counts['seg_hist']} times")
+    check(counts["masked_hist"] == 0 and counts["frontier_hist"] == 0,
+          f"the partitioned path launched masked kernels: {counts}")
+    check(train_auc > 0.8, f"train AUC {train_auc} too low")
+    check(same_feat and same_thr,
+          "the partitioned first tree differs from the masked one")
+    check(rel <= 1e-4, f"first-tree leaf values differ by {rel} relative")
+    return booster, {"round_ms": round_ms,
+                     "round_ms_median": float(np.median(round_ms)),
+                     "train_auc": train_auc, "launches": counts,
+                     "first_tree_same_features": bool(same_feat),
+                     "first_tree_same_thresholds": bool(same_thr),
+                     "first_tree_leaf_rel_diff": rel}
+
+
+def phase_partitioned_syncs(torch, booster):
+    """No host sync inside build_tree_partitioned."""
+    from lightgbm_tpu_torch.models.partitioned import build_tree_partitioned
+    args, kwargs = builder_args(torch, booster)
+    syncs, sites, flagged = builder_syncs(torch, build_tree_partitioned,
+                                          args, kwargs)
+    log(f"host syncs inside one partitioned tree build (error mode): "
+        f"{syncs} {sites}; warn-mode sites: {flagged}")
+    check(syncs == 0, f"build_tree_partitioned waits for the device at {sites}")
+    return {"builder_syncs": syncs, "builder_sync_sites": sites,
+            "warn_messages": flagged}
+
+
+def phase_partitioned_cacheless(torch, lgt, hk, ds):
+    """2 cache-less partitioned rounds: both children from two segment
+    calls at every split."""
+    params = dict(BENCH_PARAMS, partitioned_build="true",
+                  histogram_pool_size=1)
+    hk.reset_launch_counts()
+    booster = lgt.train(params, ds, 2, verbose_eval=False)
+    torch.cuda.synchronize()
+    counts = hk.launch_counts()
+    log(f"cache-less partitioned run: launches {counts}")
+    check(not booster.gbdt.tree_learner.cache_hists, "cache was not off")
+    check(counts["seg_hist"] >= 2 * (1 + 2 * 62),
+          f"seg_hist launched {counts['seg_hist']} times")
+    return {"launches": counts}
+
+
+def phase_categorical(torch, lgt, seed):
+    """4 categorical columns beside the bench matrix, 3 rounds with each
+    builder."""
+    x, y = make_data(N_ROWS, seed, n_cat=N_CAT)
+    cats = list(range(N_FEATURES, N_FEATURES + N_CAT))
+    ds = lgt.Dataset(x, y, categorical_feature=cats)
+    res, boosters = {}, {}
+    for build in ("false", "true"):
+        booster = lgt.train(dict(BENCH_PARAMS, partitioned_build=build), ds,
+                            3, verbose_eval=False)
+        torch.cuda.synchronize()
+        n_cat_splits = sum(int((t.decision_type == 1).sum())
+                           for t in booster.gbdt.models)
+        name = "partitioned" if build == "true" else "masked"
+        check(booster.gbdt.tree_learner.use_partitioned == (build == "true"),
+              f"categorical {name}: wrong builder")
+        check(n_cat_splits > 0, f"categorical {name}: no categorical split")
+        boosters[name] = booster
+        res[name] = {"categorical_splits": n_cat_splits,
+                     **check_predict(torch, booster, x[:100_000],
+                                     f"categorical {name}")}
+    same_feat, same_thr, rel = same_first_tree(
+        boosters["partitioned"].gbdt.models[0],
+        boosters["masked"].gbdt.models[0])
+    log(f"categorical: splits {res['masked']['categorical_splits']} (masked) "
+        f"{res['partitioned']['categorical_splits']} (partitioned); first "
+        f"trees same features {same_feat}, thresholds {same_thr}, leaf rel "
+        f"diff {rel:.3g}")
+    check(same_feat and same_thr and rel <= 1e-4,
+          "categorical: the two builders grew different first trees")
+    res["first_tree_leaf_rel_diff"] = rel
+    return res
+
+
+def kernel_line(case, launches, source, replaces):
+    """One entry of the `kernels` JSON line."""
+    return {"name": case["name"], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
 
 def main():
@@ -418,6 +674,7 @@ def main():
     report = {"card": card, "seed": args.seed, "rows": N_ROWS}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     try:
         t0 = time.time()
         hk.build()
@@ -438,32 +695,46 @@ def main():
                         torch.int16, [5], rng),
         ]
         report["kernel_cases"] = cases
+        seg_cases = seg_kernel_cases(torch, hk, timer, rng)
+        report["seg_kernel_cases"] = seg_cases
 
         x, y = make_data(N_ROWS, args.seed)
-        booster, report["main"] = phase_main(torch, lgt, hk, x, y)
+        ds = lgt.Dataset(x, y)
+        t0 = time.time()
+        ds.construct()
+        report["binning_s"] = time.time() - t0
+        booster, report["main"] = phase_main(torch, lgt, hk, ds, y)
         report["plain_tree"] = phase_plain_tree(torch, hk, booster)
-        report["predict"] = phase_predict(torch, lgt, booster, x)
+        report["predict"] = phase_predict(torch, booster, x)
         report["profile"] = phase_profile(torch, booster)
-        report["cacheless"] = phase_cacheless(torch, lgt, hk, (x, y),
-                                              booster)
+        report["cacheless"] = phase_cacheless(torch, lgt, hk, ds, booster)
+        part, report["partitioned"] = phase_partitioned(torch, lgt, hk, ds,
+                                                        y, booster)
+        report["profile_partitioned"] = phase_profile(torch, part)
+        report["partitioned_syncs"] = phase_partitioned_syncs(torch, part)
+        report["partitioned_cacheless"] = phase_partitioned_cacheless(
+            torch, lgt, hk, ds)
+        del ds, booster, part
+        report["categorical"] = phase_categorical(torch, lgt, args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         _write(args.out, report)
         return 1
+    report["total_s"] = time.time() - t_start
+    log(f"all phases passed in {report['total_s']:.1f}s")
 
     main_counts = report["main"]["launches"]
-    source = "lightgbm_tpu_torch/csrc/hist.cu"
-    replaces = {"masked_hist": "lightgbm_tpu/ops/pallas_hist.py:62",
-                "frontier_hist": "lightgbm_tpu/ops/pallas_hist.py:81"}
-    kernels = []
-    for c in cases[:2]:   # each kernel at its main-path shape
-        kernels.append({
-            "name": c["name"], "route": "cuda", "source": source,
-            "replaces": replaces[c["name"]],
-            "launches": main_counts[c["name"]],
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    part_counts = report["partitioned"]["launches"]
+    hist_src = "lightgbm_tpu_torch/csrc/hist.cu"
+    kernels = [
+        # each kernel at its main-path shape, launches from its own path
+        kernel_line(cases[0], main_counts["masked_hist"], hist_src,
+                    "lightgbm_tpu/ops/pallas_hist.py:62"),
+        kernel_line(cases[1], main_counts["frontier_hist"], hist_src,
+                    "lightgbm_tpu/ops/pallas_hist.py:81"),
+        kernel_line(seg_cases[0], part_counts["seg_hist"],
+                    "lightgbm_tpu_torch/csrc/seg_hist.cu",
+                    "lightgbm_tpu/ops/ordered_hist.py:123")]
     report["kernels"] = kernels
     _write(args.out, report)
     print(json.dumps({"kernels": kernels}))

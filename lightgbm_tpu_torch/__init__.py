@@ -3,14 +3,15 @@
 The JAX package beside it is the reference; this package imports
 neither it nor JAX. Its entry points (`train`, `Booster.predict`) run on
 a CUDA device unless the caller passes device="cpu", and raise when
-there is no card and no device. On the card the histogram engine is
-hand-written CUDA (csrc/hist.cu, built with nvcc at first use); on the
-CPU it is the kernels' plain PyTorch versions.
+there is no card and no device. On the card the histogram engines are
+hand-written CUDA (csrc/hist.cu and csrc/seg_hist.cu, built with nvcc
+at first use); on the CPU they are the kernels' plain PyTorch versions.
 
-This slice covers the masked training path end to end: dense in-memory
-binary or L2 data, the serial learner with the full-scan masked and
-frontier histogram kernels, and prediction. ROADMAP.md lists the
-modules still to port.
+The port covers dense in-memory binary or L2 data with numerical and
+categorical features, the serial learner with the full-scan masked
+builder (the default) or the leaf-contiguous one
+(partitioned_build=true), and prediction. ROADMAP.md lists the modules
+still to port.
 """
 
 from .basic import Booster, Dataset

@@ -5,7 +5,8 @@ delegates to the PyTorch core (io.dataset.CoreDataset, models.gbdt.GBDT).
 A Booster lives on one torch.device: CUDA unless the caller passes
 device="cpu"; with no card and no device it raises.
 
-This slice binds in-memory matrices. Text files, init-model chaining,
+This slice binds in-memory matrices, with categorical columns by index
+or by name (`categorical_feature`). Text files, init-model chaining,
 subsets and custom objectives through `update(fobj=...)` are later
 slices.
 """
@@ -75,7 +76,7 @@ class Dataset:
             ref_core = self.reference.construct()._core
         self._core = loader.construct_from_matrix(
             _coerce_2d(self.data), label=self.label, reference=ref_core,
-            categorical_features=self.categorical_feature or ())
+            categorical_features=self._resolve_categorical())
         if self.feature_name is not None:
             self._core.feature_names = list(self.feature_name)
         if self.weight is not None:
@@ -84,6 +85,30 @@ class Dataset:
         if self.free_raw_data:
             self.data = None
         return self
+
+    def _resolve_categorical(self):
+        """Categorical column indices; names resolve through
+        feature_name (lightgbm_tpu basic.py _resolve_categorical)."""
+        cats = []
+        for c in self.categorical_feature or ():
+            if isinstance(c, str):
+                if not self.feature_name:
+                    raise LightGBMError(
+                        "categorical_feature by name needs feature_name")
+                cats.append(list(self.feature_name).index(c))
+            else:
+                cats.append(int(c))
+        return cats
+
+    def set_categorical_feature(self, categorical_feature):
+        """basic.py set_categorical_feature: only before construction."""
+        if categorical_feature is None:
+            return
+        if self._core is not None:
+            Log.warning("categorical_feature set after Dataset was "
+                        "constructed; ignoring")
+            return
+        self.categorical_feature = categorical_feature
 
     def create_valid(self, data, label=None, weight=None, silent=False,
                      params=None):

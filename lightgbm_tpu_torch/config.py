@@ -463,8 +463,8 @@ class Config:
 
     # TPU-specific knobs (no reference equivalent)
     device_row_chunk: int = 16384  # rows per histogram-matmul chunk
-    # leaf-contiguous builder (models/partitioned.py): "auto" = on for
-    # the serial learner on TPU; "true"/"false" force it
+    # leaf-contiguous builder (models/partitioned.py): "true" turns it
+    # on; "auto" resolves to the masked builder in this package
     partitioned_build: str = "auto"
     # gather-compacted smaller-child histograms on the dense (masked)
     # builder (ops/histogram.py compacted_histograms): "auto" = on
@@ -681,10 +681,9 @@ class Config:
         """Reject settings whose code paths the port does not have yet
         (they belong to later slices of the port, ROADMAP.md queue 1):
         training runs the serial learner with the full-scan masked
-        histogram engine, which is what "auto" resolves to here."""
+        histogram engine, which is what "auto" resolves to here, or with
+        the leaf-contiguous builder (partitioned_build=true)."""
         later = []
-        if str(self.partitioned_build).lower() in ("true", "1", "on", "+"):
-            later.append("partitioned_build=true (leaf-contiguous builder)")
         if str(self.hist_compaction).lower() in ("true", "1", "on", "+"):
             later.append("hist_compaction=true (gather-compacted engine)")
         if str(self.hist_frontier).lower() in ("false", "0", "off", "-"):
@@ -698,8 +697,6 @@ class Config:
             later.append("linear_tree=true (linear leaves)")
         if self.out_of_core:
             later.append("out_of_core=true (block-store training)")
-        if self.categorical_column:
-            later.append("categorical features")
         if self.nonfinite_guard not in ("raise", "off"):
             later.append(f"nonfinite_guard={self.nonfinite_guard}")
         if later:

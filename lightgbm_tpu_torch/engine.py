@@ -14,14 +14,16 @@ from .basic import Booster, Dataset
 
 
 def train(params, train_set, num_boost_round=100, valid_sets=None,
-          valid_names=None, feature_name=None, early_stopping_rounds=None,
-          verbose_eval=True, callbacks=None, device=None):
+          valid_names=None, feature_name=None, categorical_feature=None,
+          early_stopping_rounds=None, verbose_eval=True, callbacks=None,
+          device=None):
     """Train one booster on `device` (CUDA unless device="cpu"; with no
     card and no device it raises). Returns the Booster with
     `best_iteration` set."""
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     train_set.set_feature_name(feature_name)
+    train_set.set_categorical_feature(categorical_feature)
 
     is_valid_contain_train = False
     train_data_name = "training"

@@ -9,11 +9,11 @@ runs on the host (the JAX package's host pass, bin for bin); the matrix
 then moves to the device once, at that width, and every histogram
 kernel streams it there (`device_bins`).
 
-This slice binds dense in-memory matrices (construct_from_matrix).
-Text files, the binary cache, sparse column sources, categorical
-features and exclusive feature bundling are later slices; the loader
-raises NotImplementedError where the JAX package would take one of
-those paths.
+This slice binds dense in-memory matrices (construct_from_matrix), with
+numerical and categorical features. Text files, the binary cache, sparse
+column sources and exclusive feature bundling are later slices; the
+loader raises NotImplementedError where the JAX package would take one
+of those paths.
 """
 
 import numpy as np
@@ -151,11 +151,9 @@ class DatasetLoader:
 
     def construct_from_matrix(self, data, label=None, reference=None,
                               categorical_features=()) -> CoreDataset:
-        """In-memory path (c_api.cpp LGBM_DatasetCreateFromMat:268-315)."""
-        if categorical_features:
-            raise NotImplementedError(
-                "categorical features are a later slice of "
-                "lightgbm_tpu_torch")
+        """In-memory path (c_api.cpp LGBM_DatasetCreateFromMat:268-315).
+        The columns in `categorical_features` and in the config's
+        categorical_column (comma-separated indices) bin as categories."""
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float32))
         data = np.nan_to_num(data, nan=0.0)
         meta = Metadata(data.shape[0])
@@ -163,7 +161,26 @@ class DatasetLoader:
             meta.set_label(label)
         if reference is not None:
             return self._bin_with_mappers(data, reference, meta)
-        return self._construct(data, meta)
+        categorical = (set(int(c) for c in categorical_features)
+                       | self._categorical_columns())
+        return self._construct(data, meta, categorical)
+
+    def _categorical_columns(self):
+        """Column indices of the categorical_column config key
+        (lightgbm_tpu io/dataset.py _resolve_columns); a matrix has no
+        header, so "name:" selectors are refused."""
+        spec = str(self.config.categorical_column or "")
+        out = set()
+        for tok in spec.split(","):
+            tok = tok.strip()
+            if not tok:
+                continue
+            if tok.startswith("name:"):
+                Log.fatal("categorical_column=%s: a matrix has no column "
+                          "names; give column indices", spec)
+            if int(tok) >= 0:
+                out.add(int(tok))
+        return out
 
     def _sample_rows(self, n):
         cfg = self.config
@@ -173,7 +190,7 @@ class DatasetLoader:
         rnd = Random(cfg.data_random_seed)
         return rnd.sample(n, cnt).astype(np.int64)
 
-    def _make_mappers(self, sample_col, num_total):
+    def _make_mappers(self, sample_col, num_total, categorical):
         """Bin-mapper construction from sampled rows
         (ConstructBinMappersFromTextData, dataset_loader.cpp:612-760)."""
         cfg = self.config
@@ -182,8 +199,9 @@ class DatasetLoader:
         for j in range(num_total):
             col_sample = sample_col(j).astype(np.float64)
             nonzero = col_sample[np.abs(col_sample) > ZERO_THRESHOLD]
+            btype = CATEGORICAL if j in categorical else NUMERICAL
             m = BinMapper().find_bin(nonzero, len(col_sample), cfg.max_bin,
-                                     NUMERICAL)
+                                     btype)
             if m.is_trivial:
                 Log.warning("Ignoring Column_%d , only has one value", j)
                 continue
@@ -212,7 +230,7 @@ class DatasetLoader:
                 "lightgbm_tpu_torch (set is_enable_sparse=false to store "
                 "them unbundled)")
 
-    def _construct(self, mat, meta) -> CoreDataset:
+    def _construct(self, mat, meta, categorical) -> CoreDataset:
         """Bin-mapper construction + feature extraction on the host
         (ConstructBinMappersFromTextData + ExtractFeatures)."""
         n, num_total = mat.shape
@@ -224,8 +242,8 @@ class DatasetLoader:
         ds = CoreDataset()
         ds.num_total_features = num_total
         ds.feature_names = [f"Column_{i}" for i in range(num_total)]
-        mappers, used_map, real_idx = self._make_mappers(sample_col,
-                                                         num_total)
+        mappers, used_map, real_idx = self._make_mappers(
+            sample_col, num_total, categorical)
         self._check_no_bundling(mappers)
         dtype = bins_dtype(max(m.num_bin for m in mappers))
         ds.bins = np.stack([mappers[u].value_to_bin(mat[:, real_idx[u]])

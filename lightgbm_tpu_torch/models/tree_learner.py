@@ -27,13 +27,20 @@ can hand it the plain versions for comparison.
 
 Split semantics (gain formulas, epsilons, tie-breaks, max_depth guard,
 min_data/min_sum_hessian constraints) follow ops/split.py.
+
+SerialTreeLearner runs this masked builder, or with
+partitioned_build=true the leaf-contiguous one (models/partitioned.py,
+over packed words); the two share the split bookkeeping (LeafState).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops.histogram import frontier_histograms, masked_histograms
 from ..ops.hist_kernels import HIST_CHUNK
+from ..ops.ordered_hist import pack_feature_words
 from ..ops.split import K_MIN_SCORE, SplitParams, find_best_split
 from ..utils.device import resolve_device
 from ..utils.log import Log
@@ -55,6 +62,19 @@ TREE_KEYS = ("split_feature", "split_threshold_bin", "split_gain",
              "leaf_count", "internal_value", "internal_count")
 
 
+def _tristate(value, name):
+    """Normalize a config tri-state to "auto"/"true"/"false"."""
+    mode = str(value).lower()
+    if mode in ("true", "1", "on", "+"):
+        return "true"
+    if mode in ("false", "0", "off", "-"):
+        return "false"
+    if mode != "auto":
+        Log.fatal('%s must be "auto", "true" or "false", got [%s]', name,
+                  mode)
+    return "auto"
+
+
 def _collapse(pair):
     hi, lo = pair
     return hi + lo
@@ -64,6 +84,163 @@ def _candidates(sp):
     """SplitInfo (batch shape S) -> (S, 10) float32 candidate rows."""
     return torch.stack([getattr(sp, k).to(torch.float32)
                         for k in CANDIDATE_FIELDS], dim=-1)
+
+
+class Split(NamedTuple):
+    """One split of the leaf-wise loop, as device tensors: the chosen
+    leaf `best` (int64 (1,)) and `best32` (int32 (1,)), `do` (bool (1,),
+    whether the split happens), its candidate row `c` (10,), the split
+    feature `feat` (int64 (1,)) and threshold bin `thr` (int32), the
+    children's depth, `pair` = [best, right_id] (int64 (2,)) and the
+    right child's leaf id `right_id` (host int)."""
+    best: torch.Tensor
+    best32: torch.Tensor
+    do: torch.Tensor
+    c: torch.Tensor
+    feat: torch.Tensor
+    thr: torch.Tensor
+    depth: torch.Tensor
+    pair: torch.Tensor
+    right_id: int
+
+
+class LeafState:
+    """The per-leaf and per-node state of one tree, shared by the masked
+    (build_tree_device) and the partitioned (models/partitioned.py)
+    builders, and the split bookkeeping on it (apply_tree_split,
+    Tree::Split).
+
+    State is packed so that a split costs a few fused updates instead of
+    one per array: `cand` (L, 10) candidates and `best_gain` (L,);
+    `leaf_i` (L, 3) int32 [parent, count, depth] and `leaf_value` (L,);
+    `node_i` (L-1, 5) int32 [split_feature, threshold_bin, left_child,
+    right_child, internal_count] and `node_f` (L-1, 2) [split_gain,
+    internal_value]. Every write is gated by the current split's device
+    bool `do` (the lax.cond of the JAX builders); the packed arrays are
+    updated in place.
+    """
+
+    def __init__(self, num_leaves, root_split, root_c, dev):
+        l = int(num_leaves)
+        f32, i32 = torch.float32, torch.int32
+        # device constants: leaf ids (slices of them are the kernels'
+        # leaf-id arguments), their complements (~leaf child codes),
+        # column ids
+        self.leaf_ids = torch.arange(l, dtype=i32, device=dev)
+        self.leaf_ids64 = self.leaf_ids.long()
+        self.neg_ids = ~self.leaf_ids
+        self.col_ids = torch.arange(5, device=dev)
+        self.cand = torch.zeros((l, len(CANDIDATE_FIELDS)), dtype=f32,
+                                device=dev)
+        self.cand[0] = _candidates(root_split)
+        self.best_gain = torch.full((l,), K_MIN_SCORE, dtype=f32, device=dev)
+        self.best_gain[0] = root_split.gain
+        self.leaf_i = torch.zeros((l, 3), dtype=i32, device=dev)
+        self.leaf_i[:, 0] = -1
+        self.leaf_i[0, 1] = root_c.to(i32)
+        self.leaf_value = torch.zeros(l, dtype=f32, device=dev)
+        self.node_i = torch.zeros((l - 1, 5), dtype=i32, device=dev)
+        self.node_f = torch.zeros((l - 1, 2), dtype=f32, device=dev)
+        self.done = torch.zeros(1, dtype=torch.bool, device=dev)
+        self.n_splits = torch.zeros((), dtype=i32, device=dev)
+        self.do = None
+
+    def write_rows(self, arr, rows, new):
+        """arr[rows] = new where this split happens (rows: int64 (k,))."""
+        arr.index_copy_(0, rows, torch.where(self.do, new,
+                                             arr.index_select(0, rows)))
+
+    def split(self, i):
+        """Split i: pick the best leaf, record the node and both
+        children's leaf rows. Returns the Split."""
+        i32 = torch.int32
+        node, right_id = i, i + 1
+        best = torch.argmax(self.best_gain).reshape(1)      # int64 (1,)
+        best32 = best.to(i32)
+        gain = self.best_gain.index_select(0, best)
+        do = (~self.done) & (gain > 0.0)                    # (1,) bool
+        self.done = ~do                                     # stays stopped
+        self.do = do
+        c = self.cand.index_select(0, best)[0]              # (10,)
+        li = self.leaf_i.index_select(0, best)[0]           # parent, count, depth
+        lcnt, rcnt = c[C_LC], c[C_RC]
+        feat = c[C_FEAT].long().reshape(1)
+        thr = c[C_THR].to(i32)
+        node_t = self.leaf_ids[node]
+        pair = torch.cat([best, self.leaf_ids64[right_id:right_id + 1]])
+
+        node_i = self.node_i
+        node_i[node] = torch.where(do, torch.stack(
+            [feat[0].to(i32), thr, ~best32[0], self.neg_ids[right_id],
+             (lcnt + rcnt).to(i32)]), node_i[node])
+        self.node_f[node] = torch.where(do, torch.stack(
+            [gain[0], self.leaf_value.index_select(0, best)[0]]),
+            self.node_f[node])
+        # the parent's child pointer that held ~best now holds this node
+        parent = li[0]
+        pidx = parent.clamp(min=0).long().reshape(1)
+        prow = node_i.index_select(0, pidx)[0]
+        which = torch.where(prow[2] == ~best32[0], self.col_ids == 2,
+                            self.col_ids == 3)
+        node_i.index_copy_(0, pidx, torch.where(
+            which & (parent >= 0) & do, node_t, prow)[None])
+        depth = li[2] + 1
+        self.write_rows(self.leaf_i, pair, torch.stack([
+            torch.stack([node_t, lcnt.to(i32), depth]),
+            torch.stack([node_t, rcnt.to(i32), depth])]))
+        self.write_rows(self.leaf_value, pair, c[C_LOUT:C_ROUT + 1])
+        self.n_splits = self.n_splits + do[0].to(i32)
+        return Split(best, best32, do, c, feat, thr, depth, pair, right_id)
+
+    def small_child(self, sp):
+        """(left_is_small, small leaf id): the smaller child by in-bag
+        count, as both JAX builders choose it."""
+        left_is_small = sp.c[C_LC] <= sp.c[C_RC]
+        return left_is_small, torch.where(left_is_small, sp.best32[0],
+                                          self.leaf_ids[sp.right_id])
+
+    def cache_children(self, hist_cache, sp, left_is_small, hist_small):
+        """Both children's histograms from the smaller one and the
+        parent's cached one; writes them to the cache and returns them
+        stacked [left, right]."""
+        hist_large = hist_cache.index_select(0, sp.best)[0] - hist_small
+        both = torch.stack([
+            torch.where(left_is_small, hist_small, hist_large),
+            torch.where(left_is_small, hist_large, hist_small)])
+        self.write_rows(hist_cache, sp.pair, both)
+        return both
+
+    def set_children(self, sp, both, scan, max_depth):
+        """Children leaf state (LeafSplits::Init after split): both
+        children scan in one batched call, rows (lg, lh, lc), (rg, rh,
+        rc), and their candidates are written."""
+        sums = sp.c[C_LG:C_RC + 1].reshape(2, 3)
+        res = scan(both, sums[:, 0], sums[:, 1], sums[:, 2])
+        gains = res.gain
+        if max_depth >= 0:  # max_depth guard (serial_tree_learner.cpp:238-247)
+            gains = torch.where(sp.depth < max_depth, gains,
+                                torch.full_like(gains, K_MIN_SCORE))
+        self.write_rows(self.best_gain, sp.pair, gains)
+        self.write_rows(self.cand, sp.pair, _candidates(res))
+
+    def outputs(self, row_leaf):
+        """The builder's output dict (the tree arrays and the row -> leaf
+        partition)."""
+        node_i, node_f, leaf_i = self.node_i, self.node_f, self.leaf_i
+        return {"n_splits": self.n_splits, "row_leaf": row_leaf,
+                "split_feature": node_i[:, 0],
+                "split_threshold_bin": node_i[:, 1],
+                "left_child": node_i[:, 2], "right_child": node_i[:, 3],
+                "internal_count": node_i[:, 4], "split_gain": node_f[:, 0],
+                "internal_value": node_f[:, 1], "leaf_parent": leaf_i[:, 0],
+                "leaf_count": leaf_i[:, 1], "leaf_value": self.leaf_value}
+
+
+def root_sums(hist_root):
+    """Root totals (g, h, count) from the root histogram: feature 0's
+    bins partition the rows, so its bin sums are the totals."""
+    return (hist_root[0, :, 0].sum(), hist_root[0, :, 1].sum(),
+            hist_root[0, :, 2].sum())
 
 
 def build_tree_device(bins, grad, hess, inbag, feature_mask,
@@ -88,26 +265,11 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
 
     Returns a dict of device tensors: the tree arrays, n_splits and the
     final (N_pad,) row -> leaf partition.
-
-    State is packed so that a split costs a few fused updates instead of
-    one per array: `cand` (L, 10) candidates and `best_gain` (L,);
-    `leaf_i` (L, 3) int32 [parent, count, depth] and `leaf_value` (L,);
-    `node_i` (L-1, 5) int32 [split_feature, threshold_bin, left_child,
-    right_child, internal_count] and `node_f` (L-1, 2) [split_gain,
-    internal_value]. Every write is gated by the device bool `do`; the
-    packed arrays are updated in place.
     """
     dev = bins.device
     f, n_pad = bins.shape
     l = int(num_leaves)
     b = int(max_bin)
-    f32, i32 = torch.float32, torch.int32
-    # device constants: leaf ids (slices of them are the kernels' leaf-id
-    # arguments), their complements (~leaf child codes), column ids
-    leaf_ids = torch.arange(l, dtype=i32, device=dev)
-    leaf_ids64 = leaf_ids.long()
-    neg_ids = ~leaf_ids
-    col_ids = torch.arange(5, device=dev)
 
     def scan(hist3, sum_g, sum_h, cnt):
         return find_best_split(hist3, sum_g, sum_h, cnt, num_bin_pf, is_cat,
@@ -116,112 +278,40 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
     ghc_t = torch.stack([grad * inbag, hess * inbag, inbag])  # (3, N_pad)
 
     # ---- root: the frontier pass with L = 1 is the bagging re-init
-    row_leaf = torch.zeros(n_pad, dtype=i32, device=dev)
-    hist_root = _collapse(frontier_fn(bins, ghc_t, row_leaf, leaf_ids[:1],
-                                      b))[0]
-    # feature 0's bins partition the rows: its bin sums ARE the totals
-    root_g = hist_root[0, :, 0].sum()
-    root_h = hist_root[0, :, 1].sum()
-    root_c = hist_root[0, :, 2].sum()
-    root_split = scan(hist_root, root_g, root_h, root_c)
-
-    cand = torch.zeros((l, len(CANDIDATE_FIELDS)), dtype=f32, device=dev)
-    cand[0] = _candidates(root_split)
-    best_gain = torch.full((l,), K_MIN_SCORE, dtype=f32, device=dev)
-    best_gain[0] = root_split.gain
-    leaf_i = torch.zeros((l, 3), dtype=i32, device=dev)
-    leaf_i[:, 0] = -1
-    leaf_i[0, 1] = root_c.to(i32)
-    leaf_value = torch.zeros(l, dtype=f32, device=dev)
-    node_i = torch.zeros((l - 1, 5), dtype=i32, device=dev)
-    node_f = torch.zeros((l - 1, 2), dtype=f32, device=dev)
-    done = torch.zeros(1, dtype=torch.bool, device=dev)
-    n_splits = torch.zeros((), dtype=i32, device=dev)
+    row_leaf = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    root_id = torch.zeros(1, dtype=torch.int32, device=dev)
+    hist_root = _collapse(frontier_fn(bins, ghc_t, row_leaf, root_id, b))[0]
+    root_g, root_h, root_c = root_sums(hist_root)
+    st = LeafState(l, scan(hist_root, root_g, root_h, root_c), root_c, dev)
     if cache_hists:
-        hist_cache = torch.zeros((l, f, b, 3), dtype=f32, device=dev)
+        hist_cache = torch.zeros((l, f, b, 3), dtype=torch.float32,
+                                 device=dev)
         hist_cache[0] = hist_root
 
-    def write_rows(arr, rows, new):
-        """arr[rows] = new where this split happens (rows: int64 (k,))."""
-        arr.index_copy_(0, rows, torch.where(do, new,
-                                             arr.index_select(0, rows)))
-
     for i in range(l - 1):
-        node, right_id = i, i + 1
-        best = torch.argmax(best_gain).reshape(1)          # int64 (1,)
-        best32 = best.to(i32)
-        gain = best_gain.index_select(0, best)
-        do = (~done) & (gain > 0.0)                        # (1,) bool
-        done = ~do                                         # stays stopped
-        c = cand.index_select(0, best)[0]                  # (10,)
-        li = leaf_i.index_select(0, best)[0]               # parent, count, depth
-        lcnt, rcnt = c[C_LC], c[C_RC]
-        feat = c[C_FEAT].long().reshape(1)
-        thr = c[C_THR].to(i32)
-        node_t = leaf_ids[node]
-        pair = torch.cat([best, leaf_ids64[right_id:right_id + 1]])
-
-        # ---- tree bookkeeping (apply_tree_split, Tree::Split)
-        node_i[node] = torch.where(do, torch.stack(
-            [feat[0].to(i32), thr, ~best32[0], neg_ids[right_id],
-             (lcnt + rcnt).to(i32)]), node_i[node])
-        node_f[node] = torch.where(do, torch.stack(
-            [gain[0], leaf_value.index_select(0, best)[0]]), node_f[node])
-        # the parent's child pointer that held ~best now holds this node
-        parent = li[0]
-        pidx = parent.clamp(min=0).long().reshape(1)
-        prow = node_i.index_select(0, pidx)[0]
-        which = torch.where(prow[2] == ~best32[0], col_ids == 2, col_ids == 3)
-        node_i.index_copy_(0, pidx, torch.where(
-            which & (parent >= 0) & do, node_t, prow)[None])
-        depth = li[2] + 1
-        write_rows(leaf_i, pair, torch.stack([
-            torch.stack([node_t, lcnt.to(i32), depth]),
-            torch.stack([node_t, rcnt.to(i32), depth])]))
-        write_rows(leaf_value, pair, c[C_LOUT:C_ROUT + 1])
-        n_splits = n_splits + do[0].to(i32)
+        sp = st.split(i)
 
         # ---- partition update (DataPartition::Split): one where()
-        col = bins.index_select(0, feat)[0].to(i32)
-        feat_is_cat = is_cat.index_select(0, feat)[0]
-        go_left = torch.where(feat_is_cat, col == thr, col <= thr)
-        move = do & (row_leaf == best32) & ~go_left
-        row_leaf = torch.where(move, leaf_ids[right_id], row_leaf)
+        col = bins.index_select(0, sp.feat)[0].to(torch.int32)
+        feat_is_cat = is_cat.index_select(0, sp.feat)[0]
+        go_left = torch.where(feat_is_cat, col == sp.thr, col <= sp.thr)
+        move = sp.do & (row_leaf == sp.best32) & ~go_left
+        row_leaf = torch.where(move, st.leaf_ids[sp.right_id], row_leaf)
 
         if cache_hists:
             # smaller child by in-bag count, larger by parent subtraction
-            left_is_small = lcnt <= rcnt
-            small_leaf = torch.where(left_is_small, best32[0],
-                                     leaf_ids[right_id])
+            left_is_small, small_leaf = st.small_child(sp)
             hist_small = _collapse(masked_fn(bins, ghc_t, row_leaf,
                                              small_leaf.reshape(1), b))
-            hist_large = hist_cache.index_select(0, best)[0] - hist_small
-            both = torch.stack([
-                torch.where(left_is_small, hist_small, hist_large),
-                torch.where(left_is_small, hist_large, hist_small)])
-            write_rows(hist_cache, pair, both)
+            both = st.cache_children(hist_cache, sp, left_is_small,
+                                     hist_small)
         else:
             # memory-bounded: both children from ONE frontier pass
             both = _collapse(frontier_fn(bins, ghc_t, row_leaf,
-                                         pair.to(i32), b))
+                                         sp.pair.to(torch.int32), b))
+        st.set_children(sp, both, scan, max_depth)
 
-        # ---- children leaf state (LeafSplits::Init after split); both
-        # children scan in one batched call: rows (lg, lh, lc), (rg, rh, rc)
-        sums = c[C_LG:C_RC + 1].reshape(2, 3)
-        sp = scan(both, sums[:, 0], sums[:, 1], sums[:, 2])
-        gains = sp.gain
-        if max_depth >= 0:  # max_depth guard (serial_tree_learner.cpp:238-247)
-            gains = torch.where(depth < max_depth, gains,
-                                torch.full_like(gains, K_MIN_SCORE))
-        write_rows(best_gain, pair, gains)
-        write_rows(cand, pair, _candidates(sp))
-
-    return {"n_splits": n_splits, "row_leaf": row_leaf,
-            "split_feature": node_i[:, 0], "split_threshold_bin": node_i[:, 1],
-            "left_child": node_i[:, 2], "right_child": node_i[:, 3],
-            "internal_count": node_i[:, 4], "split_gain": node_f[:, 0],
-            "internal_value": node_f[:, 1], "leaf_parent": leaf_i[:, 0],
-            "leaf_count": leaf_i[:, 1], "leaf_value": leaf_value}
+    return st.outputs(row_leaf)
 
 
 def cache_hists_fits(cfg, stored, max_bin):
@@ -264,18 +354,27 @@ class SerialTreeLearner:
         self.num_features = train_set.num_features
         self.num_data = train_set.num_data
         self.max_bin = int(train_set.max_stored_bin)
+        self.use_partitioned = self._partitioned_enabled(cfg)
         self.n_pad = self._pad_rows(self.num_data)
         bins = train_set.bins
         if self.n_pad != self.num_data:
             pad = np.zeros((bins.shape[0], self.n_pad - self.num_data),
                            dtype=bins.dtype)
             bins = np.concatenate([bins, pad], axis=1)
+        num_bin_pf = train_set.num_bin_array()
+        is_cat = train_set.feature_is_categorical()
+        self.f_pad = self._pad_feature_count(self.num_features)
+        extra = self.f_pad - self.num_features
+        if extra:
+            # pad features: all rows in bin 0, one bin, never split
+            bins = np.concatenate(
+                [bins, np.zeros((extra, bins.shape[1]), dtype=bins.dtype)])
+            num_bin_pf = np.concatenate([num_bin_pf, np.ones(extra, np.int32)])
+            is_cat = np.concatenate([is_cat, np.zeros(extra, bool)])
         dev = self.device
-        # the padded matrix moves to the device once, at stored width
-        self.bins = torch.from_numpy(np.ascontiguousarray(bins)).to(dev)
-        self.num_bin_pf = torch.from_numpy(train_set.num_bin_array()).to(dev)
-        self.is_cat = torch.from_numpy(
-            train_set.feature_is_categorical()).to(dev)
+        self.bins = self._place_bins(bins)
+        self.num_bin_pf = torch.from_numpy(num_bin_pf).to(dev)
+        self.is_cat = torch.from_numpy(is_cat).to(dev)
         self._threshold_table = threshold_table(train_set)
         self.params = SplitParams(
             min_data_in_leaf=float(cfg.min_data_in_leaf),
@@ -283,10 +382,21 @@ class SerialTreeLearner:
             lambda_l1=float(cfg.lambda_l1),
             lambda_l2=float(cfg.lambda_l2),
             min_gain_to_split=float(cfg.min_gain_to_split))
-        self.cache_hists = cache_hists_fits(cfg, self.num_features,
-                                            self.max_bin)
+        self.cache_hists = cache_hists_fits(cfg, self.f_pad, self.max_bin)
         Log.info("Number of data: %d, number of features: %d",
                  self.num_data, self.num_features)
+
+    def _partitioned_enabled(self, cfg):
+        """Leaf-contiguous builder (models/partitioned.py): "true" turns
+        it on where the bins pack into bytes (max_stored_bin <= 256).
+        "auto" resolves to the masked builder on every device here (the
+        JAX package picks the leaf-contiguous one on the TPU)."""
+        if _tristate(cfg.partitioned_build, "partitioned_build") != "true":
+            return False
+        if self.max_bin > 256:
+            Log.warning("partitioned_build=true ignored: needs max_bin <= 256")
+            return False
+        return True
 
     @staticmethod
     def _pad_rows(n):
@@ -294,13 +404,31 @@ class SerialTreeLearner:
         grid over whole 4096-row chunks."""
         return ((n + HIST_CHUNK - 1) // HIST_CHUNK) * HIST_CHUNK
 
+    def _pad_feature_count(self, f):
+        if self.use_partitioned:
+            return ((f + 3) // 4) * 4  # packed words hold 4 features
+        return f
+
+    def _place_bins(self, bins):
+        """The matrix the builder streams, moved to the device once: the
+        (F, N_pad) bins at stored width, or their packed (F/4, N_pad)
+        int32 words for the partitioned builder (packed on the host)."""
+        if self.use_partitioned:
+            bins = pack_feature_words(bins)
+        return torch.from_numpy(np.ascontiguousarray(bins)).to(self.device)
+
     def _sample_features(self):
-        """feature_fraction per tree (serial_tree_learner.cpp:160-165)."""
+        """feature_fraction per tree (serial_tree_learner.cpp:160-165),
+        drawn over the real features; pad features are never used."""
         cfg = self.config
         if cfg.feature_fraction >= 1.0:
-            return np.ones(self.num_features, dtype=bool)
-        used_cnt = int(self.num_features * cfg.feature_fraction)
-        return self.random.sample_mask(self.num_features, max(used_cnt, 1))
+            mask = np.ones(self.num_features, dtype=bool)
+        else:
+            used_cnt = int(self.num_features * cfg.feature_fraction)
+            mask = self.random.sample_mask(self.num_features,
+                                           max(used_cnt, 1))
+        return np.concatenate(
+            [mask, np.zeros(self.f_pad - self.num_features, bool)])
 
     def _pad(self, v):
         v = v.to(device=self.device, dtype=torch.float32)
@@ -308,24 +436,26 @@ class SerialTreeLearner:
             v = torch.nn.functional.pad(v, (0, self.n_pad - self.num_data))
         return v
 
-    def train_device(self, grad, hess, inbag=None, masked_fn=None,
-                     frontier_fn=None):
-        """Grow one tree on the device; returns build_tree_device's dict
-        without waiting for the device. `masked_fn`/`frontier_fn`
-        override the histogram engines (None = the dispatchers)."""
+    def train_device(self, grad, hess, inbag=None, **engines):
+        """Grow one tree on the device with the builder that is on;
+        returns its output dict without waiting for the device.
+        `engines` override the masked builder's histogram engines
+        (masked_fn, frontier_fn; by default the dispatchers)."""
         if inbag is None:
             inbag = torch.ones(self.num_data, dtype=torch.float32,
                                device=self.device)
         fmask = torch.from_numpy(self._sample_features()).to(self.device)
         cfg = self.config
-        return build_tree_device(
+        if self.use_partitioned:
+            from .partitioned import build_tree_partitioned as build
+        else:
+            build = build_tree_device
+        return build(
             self.bins, self._pad(grad), self._pad(hess), self._pad(inbag),
             fmask, self.num_bin_pf, self.is_cat,
             num_leaves=int(cfg.num_leaves), max_bin=self.max_bin,
             params=self.params, max_depth=int(cfg.max_depth),
-            cache_hists=self.cache_hists,
-            masked_fn=masked_fn or masked_histograms,
-            frontier_fn=frontier_fn or frontier_histograms)
+            cache_hists=self.cache_hists, **engines)
 
     def fetch(self, out, extra=()):
         """The tree's ONE device -> host transfer: every tree array (and

@@ -1,18 +1,19 @@
 """Histogram kernels: CUDA wrappers and their plain PyTorch versions.
 
-Port of the two Pallas kernels on the masked training path
-(lightgbm_tpu/ops/pallas_hist.py):
+Port of the three Pallas kernels of the JAX package:
 
-  masked_hist    <- _hist_kernel     (pallas_hist.py:62, :130)
-  frontier_hist  <- _frontier_kernel (pallas_hist.py:81, :177)
+  masked_hist    <- _hist_kernel     (lightgbm_tpu/ops/pallas_hist.py:62, :130)
+  frontier_hist  <- _frontier_kernel (lightgbm_tpu/ops/pallas_hist.py:81, :177)
+  seg_hist       <- _seg_hist_kernel (lightgbm_tpu/ops/ordered_hist.py:123, :156)
 
-The kernels live in lightgbm_tpu_torch/csrc/hist.cu (design and bound
-are noted there). They are compiled with nvcc for sm_90a at first use
-into csrc/build/ (a shared library with a C interface, loaded with
-ctypes) and launched on PyTorch's current stream. Each wrapper checks
-device, dtype, shape and contiguity, allocates its outputs and scratch
-with torch.empty, raises when the launch reports an error, and counts
-its launches in `KERNELS[name].launches`.
+The kernels live in lightgbm_tpu_torch/csrc/hist.cu and csrc/seg_hist.cu
+(design and bound are noted there). They are compiled with nvcc for
+sm_90a at first use into csrc/build/ (one shared library with a C
+interface per source, loaded with ctypes) and launched on PyTorch's
+current stream. Each wrapper checks device, dtype, shape and
+contiguity, allocates its outputs and scratch with torch.empty, raises
+when the launch reports an error, and counts its launches in
+`KERNELS[name].launches`.
 
 Dispatch is by the tensors' device only: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (or an exception), anything else
@@ -22,7 +23,8 @@ The plain versions compute the same function the same way: per
 HIST_CHUNK-row chunk, a float32 partial accumulated in row order
 (index_add_, sequential on the CPU), then the chunk-order Kahan fold of
 lightgbm_tpu/ops/histogram.py build_histograms_pair, returning the
-(value, residual) pair. On the CPU they equal the kernels bit for bit;
+(value, residual) pair; seg_hist folds only the chunks that cover its
+segment. On the CPU they equal the kernels bit for bit;
 on a CUDA tensor index_add_ adds in an arbitrary order, so there they
 agree to float32 rounding. The CPU tests use them; chip_smoke.py holds
 each kernel against them. Nothing on the training path calls them when
@@ -42,7 +44,7 @@ HIST_CHUNK = 4096
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-SOURCES = ("hist.cu",)
+SOURCES = ("hist.cu", "seg_hist.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -58,8 +60,8 @@ class KernelStats:
         self.launches = 0
 
 
-KERNELS = {"masked_hist": KernelStats("masked_hist"),
-           "frontier_hist": KernelStats("frontier_hist")}
+KERNELS = {name: KernelStats(name)
+           for name in ("masked_hist", "frontier_hist", "seg_hist")}
 
 
 def reset_launch_counts():
@@ -117,27 +119,38 @@ def build(sources=SOURCES):
     return paths
 
 
-class _Library:
-    """The loaded hist.cu library (loaded once per process)."""
+def _bind_hist(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.masked_hist.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
+    lib.masked_hist.restype = i
+    lib.frontier_hist.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p]
+    lib.frontier_hist.restype = i
+    lib.hist_status_string.argtypes = [i]
+    lib.hist_status_string.restype = ctypes.c_char_p
+    lib.hist_max_leaves.argtypes = []
+    lib.hist_max_leaves.restype = i
 
-    _lib = None
 
-    @classmethod
-    def get(cls):
-        if cls._lib is None:
-            lib = ctypes.CDLL(build(("hist.cu",))["hist.cu"])
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.masked_hist.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
-            lib.masked_hist.restype = i
-            lib.frontier_hist.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p,
-                                          p]
-            lib.frontier_hist.restype = i
-            lib.hist_status_string.argtypes = [i]
-            lib.hist_status_string.restype = ctypes.c_char_p
-            lib.hist_max_leaves.argtypes = []
-            lib.hist_max_leaves.restype = i
-            cls._lib = lib
-        return cls._lib
+def _bind_seg_hist(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.seg_hist.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.seg_hist.restype = i
+    lib.seg_status_string.argtypes = [i]
+    lib.seg_status_string.restype = ctypes.c_char_p
+
+
+_BINDERS = {"hist.cu": _bind_hist, "seg_hist.cu": _bind_seg_hist}
+_LOADED = {}
+
+
+def _library(source):
+    """The loaded library of one source (built and loaded once per
+    process; every source is built together on the first call)."""
+    if source not in _LOADED:
+        lib = ctypes.CDLL(build()[source])
+        _BINDERS[source](lib)
+        _LOADED[source] = lib
+    return _LOADED[source]
 
 
 # ------------------------------------------------------------- plain path
@@ -172,17 +185,24 @@ def chunk_partials_plain(bins, ghc_t, slot, num_leaf, num_bins):
             .permute(1, 2, 3, 4, 0))
 
 
-def kahan_fold(partials):
+def kahan_fold(partials, first=None, last=None):
     """Chunk-order f32 Kahan fold of (chunks, ...) partials ->
     (value, residual); residual = -comp (build_histograms_pair's sign
-    convention), +0.0 where the compensation is zero."""
+    convention), +0.0 where the compensation is zero. With `first` and
+    `last` (0-d tensors) only chunks first..last are folded, without a
+    host read: a trailing zero chunk would still change the bits."""
     acc = torch.zeros_like(partials[0])
     comp = torch.zeros_like(partials[0])
     for c in range(partials.shape[0]):
         y = partials[c] - comp
         t = acc + y
-        comp = (t - acc) - y
-        acc = t
+        new_comp = (t - acc) - y
+        if first is None:
+            acc, comp = t, new_comp
+        else:
+            take = (first <= c) & (c <= last)
+            acc = torch.where(take, t, acc)
+            comp = torch.where(take, new_comp, comp)
     return acc, (-comp) + 0.0
 
 
@@ -223,6 +243,64 @@ def masked_hist_plain(bins, ghc_t, row_leaf, leaf_id, num_bins):
     return hi[0], lo[0]
 
 
+def unpack_words(words):
+    """(W, N) int32 packed words -> (4W, N) int32 bins, feature f in
+    byte f & 3 of word f >> 2 (the mask drops the sign extension)."""
+    w, n = words.shape
+    shifts = torch.arange(4, dtype=torch.int32, device=words.device) * 8
+    return ((words[:, None, :] >> shifts[None, :, None]) & 0xFF).reshape(
+        4 * w, n)
+
+
+def chunk_cover(begin, cnt):
+    """First and last HIST_CHUNK chunk covering the rows [begin,
+    begin + cnt) (ordered_hist.py cover_index's arithmetic): an empty
+    segment covers one chunk."""
+    return begin // HIST_CHUNK, (begin + cnt.clamp(min=1) - 1) // HIST_CHUNK
+
+
+def segment_cover(bounds, chunks):
+    """(c_first, c_last) of a (2,) [begin, cnt] segment as 0-d int64
+    tensors, clamped into the array's `chunks` chunks (a zero-length
+    segment at the array's end covers the last chunk)."""
+    begin = bounds[0].long()
+    c_first, c_last = chunk_cover(begin, bounds[1].long().clamp(min=0))
+    c_first = c_first.clamp(0, chunks - 1)
+    return c_first, torch.maximum(c_last.clamp(max=chunks - 1), c_first)
+
+
+def _check_seg_shapes(words, ghc_t, bounds, num_bins):
+    if words.dim() != 2 or words.dtype != torch.int32:
+        raise ValueError("words must be a (W, N) int32 tensor")
+    n = words.shape[1]
+    if n % HIST_CHUNK != 0 or n == 0:
+        raise ValueError(f"N={n} must be a positive multiple of {HIST_CHUNK}")
+    if ghc_t.shape != (3, n) or ghc_t.dtype != torch.float32:
+        raise ValueError("ghc_t must be (3, N) float32")
+    if bounds.shape != (2,) or bounds.dtype != torch.int32:
+        raise ValueError("bounds must be a (2,) int32 [begin, cnt] tensor")
+    if not 1 <= int(num_bins) <= 256:
+        raise ValueError("num_bins must be in [1, 256] for packed bins")
+    for t in (ghc_t, bounds):
+        if t.device != words.device:
+            raise ValueError("all histogram inputs must be on one device")
+
+
+def seg_hist_plain(words, ghc_t, bounds, num_bins):
+    """Plain version of seg_hist: row-order partials of every chunk
+    (rows outside the segment skipped), the covered chunks Kahan-folded
+    in order -> ((4W, B, 3) value, residual)."""
+    _check_seg_shapes(words, ghc_t, bounds, num_bins)
+    n = words.shape[1]
+    pos = torch.arange(n, device=words.device)
+    begin = bounds[0].long()
+    inside = (pos >= begin) & (pos < begin + bounds[1].long().clamp(min=0))
+    slot = torch.where(inside, 0, -1)
+    parts = chunk_partials_plain(unpack_words(words), ghc_t, slot, 1,
+                                 int(num_bins))[:, 0]
+    return kahan_fold(parts, *segment_cover(bounds, n // HIST_CHUNK))
+
+
 # ----------------------------------------------------------- CUDA wrappers
 
 def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
@@ -230,7 +308,7 @@ def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
     for t in (bins, ghc_t, row_leaf, leaf_ids):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    lib = _Library.get()
+    lib = _library("hist.cu")
     num_leaf = leaf_ids.shape[0]
     if not 1 <= num_leaf <= lib.hist_max_leaves():
         raise ValueError(f"{name}: {num_leaf} leaves (at most "
@@ -284,3 +362,40 @@ def frontier_hist(bins, ghc_t, row_leaf, leaf_ids, num_bins):
         raise ValueError(f"frontier_hist: unsupported device {bins.device}")
     return _launch("frontier_hist", bins, ghc_t, row_leaf, leaf_ids,
                    num_bins)
+
+
+def seg_hist(words, ghc_t, bounds, num_bins):
+    """((4W, B, 3) value, residual) over the leaf-ordered rows
+    [begin, begin + cnt).
+
+    words (W, N) int32 packed bins (four uint8 features per word),
+    N % HIST_CHUNK == 0; ghc_t (3, N) float32 leaf-ordered statistics
+    (g*inbag, h*inbag, inbag); bounds a (2,) int32 [begin, cnt] tensor
+    on the same device (read by the kernel from device memory, no host
+    sync); num_bins <= 256."""
+    if words.device.type == "cpu":
+        return seg_hist_plain(words, ghc_t, bounds, num_bins)
+    if words.device.type != "cuda":
+        raise ValueError(f"seg_hist: unsupported device {words.device}")
+    _check_seg_shapes(words, ghc_t, bounds, num_bins)
+    for t in (words, ghc_t, bounds):
+        if not t.is_contiguous():
+            raise ValueError("seg_hist: inputs must be contiguous")
+    lib = _library("seg_hist.cu")
+    w, n = words.shape
+    f, b = 4 * w, int(num_bins)
+    dev = words.device
+    partials = torch.empty((n // HIST_CHUNK) * f * b * 3,
+                           dtype=torch.float32, device=dev)
+    hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
+    lo = torch.empty_like(hi)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.seg_hist(words.data_ptr(), ghc_t.data_ptr(),
+                              bounds.data_ptr(), f, n, b, partials.data_ptr(),
+                              hi.data_ptr(), lo.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError("seg_hist launch failed: "
+                           f"{lib.seg_status_string(status).decode()}")
+    KERNELS["seg_hist"].launches += 1
+    return hi, lo

@@ -188,9 +188,9 @@ def test_convert_trees_from_builder_output():
 
 
 @pytest.mark.parametrize("params", [
-    {"partitioned_build": "true"}, {"hist_compaction": "true"},
+    {"boosting_type": "dart"}, {"hist_compaction": "true"},
     {"boosting_type": "goss"}, {"linear_tree": True},
-    {"out_of_core": True}, {"categorical_column": "0"},
+    {"out_of_core": True}, {"nonfinite_guard": "warn_skip"},
     {"hist_frontier": "false"}, {"nonfinite_guard": "clamp"},
     {"objective": "multiclass", "num_class": 3}])
 def test_later_slice_settings_raise(params):
