@@ -13,13 +13,19 @@ Phases (any failure exits non-zero and prints no result line):
    int16 case with 300 bins; frontier with L = 1 and L = 2), and
    seg_hist on the packed words of the same shape (7 words) over three
    segments (the whole array, a chunk-crossing one, a short one across
-   a chunk edge), each held against its plain PyTorch version on the
-   same inputs (count column exact, grad/hess to rtol 1e-5, atol 1e-4:
-   the in-chunk sum order differs from index_add_'s on the card),
-   launched twice and required bitwise equal, one case of each source
-   also bitwise equal to the plain version run on the CPU, and timed
-   with CUDA events beside its bound, the plain version and one PyTorch
-   index_add_ call for the same function;
+   a chunk edge), plus one skewed case per kernel (60% of the rows in
+   bin 0, as a sparse feature's zero bin: heavy collisions), each held
+   against its plain PyTorch version on the same inputs (count column
+   exact; grad/hess to rtol 1e-5, atol 1e-4 against the plain version
+   on the card, whose index_add_ adds in another order; bit for bit
+   against the plain version run on the CPU, which adds in the
+   kernel's row order, for one uniform case of each source and for
+   every skewed case, where a bin of 600,000 rows puts index_add_'s
+   order outside that tolerance), launched twice and required bitwise
+   equal, and
+   timed with CUDA events beside its bound, the plain version and one
+   PyTorch index_add_ call for the same function; the host's
+   microseconds per call (200 launches, no sync) beside each;
 3. the masked main path at full width: the bench workload (1,000,000 x
    28 binary, 63 leaves, 255 bins, learning rate 0.1, 10 rounds)
    through lightgbm_tpu_torch.train, with launch counts read from zero;
@@ -57,6 +63,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
+SLEEP_CYCLES = 200_000  # about 0.1 ms at the H100's clock
 N_ROWS = 1_000_000
 N_FEATURES = 28
 MAX_BIN = 255
@@ -112,7 +119,10 @@ def auc(score, label):
 
 class Timer:
     """Median of per-launch CUDA-event times, L2 flushed before each
-    launch (a 64 MB write exceeds the card's 50 MB L2)."""
+    launch (a 64 MB write exceeds the card's 50 MB L2). A 0.1 ms device
+    sleep after the flush keeps the card busy while the host enqueues
+    the call, so the time is the device's, not the host's wrapper time
+    (that is host_us)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -125,6 +135,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -162,6 +173,25 @@ def seg_bound_ms(w, cnt, b):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def host_us(torch, fn, reps=200):
+    """Host microseconds per call: perf_counter around `reps` launches
+    with no sync in between (what the dispatch-bound loop pays)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def skew_bins(bins, rng):
+    """60% of the entries moved to bin 0, as a sparse feature's zero bin
+    (in place)."""
+    bins[rng.rand(*bins.shape) < 0.6] = 0
+    return bins
+
+
 def compare(torch, got_pair, want_pair):
     """Kernel pair against plain pair: (max_abs_err, count_exact, close)."""
     got = (got_pair[0] + got_pair[1]).cpu()
@@ -174,12 +204,28 @@ def compare(torch, got_pair, want_pair):
 
 # ----------------------------------------------------------- kernel checks
 
+def check_case(res, name, cpu_check, skew):
+    """A kernel case's gates: exact counts, equal launches, grad/hess
+    within tolerance of the plain version on the card (not for skewed
+    bins: see the module docstring) and, where it was run, equality in
+    bits with the plain version on the CPU."""
+    check(res["count_exact"], f"{name}: count column differs from plain")
+    check(res["deterministic"], f"{name}: two launches gave different bits")
+    if not skew:
+        check(res["grad_hess_close"],
+              f"{name}: grad/hess differ from plain beyond tolerance")
+    if cpu_check:
+        check(res["bitwise_vs_cpu_plain"],
+              f"{name}: differs in bits from the plain version on the CPU")
+
+
 def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
-                cpu_check=False):
+                cpu_check=False, skew=False):
     """One kernel against its plain version on the same card inputs."""
     dev = DEVICE
     np_dtype = np.uint8 if dtype == torch.uint8 else np.int16
-    bins = torch.from_numpy(rng.randint(0, b, size=(f, n)).astype(np_dtype))
+    bins = rng.randint(0, b, size=(f, n)).astype(np_dtype)
+    bins = torch.from_numpy(skew_bins(bins, rng) if skew else bins)
     inbag = (rng.rand(n) < 0.8).astype(np.float32)
     ghc = np.stack([rng.randn(n).astype(np.float32) * inbag,
                     rng.rand(n).astype(np.float32) * inbag, inbag])
@@ -208,7 +254,7 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
     err, count_exact, close = compare(torch, (hi1, lo1), plain())
     res = {"name": name, "shape": {"F": f, "N": n, "B": b,
                                    "bins": str(dtype).replace("torch.", ""),
-                                   "L": len(leaf_ids)},
+                                   "L": len(leaf_ids), "skew": skew},
            "max_abs_err": err, "count_exact": count_exact,
            "grad_hess_close": close, "deterministic": deterministic}
     if cpu_check:
@@ -220,20 +266,25 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
         res["bitwise_vs_cpu_plain"] = bool(torch.equal(hi1.cpu(), ch)
                                            and torch.equal(lo1.cpu(), cl))
     # library yardstick: ONE index_add_ on a flattened (leaf, f, bin) key
-    # built outside the timed region
+    # built outside the timed region; rows outside the frontier go to a
+    # discard slot laid out like a leaf (key ((L*F + f)*B + bin)), so
+    # they spread over F*B cells as a leaf's rows do, and the result is
+    # sliced to the L real leaves
     in_rows = int(torch.isin(row_leaf, ids).sum())
+    num_leaf = len(leaf_ids)
     slot = hk.leaf_slots(rl_d, ids_d)
+    slot = torch.where(slot >= 0, slot, torch.full_like(slot, num_leaf))
     key = ((slot[None, :] * f + torch.arange(f, device=dev)[:, None]) * b
-           + bins_d.long())
-    cells = len(leaf_ids) * f * b
-    key = torch.where(slot[None, :] >= 0, key,
-                      torch.full_like(key, cells)).reshape(-1)
+           + bins_d.long()).reshape(-1)
+    cells = num_leaf * f * b
     src = ghc_d.t()[None].expand(f, n, 3).reshape(-1, 3).contiguous()
 
     def library():
-        return torch.zeros(cells + 1, 3, device=dev).index_add_(0, key, src)
+        return torch.zeros(cells + f * b, 3, device=dev).index_add_(
+            0, key, src)[:cells]
 
     res["ms"] = timer(kern, 20)
+    res["host_us"] = host_us(torch, kern)
     res["plain_ms"] = timer(plain, 3)
     res["library_ms"] = timer(library, 5)
     res["bound_ms"], res["bound_by"] = hist_bound_ms(
@@ -241,19 +292,16 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
     log(f"{name} {res['shape']}: err {err:.3g} count_exact {count_exact} "
         f"close {close} deterministic {deterministic} ms {res['ms']:.4f} "
         f"bound {res['bound_ms']:.4f} plain {res['plain_ms']:.3f} "
-        f"library {res['library_ms']:.3f}")
-    check(count_exact, f"{name}: count column differs from plain")
-    check(close, f"{name}: grad/hess differ from plain beyond tolerance")
-    check(deterministic, f"{name}: two launches gave different bits")
-    if cpu_check:
-        check(res["bitwise_vs_cpu_plain"],
-              f"{name}: differs in bits from the plain version on the CPU")
+        f"library {res['library_ms']:.3f} host_us {res['host_us']:.1f}"
+        + (f" bitwise_vs_cpu_plain {res['bitwise_vs_cpu_plain']}"
+           if cpu_check else ""))
+    check_case(res, name, cpu_check, skew)
     del key, src, slot
     return res
 
 
 def seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt, b,
-                    cpu_check=False):
+                    cpu_check=False, skew=False):
     """seg_hist against seg_hist_plain on the same card inputs; `words`
     and `ghc` are CPU tensors of the full packed array."""
     dev = DEVICE
@@ -273,7 +321,8 @@ def seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt, b,
     err, count_exact, close = compare(torch, (hi1, lo1), plain())
     w, n = words.shape
     res = {"name": "seg_hist", "shape": {"W": w, "N": n, "B": b,
-                                         "begin": begin, "cnt": cnt},
+                                         "begin": begin, "cnt": cnt,
+                                         "skew": skew},
            "max_abs_err": err, "count_exact": count_exact,
            "grad_hess_close": close, "deterministic": deterministic}
     if cpu_check:
@@ -292,25 +341,24 @@ def seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt, b,
         return torch.zeros(f * b, 3, device=dev).index_add_(0, key, src)
 
     res["ms"] = timer(kern, 20)
+    res["host_us"] = host_us(torch, kern)
     res["plain_ms"] = timer(plain, 3)
     res["library_ms"] = timer(library, 5)
     res["bound_ms"], res["bound_by"] = seg_bound_ms(w, cnt, b)
     log(f"seg_hist {res['shape']}: err {err:.3g} count_exact {count_exact} "
         f"close {close} deterministic {deterministic} ms {res['ms']:.4f} "
         f"bound {res['bound_ms']:.4f} plain {res['plain_ms']:.3f} "
-        f"library {res['library_ms']:.3f}")
-    check(count_exact, "seg_hist: count column differs from plain")
-    check(close, "seg_hist: grad/hess differ from plain beyond tolerance")
-    check(deterministic, "seg_hist: two launches gave different bits")
-    if cpu_check:
-        check(res["bitwise_vs_cpu_plain"],
-              "seg_hist: differs in bits from the plain version on the CPU")
+        f"library {res['library_ms']:.3f} host_us {res['host_us']:.1f}"
+        + (f" bitwise_vs_cpu_plain {res['bitwise_vs_cpu_plain']}"
+           if cpu_check else ""))
+    check_case(res, "seg_hist", cpu_check, skew)
     del key, src
     return res
 
 
 def seg_kernel_cases(torch, hk, timer, rng):
-    """The three segment kinds on one 1,048,576 x 28 packed array."""
+    """The three segment kinds on one 1,048,576 x 28 packed array, then
+    the whole array again with skewed bins."""
     from lightgbm_tpu_torch.ops.ordered_hist import pack_feature_words
     n = 1 << 20
     bins = rng.randint(0, MAX_BIN, size=(N_FEATURES, n)).astype(np.uint8)
@@ -319,10 +367,14 @@ def seg_kernel_cases(torch, hk, timer, rng):
     ghc = torch.from_numpy(np.stack([rng.randn(n).astype(np.float32) * inbag,
                                      rng.rand(n).astype(np.float32) * inbag,
                                      inbag]))
-    return [seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt,
-                            MAX_BIN, cpu_check=cpu)
-            for begin, cnt, cpu in ((0, n, False), (300_001, 200_000, True),
-                                    (4090, 100, False))]
+    cases = [seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt,
+                             MAX_BIN, cpu_check=cpu)
+             for begin, cnt, cpu in ((0, n, False), (300_001, 200_000, True),
+                                     (4090, 100, False))]
+    skewed = torch.from_numpy(pack_feature_words(skew_bins(bins, rng)))
+    cases.append(seg_kernel_case(torch, hk, timer, skewed, ghc, 0, n,
+                                 MAX_BIN, cpu_check=True, skew=True))
+    return cases
 
 
 # ------------------------------------------------------------------ phases
@@ -693,6 +745,12 @@ def main():
                         MAX_BIN, torch.uint8, [5, 17], rng),
             kernel_case(torch, hk, timer, "masked_hist", N_FEATURES, n, 300,
                         torch.int16, [5], rng),
+            kernel_case(torch, hk, timer, "masked_hist", N_FEATURES, n,
+                        MAX_BIN, torch.uint8, [5], rng, cpu_check=True,
+                        skew=True),
+            kernel_case(torch, hk, timer, "frontier_hist", N_FEATURES, n,
+                        MAX_BIN, torch.uint8, [0], rng, cpu_check=True,
+                        skew=True),
         ]
         report["kernel_cases"] = cases
         seg_cases = seg_kernel_cases(torch, hk, timer, rng)

@@ -8,207 +8,94 @@
 // Both compute, for L distinct leaf ids (L = 1 for masked_hist),
 //   hist[l, f, b, :] = sum_c [bins[f, c] == b] * [row_leaf[c] == leaf[l]]
 //                            * (g[c], h[c], w[c])
-// with ghc_t = (g, h, w) the (3, N) in-bag statistics.
-//
-// Design. The TPU kernels stream the bin matrix through one core in grid
-// order and carry the sum in VMEM across grid steps. Here blocks run in
-// parallel in no order, so the sum is split in two passes:
-//   1. hist_partials: one block per HIST_CHUNK = 4096-row chunk and
-//      feature tile accumulates the chunk's (L, F_tile, B, 3) f32
-//      partial in shared memory and writes it to a (chunks, L, F, B, 3)
-//      scratch buffer. Inside the block each warp owns whole features,
-//      so no two warps touch one cell and nothing is atomic. Lanes hold
-//      consecutive rows; lanes whose rows share a (leaf, bin) cell find
-//      each other with __match_any_sync and add in lane order, one rank
-//      per round, with __syncwarp between rounds. Every cell therefore
-//      receives its rows' values in row order: the partial is the
-//      sequential f32 row-order sum, bit for bit, whatever the launch.
-//   2. hist_fold: one thread per output cell folds the chunk partials in
-//      chunk order with the f32 Kahan arithmetic of
-//      lightgbm_tpu/ops/histogram.py build_histograms_pair (:263-274)
-//      and returns the (value, residual) pair, residual = -comp. The
-//      Pallas kernels return a zero residual (plain f32 accumulation,
-//      pallas_hist.py:148-152); this is stricter, and keeps the pair
-//      contract the data-parallel and out-of-core slices rely on.
-// No float atomics anywhere: a launch twice on the same inputs gives the
-// same bits, and the result equals the plain PyTorch version
-// (ops/hist_kernels.py) run on the CPU.
+// with ghc_t = (g, h, w) the (3, N) in-bag statistics, as the (value,
+// residual) pair of the chunk-order Kahan fold of row-order 4096-row
+// chunk partials. The TPU kernels stream the bin matrix through one core
+// in grid order and carry a plain f32 sum in VMEM (zero residual,
+// pallas_hist.py:148-152); here blocks run in parallel in no order, so
+// the sum is split into chunk partials and a fold, and the residual
+// keeps the pair contract of the data-parallel and out-of-core slices.
+// The design (staged sub-chunks, feature tiles, shared-memory peer
+// masks, leader accumulation, empty-step masks, the fold) is
+// chunk_hist.cuh's; this file says how a row is read: its bin from the
+// (F, N) uint8 or int16 matrix, its slot from row_leaf among the L leaf
+// ids (-1 outside the frontier). Rows of a leaf are scattered over the
+// array, so most 32-row steps of a small leaf hold none of its rows and
+// are skipped (kSkipEmptySteps).
 //
 // Bound on this card. Each call must read the bins (F*N bytes at
 // uint8), ghc_t (12*N bytes) and row_leaf (4*N bytes) once: 44 MB at
 // 1M x 28 uint8, about 13 us at 3.35 TB/s; the outputs are small. The
-// chunk partials add chunks*L*F*B*12 bytes written and read again (22 MB
-// per leaf at 1M x 28 x 255), and the shared-memory add rounds are
-// serial within a warp when many lanes of a row group hit one bin.
-// Making it fast (wider loads, fewer partial bytes) is later work.
+// design reads g, h, w and row_leaf once per feature tile (one tile of
+// all features at the wrappers' f_tile of 28) and writes and reads back
+// the chunk partials, chunks*L*F*B*12 bytes (22 MB per leaf at 1M x 28 x
+// 255, L2-resident): without any step this floor is about 4x the byte
+// bound. On top come the steps that hold rows of the frontier (peer
+// mask, leader adds) and the serial adds of a bin that many rows of one
+// 32-row step share.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "chunk_hist.cuh"
+
+using namespace chunk_hist;
 
 namespace {
 
-constexpr int kChunk = 4096;       // HIST_CHUNK rows per block
-constexpr int kSub = 1024;         // rows staged in shared memory at once
-constexpr int kMaxLeaves = 8;      // frontier width limit
-constexpr int kStageBytes = kSub * (3 * sizeof(float) + sizeof(signed char));
+// Rows of a (F, N) bin matrix; the slot is row_leaf's place among the
+// frontier's leaf ids.
+template <typename BinT>
+struct LeafRows {
+  static constexpr int kUnitBytes = sizeof(BinT);
+  static constexpr int kFeatPerUnit = 1;
+  static constexpr bool kAux = true;  // row_leaf is staged
+  static constexpr bool kSkipEmptySteps = true;
+  const BinT* units;
+  const int* aux;
+  const int* leaf_ids;
+  int num_leaf;
+  int leaf[kMaxSlots];
 
-enum Status {
-  kOk = 0,
-  // negative codes are this file's own; positive ones are cudaError_t
-  kBadShape = -1,
-  kNoFit = -2,
+  __device__ bool prepare(int, int, int& s_first, int& s_last) {
+#pragma unroll
+    for (int l = 0; l < kMaxSlots; ++l) leaf[l] = l < num_leaf ? leaf_ids[l] : 0;
+    s_first = 0;
+    s_last = kChunk / kSub - 1;
+    return true;
+  }
+
+  __device__ int slot(const int* aux_s, int r, long) const {
+    const int rl = aux_s[r];
+    int slot = -1;
+#pragma unroll
+    for (int l = 0; l < kMaxSlots; ++l)
+      slot = (l < num_leaf && rl == leaf[l]) ? l : slot;
+    return slot;
+  }
+
+  __device__ int bin(const unsigned char* units_s, int f, int r) const {
+    return (int)reinterpret_cast<const BinT*>(units_s)[f * kSub + r];
+  }
 };
 
 template <typename BinT>
-__global__ void hist_partials(const BinT* __restrict__ bins,
-                              const float* __restrict__ ghc_t,
-                              const int* __restrict__ row_leaf,
-                              const int* __restrict__ leaf_ids, int num_leaf,
-                              int num_feat, int n, int num_bins, int f_tile,
-                              float* __restrict__ partials) {
-  extern __shared__ float smem[];
-  const int cells = num_leaf * f_tile * num_bins * 3;
-  float* hist_s = smem;
-  float* g_s = hist_s + cells;
-  float* h_s = g_s + kSub;
-  float* w_s = h_s + kSub;
-  signed char* slot_s = reinterpret_cast<signed char*>(w_s + kSub);
-
-  const int chunk = blockIdx.x;
-  const int f0 = blockIdx.y * f_tile;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int num_warps = blockDim.x >> 5;
-
-  int leaf[kMaxLeaves];
-#pragma unroll
-  for (int l = 0; l < kMaxLeaves; ++l) leaf[l] = l < num_leaf ? leaf_ids[l] : 0;
-
-  for (int i = tid; i < cells; i += blockDim.x) hist_s[i] = 0.0f;
-
-  for (int sub = 0; sub < kChunk; sub += kSub) {
-    const long base = (long)chunk * kChunk + sub;
-    __syncthreads();  // previous sub-chunk consumed, hist zeroed
-    for (int r = tid; r < kSub; r += blockDim.x) {
-      const long row = base + r;
-      const int rl = row_leaf[row];
-      int slot = -1;
-      for (int l = 0; l < num_leaf; ++l) slot = (rl == leaf[l]) ? l : slot;
-      g_s[r] = ghc_t[row];
-      h_s[r] = ghc_t[n + row];
-      w_s[r] = ghc_t[2L * n + row];
-      slot_s[r] = (signed char)slot;
-    }
-    __syncthreads();
-    for (int f = warp; f < f_tile && f0 + f < num_feat; f += num_warps) {
-      const BinT* col = bins + (long)(f0 + f) * n + base;
-      for (int it = 0; it < kSub; it += 32) {
-        const int r = it + lane;
-        int slot = slot_s[r];
-        const int bin = (int)col[r];
-        if ((unsigned)bin >= (unsigned)num_bins) slot = -1;  // never for a valid dataset
-        const int key = slot >= 0 ? slot * num_bins + bin : -1;
-        const unsigned peers = __match_any_sync(0xffffffffu, key);
-        const unsigned rank = __popc(peers & ((1u << lane) - 1u));
-        const unsigned rounds =
-            __reduce_max_sync(0xffffffffu, slot >= 0 ? (unsigned)__popc(peers) : 0u);
-        for (unsigned k = 0; k < rounds; ++k) {
-          if (slot >= 0 && rank == k) {
-            float* cell = hist_s + ((slot * f_tile + f) * num_bins + bin) * 3;
-            cell[0] += g_s[r];
-            cell[1] += h_s[r];
-            cell[2] += w_s[r];
-          }
-          __syncwarp();
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const int per_leaf = f_tile * num_bins * 3;
-  const int row_len = num_bins * 3;
-  for (int i = tid; i < cells; i += blockDim.x) {
-    const int l = i / per_leaf;
-    const int rem = i - l * per_leaf;
-    const int f = rem / row_len;
-    const int j = rem - f * row_len;
-    if (f0 + f < num_feat) {
-      partials[(((long)chunk * num_leaf + l) * num_feat + f0 + f) * row_len + j] =
-          hist_s[i];
-    }
-  }
-}
-
-__global__ void hist_fold(const float* __restrict__ partials, int chunks,
-                          long cells, float* __restrict__ hi,
-                          float* __restrict__ lo) {
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= cells) return;
-  float acc = 0.0f, comp = 0.0f;
-  for (int c = 0; c < chunks; ++c) {
-    const float y = partials[(long)c * cells + e] - comp;
-    const float t = acc + y;
-    comp = (t - acc) - y;
-    acc = t;
-  }
-  hi[e] = acc;
-  lo[e] = comp == 0.0f ? 0.0f : -comp;  // +0.0 residual, as the CPU path
-}
-
-int max_shared_bytes() {
-  static int cached = 0;
-  if (cached == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&cached, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return cached;
-}
-
-template <typename BinT>
-int launch(const void* bins, const float* ghc_t, const int* row_leaf,
-           const int* leaf_ids, int num_leaf, int num_feat, int n, int num_bins,
-           float* partials, float* hi, float* lo, cudaStream_t stream) {
-  if (num_leaf < 1 || num_leaf > kMaxLeaves || num_feat < 1 || n < kChunk ||
-      n % kChunk != 0 || num_bins < 1)
-    return kBadShape;
-  const int per_feat = num_leaf * num_bins * 3 * (int)sizeof(float);
-  const int budget = max_shared_bytes() - kStageBytes;
-  int fit = budget / per_feat;
-  if (fit < 1) return kNoFit;
-  if (fit > 32) fit = 32;  // one warp per feature at most 32 warps
-  const int tiles = (num_feat + fit - 1) / fit;
-  const int f_tile = (num_feat + tiles - 1) / tiles;
-  const int smem = f_tile * per_feat + kStageBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_partials<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int chunks = n / kChunk;
-  dim3 grid(chunks, tiles);
-  hist_partials<BinT><<<grid, 32 * f_tile, smem, stream>>>(
-      static_cast<const BinT*>(bins), ghc_t, row_leaf, leaf_ids, num_leaf,
-      num_feat, n, num_bins, f_tile, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long cells = (long)num_leaf * num_feat * num_bins * 3;
-  const int threads = 256;
-  hist_fold<<<(unsigned)((cells + threads - 1) / threads), threads, 0, stream>>>(
-      partials, chunks, cells, hi, lo);
-  return (int)cudaGetLastError();
+int run(const void* bins, const float* ghc_t, const int* row_leaf,
+        const int* leaf_ids, int num_leaf, int num_feat, int n, int num_bins,
+        int f_tile, float* partials, float* hi, float* lo, void* stream) {
+  LeafRows<BinT> rows{static_cast<const BinT*>(bins), row_leaf, leaf_ids,
+                      num_leaf, {}};
+  return launch(rows, ghc_t, nullptr, n, num_bins, num_leaf, num_feat, f_tile,
+                partials, hi, lo, static_cast<cudaStream_t>(stream));
 }
 
 int dispatch(const void* bins, int bin_bytes, const float* ghc_t,
              const int* row_leaf, const int* leaf_ids, int num_leaf,
-             int num_feat, int n, int num_bins, float* partials, float* hi,
-             float* lo, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+             int num_feat, int n, int num_bins, int f_tile, float* partials,
+             float* hi, float* lo, void* stream) {
   if (bin_bytes == 1)
-    return launch<uint8_t>(bins, ghc_t, row_leaf, leaf_ids, num_leaf, num_feat,
-                           n, num_bins, partials, hi, lo, s);
+    return run<uint8_t>(bins, ghc_t, row_leaf, leaf_ids, num_leaf, num_feat, n,
+                        num_bins, f_tile, partials, hi, lo, stream);
   if (bin_bytes == 2)
-    return launch<int16_t>(bins, ghc_t, row_leaf, leaf_ids, num_leaf, num_feat,
-                           n, num_bins, partials, hi, lo, s);
+    return run<int16_t>(bins, ghc_t, row_leaf, leaf_ids, num_leaf, num_feat, n,
+                        num_bins, f_tile, partials, hi, lo, stream);
   return kBadShape;
 }
 
@@ -217,31 +104,32 @@ int dispatch(const void* bins, int bin_bytes, const float* ghc_t,
 extern "C" {
 
 // (F, B, 3) pair of the rows with row_leaf == *leaf_id (one leaf id in
-// device memory). partials: chunks*F*B*3 floats of scratch.
+// device memory). partials: chunks*F*B*3 floats of scratch; f_tile:
+// features per block.
 int masked_hist(const void* bins, int bin_bytes, const float* ghc_t,
                 const int* row_leaf, const int* leaf_id, int num_feat, int n,
-                int num_bins, float* partials, float* hi, float* lo,
-                void* stream) {
+                int num_bins, int f_tile, float* partials, float* hi,
+                float* lo, void* stream) {
   return dispatch(bins, bin_bytes, ghc_t, row_leaf, leaf_id, 1, num_feat, n,
-                  num_bins, partials, hi, lo, stream);
+                  num_bins, f_tile, partials, hi, lo, stream);
 }
 
 // (L, F, B, 3) pair for L distinct leaf ids in device memory, one pass
 // over the bins. partials: chunks*L*F*B*3 floats of scratch.
 int frontier_hist(const void* bins, int bin_bytes, const float* ghc_t,
                   const int* row_leaf, const int* leaf_ids, int num_leaf,
-                  int num_feat, int n, int num_bins, float* partials,
-                  float* hi, float* lo, void* stream) {
+                  int num_feat, int n, int num_bins, int f_tile,
+                  float* partials, float* hi, float* lo, void* stream) {
   return dispatch(bins, bin_bytes, ghc_t, row_leaf, leaf_ids, num_leaf,
-                  num_feat, n, num_bins, partials, hi, lo, stream);
+                  num_feat, n, num_bins, f_tile, partials, hi, lo, stream);
 }
 
 const char* hist_status_string(int status) {
-  if (status == kBadShape) return "unsupported shape or bin width";
+  if (status == kBadShape) return "unsupported shape, bin width or alignment";
   if (status == kNoFit) return "one feature's histogram does not fit in shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-int hist_max_leaves() { return kMaxLeaves; }
+int hist_max_leaves() { return kMaxSlots; }
 
 }  // extern "C"

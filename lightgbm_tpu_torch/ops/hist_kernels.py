@@ -6,14 +6,15 @@ Port of the three Pallas kernels of the JAX package:
   frontier_hist  <- _frontier_kernel (lightgbm_tpu/ops/pallas_hist.py:81, :177)
   seg_hist       <- _seg_hist_kernel (lightgbm_tpu/ops/ordered_hist.py:123, :156)
 
-The kernels live in lightgbm_tpu_torch/csrc/hist.cu and csrc/seg_hist.cu
-(design and bound are noted there). They are compiled with nvcc for
-sm_90a at first use into csrc/build/ (one shared library with a C
-interface per source, loaded with ctypes) and launched on PyTorch's
-current stream. Each wrapper checks device, dtype, shape and
-contiguity, allocates its outputs and scratch with torch.empty, raises
-when the launch reports an error, and counts its launches in
-`KERNELS[name].launches`.
+The kernels live in lightgbm_tpu_torch/csrc/hist.cu and csrc/seg_hist.cu,
+on the chunk accumulator they share in csrc/chunk_hist.cuh (design and
+bound are noted there). They are compiled with nvcc for sm_90a at first
+use into csrc/build/ (one shared library with a C interface per source,
+loaded with ctypes; its name hashes the source, the headers it includes
+and the flags) and launched on PyTorch's current stream. Each wrapper
+checks device, dtype, shape and contiguity, allocates its outputs and
+scratch with torch.empty, raises when the launch reports an error, and
+counts its launches in `KERNELS[name].launches`.
 
 Dispatch is by the tensors' device only: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (or an exception), anything else
@@ -34,12 +35,18 @@ its tensors are on the card.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
 import torch
 
 HIST_CHUNK = 4096
+# features per block (one warp each) of masked_hist/frontier_hist and of
+# seg_hist, chosen by timing tiles of 4 to 28 features on the card
+# (PERF.md; bench/hist_attribution.py)
+HIST_FEATURE_TILE = 28
+SEG_FEATURE_TILE = 4
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -85,9 +92,24 @@ def _nvcc():
                        "lightgbm_tpu_torch are built with the CUDA toolkit")
 
 
-def _library_path(source):
-    with open(os.path.join(_CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _library_path(source, csrc=_CSRC):
+    """Library file of `source`, named by a hash of the source, every
+    csrc/*.cuh it includes (directly or through another header) and the
+    flags, so that a changed header builds a new library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [source], set()
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(csrc, name), "rb") as f:
+            text = f.read()
+        digest.update(name.encode() + b"\0" + text)
+        todo.extend(h.decode() for h in _INCLUDE.findall(text))
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
@@ -121,19 +143,20 @@ def build(sources=SOURCES):
 
 def _bind_hist(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_hist.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
+    lib.masked_hist.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p]
     lib.masked_hist.restype = i
-    lib.frontier_hist.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p]
+    lib.frontier_hist.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.frontier_hist.restype = i
     lib.hist_status_string.argtypes = [i]
     lib.hist_status_string.restype = ctypes.c_char_p
     lib.hist_max_leaves.argtypes = []
     lib.hist_max_leaves.restype = i
+    lib.max_leaves = lib.hist_max_leaves()
 
 
 def _bind_seg_hist(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.seg_hist.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.seg_hist.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
     lib.seg_hist.restype = i
     lib.seg_status_string.argtypes = [i]
     lib.seg_status_string.restype = ctypes.c_char_p
@@ -303,6 +326,15 @@ def seg_hist_plain(words, ghc_t, bounds, num_bins):
 
 # ----------------------------------------------------------- CUDA wrappers
 
+def _stream(dev):
+    """PyTorch's current stream on `dev` (made current for the query
+    only when it is not already)."""
+    if dev.index == torch.cuda.current_device():
+        return torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
     _check_shapes(bins, ghc_t, row_leaf, leaf_ids, num_bins)
     for t in (bins, ghc_t, row_leaf, leaf_ids):
@@ -310,9 +342,9 @@ def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
             raise ValueError(f"{name}: inputs must be contiguous")
     lib = _library("hist.cu")
     num_leaf = leaf_ids.shape[0]
-    if not 1 <= num_leaf <= lib.hist_max_leaves():
+    if not 1 <= num_leaf <= lib.max_leaves:
         raise ValueError(f"{name}: {num_leaf} leaves (at most "
-                         f"{lib.hist_max_leaves()})")
+                         f"{lib.max_leaves})")
     f, n = bins.shape
     b = int(num_bins)
     dev = bins.device
@@ -320,16 +352,14 @@ def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
                            dtype=torch.float32, device=dev)
     hi = torch.empty((num_leaf, f, b, 3), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        common = (bins.data_ptr(), _BIN_BYTES[bins.dtype], ghc_t.data_ptr(),
-                  row_leaf.data_ptr(), leaf_ids.data_ptr())
-        tail = (f, n, b, partials.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-                stream)
-        if name == "masked_hist":
-            status = lib.masked_hist(*common, *tail)
-        else:
-            status = lib.frontier_hist(*common, num_leaf, *tail)
+    common = (bins.data_ptr(), _BIN_BYTES[bins.dtype], ghc_t.data_ptr(),
+              row_leaf.data_ptr(), leaf_ids.data_ptr())
+    tail = (f, n, b, HIST_FEATURE_TILE, partials.data_ptr(), hi.data_ptr(),
+            lo.data_ptr(), _stream(dev))
+    if name == "masked_hist":
+        status = lib.masked_hist(*common, *tail)
+    else:
+        status = lib.frontier_hist(*common, num_leaf, *tail)
     if status != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.hist_status_string(status).decode()}")
@@ -389,11 +419,10 @@ def seg_hist(words, ghc_t, bounds, num_bins):
                            dtype=torch.float32, device=dev)
     hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.seg_hist(words.data_ptr(), ghc_t.data_ptr(),
-                              bounds.data_ptr(), f, n, b, partials.data_ptr(),
-                              hi.data_ptr(), lo.data_ptr(), stream)
+    status = lib.seg_hist(words.data_ptr(), ghc_t.data_ptr(),
+                          bounds.data_ptr(), f, n, b, SEG_FEATURE_TILE,
+                          partials.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                          _stream(dev))
     if status != 0:
         raise RuntimeError("seg_hist launch failed: "
                            f"{lib.seg_status_string(status).decode()}")

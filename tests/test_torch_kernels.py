@@ -1,11 +1,15 @@
 """lightgbm_tpu_torch CUDA histogram kernels on the card.
 
-These tests need a CUDA device and skip without one (`cuda` marker).
-They import neither JAX nor the JAX package, so they also run on a
-machine that only has PyTorch:
+The card tests need a CUDA device and skip without one (`cuda` marker);
+the build test runs anywhere (no nvcc needed). They import neither JAX
+nor the JAX package, so they also run on a machine that only has
+PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 """
+
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -87,3 +91,105 @@ def test_seg_hist_bitwise_equals_cpu_plain_on_card(begin, cnt):
     assert torch.equal(hi, hi2) and torch.equal(lo, lo2)
     ch, cl = hk.seg_hist(*cpu, b)
     assert torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl)
+
+
+SKEWS = ("zero_bin_60pct", "one_bin")
+
+
+def _skewed_bins(f, n, b, dtype, skew, rng):
+    """60% of the rows in bin 0 (a sparse feature's zero bin), or every
+    row in one bin (32 lanes of a step on one key)."""
+    if skew == "one_bin":
+        return np.full((f, n), b - 1, dtype=dtype)
+    bins = rng.randint(0, b, size=(f, n)).astype(dtype)
+    bins[rng.rand(f, n) < 0.6] = 0
+    return bins
+
+
+def _stats(n, rng):
+    inbag = (rng.rand(n) < 0.8).astype(np.float32)
+    return np.stack([rng.randn(n).astype(np.float32) * inbag,
+                     rng.rand(n).astype(np.float32) * inbag, inbag])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", SKEWS)
+@pytest.mark.parametrize("name,ids,b,dtype", [
+    ("masked_hist", [1], 255, np.uint8),
+    ("frontier_hist", [0, 1, 2, 3, 4, 5, 6, 7], 255, np.uint8),
+    ("masked_hist", [3], 300, np.int16)])
+def test_kernel_skewed_bins_bitwise_on_card(name, ids, b, dtype, skew):
+    """Heavy bin collisions (up to all 32 lanes of a step on one cell)
+    keep the row-order bits: equal to the plain version on the CPU, and
+    two launches agree. Rows come in runs of 64 of one leaf, so a step's
+    lanes share their leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (lightgbm_tpu_torch kernels)")
+    rng = np.random.RandomState(len(ids) * 1000 + b)
+    f, n = 5, 2 * HIST_CHUNK
+    bins = _skewed_bins(f, n, b, dtype, skew, rng)
+    row_leaf = np.repeat(rng.randint(0, len(ids) + 2, size=n // 64),
+                         64).astype(np.int32)
+    cpu = _t(bins, _stats(n, rng), row_leaf) + [_ids(ids)]
+    dev = [t.cuda() for t in cpu]
+    fn = getattr(hk, name)
+    before = hk.launch_counts()[name]
+    hi, lo = fn(*dev, b)
+    hi2, lo2 = fn(*dev, b)
+    assert hk.launch_counts()[name] == before + 2
+    assert torch.equal(hi, hi2) and torch.equal(lo, lo2)
+    ch, cl = fn(*cpu, b)
+    assert torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", SKEWS)
+@pytest.mark.parametrize("begin,cnt", [
+    (0, 3 * HIST_CHUNK), (1001, HIST_CHUNK + 500), (HIST_CHUNK - 6, 100),
+    (3 * HIST_CHUNK, 0)])
+def test_seg_hist_skewed_bins_bitwise_on_card(begin, cnt, skew):
+    """seg_hist on the four segment kinds with heavy bin collisions
+    equals its plain version on the CPU bit for bit; two launches
+    agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (lightgbm_tpu_torch kernels)")
+    rng = np.random.RandomState(begin + 1)
+    n, b = 3 * HIST_CHUNK, 255
+    words = pack_feature_words(_skewed_bins(28, n, b, np.uint8, skew, rng))
+    cpu = _t(words, _stats(n, rng)) + [torch.tensor([begin, cnt],
+                                                    dtype=torch.int32)]
+    dev = [t.cuda() for t in cpu]
+    before = hk.launch_counts()["seg_hist"]
+    hi, lo = hk.seg_hist(*dev, b)
+    hi2, lo2 = hk.seg_hist(*dev, b)
+    assert hk.launch_counts()["seg_hist"] == before + 2
+    assert torch.equal(hi, hi2) and torch.equal(lo, lo2)
+    ch, cl = hk.seg_hist(*cpu, b)
+    assert torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl)
+
+
+def test_library_path_follows_included_headers(tmp_path):
+    """A library is named by its source AND the headers it includes: a
+    changed chunk_hist.cuh gives every source a new library, a header
+    no source includes changes none, and a changed source only its
+    own."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(hk._CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+
+    def paths():
+        return {s: hk._library_path(s, str(csrc)) for s in hk.SOURCES}
+
+    before = paths()
+    assert before == {s: hk._library_path(s) for s in hk.SOURCES}
+    with open(csrc / "chunk_hist.cuh", "ab") as f:
+        f.write(b"// changed\n")
+    after = paths()
+    assert all(after[s] != before[s] for s in hk.SOURCES)
+    (csrc / "unused.cuh").write_bytes(b"// included by no source\n")
+    assert paths() == after
+    with open(csrc / "seg_hist.cu", "ab") as f:
+        f.write(b"// changed\n")
+    last = paths()
+    assert last["hist.cu"] == after["hist.cu"]
+    assert last["seg_hist.cu"] != after["seg_hist.cu"]
+    assert all(os.path.dirname(p) == hk.BUILD_DIR for p in last.values())
