@@ -3,18 +3,25 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--seed 42] [--out DIR]
+    python3 chip_smoke.py [--seed 42] [--out DIR] [--baseline DIR]
+
+With --baseline, the kernel checks also run the histogram wrappers of
+another checkout of the repo (DIR/lightgbm_tpu_torch/ops/hist_kernels.py,
+built from DIR's csrc) on the same inputs: their bits must equal these
+kernels', and both are timed in the same way, for a before-and-after
+comparison in one run.
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
    kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once;
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
-   int16 case with 300 bins; frontier with L = 1 and L = 2), and
-   seg_hist on the packed words of the same shape (7 words) over three
-   segments (the whole array, a chunk-crossing one, a short one across
-   a chunk edge), plus one skewed case per kernel (60% of the rows in
-   bin 0, as a sparse feature's zero bin: heavy collisions), each held
+   int16 case with 300 bins; frontier with L = 1 at the root, every row
+   in leaf 0, as each tree's first launch, and L = 2), and seg_hist on
+   the packed words of the same shape (7 words) over three segments
+   (the whole array, a chunk-crossing one, a short one across a chunk
+   edge), plus one skewed case per kernel at the root (60% of the rows
+   in bin 0, as a sparse feature's zero bin: heavy collisions), each held
    against its plain PyTorch version on the same inputs (count column
    exact; grad/hess to rtol 1e-5, atol 1e-4 against the plain version
    on the card, whose index_add_ adds in another order; bit for bit
@@ -25,7 +32,9 @@ Phases (any failure exits non-zero and prints no result line):
    equal, and
    timed with CUDA events beside its bound, the plain version and one
    PyTorch index_add_ call for the same function; the host's
-   microseconds per call (200 launches, no sync) beside each;
+   microseconds per call (200 launches, no sync) and the time with the
+   host's enqueue included (ms_enqueued, no device sleep ahead of the
+   launch) beside each;
 3. the masked main path at full width: the bench workload (1,000,000 x
    28 binary, 63 leaves, 255 bins, learning rate 0.1, 10 rounds)
    through lightgbm_tpu_torch.train, with launch counts read from zero;
@@ -63,7 +72,8 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-SLEEP_CYCLES = 200_000  # about 0.1 ms at the H100's clock
+# about 1 ms at the H100's clock: longer than any wrapper's host time
+SLEEP_CYCLES = 2_000_000
 N_ROWS = 1_000_000
 N_FEATURES = 28
 MAX_BIN = 255
@@ -71,6 +81,7 @@ N_ROUNDS = 10
 N_CAT = 4
 N_CATEGORIES = 32
 DEVICE = "cuda"
+BASELINE = None  # another checkout's hist_kernels module (--baseline)
 BENCH_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": MAX_BIN,
                 "learning_rate": 0.1, "verbose": 0}
 
@@ -119,7 +130,7 @@ def auc(score, label):
 
 class Timer:
     """Median of per-launch CUDA-event times, L2 flushed before each
-    launch (a 64 MB write exceeds the card's 50 MB L2). A 0.1 ms device
+    launch (a 64 MB write exceeds the card's 50 MB L2). A 1 ms device
     sleep after the flush keeps the card busy while the host enqueues
     the call, so the time is the device's, not the host's wrapper time
     (that is host_us)."""
@@ -128,14 +139,17 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def __call__(self, fn, reps):
+    def __call__(self, fn, reps, sleep=True):
+        """With sleep=False the time includes the host's enqueue of the
+        call where it outlasts the flush."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
             self.flush.zero_()
-            torch.cuda._sleep(SLEEP_CYCLES)
+            if sleep:
+                torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -185,11 +199,67 @@ def host_us(torch, fn, reps=200):
     return us
 
 
+def ptxas_usage(text):
+    """[{kernel, registers, spill_stores, spill_loads}] from nvcc's
+    -Xptxas -v output (kernel names as ptxas prints them, mangled)."""
+    import re
+    rows, name, spill = [], None, (None, None)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (None, None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append({"kernel": name, "registers": int(m.group(1)),
+                         "spill_stores": spill[0], "spill_loads": spill[1]})
+            name = None
+    return rows
+
+
 def skew_bins(bins, rng):
     """60% of the entries moved to bin 0, as a sparse feature's zero bin
     (in place)."""
     bins[rng.rand(*bins.shape) < 0.6] = 0
     return bins
+
+
+def load_baseline(path):
+    """The histogram wrappers of the checkout at `path`, loaded under
+    another module name (they build that checkout's csrc into its own
+    csrc/build and count their launches apart from this one's)."""
+    import importlib.util
+    src = os.path.join(os.path.abspath(path), "lightgbm_tpu_torch", "ops",
+                       "hist_kernels.py")
+    spec = importlib.util.spec_from_file_location("baseline_hist_kernels", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_baseline(torch, timer, res, call, got):
+    """With --baseline: the other checkout's wrapper on the same inputs
+    must give the same bits; both of its times go beside this one's."""
+    if BASELINE is None:
+        return
+    hi, lo = call(BASELINE)
+    torch.cuda.synchronize()
+    res["baseline_same_bits"] = bool(torch.equal(hi, got[0])
+                                     and torch.equal(lo, got[1]))
+    res["baseline_ms"] = timer(lambda: call(BASELINE), 20)
+    res["baseline_ms_enqueued"] = timer(lambda: call(BASELINE), 20,
+                                        sleep=False)
+    res["baseline_host_us"] = host_us(torch, lambda: call(BASELINE))
+    log(f"  baseline: same bits {res['baseline_same_bits']} ms "
+        f"{res['baseline_ms']:.4f} (this {res['ms']:.4f}), enqueued "
+        f"{res['baseline_ms_enqueued']:.4f} (this {res['ms_enqueued']:.4f}), "
+        f"host_us {res['baseline_host_us']:.1f} (this {res['host_us']:.1f})")
+    check(res["baseline_same_bits"], "the baseline gave other bits")
 
 
 def compare(torch, got_pair, want_pair):
@@ -220,8 +290,9 @@ def check_case(res, name, cpu_check, skew):
 
 
 def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
-                cpu_check=False, skew=False):
-    """One kernel against its plain version on the same card inputs."""
+                cpu_check=False, skew=False, root=False):
+    """One kernel against its plain version on the same card inputs;
+    rows over 63 leaves, or with `root` every row in leaf 0."""
     dev = DEVICE
     np_dtype = np.uint8 if dtype == torch.uint8 else np.int16
     bins = rng.randint(0, b, size=(f, n)).astype(np_dtype)
@@ -229,7 +300,8 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
     inbag = (rng.rand(n) < 0.8).astype(np.float32)
     ghc = np.stack([rng.randn(n).astype(np.float32) * inbag,
                     rng.rand(n).astype(np.float32) * inbag, inbag])
-    row_leaf = torch.from_numpy(rng.randint(0, 63, size=n).astype(np.int32))
+    row_leaf = torch.from_numpy(np.zeros(n, np.int32) if root else
+                                rng.randint(0, 63, size=n).astype(np.int32))
     ghc_t = torch.from_numpy(ghc)
     ids = torch.tensor(leaf_ids, dtype=torch.int32)
     bins_d, ghc_d, rl_d, ids_d = (t.to(dev) for t in (bins, ghc_t, row_leaf,
@@ -254,7 +326,8 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
     err, count_exact, close = compare(torch, (hi1, lo1), plain())
     res = {"name": name, "shape": {"F": f, "N": n, "B": b,
                                    "bins": str(dtype).replace("torch.", ""),
-                                   "L": len(leaf_ids), "skew": skew},
+                                   "L": len(leaf_ids), "skew": skew,
+                                   "root": root},
            "max_abs_err": err, "count_exact": count_exact,
            "grad_hess_close": close, "deterministic": deterministic}
     if cpu_check:
@@ -284,6 +357,7 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
             0, key, src)[:cells]
 
     res["ms"] = timer(kern, 20)
+    res["ms_enqueued"] = timer(kern, 20, sleep=False)
     res["host_us"] = host_us(torch, kern)
     res["plain_ms"] = timer(plain, 3)
     res["library_ms"] = timer(library, 5)
@@ -296,6 +370,8 @@ def kernel_case(torch, hk, timer, name, f, n, b, dtype, leaf_ids, rng,
         + (f" bitwise_vs_cpu_plain {res['bitwise_vs_cpu_plain']}"
            if cpu_check else ""))
     check_case(res, name, cpu_check, skew)
+    time_baseline(torch, timer, res, lambda m: getattr(m, name)(
+        bins_d, ghc_d, rl_d, ids_d, b), (hi1, lo1))
     del key, src, slot
     return res
 
@@ -341,6 +417,7 @@ def seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt, b,
         return torch.zeros(f * b, 3, device=dev).index_add_(0, key, src)
 
     res["ms"] = timer(kern, 20)
+    res["ms_enqueued"] = timer(kern, 20, sleep=False)
     res["host_us"] = host_us(torch, kern)
     res["plain_ms"] = timer(plain, 3)
     res["library_ms"] = timer(library, 5)
@@ -352,6 +429,8 @@ def seg_kernel_case(torch, hk, timer, words, ghc, begin, cnt, b,
         + (f" bitwise_vs_cpu_plain {res['bitwise_vs_cpu_plain']}"
            if cpu_check else ""))
     check_case(res, "seg_hist", cpu_check, skew)
+    time_baseline(torch, timer, res, lambda m: m.seg_hist(
+        words_d, ghc_d, bounds_d, b), (hi1, lo1))
     del key, src
     return res
 
@@ -700,9 +779,13 @@ def kernel_line(case, launches, source, replaces):
 
 
 def main():
+    global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--baseline", default=None,
+                    help="another checkout whose kernels are timed beside "
+                         "these on the same inputs")
     args = ap.parse_args()
 
     import torch
@@ -731,6 +814,17 @@ def main():
         t0 = time.time()
         hk.build()
         report["build_s"] = time.time() - t0
+        report["ptxas"] = {src: ptxas_usage(out)
+                           for src, out in hk.BUILD_OUTPUT.items()}
+        for src, rows in report["ptxas"].items():
+            for r in rows:
+                log(f"ptxas {src}: {r['kernel'][:70]}: {r['registers']} "
+                    f"registers, spills {r['spill_stores']}/"
+                    f"{r['spill_loads']} bytes")
+        if args.baseline:
+            BASELINE = load_baseline(args.baseline)
+            BASELINE.build()
+            report["baseline"] = args.baseline
         log(f"kernels built in {report['build_s']:.1f}s")
 
         rng = np.random.RandomState(args.seed)
@@ -740,17 +834,17 @@ def main():
             kernel_case(torch, hk, timer, "masked_hist", N_FEATURES, n,
                         MAX_BIN, torch.uint8, [5], rng, cpu_check=True),
             kernel_case(torch, hk, timer, "frontier_hist", N_FEATURES, n,
-                        MAX_BIN, torch.uint8, [0], rng),
+                        MAX_BIN, torch.uint8, [0], rng, root=True),
             kernel_case(torch, hk, timer, "frontier_hist", N_FEATURES, n,
                         MAX_BIN, torch.uint8, [5, 17], rng),
             kernel_case(torch, hk, timer, "masked_hist", N_FEATURES, n, 300,
                         torch.int16, [5], rng),
             kernel_case(torch, hk, timer, "masked_hist", N_FEATURES, n,
-                        MAX_BIN, torch.uint8, [5], rng, cpu_check=True,
-                        skew=True),
+                        MAX_BIN, torch.uint8, [0], rng, cpu_check=True,
+                        skew=True, root=True),
             kernel_case(torch, hk, timer, "frontier_hist", N_FEATURES, n,
                         MAX_BIN, torch.uint8, [0], rng, cpu_check=True,
-                        skew=True),
+                        skew=True, root=True),
         ]
         report["kernel_cases"] = cases
         seg_cases = seg_kernel_cases(torch, hk, timer, rng)

@@ -29,10 +29,10 @@
 //   buffered: the next sub-chunk loads while this one is summed. The
 //   inner loop reads shared memory only, and each bin or packed word is
 //   read from device memory once per block.
-// - Feature tiles. One warp per feature and f_tile features a block,
-//   a launch parameter (the wrappers pass the tile their timing chose:
-//   small tiles spread a short segment over the card, large ones stage
-//   a chunk's g, h, w and row_leaf fewer times).
+// - Feature tiles. One warp per feature and up to Rows::kFeatureTile
+//   features a block, a constant of each policy: small tiles spread a
+//   short segment over the card, large ones stage a chunk's g, h, w and
+//   row_leaf fewer times.
 // - Empty steps. Where a policy's rows are scattered over the slots
 //   (kSkipEmptySteps: a small leaf leaves most 32-row steps without a
 //   row of the frontier), the block marks once per staged sub-chunk
@@ -46,7 +46,9 @@
 //   the mask of lanes that share its key, and the group's first lane
 //   clears it. This is the mask __match_any_sync gives (and a ballot
 //   per key bit), which the card computes more slowly when many keys
-//   are distinct.
+//   are distinct. Where the tag words do not fit in shared memory beside
+//   the partial (wide int16 bins, or many leaves), __match_any_sync gives
+//   the mask: the same mask, so the same bits.
 // - Leader accumulation. The lowest lane of each group (the leader)
 //   reads its cell once, adds its own values and then its peers' in
 //   lane order, fetched with __shfl_sync in a warp-uniform loop over
@@ -202,13 +204,13 @@ __device__ __forceinline__ void leader_add(float* hist, bool valid,
 
 // Block (tile, chunk) = (blockIdx.x % tiles, blockIdx.x / tiles); blockDim
 // = 32 * f_tile. Shared memory: the (slots, f_tile, B, 3) partial, two
-// staging buffers, each warp's (slots, B) tag words, then the sub-chunk's
-// kSub / 32 step masks.
+// staging buffers, each warp's (slots, B) tag words (with use_tags), then
+// the sub-chunk's kSub / 32 step masks.
 template <class Rows>
 __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
                                int n, int num_bins, int num_slots,
                                int num_feat, int f_tile, int tiles,
-                               float* __restrict__ partials) {
+                               bool use_tags, float* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = blockIdx.x % tiles;
   const int chunk = blockIdx.x / tiles;
@@ -236,10 +238,11 @@ __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
   const int unit0 = f0 / Rows::kFeatPerUnit;
   unsigned* tags = reinterpret_cast<unsigned*>(buf[1] + stage_bytes<Rows>(tile_units));
   unsigned* tag_w = tags + warp * keys;
-  unsigned* step_any = tags + num_warps * keys;
+  unsigned* step_any = tags + (use_tags ? num_warps * keys : 0);
 
   for (int i = tid; i < cells; i += blockDim.x) hist_s[i] = 0.0f;
-  for (int i = tid; i < num_warps * keys; i += blockDim.x) tags[i] = 0u;
+  if (use_tags)
+    for (int i = tid; i < num_warps * keys; i += blockDim.x) tags[i] = 0u;
   if (s_first <= s_last) {
     stage(rows, ghc_t, n, chunk_base + (long)s_first * kSub, unit0, units,
           buf[0]);
@@ -285,11 +288,15 @@ __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
         const int key = slot * num_bins + bin;
         unsigned peers = any;     // one row: its own lane
         if (any & (any - 1u)) {   // warp-uniform
-          if (valid) atomicOr(tag_w + key, 1u << lane);
-          __syncwarp();
-          if (valid) peers = tag_w[key];
-          __syncwarp();
-          if (valid && __ffs(peers) - 1 == lane) tag_w[key] = 0u;
+          if (use_tags) {         // block-uniform
+            if (valid) atomicOr(tag_w + key, 1u << lane);
+            __syncwarp();
+            if (valid) peers = tag_w[key];
+            __syncwarp();
+            if (valid && __ffs(peers) - 1 == lane) tag_w[key] = 0u;
+          } else {
+            peers = __match_any_sync(kFull, valid ? key : -1);
+          }
         }
         leader_add(hist_f, valid, peers, slot * slot_len + bin * 3, g_s[r],
                    h_s[r], w_s[r], lane);
@@ -375,41 +382,47 @@ cudaError_t allow_shared(int bytes) {
   return err;
 }
 
-// Launch both passes. f_tile is the features a block takes (rounded to
-// whole units, shrunk until the block fits in shared memory, balanced
-// over the tiles); `bounds` (device [begin, cnt], or null) picks the
-// chunks the fold reads. The staged inputs must be 16-byte aligned.
+// Launch both passes. A block takes Rows::kFeatureTile features (fewer
+// when there are fewer, shrunk by whole units until the block fits in
+// shared memory, then balanced over the tiles); `bounds` (device [begin,
+// cnt], or null) picks the chunks the fold reads. The staged inputs must
+// be 16-byte aligned.
 template <class Rows>
 int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
-           int num_bins, int num_slots, int num_feat, int f_tile,
-           float* partials, float* hi, float* lo, cudaStream_t stream) {
+           int num_bins, int num_slots, int num_feat, float* partials,
+           float* hi, float* lo, cudaStream_t stream) {
   constexpr int kU = Rows::kFeatPerUnit;
+  static_assert(Rows::kFeatureTile % kU == 0 &&
+                    Rows::kFeatureTile <= kMaxWarps,
+                "a tile is whole units of at most kMaxWarps features");
   if (num_slots < 1 || num_slots > kMaxSlots || num_feat < 1 ||
       num_feat % kU != 0 || n < kChunk || n % kChunk != 0 || num_bins < 1 ||
-      f_tile < 1 ||
       ((reinterpret_cast<uintptr_t>(rows.units) |
         reinterpret_cast<uintptr_t>(rows.aux) |
         reinterpret_cast<uintptr_t>(ghc_t)) & 15) != 0)
     return kBadShape;
   const int keys = num_slots * num_bins;
-  auto need = [&](int ft) {  // partial, staging, tag words, step masks
+  // partial, staging, tag words (one per key and warp), step masks
+  auto need = [&](int ft, bool tags) {
     return ((ft * keys * 12 + 15) & ~15) +
-           2 * stage_bytes<Rows>((ft + kU - 1) / kU) + ft * keys * 4 +
-           kSub / 32 * 4;
+           2 * stage_bytes<Rows>((ft + kU - 1) / kU) +
+           (tags ? ft * keys * 4 : 0) + kSub / 32 * 4;
   };
-  int ft = f_tile < num_feat ? f_tile : num_feat;
-  ft = ft < kMaxWarps ? ft : kMaxWarps;
-  ft = (ft + kU - 1) / kU * kU;
-  while (ft > kU && need(ft) > max_shared_bytes()) ft -= kU;
-  if (need(ft) > max_shared_bytes()) return kNoFit;
+  const int max_smem = max_shared_bytes();
+  // tag words where a one-unit tile fits with them, else __match_any_sync
+  const bool use_tags = need(kU, true) <= max_smem;
+  int ft = Rows::kFeatureTile < num_feat ? Rows::kFeatureTile : num_feat;
+  while (ft > kU && need(ft, use_tags) > max_smem) ft -= kU;
+  if (need(ft, use_tags) > max_smem) return kNoFit;
   const int tiles = (num_feat + ft - 1) / ft;
   ft = ((num_feat + tiles - 1) / tiles + kU - 1) / kU * kU;  // balance
-  const int smem = need(ft);
+  const int smem = need(ft, use_tags);
   cudaError_t err = allow_shared<Rows>(smem);
   if (err != cudaSuccess) return (int)err;
   const int chunks = n / kChunk;
   chunk_partials<Rows><<<(unsigned)(chunks * tiles), 32 * ft, smem, stream>>>(
-      rows, ghc_t, n, num_bins, num_slots, num_feat, ft, tiles, partials);
+      rows, ghc_t, n, num_bins, num_slots, num_feat, ft, tiles, use_tags,
+      partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long cells = (long)num_slots * num_feat * num_bins * 3;

@@ -23,11 +23,16 @@
 // array, so most 32-row steps of a small leaf hold none of its rows and
 // are skipped (kSkipEmptySteps).
 //
+// A block takes every feature up to 32 (kFeatureTile, one warp each):
+// a chunk's g, h, w and row_leaf are then staged once. Smaller tiles
+// stage them once per tile and measured slower on a small leaf, which
+// is 62 of a tree's 63 launches (PERF.md).
+//
 // Bound on this card. Each call must read the bins (F*N bytes at
 // uint8), ghc_t (12*N bytes) and row_leaf (4*N bytes) once: 44 MB at
 // 1M x 28 uint8, about 13 us at 3.35 TB/s; the outputs are small. The
-// design reads g, h, w and row_leaf once per feature tile (one tile of
-// all features at the wrappers' f_tile of 28) and writes and reads back
+// design reads g, h, w and row_leaf once per feature tile (one tile at
+// up to 32 features) and writes and reads back
 // the chunk partials, chunks*L*F*B*12 bytes (22 MB per leaf at 1M x 28 x
 // 255, L2-resident): without any step this floor is about 4x the byte
 // bound. On top come the steps that hold rows of the frontier (peer
@@ -46,6 +51,7 @@ template <typename BinT>
 struct LeafRows {
   static constexpr int kUnitBytes = sizeof(BinT);
   static constexpr int kFeatPerUnit = 1;
+  static constexpr int kFeatureTile = kMaxWarps;
   static constexpr bool kAux = true;  // row_leaf is staged
   static constexpr bool kSkipEmptySteps = true;
   const BinT* units;
@@ -79,23 +85,23 @@ struct LeafRows {
 template <typename BinT>
 int run(const void* bins, const float* ghc_t, const int* row_leaf,
         const int* leaf_ids, int num_leaf, int num_feat, int n, int num_bins,
-        int f_tile, float* partials, float* hi, float* lo, void* stream) {
+        float* partials, float* hi, float* lo, void* stream) {
   LeafRows<BinT> rows{static_cast<const BinT*>(bins), row_leaf, leaf_ids,
                       num_leaf, {}};
-  return launch(rows, ghc_t, nullptr, n, num_bins, num_leaf, num_feat, f_tile,
+  return launch(rows, ghc_t, nullptr, n, num_bins, num_leaf, num_feat,
                 partials, hi, lo, static_cast<cudaStream_t>(stream));
 }
 
 int dispatch(const void* bins, int bin_bytes, const float* ghc_t,
              const int* row_leaf, const int* leaf_ids, int num_leaf,
-             int num_feat, int n, int num_bins, int f_tile, float* partials,
-             float* hi, float* lo, void* stream) {
+             int num_feat, int n, int num_bins, float* partials, float* hi,
+             float* lo, void* stream) {
   if (bin_bytes == 1)
     return run<uint8_t>(bins, ghc_t, row_leaf, leaf_ids, num_leaf, num_feat, n,
-                        num_bins, f_tile, partials, hi, lo, stream);
+                        num_bins, partials, hi, lo, stream);
   if (bin_bytes == 2)
     return run<int16_t>(bins, ghc_t, row_leaf, leaf_ids, num_leaf, num_feat, n,
-                        num_bins, f_tile, partials, hi, lo, stream);
+                        num_bins, partials, hi, lo, stream);
   return kBadShape;
 }
 
@@ -104,24 +110,23 @@ int dispatch(const void* bins, int bin_bytes, const float* ghc_t,
 extern "C" {
 
 // (F, B, 3) pair of the rows with row_leaf == *leaf_id (one leaf id in
-// device memory). partials: chunks*F*B*3 floats of scratch; f_tile:
-// features per block.
+// device memory). partials: chunks*F*B*3 floats of scratch.
 int masked_hist(const void* bins, int bin_bytes, const float* ghc_t,
                 const int* row_leaf, const int* leaf_id, int num_feat, int n,
-                int num_bins, int f_tile, float* partials, float* hi,
-                float* lo, void* stream) {
+                int num_bins, float* partials, float* hi, float* lo,
+                void* stream) {
   return dispatch(bins, bin_bytes, ghc_t, row_leaf, leaf_id, 1, num_feat, n,
-                  num_bins, f_tile, partials, hi, lo, stream);
+                  num_bins, partials, hi, lo, stream);
 }
 
 // (L, F, B, 3) pair for L distinct leaf ids in device memory, one pass
 // over the bins. partials: chunks*L*F*B*3 floats of scratch.
 int frontier_hist(const void* bins, int bin_bytes, const float* ghc_t,
                   const int* row_leaf, const int* leaf_ids, int num_leaf,
-                  int num_feat, int n, int num_bins, int f_tile,
-                  float* partials, float* hi, float* lo, void* stream) {
+                  int num_feat, int n, int num_bins, float* partials,
+                  float* hi, float* lo, void* stream) {
   return dispatch(bins, bin_bytes, ghc_t, row_leaf, leaf_ids, num_leaf,
-                  num_feat, n, num_bins, f_tile, partials, hi, lo, stream);
+                  num_feat, n, num_bins, partials, hi, lo, stream);
 }
 
 const char* hist_status_string(int status) {

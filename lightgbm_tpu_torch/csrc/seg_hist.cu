@@ -24,8 +24,11 @@
 // the work follows the segment, not N. The fold reads the covered chunks
 // only, c_first..c_last in order: partials of other chunks are never
 // written nor read (trailing zero chunks would change the Kahan bits).
-// The rest of the design (staging, one word of four features per
-// block, leader accumulation) is chunk_hist.cuh's; this file says how a
+// A block takes one word of four features (kFeatureTile): a segment of
+// a few chunks then spreads over W times more blocks. Wider tiles stage
+// g, h, w fewer times but measured slower on long segments (PERF.md).
+// The rest of the design (staging, peer masks, leader
+// accumulation, the fold) is chunk_hist.cuh's; this file says how a
 // row is read: a feature's byte is ((unsigned)word >> 8 * (f & 3)) &
 // 0xFF (unsigned shift: feature 3 of a word holds the sign bit), and its
 // slot is 0 inside [begin, begin + cnt), -1 outside.
@@ -50,6 +53,7 @@ namespace {
 struct SegRows {
   static constexpr int kUnitBytes = 4;
   static constexpr int kFeatPerUnit = 4;
+  static constexpr int kFeatureTile = 4;
   static constexpr bool kAux = false;
   static constexpr bool kSkipEmptySteps = false;
   const int* units;
@@ -88,15 +92,14 @@ extern "C" {
 // ((num_feat, B, 3) value, residual) over the leaf-ordered rows
 // [bounds[0], bounds[0] + bounds[1]); bounds is a (2,) int32 tensor in
 // device memory. words: (num_feat / 4, n) int32; ghc_t: (3, n) f32;
-// partials: (n / 4096) * num_feat * B * 3 floats of scratch; f_tile:
-// features per block (a multiple of 4).
+// partials: (n / 4096) * num_feat * B * 3 floats of scratch.
 int seg_hist(const int* words, const float* ghc_t, const int* bounds,
-             int num_feat, int n, int num_bins, int f_tile, float* partials,
-             float* hi, float* lo, void* stream) {
+             int num_feat, int n, int num_bins, float* partials, float* hi,
+             float* lo, void* stream) {
   if (num_bins > 256) return kBadShape;
   SegRows rows{words, nullptr, bounds, 0, 0};
-  return launch(rows, ghc_t, bounds, n, num_bins, 1, num_feat, f_tile,
-                partials, hi, lo, static_cast<cudaStream_t>(stream));
+  return launch(rows, ghc_t, bounds, n, num_bins, 1, num_feat, partials, hi,
+                lo, static_cast<cudaStream_t>(stream));
 }
 
 const char* seg_status_string(int status) {

@@ -42,18 +42,16 @@ import subprocess
 import torch
 
 HIST_CHUNK = 4096
-# features per block (one warp each) of masked_hist/frontier_hist and of
-# seg_hist, chosen by timing tiles of 4 to 28 features on the card
-# (PERF.md; bench/hist_attribution.py)
-HIST_FEATURE_TILE = 28
-SEG_FEATURE_TILE = 4
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 SOURCES = ("hist.cu", "seg_hist.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# nvcc's output for each source this process built: ptxas's registers
+# and spills of every kernel (-Xptxas -v)
+BUILD_OUTPUT = {}
 
 _BIN_BYTES = {torch.uint8: 1, torch.int16: 2}
 
@@ -135,6 +133,7 @@ def build(sources=SOURCES):
         if proc.returncode != 0:
             failed.append(f"{src}:\n{out}")
             continue
+        BUILD_OUTPUT[src] = out
         os.replace(tmp, paths[src])  # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -143,9 +142,9 @@ def build(sources=SOURCES):
 
 def _bind_hist(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_hist.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p]
+    lib.masked_hist.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
     lib.masked_hist.restype = i
-    lib.frontier_hist.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.frontier_hist.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p]
     lib.frontier_hist.restype = i
     lib.hist_status_string.argtypes = [i]
     lib.hist_status_string.restype = ctypes.c_char_p
@@ -156,7 +155,7 @@ def _bind_hist(lib):
 
 def _bind_seg_hist(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.seg_hist.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
+    lib.seg_hist.argtypes = [p, p, p, i, i, i, p, p, p, p]
     lib.seg_hist.restype = i
     lib.seg_status_string.argtypes = [i]
     lib.seg_status_string.restype = ctypes.c_char_p
@@ -354,8 +353,8 @@ def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
     lo = torch.empty_like(hi)
     common = (bins.data_ptr(), _BIN_BYTES[bins.dtype], ghc_t.data_ptr(),
               row_leaf.data_ptr(), leaf_ids.data_ptr())
-    tail = (f, n, b, HIST_FEATURE_TILE, partials.data_ptr(), hi.data_ptr(),
-            lo.data_ptr(), _stream(dev))
+    tail = (f, n, b, partials.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            _stream(dev))
     if name == "masked_hist":
         status = lib.masked_hist(*common, *tail)
     else:
@@ -420,9 +419,8 @@ def seg_hist(words, ghc_t, bounds, num_bins):
     hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
     status = lib.seg_hist(words.data_ptr(), ghc_t.data_ptr(),
-                          bounds.data_ptr(), f, n, b, SEG_FEATURE_TILE,
-                          partials.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-                          _stream(dev))
+                          bounds.data_ptr(), f, n, b, partials.data_ptr(),
+                          hi.data_ptr(), lo.data_ptr(), _stream(dev))
     if status != 0:
         raise RuntimeError("seg_hist launch failed: "
                            f"{lib.seg_status_string(status).decode()}")

@@ -40,11 +40,18 @@ def _ids(ids):
     return torch.tensor(ids, dtype=torch.int32)
 
 
+# widths whose per-warp tag words do not fit in shared memory beside the
+# chunk partial, so the kernel finds peers with __match_any_sync: int16
+# bins at 16,000 bins, and 8 leaves of 2,000 bins
+WIDE = [("masked_hist", [3], 16000, np.int16),
+        ("frontier_hist", [0, 1, 2, 3, 4, 5, 6, 7], 2000, np.int16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,ids,b,dtype", [
     ("masked_hist", [1], 255, np.uint8),
     ("frontier_hist", [0, 2], 255, np.uint8),
-    ("masked_hist", [3], 300, np.int16)])
+    ("masked_hist", [3], 300, np.int16)] + WIDE)
 def test_kernel_bitwise_equals_cpu_plain_on_card(name, ids, b, dtype):
     """On the card: the CUDA kernel adds in row order within a chunk, so
     it equals the plain version run on the CPU bit for bit, and two
@@ -117,7 +124,7 @@ def _stats(n, rng):
 @pytest.mark.parametrize("name,ids,b,dtype", [
     ("masked_hist", [1], 255, np.uint8),
     ("frontier_hist", [0, 1, 2, 3, 4, 5, 6, 7], 255, np.uint8),
-    ("masked_hist", [3], 300, np.int16)])
+    ("masked_hist", [3], 300, np.int16)] + WIDE)
 def test_kernel_skewed_bins_bitwise_on_card(name, ids, b, dtype, skew):
     """Heavy bin collisions (up to all 32 lanes of a step on one cell)
     keep the row-order bits: equal to the plain version on the CPU, and
