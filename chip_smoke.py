@@ -48,11 +48,35 @@ Phases (any failure exits non-zero and prints no result line):
    frontier launch), its first tree against the masked path's, no host
    sync inside build_tree_partitioned, one tree build profiled; then a
    2-round cache-less partitioned run;
-6. categorical features: the bench matrix plus 4 integer columns of 32
+6. the fused trainer (one boosting iteration captured as a CUDA graph,
+   replayed once an iteration), masked and then partitioned:
+   lightgbm_tpu_torch.train with no callbacks (the fast path, one
+   block of 10), launch counts read from zero and counted through the
+   replays (the warm-up step's and 10 replays' launches, so 620
+   masked_hist + 10 frontier_hist, or 630 seg_hist, at least), the
+   model against the per-iteration phase's (splits exact, leaf values
+   within 1e-4 relative, and whether the text is equal byte for byte),
+   AUC, peak memory within 2x the per-iteration phase's; then on a
+   booster of its own the capture timed (warm_up_fused), three blocks
+   of 10 timed, no host sync in a block but its one transfer (sync
+   debug "warn"), and one replay profiled;
+7. the fused trainer with bagging (0.7, every 2 rounds) and
+   feature_fraction 0.75 on the masked, partitioned and cache-less
+   builders, 4 rounds each: model text equal to the per-iteration
+   loop's byte for byte, and no host sync in a block but its one
+   transfer;
+8. blockwise engine.train: a 100k-row valid set, early stopping after
+   5 rounds, evals_result, 20 rounds, against the per-iteration path
+   (a no-op callback): the same best iteration, trees and history
+   (exact when the model text is equal, else within 1e-5 relative);
+   once with the held-out labels (no stop) and once with labels drawn
+   at random, where the stop breaks inside a block;
+9. categorical features: the bench matrix plus 4 integer columns of 32
    categories that enter the label's logit, declared categorical, 3
    rounds with each builder: categorical splits, the same first tree,
    predict against the host traversal;
-7. a `kernels` JSON line, the card line, and the result line.
+10. a `kernels` JSON line (launches from the fused phases), the card
+    line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -113,6 +137,19 @@ def make_data(n, seed, f=N_FEATURES, n_cat=0):
         effect = rng.randn(n_cat, N_CATEGORIES).astype(np.float32)
         logit = logit + effect[np.arange(n_cat), cats].sum(1)
         x = np.concatenate([x, cats.astype(np.float32)], axis=1)
+    return x, (logit > 0).astype(np.float32)
+
+
+def make_valid(n, seed):
+    """n held-out rows of make_data(N_ROWS, seed)'s problem: its feature
+    weights (drawn after its N_ROWS x N_FEATURES features), with
+    features and noise of their own."""
+    rng = np.random.RandomState(seed)
+    rng.randn(N_ROWS, N_FEATURES)
+    w = rng.randn(N_FEATURES).astype(np.float32) / np.sqrt(N_FEATURES)
+    rng = np.random.RandomState(seed + 1)
+    x = rng.randn(n, N_FEATURES).astype(np.float32)
+    logit = x @ w + 0.5 * rng.randn(n).astype(np.float32)
     return x, (logit > 0).astype(np.float32)
 
 
@@ -478,11 +515,27 @@ def train_rounds(torch, lgt, params, ds, rounds):
     return booster, round_ms
 
 
+def memory_mark(torch):
+    """Start a peak-memory window: returns the bytes allocated now."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def memory_peak(torch, start):
+    """{peak bytes, peak above the window's start} since memory_mark."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_bytes": peak, "peak_above_start_bytes": peak - start}
+
+
 def phase_main(torch, lgt, hk, ds, y):
     """10 rounds of the bench workload; counts read from zero."""
+    mem0 = memory_mark(torch)
     hk.reset_launch_counts()
     booster, round_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds, N_ROUNDS)
     counts = hk.launch_counts()
+    memory = memory_peak(torch, mem0)
     gbdt = booster.gbdt
     train_auc = auc(gbdt.get_training_score(), y)
     log(f"main path: per-round ms {[round(v, 1) for v in round_ms]}, "
@@ -498,7 +551,7 @@ def phase_main(torch, lgt, hk, ds, y):
     return booster, {"round_ms": round_ms,
                      "round_ms_median": float(np.median(round_ms)),
                      "train_auc": train_auc, "launches": counts,
-                     "leaves": leaves}
+                     "leaves": leaves, "memory": memory}
 
 
 def builder_syncs(torch, build, args, kwargs):
@@ -677,9 +730,11 @@ def phase_partitioned(torch, lgt, hk, ds, y, main_booster):
     path's (the JAX package's builder-parity contract,
     tests/test_partitioned.py:151-156)."""
     params = dict(BENCH_PARAMS, partitioned_build="true")
+    mem0 = memory_mark(torch)
     hk.reset_launch_counts()
     booster, round_ms = train_rounds(torch, lgt, params, ds, N_ROUNDS)
     counts = hk.launch_counts()
+    memory = memory_peak(torch, mem0)
     gbdt = booster.gbdt
     train_auc = auc(gbdt.get_training_score(), y)
     same_feat, same_thr, rel = same_first_tree(
@@ -698,7 +753,7 @@ def phase_partitioned(torch, lgt, hk, ds, y, main_booster):
     check(same_feat and same_thr,
           "the partitioned first tree differs from the masked one")
     check(rel <= 1e-4, f"first-tree leaf values differ by {rel} relative")
-    return booster, {"round_ms": round_ms,
+    return booster, {"memory": memory, "round_ms": round_ms,
                      "round_ms_median": float(np.median(round_ms)),
                      "train_auc": train_auc, "launches": counts,
                      "first_tree_same_features": bool(same_feat),
@@ -766,6 +821,324 @@ def phase_categorical(torch, lgt, seed):
     check(same_feat and same_thr and rel <= 1e-4,
           "categorical: the two builders grew different first trees")
     res["first_tree_leaf_rel_diff"] = rel
+    return res
+
+
+def fused_runner(booster):
+    """The booster's fused block runner (GBDT._get_fused_fn's cache)."""
+    runners = list(booster.gbdt._fused_cache.values())
+    check(len(runners) == 1, f"{len(runners)} fused runners, not one")
+    return runners[0]
+
+
+def same_trees(a, b):
+    """(model text equal, splits and thresholds equal in every tree, max
+    leaf rel diff): the JAX package's fused-vs-sequential contract
+    (tests/test_core_training.py:167-199) is splits and thresholds
+    exact, leaf values within rtol 1e-4."""
+    ta, tb = a.gbdt.models, b.gbdt.models
+    splits = len(ta) == len(tb) and all(
+        np.array_equal(x.split_feature, y.split_feature)
+        and np.array_equal(x.threshold_in_bin, y.threshold_in_bin)
+        for x, y in zip(ta, tb))
+    rel = max([float(np.max(np.abs(x.leaf_value - y.leaf_value)
+                            / np.maximum(np.abs(y.leaf_value), 1e-12)))
+               for x, y in zip(ta, tb)] + [0.0])
+    return a.model_to_string() == b.model_to_string(), splits, rel
+
+
+def transfer_line():
+    """gbdt.py's line of the fused block's one device -> host transfer,
+    the only sync a block may make."""
+    from lightgbm_tpu_torch.models import gbdt
+    with open(gbdt.__file__) as f:
+        for i, line in enumerate(f, 1):
+            if "ONE transfer a block" in line:
+                return f"models/gbdt.py:{i}"
+    raise PhaseError("the fused block's transfer line was not found")
+
+
+def sync_sites(torch, fn):
+    """Every host sync `fn` makes, as file:line, from torch.cuda's sync
+    debug mode "warn"."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{w.filename.split('lightgbm_tpu_torch/')[-1]}:{w.lineno}"
+                   for w in caught if "synchron" in str(w.message).lower()
+                   and "prototype" not in str(w.message)})
+
+
+def profile_replay(torch, runner, reps=5):
+    """One replayed iteration under torch.profiler: device busy = the sum
+    of its kernels' device times, device span = first kernel start to
+    last kernel end, idle share = 1 - busy / span. Then `reps` replays
+    without the profiler, each timed with CUDA events (the profiler's
+    tracing of 17k kernels slows the replay itself)."""
+    from torch.profiler import ProfilerActivity, profile
+    runner.counter.zero_()     # a replay reads and writes row 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    span = ((max(e.time_range.end for e in kernels)
+             - min(e.time_range.start for e in kernels)) / 1e3
+            if kernels else 0.0)
+    times = []
+    for _ in range(reps):
+        runner.counter.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        runner.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"device_ops": len(kernels),
+            "device_busy_ms": busy if kernels else None,
+            "device_span_ms": span if kernels else None,
+            "device_idle_share": (1.0 - busy / span) if span else None,
+            "replay_event_ms": float(np.median(times)),
+            "replay_event_ms_all": times}
+
+
+def phase_fused(torch, lgt, hk, ds, y, per_iter, per_iter_res, params,
+                name):
+    """The fused trainer on the bench workload: lgt.train with no
+    callbacks (the fast path: one block of 10 replays of a captured
+    iteration), counts read from zero; its model against the
+    per-iteration phase's; then, on a booster of its own, the capture
+    timed (warm_up_fused), three blocks of 10 timed, the block's host
+    syncs listed, and one replay profiled."""
+    mem0 = memory_mark(torch)
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    booster = lgt.train(params, ds, N_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = hk.launch_counts()
+    memory = memory_peak(torch, mem0)
+    runner = fused_runner(booster)
+    per_replay = dict(runner.graph.launches) if runner.graph else {}
+    text_equal, splits_equal, rel = same_trees(booster, per_iter)
+    train_auc = auc(booster.gbdt.get_training_score(), y)
+    setup_s = runner.warm_step_s + runner.capture_s
+    res = {"train_s": train_s, "warm_step_s": runner.warm_step_s,
+           "capture_s": runner.capture_s,
+           "train_ms_per_round_without_capture":
+               1e3 * (train_s - setup_s) / N_ROUNDS,
+           "launches": counts, "launches_per_replay": per_replay,
+           "model_text_equal": text_equal, "splits_equal": splits_equal,
+           "leaf_rel_diff": rel, "train_auc": train_auc, "memory": memory,
+           "memory_per_iteration": per_iter_res["memory"]}
+    log(f"fused {name}: train {train_s:.3f} s (warm-up step "
+        f"{runner.warm_step_s:.3f} s, capture {runner.capture_s:.3f} s), "
+        f"launches {counts} ({per_replay} a replay), model text equal "
+        f"to the per-iteration one {text_equal} (splits {splits_equal}, leaf "
+        f"rel diff {rel:.3g}), AUC {train_auc:.5f}, peak above start "
+        f"{memory['peak_above_start_bytes'] / 2**20:.1f} MiB (per-iteration "
+        f"{per_iter_res['memory']['peak_above_start_bytes'] / 2**20:.1f})")
+    check(runner.graph is not None, f"fused {name}: no graph was captured")
+    check(len(booster.gbdt.models) == N_ROUNDS, f"fused {name}: stopped early")
+    # the warm-up step launches what one replay does: every other launch
+    # was counted through the replays
+    for kname, c in per_replay.items():
+        check(counts[kname] == (N_ROUNDS + 1) * c,
+              f"fused {name}: {kname} counted {counts[kname]}, not "
+              f"{N_ROUNDS + 1} x {c}")
+    if params.get("partitioned_build") == "true":
+        check(counts["seg_hist"] >= N_ROUNDS * 63,
+              f"fused {name}: seg_hist launched {counts['seg_hist']} times")
+    else:
+        check(counts["masked_hist"] >= N_ROUNDS * 62,
+              f"fused {name}: masked_hist launched {counts['masked_hist']}")
+        check(counts["frontier_hist"] >= N_ROUNDS,
+              f"fused {name}: frontier_hist launched "
+              f"{counts['frontier_hist']}")
+    check(splits_equal and rel <= 1e-4,
+          f"fused {name}: trees differ from the per-iteration ones")
+    check(train_auc > 0.8, f"fused {name}: train AUC {train_auc} too low")
+    check(memory["peak_above_start_bytes"]
+          <= 2 * per_iter_res["memory"]["peak_above_start_bytes"],
+          f"fused {name}: peak memory above 2x the per-iteration phase's")
+    del booster, runner
+
+    # timing on a booster of its own: capture excluded, as bench.py
+    # excludes compilation
+    booster = lgt.Booster(params, ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(booster.gbdt.warm_up_fused(N_ROUNDS), f"fused {name}: not eligible")
+    torch.cuda.synchronize()
+    res["warm_up_s"] = time.perf_counter() - t0
+    runner = fused_runner(booster)
+    res["timed_warm_step_s"] = runner.warm_step_s
+    res["timed_capture_s"] = runner.capture_s
+    block_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster.gbdt.train_many(N_ROUNDS)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - t0))
+    res["block_ms"] = block_ms
+    res["round_ms_median"] = float(np.median(block_ms)) / N_ROUNDS
+    allowed = transfer_line()
+    sites = sync_sites(torch, lambda: booster.gbdt.train_many(N_ROUNDS))
+    res["block_sync_sites"] = sites
+    res["profile"] = profile_replay(torch, fused_runner(booster))
+    prof = res["profile"]
+    log(f"fused {name}: warm_up_fused {res['warm_up_s']:.3f} s (warm-up "
+        f"step {runner.warm_step_s:.3f} s, capture {runner.capture_s:.3f} s); "
+        f"blocks of "
+        f"{N_ROUNDS} {[round(v, 1) for v in block_ms]} ms, round median "
+        f"{res['round_ms_median']:.2f} ms (per-iteration "
+        f"{per_iter_res['round_ms_median']:.2f}); syncs in a block {sites}; "
+        f"one replay profiled: device busy {prof['device_busy_ms']} ms over "
+        f"{prof['device_ops']} ops in a span of {prof['device_span_ms']} ms, "
+        f"idle share {prof['device_idle_share']}; unprofiled replays "
+        f"{[round(v, 2) for v in prof['replay_event_ms_all']]} ms (events)")
+    check(sites == [allowed],
+          f"fused {name}: host syncs inside a block at {sites} (only "
+          f"{allowed} may sync)")
+    return res
+
+
+SAMPLED_ROUNDS = 4
+SAMPLING = {"bagging_fraction": 0.7, "bagging_freq": 2,
+            "feature_fraction": 0.75}
+
+
+def phase_fused_sampled(torch, lgt, ds):
+    """The fused trainer with bagging (0.7, a new bag every 2 rounds) and
+    feature_fraction 0.75, on the masked, partitioned and cache-less
+    masked builders, 4 rounds each: the bag copied into the graph's
+    static in-bag buffer between replays, each tree's feature mask read
+    in the graph by the device counter. The model text must equal the
+    per-iteration loop's byte for byte, and a second block may sync the
+    host only at its one transfer (the bag's on-device randperm
+    included)."""
+    allowed = transfer_line()
+    res = {}
+    for name, extra in (("masked", {}),
+                        ("partitioned", {"partitioned_build": "true"}),
+                        ("cacheless", {"histogram_pool_size": 1})):
+        params = dict(BENCH_PARAMS, **SAMPLING, **extra)
+        loop = lgt.train(params, ds, SAMPLED_ROUNDS, verbose_eval=False,
+                         callbacks=[lambda env: None])
+        booster = lgt.train(params, ds, SAMPLED_ROUNDS, verbose_eval=False)
+        torch.cuda.synchronize()
+        runner = fused_runner(booster)
+        check(len(booster.gbdt.models) == SAMPLED_ROUNDS,
+              f"fused sampled {name}: stopped early")
+        text_equal, splits_equal, rel = same_trees(booster, loop)
+        sites = sync_sites(
+            torch, lambda: booster.gbdt.train_many(SAMPLED_ROUNDS))
+        res[name] = {"model_text_equal": text_equal,
+                     "splits_equal": splits_equal, "leaf_rel_diff": rel,
+                     "block_sync_sites": sites,
+                     "launches_per_replay": dict(runner.graph.launches)
+                     if runner.graph else {}}
+        log(f"fused sampled {name}: model text equal to the per-iteration "
+            f"one {text_equal} (splits {splits_equal}, leaf rel diff "
+            f"{rel:.3g}); syncs in a block {sites}; "
+            f"{res[name]['launches_per_replay']} a replay")
+        check(runner.graph is not None,
+              f"fused sampled {name}: no graph was captured")
+        check(booster.gbdt.tree_learner.cache_hists is (name != "cacheless"),
+              f"fused sampled {name}: the histogram cache is not as asked")
+        check(text_equal, f"fused sampled {name}: the model text differs "
+              "from the per-iteration loop's")
+        check(sites == [allowed],
+              f"fused sampled {name}: host syncs inside a block at {sites} "
+              f"(only {allowed} may sync)")
+        del booster, loop, runner
+    return res
+
+
+def blockwise_case(torch, lgt, ds, dva, rounds):
+    """engine.train with the valid set, early stopping after 5 rounds and
+    evals_result, blockwise and per-iteration (forced by a no-op
+    callback): the same best iteration, model text and history."""
+    params = dict(BENCH_PARAMS, metric=["auc", "binary_logloss"])
+    runs = {}
+    for mode in ("per_iteration", "blockwise"):
+        ev = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = lgt.train(params, ds, rounds, valid_sets=[dva],
+                            early_stopping_rounds=5, evals_result=ev,
+                            verbose_eval=False,
+                            callbacks=([lambda env: None]
+                                       if mode == "per_iteration" else None))
+        torch.cuda.synchronize()
+        runs[mode] = (booster, ev, time.perf_counter() - t0)
+    (pb, pev, ps), (bb, bev, bs) = runs["per_iteration"], runs["blockwise"]
+    text_equal, splits_equal, rel = same_trees(bb, pb)
+    res = {"per_iteration_s": ps, "blockwise_s": bs,
+           "rounds": len(bb.gbdt.models), "best_iteration": bb.best_iteration,
+           "per_iteration_best_iteration": pb.best_iteration,
+           "model_text_equal": text_equal, "splits_equal": splits_equal,
+           "leaf_rel_diff": rel, "history_equal": pev == bev,
+           "history_len": len(bev["valid_0"]["auc"]),
+           "fused_runner": bool(bb.gbdt._fused_cache),
+           "valid_auc": bev["valid_0"]["auc"][-1],
+           "train_score_equal": bool(np.array_equal(
+               bb.gbdt.get_training_score(), pb.gbdt.get_training_score()))}
+    check(res["fused_runner"], "blockwise: the fused trainer did not run")
+    check(bb.best_iteration == pb.best_iteration,
+          "blockwise: another best iteration")
+    check(splits_equal and rel <= 1e-4, "blockwise: trees differ")
+    if text_equal:
+        check(res["history_equal"] and res["train_score_equal"],
+              "blockwise: the model text is equal but the metric history "
+              "or the train score differs")
+    else:
+        for key in ("auc", "binary_logloss"):
+            check(len(bev["valid_0"][key]) == len(pev["valid_0"][key])
+                  and np.allclose(bev["valid_0"][key], pev["valid_0"][key],
+                                  rtol=1e-5, atol=0),
+                  f"blockwise: the {key} history differs")
+    return res
+
+
+def phase_blockwise(torch, lgt, ds, seed):
+    """Blockwise engine.train, 20 rounds, early stopping after 5: with a
+    100k-row held-out valid set (no stop inside 20 rounds: the last
+    block runs to its end), and with the same rows under labels drawn
+    at random (the valid loss is least after a few rounds: the stop
+    breaks inside a block of 5, whose tail the replay drops, its
+    train score copied into the graph's tensor)."""
+    xv, yv = make_valid(100_000, seed)
+    res = {}
+    for name, labels in (
+            ("held_out", yv),
+            ("early_stop", (np.random.RandomState(seed + 2).rand(len(yv))
+                            < yv.mean()).astype(np.float32))):
+        dva = lgt.Dataset(xv, labels, reference=ds)
+        res[name] = r = blockwise_case(torch, lgt, ds, dva, 20)
+        log(f"blockwise {name}: {r['blockwise_s']:.2f} s against "
+            f"per-iteration {r['per_iteration_s']:.2f} s, {r['rounds']} trees "
+            f"({r['history_len']} rounds evaluated), best iteration "
+            f"{r['best_iteration']} ({r['per_iteration_best_iteration']}), "
+            f"model text equal {r['model_text_equal']}, history equal "
+            f"{r['history_equal']}, train score equal "
+            f"{r['train_score_equal']}, valid AUC {r['valid_auc']:.5f}")
+    check(res["early_stop"]["history_len"] < 20,
+          "blockwise early_stop: training did not stop early")
+    check(res["early_stop"]["history_len"] % 5 != 0,
+          "blockwise early_stop: the stop fell on a block's end")
     return res
 
 
@@ -866,6 +1239,13 @@ def main():
         report["partitioned_syncs"] = phase_partitioned_syncs(torch, part)
         report["partitioned_cacheless"] = phase_partitioned_cacheless(
             torch, lgt, hk, ds)
+        report["fused"] = phase_fused(torch, lgt, hk, ds, y, booster,
+                                      report["main"], BENCH_PARAMS, "masked")
+        report["fused_partitioned"] = phase_fused(
+            torch, lgt, hk, ds, y, part, report["partitioned"],
+            dict(BENCH_PARAMS, partitioned_build="true"), "partitioned")
+        report["fused_sampled"] = phase_fused_sampled(torch, lgt, ds)
+        report["blockwise"] = phase_blockwise(torch, lgt, ds, args.seed)
         del ds, booster, part
         report["categorical"] = phase_categorical(torch, lgt, args.seed)
     except PhaseError as e:
@@ -875,11 +1255,12 @@ def main():
     report["total_s"] = time.time() - t_start
     log(f"all phases passed in {report['total_s']:.1f}s")
 
-    main_counts = report["main"]["launches"]
-    part_counts = report["partitioned"]["launches"]
+    main_counts = report["fused"]["launches"]
+    part_counts = report["fused_partitioned"]["launches"]
     hist_src = "lightgbm_tpu_torch/csrc/hist.cu"
     kernels = [
-        # each kernel at its main-path shape, launches from its own path
+        # each kernel at its main-path shape, launches from its own fused
+        # path (counted through the graph's replays)
         kernel_line(cases[0], main_counts["masked_hist"], hist_src,
                     "lightgbm_tpu/ops/pallas_hist.py:62"),
         kernel_line(cases[1], main_counts["frontier_hist"], hist_src,

@@ -10,16 +10,19 @@ at first use); on the CPU they are the kernels' plain PyTorch versions.
 The port covers dense in-memory binary or L2 data with numerical and
 categorical features, the serial learner with the full-scan masked
 builder (the default) or the leaf-contiguous one
-(partitioned_build=true), and prediction. ROADMAP.md lists the modules
-still to port.
+(partitioned_build=true), the fused multi-iteration trainer (one
+boosting iteration captured as a CUDA graph and replayed), and
+prediction. ROADMAP.md lists the modules still to port.
 """
 
 from .basic import Booster, Dataset
-from .callback import EarlyStopException, early_stopping, print_evaluation
+from .callback import (EarlyStopException, early_stopping, print_evaluation,
+                       record_evaluation)
 from .engine import train
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
 __all__ = ["Dataset", "Booster", "LightGBMError", "train",
-           "print_evaluation", "early_stopping", "EarlyStopException"]
+           "print_evaluation", "record_evaluation", "early_stopping",
+           "EarlyStopException"]

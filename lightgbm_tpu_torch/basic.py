@@ -211,6 +211,11 @@ class Booster:
                                       "of lightgbm_tpu_torch")
         return self.gbdt.train_one_iter(is_eval=False)
 
+    def rollback_one_iter(self):
+        """Drop the last iteration's trees and their scores
+        (basic.py:434)."""
+        self.gbdt.rollback_one_iter()
+
     def current_iteration(self):
         return len(self.gbdt.models) // max(self.gbdt.num_class, 1)
 

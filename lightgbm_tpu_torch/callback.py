@@ -1,12 +1,13 @@
-"""Training callbacks: print_evaluation and early_stopping (port of
-lightgbm_tpu/callback.py).
+"""Training callbacks: print_evaluation, record_evaluation and
+early_stopping (port of lightgbm_tpu/callback.py).
 
 Reference contract (python-package/lightgbm/callback.py:6-192):
 callables taking a `CallbackEnv` namedtuple with these exact fields,
-ordered by `.order` (print=10, early-stop=30), run after each iteration;
-`early_stopping` signals by raising `EarlyStopException(best_iteration)`;
-console lines keep LightGBM's `[n]\\tdata's metric:value` shape. The
-other callbacks (record, reset_parameter, checkpoint) are later slices.
+ordered by `.order` (print=10, record=20, early-stop=30), run after
+each iteration; `early_stopping` signals by raising
+`EarlyStopException(best_iteration)`; console lines keep LightGBM's
+`[n]\\tdata's metric:value` shape. The other callbacks
+(reset_parameter, checkpoint) are later slices.
 """
 
 import collections
@@ -65,6 +66,29 @@ def print_evaluation(period=1, show_stdv=True):
     """Print evaluation results every `period` iterations
     (callback.py:40-65)."""
     return _PrintEvaluation(period, show_stdv)
+
+
+class _RecordEvaluation:
+    def __init__(self, target):
+        self.order = 20
+        self.target = target
+
+    def __call__(self, env):
+        for data_name, metric_name, value, *_ in env.evaluation_result_list:
+            history = self.target.setdefault(
+                data_name, collections.defaultdict(list))
+            history[metric_name].append(value)
+
+
+def record_evaluation(eval_result):
+    """Record the evaluation history into the dict `eval_result`
+    (callback.py:68-97)."""
+    if not isinstance(eval_result, dict):
+        raise TypeError(
+            "record_evaluation needs a dict to write history into, got "
+            + type(eval_result).__name__)
+    eval_result.clear()
+    return _RecordEvaluation(eval_result)
 
 
 class _EarlyStopping:

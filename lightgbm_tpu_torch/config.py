@@ -697,8 +697,6 @@ class Config:
             later.append("linear_tree=true (linear leaves)")
         if self.out_of_core:
             later.append("out_of_core=true (block-store training)")
-        if self.nonfinite_guard not in ("raise", "off"):
-            later.append(f"nonfinite_guard={self.nonfinite_guard}")
         if later:
             raise NotImplementedError(
                 "lightgbm_tpu_torch does not run " + "; ".join(later)

@@ -80,10 +80,6 @@ class CoreDataset:
         """Histogram width of the stored matrix (no bundle slots here)."""
         return self.max_num_bin
 
-    def traversal_bins(self):
-        """Bins indexable as [feature_array, row_array] for host traversal."""
-        return self.bins
-
     def num_bin_array(self):
         return np.asarray([m.num_bin for m in self.bin_mappers], dtype=np.int32)
 

@@ -12,6 +12,14 @@ without reading anything back, then fetches all its arrays in one
 transfer. The train-score gather and the valid-set traversals are
 queued after that fetch and run asynchronously.
 
+The fused multi-iteration trainer (train_many, train_many_eval; the
+JAX package's lax.scan over iterations, _get_fused_fn :1041-1174) runs
+a block of T iterations with one host sync: on the card one boosting
+iteration (gradients, tree build, train-score update, the tree's
+arrays into slot t of a stacked buffer) is captured once as a CUDA
+graph and replayed T times; on the CPU the same step runs eagerly.
+The trees it grows are the per-iteration loop's, bit for bit.
+
 Bagging draws an exact-count bag (int(bagging_fraction * N) rows) from
 a torch.Generator on the training device, seeded from
 (bagging_seed, iteration // bagging_freq): bags are redrawn every
@@ -20,15 +28,21 @@ the JAX package. The bits differ from jax.random's; the tests feed both
 packages one mask where they compare trees.
 """
 
+import copy
+import time
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from ..utils import common
+from ..ops import hist_kernels
+from ..utils import common, guardrails
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
 from .score_updater import ScoreUpdater
 from .tree import Tree
-from .tree_learner import create_tree_learner
+from .tree_learner import (SerialTreeLearner, create_tree_learner,
+                           pack_tree, tree_views, unpack_tree)
 
 K_MIN_SCORE = -np.inf
 
@@ -81,6 +95,224 @@ def device_traverse(xb, sf, thr, cat, lc, rc, node0, depth):
     return node
 
 
+class FusedBlock(NamedTuple):
+    """One fused block's result: the (T, K, P) packed trees still on the
+    device, the full iterations kept (t_eff), the partial-class trees
+    kept at a natural stop (k_stop), the model count before the block,
+    the train score before it and the feature sampler before its
+    masks were drawn."""
+    stacked: torch.Tensor
+    t_eff: int
+    k_stop: int
+    n_before: int
+    base: torch.Tensor
+    rng: object
+
+
+class FusedRunner:
+    """One boosting iteration over static buffers, the counterpart of
+    the scan body of the JAX package's _get_fused_fn.
+
+    The step computes the objective's gradients from the train score,
+    grows each class's tree with the feature mask at row `counter` of
+    the block's (capacity, K, F) mask buffer and the in-bag mask in a
+    static (N,) buffer, adds `leaf_value * shrinkage` to the train score
+    in place, and copies the packed tree into row `counter` of a
+    (capacity, K, P) stack; then counter += 1, all on the device.
+
+    On the card the step is captured once as a CUDA graph (after one
+    warm-up step on a side stream, which loads the kernel libraries and
+    sets their attributes, its score change undone) and each iteration
+    of a block is one replay: a 63-leaf masked tree is about 17,000
+    device ops, so one graph per iteration, not per block. On the CPU
+    the same step runs eagerly. A capture or replay that fails raises.
+    The graph reads and writes the train score tensor it was captured
+    with: whoever rebinds that tensor drops the runner
+    (GBDT._get_fused_fn checks)."""
+
+    def __init__(self, gbdt, capacity):
+        learner = gbdt.tree_learner
+        dev = gbdt.device
+        k = gbdt.num_class
+        self.gbdt = gbdt
+        self.capacity = int(capacity)
+        self.score = gbdt.train_score_updater.score
+        self.fmasks = torch.ones((self.capacity, k, learner.f_pad),
+                                 dtype=torch.bool, device=dev)
+        self.inbag = torch.ones(gbdt.num_data, dtype=torch.float32,
+                                device=dev)
+        self._inbag_src = None
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.stacked = torch.zeros((self.capacity, k, learner.packed_size),
+                                   dtype=torch.int32, device=dev)
+        self.graph = None
+        self.warm_step_s = self.capture_s = 0.0
+        if dev.type == "cuda":
+            self._capture()
+
+    def _step(self):
+        gb = self.gbdt
+        learner = gb.tree_learner
+        updater = gb.train_score_updater
+        g, h = gb.objective.get_gradients(self.score)
+        fmask = self.fmasks.index_select(0, self.counter)[0]     # (K, F)
+        rows = []
+        for k in range(gb.num_class):
+            out = learner.train_device(g[k], h[k], self.inbag,
+                                       fmask=fmask[k])
+            updater.add_score_by_partition(
+                out["leaf_value"] * gb.shrinkage_rate,
+                out["row_leaf"][:gb.num_data], k)
+            rows.append(pack_tree(out))
+        self.stacked.index_copy_(0, self.counter, torch.stack(rows)[None])
+        self.counter += 1
+
+    def _capture(self):
+        """The warm-up step on a side stream, then the capture; each
+        timed apart (warm_step_s, capture_s), the warm-up ending in a
+        sync."""
+        t0 = time.perf_counter()
+        dev = self.score.device
+        saved = self.score.clone()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.score.copy_(saved)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        self.warm_step_s = t1 - t0
+        self.graph = hist_kernels.CapturedGraph()
+        with self.graph.capture():
+            self._step()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t1
+
+    def run(self, num_iters, fmasks, inbag_fn, it0):
+        """`num_iters` iterations from iteration `it0` with the host's
+        (num_iters, K, F) feature masks, copied to the device in one
+        asynchronous copy; `inbag_fn(it)` gives iteration it's bag
+        (None: no bagging), copied into the static buffer when it
+        changes. Returns the (num_iters, K, P) stacked trees. No host
+        sync."""
+        self.counter.zero_()
+        self.gbdt.tree_learner.load_fmask(fmasks, self.fmasks[:num_iters])
+        for t in range(num_iters):
+            if inbag_fn is not None:
+                mask = inbag_fn(it0 + t)
+                if mask is not self._inbag_src:
+                    self.inbag.copy_(mask)
+                    self._inbag_src = mask
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._step()
+        return self.stacked[:num_iters]
+
+
+class _BlockSnapshots:
+    """Per-iteration score snapshots over one fused block
+    (gbdt.py:205-329).
+
+    After GBDT._run_fused_block the block's trees are still stacked on
+    the device. For every bound dataset the score after in-block
+    iteration t is the base score plus the block's trees 0..t, added
+    one at a time in order from one batched traversal per chunk of at
+    most CHUNK_BYTES of deltas: the per-iteration loop's scores bit for
+    bit, so the engine can replay the per-iteration eval / early-stop
+    callbacks (gbdt.cpp:210-349) after the block. The caller walks t
+    forward, so chunks stream.
+
+    Valid updaters are pointed at each snapshot; the train score, whose
+    tensor the fused graph holds, is copied into instead, and its final
+    value kept aside for finalize().
+    """
+
+    CHUNK_BYTES = ScoreUpdater.CHUNK_BYTES
+
+    def __init__(self, gbdt, block, base_valids, natural_stop):
+        self._gbdt = gbdt
+        self._block = block
+        self._natural_stop = natural_stop
+        self._final_train = None
+        self._states = [self._new_state(gbdt.train_score_updater,
+                                        block.base)]
+        for u, b in zip(gbdt.valid_score_updaters, base_valids):
+            self._states.append(self._new_state(u, b))
+
+    @staticmethod
+    def _new_state(updater, base):
+        return {"updater": updater, "base": base, "row": base, "t": -1,
+                "c0": 0, "chunk": None}
+
+    def _row_at(self, st, t):
+        gb = self._gbdt
+        k = gb.num_class
+        if t < st["t"]:
+            raise ValueError("snapshots must be walked forward")
+        while st["t"] < t:
+            nxt = st["t"] + 1
+            if st["chunk"] is None or nxt * k >= st["c0"] + st["chunk"].shape[0]:
+                csz = max(1, min(self._block.t_eff - nxt, self.CHUNK_BYTES
+                                 // max(1, k * st["updater"].num_data * 4)))
+                st["c0"] = nxt * k
+                st["chunk"] = st["updater"].deltas_by_stacked_device_trees(
+                    gb._block_trees(self._block, nxt * k, (nxt + csz) * k),
+                    gb.shrinkage_rate)
+            i = nxt * k - st["c0"]
+            st["row"] = st["row"] + st["chunk"][i:i + k]
+            st["t"] = nxt
+        return st["row"]
+
+    def drop_tail_to(self, t):
+        """Early-stop break at in-block iteration t: drop every tree past
+        iteration t without touching the scores (the caller has set all
+        of them to the t snapshot), the k_stop partial-class trees of a
+        natural stop included."""
+        gb = self._gbdt
+        n_drop = (self._block.t_eff - (t + 1)) * gb.num_class
+        if self._natural_stop:
+            n_drop += self._block.k_stop
+        if n_drop > 0:
+            del gb.models[-n_drop:]
+        gb.iter -= self._block.t_eff - (t + 1)
+        gb._device_model_cache = None
+
+    def set_scores_at(self, t, with_train=False):
+        """Point every bound updater's score at the post-iteration-t
+        state (t 0-based within the block). The train score only moves
+        when with_train (train-set metrics, or an early-stop break)."""
+        for st in self._states[1:]:
+            st["updater"].score = self._row_at(st, t)
+        if with_train:
+            train = self._gbdt.train_score_updater.score
+            if self._final_train is None:
+                self._final_train = train.clone()
+            train.copy_(self._row_at(self._states[0], t))
+
+    def finalize(self):
+        """After a completed walk (no early-stop break): the train score
+        back to the block's final value, or, after a natural stop, the
+        state of the kept trees. Returns True at a natural stop."""
+        gb = self._gbdt
+        if self._final_train is not None:
+            gb.train_score_updater.score.copy_(self._final_train)
+        if not self._natural_stop:
+            return False
+        gb._natural_stop(self._block)
+        if self._block.k_stop > 0:
+            # the stop iteration kept classes [0, k_stop), whose deltas
+            # the per-full-iteration walk never applied
+            stk = gb._block_trees(self._block, 0,
+                                  len(gb.models) - self._block.n_before)
+            for st in self._states[1:]:
+                st["updater"].score = st["base"].clone()
+                st["updater"].add_score_by_stacked_trees(
+                    stk, gb.num_class, gb.shrinkage_rate)
+        return True
+
+
 class GBDT:
     name = "gbdt"
 
@@ -111,6 +343,7 @@ class GBDT:
         self._bag_rows = None
         self._bag_window = None
         self._device_model_cache = None
+        self._fused_cache = {}
 
     # ------------------------------------------------------------------ init
     def init(self, config, train_data, objective, training_metrics=()):
@@ -144,10 +377,10 @@ class GBDT:
             Log.fatal("cannot add validation data, since it has different "
                       "bin mappers with training data")
         updater = ScoreUpdater(valid_data, self.num_class, self.device)
-        for i in range(self.iter):
-            for k in range(self.num_class):
-                idx = (i + self.num_init_iteration) * self.num_class + k
-                updater.add_score_by_tree(self.models[idx], k)
+        first = self.num_init_iteration * self.num_class
+        updater.add_score_by_trees(
+            self.models[first:first + self.iter * self.num_class],
+            self.num_class)
         self.valid_score_updaters.append(updater)
         self.valid_metrics.append(list(valid_metrics))
         if self.early_stopping_round > 0:
@@ -195,21 +428,29 @@ class GBDT:
             hessians = torch.as_tensor(
                 np.asarray(hessians, dtype=np.float32)).reshape(
                     self.num_class, self.num_data).to(self.device)
+        policy = getattr(self.config, "nonfinite_guard", "raise")
+        if policy in ("warn_skip", "clamp"):
+            gradients, hessians, skip = self._guard_gradients(
+                gradients, hessians, policy)
+            if skip:
+                # no tree and no iteration: the model list stays
+                # iter * num_class long
+                return False
         inbag = self._bagging(self.iter)
-        guard = getattr(self.config, "nonfinite_guard", "raise") == "raise"
         learner = self.tree_learner
         n = self.num_data
         for k in range(self.num_class):
             out = learner.train_device(gradients[k], hessians[k], inbag)
             extra = ()
-            if guard:
+            if policy == "raise":
+                # the guard's flag rides on the tree's one transfer
                 extra = ((torch.isfinite(gradients[k]).all()
                           & torch.isfinite(hessians[k]).all()),)
             host, extras = learner.fetch(out, extra)   # the tree's one sync
-            if guard and not extras[0]:
-                raise LightGBMError(
-                    f"non-finite gradient or hessian at iteration "
-                    f"{self.iter} (nonfinite_guard=raise)")
+            if extra and not extras[0]:
+                guardrails.guard_gradients(gradients.cpu().numpy(),
+                                           hessians.cpu().numpy(),
+                                           self.iter, policy)
             tree = learner.host_out_to_tree(host, shrink=self.shrinkage_rate)
             if tree.num_leaves <= 1:
                 Log.info("Stopped training because there are no more leafs "
@@ -220,14 +461,227 @@ class GBDT:
                 k)
             for updater in self.valid_score_updaters:
                 updater.add_score_by_device_tree(
-                    out, tree.num_leaves - 1, tree.max_depth,
-                    self.shrinkage_rate, k)
+                    out, tree.max_depth, self.shrinkage_rate, k)
             self.models.append(tree)
         self.iter += 1
         self._device_model_cache = None
         if is_eval:
             return self.eval_and_check_early_stopping()
         return False
+
+    def _guard_gradients(self, gradients, hessians, policy):
+        """warn_skip / clamp (utils/guardrails.py) on device gradients:
+        one device flag read, and the host copies only when it trips.
+        Returns (gradients, hessians, skip)."""
+        if bool(torch.isfinite(gradients).all()
+                & torch.isfinite(hessians).all()):
+            return gradients, hessians, False
+        g, h, skip = guardrails.guard_gradients(
+            gradients.cpu().numpy(), hessians.cpu().numpy(), self.iter,
+            policy)
+        return (torch.from_numpy(np.asarray(g, np.float32)).to(self.device),
+                torch.from_numpy(np.asarray(h, np.float32)).to(self.device),
+                skip)
+
+    # ------------------------------------------------- fused multi-iteration
+    # A block of iterations with one host sync: the host draws the
+    # block's feature-fraction masks (the per-iteration loop's RNG
+    # stream and order) and writes each re-bag window's mask into a
+    # static buffer; the device runs T captured iterations; one
+    # transfer brings every tree back (the JAX package's scan, whose
+    # graph is one XLA program, gbdt.py:1000-1260).
+
+    def _fused_boosting_ok(self):
+        """Whether this boosting type's per-iteration logic is pure
+        device work (DART and GOSS are later slices of the port)."""
+        return type(self).__name__ == "GBDT"
+
+    def _fused_inbag_fn(self):
+        """The (iteration) -> (N,) in-bag mask hook of the fused block,
+        None when bagging is off: the bag is drawn outside the graph and
+        copied into its static buffer when the window changes."""
+        cfg = self.config
+        if cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0:
+            return self._bagging
+        return None
+
+    def _fused_eligible(self, ignore_train_metrics=False):
+        """gbdt.py:1020-1039. ignore_train_metrics=True answers "could
+        this train fused in blocks with the metrics replayed between
+        them?" (engine._train_blockwise)."""
+        cfg = self.config
+        if cfg is None or self.objective is None:
+            return False
+        return (self._fused_boosting_ok()
+                and (not self.valid_score_updaters or ignore_train_metrics)
+                and (cfg.metric_freq <= 0 or not self.training_metrics
+                     or ignore_train_metrics)
+                and self.early_stopping_round <= 0
+                and not bool(getattr(cfg, "linear_tree", False))
+                and isinstance(self.tree_learner, SerialTreeLearner))
+
+    def _get_fused_fn(self, num_iters):
+        """The block runner for this booster's learner, objective and
+        shrinkage (the JAX package's _fused_cache key), made at first use:
+        on the card that captures the graph. A runner whose train score
+        tensor was rebound, or whose stack is shorter than the block, is
+        dropped and made again."""
+        learner = self.tree_learner
+        key = (float(self.shrinkage_rate), id(learner),
+               (learner.num_data, learner.n_pad, learner.f_pad),
+               id(self.objective))
+        runner = self._fused_cache.get(key)
+        if (runner is None or runner.capacity < num_iters
+                or runner.score is not self.train_score_updater.score):
+            self._fused_cache.pop(key, None)  # its graph's pool goes too
+            runner = FusedRunner(self, num_iters)
+            self._fused_cache[key] = runner
+        return runner
+
+    def warm_up_fused(self, num_iters):
+        """Capture the fused trainer's graph ahead of training (capture
+        is not training time, as the JAX package's compile is not).
+        False when the booster is not eligible."""
+        if self._fused_eligible():
+            self._get_fused_fn(num_iters)
+            return True
+        return False
+
+    def _run_fused_block(self, num_iters):
+        """Run ONE fused block of `num_iters` iterations, guard the
+        scores at its boundary, bring the stacked trees back in one
+        transfer and append the kept ones (gbdt.py:1184-1260). The
+        train score is left at the block's final value (at a natural
+        stop it still holds the discarded trees: callers fix that)."""
+        runner = self._get_fused_fn(num_iters)
+        learner = self.tree_learner
+        k = self.num_class
+        rng = copy.deepcopy(learner.random)
+        # one mask per (iteration, class) tree, in the per-iteration
+        # loop's order
+        fmasks = np.stack([[learner._sample_features() for _ in range(k)]
+                           for _ in range(num_iters)])
+        base = self.train_score_updater.score.clone()
+        stacked = runner.run(num_iters, fmasks, self._fused_inbag_fn(),
+                             self.iter)
+        policy = getattr(self.config, "nonfinite_guard", "raise")
+        parts = [stacked.reshape(-1)]
+        if policy != "off":
+            parts.append(torch.isfinite(runner.score).all().reshape(1)
+                         .to(torch.int32))
+        flat = torch.cat(parts).cpu().numpy()     # ONE transfer a block
+        if policy != "off" and not flat[-1]:
+            # the iterations inside the graph cannot be guarded one by
+            # one; the block boundary is where divergence shows
+            guardrails.guard_scores(runner.score.cpu().numpy(),
+                                    self.iter + num_iters, policy)
+        rows = flat[:stacked.numel()].reshape(num_iters, k, -1)
+        hosts = [[unpack_tree(rows[t, c], self.config.num_leaves)
+                  for c in range(k)] for t in range(num_iters)]
+        nsp = np.array([[h["n_splits"] for h in row] for row in hosts])
+        empty = (nsp == 0).any(axis=1)
+        t_eff = int(np.argmax(empty)) if bool(empty.any()) else num_iters
+        # classes before the first empty one in the stopping iteration
+        # are kept, as the per-iteration loop appends them
+        k_stop = int(np.argmax(nsp[t_eff] == 0)) if t_eff < num_iters else 0
+        n_before = len(self.models)
+        kept = [(t, c) for t in range(t_eff) for c in range(k)]
+        kept += [(t_eff, c) for c in range(k_stop)]
+        for t, c in kept:
+            self.models.append(learner.host_out_to_tree(
+                hosts[t][c], shrink=self.shrinkage_rate))
+        self.iter += t_eff
+        self._device_model_cache = None
+        return FusedBlock(stacked, t_eff, k_stop, n_before, base, rng)
+
+    def _block_trees(self, block, i0, i1):
+        """The block's kept trees i0..i1 (class-major) as a stacked-tree
+        dict on the device (score_updater.stacked_deltas)."""
+        rows = block.stacked.reshape(-1, block.stacked.shape[-1])[i0:i1]
+        stk = tree_views(rows, self.config.num_leaves)
+        stk["depth"] = max([t.max_depth for t in
+                            self.models[block.n_before + i0:
+                                        block.n_before + i1]] + [0])
+        return stk
+
+    def _rebuild_train_score_from_models(self, block):
+        """The train score of the kept trees after a natural stop: the
+        block's base score with its kept trees added again, one at a
+        time from their device arrays (the per-iteration loop's adds,
+        bit for bit), copied into the tensor the fused graph updates."""
+        updater = self.train_score_updater
+        updater.score.copy_(block.base)
+        kept = len(self.models) - block.n_before
+        if kept:
+            updater.add_score_by_stacked_trees(
+                self._block_trees(block, 0, kept), self.num_class,
+                self.shrinkage_rate)
+
+    def _natural_stop(self, block):
+        """Leave the state the per-iteration loop would have after the
+        stop iteration: the train score of the kept trees, and the
+        feature sampler drawn for the iterations up to the stop only."""
+        Log.info("Stopped training because there are no more leafs "
+                 "that meet the split requirements.")
+        self._rebuild_train_score_from_models(block)
+        learner = self.tree_learner
+        learner.random = block.rng
+        for _ in range((block.t_eff + 1) * self.num_class):
+            learner._sample_features()
+
+    def train_many(self, num_iters, ignore_train_metrics=False):
+        """Train `num_iters` boosting iterations: one fused block when
+        eligible, else the per-iteration loop. Returns True if training
+        stopped early (gbdt.py:1277-1319)."""
+        if num_iters <= 0:
+            return False
+        if not self._fused_eligible(ignore_train_metrics):
+            for _ in range(num_iters):
+                if self.train_one_iter():
+                    return True
+            return False
+        block = self._run_fused_block(num_iters)
+        # valid scores follow the model list whoever called: the block's
+        # kept trees traversed in one batch per valid set
+        kept = len(self.models) - block.n_before
+        if self.valid_score_updaters and kept:
+            stk = self._block_trees(block, 0, kept)
+            for updater in self.valid_score_updaters:
+                updater.add_score_by_stacked_trees(stk, self.num_class,
+                                                   self.shrinkage_rate)
+        if block.t_eff < num_iters:
+            self._natural_stop(block)
+            return True
+        return False
+
+    def train_many_eval(self, num_iters):
+        """A fused block plus per-iteration score snapshots, for the
+        engine's replay of the per-iteration callbacks
+        (gbdt.py:1321-1343). Returns (t_eff, snapshots). Caller contract
+        (engine._train_blockwise):
+        - walk t = 0..t_eff-1 forward, calling
+          snapshots.set_scores_at(t) before evaluating metrics;
+        - on an early-stop break at t: snapshots.set_scores_at(t,
+          with_train=True) then snapshots.drop_tail_to(t);
+        - on a completed walk: snapshots.finalize(), True at a natural
+          stop (an empty tree ended the block early).
+        Requires _fused_eligible(ignore_train_metrics=True)."""
+        base_valids = [u.score for u in self.valid_score_updaters]
+        block = self._run_fused_block(num_iters)
+        return block.t_eff, _BlockSnapshots(self, block, base_valids,
+                                            block.t_eff < num_iters)
+
+    def rollback_one_iter(self):
+        """gbdt.cpp:247-264: drop the last iteration's trees and their
+        scores (one batched traversal a dataset)."""
+        if self.iter == 0 or len(self.models) < self.num_class:
+            return
+        dropped = self.models[-self.num_class:]
+        for updater in [self.train_score_updater] + self.valid_score_updaters:
+            updater.sub_score_by_trees(dropped, self.num_class)
+        del self.models[-self.num_class:]
+        self.iter -= 1
+        self._device_model_cache = None
 
     # ------------------------------------------------------------ evaluation
     def eval_and_check_early_stopping(self):
@@ -239,18 +693,22 @@ class GBDT:
                      "round is %d", self.iter,
                      self.iter - self.early_stopping_round)
             Log.info("Output of best iteration round:\n%s", best_msg)
-            k = min(self.early_stopping_round, self.iter)
-            dropped = self.models[-k * self.num_class:]
-            del self.models[-k * self.num_class:]
-            self.iter -= k
-            for updater in ([self.train_score_updater]
-                            + self.valid_score_updaters):
-                for i, tree in enumerate(dropped):
-                    updater.add_score_by_tree(tree, i % self.num_class,
-                                              sign=-1.0)
-            self._device_model_cache = None
+            self._truncate_iters(self.early_stopping_round)
             return True
         return False
+
+    def _truncate_iters(self, k):
+        """Drop the last k iterations, subtracting their scores in one
+        batched traversal per dataset (gbdt.py:1363-1378)."""
+        k = min(k, self.iter)
+        if k <= 0:
+            return
+        dropped = self.models[-k * self.num_class:]
+        del self.models[-k * self.num_class:]
+        self.iter -= k
+        for updater in [self.train_score_updater] + self.valid_score_updaters:
+            updater.sub_score_by_trees(dropped, self.num_class)
+        self._device_model_cache = None
 
     def output_metric(self, it):
         """gbdt.cpp:292-349: print metrics, track early stopping."""

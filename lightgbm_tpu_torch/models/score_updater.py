@@ -4,40 +4,86 @@ lightgbm_tpu/models/score_updater.py).
 Reference: src/boosting/score_updater.hpp:15-85. Scores live on the
 training device as a (num_class, N) float32 tensor. The training set is
 updated from the builder's final row -> leaf partition, one gather
-(add_score_by_partition, :103); valid sets by a bin-space traversal of
-the tree on the device (traverse_add, the counterpart of _traverse_add
-:22-60), every row walking the tree in lockstep for the tree's depth.
+(add_score_by_partition, :103); every other update is a bin-space
+traversal of stacked trees on the device (stacked_deltas, the
+counterpart of _stacked_deltas :67-84), every row walking every tree in
+lockstep for the deepest tree's depth: one tree for a valid set per
+iteration, many at once for a fused block, an early-stopping truncation,
+a rollback or a valid set added after training. The deltas are added one
+tree at a time in order, the same float32 adds whatever the batch, so
+the scores come out bit for bit the same. Every update is in place: the
+fused trainer's CUDA graph holds the train score's storage.
 """
 
 import numpy as np
 import torch
 
 
-def traverse_add(score_row, bins_dev, is_cat, split_feature, threshold_bin,
-                 left_child, right_child, leaf_value, n_splits, depth,
-                 scale):
-    """score_row + scale * leaf_value[leaf(bins)] for one tree, on the
-    device. Tree arrays as build_tree_device produces them (leaves
-    encoded as ~leaf in the child arrays); `n_splits` and `depth` are
-    host ints (known once the tree was fetched). A 0-split tree adds
-    leaf_value[0] == 0."""
-    n = bins_dev.shape[1]
-    node = torch.full((n,), 0 if n_splits > 0 else -1, dtype=torch.int32,
-                      device=bins_dev.device)
-    rows = torch.arange(n, device=bins_dev.device)
-    for _ in range(depth):
-        nd = node.clamp(min=0).long()
-        feat = split_feature[nd].long()
+def stacked_deltas(bins_dev, is_cat, stk, scale):
+    """(M, N) float32 `scale * leaf_value[leaf(bins)]` of N rows through
+    M stacked trees, one lockstep bin-space traversal.
+
+    stk: the trees' device arrays as (M, S) split_feature,
+    split_threshold_bin, left_child, right_child, (M, L) leaf_value and
+    (M,) n_splits (leaves encoded as ~leaf in the child arrays), plus
+    "depth", a host int no smaller than any tree's depth."""
+    sf = stk["split_feature"]
+    m, s = sf.shape
+    dev = bins_dev.device
+    base = (torch.arange(m, device=dev) * s)[:, None]
+    rows = torch.arange(bins_dev.shape[1], device=dev)[None, :]
+    sf_f, thr_f = sf.reshape(-1), stk["split_threshold_bin"].reshape(-1)
+    lc_f, rc_f = stk["left_child"].reshape(-1), stk["right_child"].reshape(-1)
+    node = torch.where(stk["n_splits"] > 0, 0, -1).to(torch.int32)[:, None]
+    node = node.expand(m, bins_dev.shape[1])
+    for _ in range(int(stk["depth"])):
+        idx = base + node.clamp(min=0).long()                # (M, N)
+        feat = sf_f[idx].long()
         fv = bins_dev[feat, rows].to(torch.int32)
-        thr = threshold_bin[nd]
+        thr = thr_f[idx]
         go_left = torch.where(is_cat[feat], fv == thr, fv <= thr)
-        nxt = torch.where(go_left, left_child[nd], right_child[nd])
+        nxt = torch.where(go_left, lc_f[idx], rc_f[idx])
         node = torch.where(node < 0, node, nxt)
     leaf = torch.where(node < 0, ~node, torch.zeros_like(node)).long()
-    return score_row + scale * leaf_value[leaf]
+    return scale * torch.gather(stk["leaf_value"], 1, leaf)
+
+
+def slice_trees(stk, t0, t1):
+    """Trees t0..t1 of a stacked-tree dict (the depth bound is kept)."""
+    return {k: (v if k == "depth" else v[t0:t1]) for k, v in stk.items()}
+
+
+def stack_host_trees(trees, device):
+    """Materialized constant-leaf Trees -> a stacked-tree dict on
+    `device` (leaf values as float32; one copy per array)."""
+    s = max([t.num_leaves - 1 for t in trees] + [1])
+    m = len(trees)
+    sf = np.zeros((m, s), np.int32)
+    thr = np.zeros((m, s), np.int32)
+    lc = np.full((m, s), -1, np.int32)
+    rc = np.full((m, s), -1, np.int32)
+    lv = np.zeros((m, s + 1), np.float32)
+    nsp = np.zeros(m, np.int32)
+    for i, t in enumerate(trees):
+        ns = t.num_leaves - 1
+        sf[i, :ns] = t.split_feature[:ns]
+        thr[i, :ns] = t.threshold_in_bin[:ns]
+        lc[i, :ns] = t.left_child[:ns]
+        rc[i, :ns] = t.right_child[:ns]
+        lv[i, :t.num_leaves] = t.leaf_value
+        nsp[i] = ns
+    arrays = {"split_feature": sf, "split_threshold_bin": thr,
+              "left_child": lc, "right_child": rc, "leaf_value": lv,
+              "n_splits": nsp}
+    stk = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    stk["depth"] = max([t.max_depth for t in trees] + [0])
+    return stk
 
 
 class ScoreUpdater:
+    # bound on a batch of (trees, rows) float32 deltas
+    CHUNK_BYTES = 64 << 20
+
     def __init__(self, dataset, num_class, device):
         self.dataset = dataset
         self.num_class = int(num_class)
@@ -60,25 +106,51 @@ class ScoreUpdater:
         """score += leaf_values[row_leaf] (device gather; in place)."""
         self.score[curr_class] += leaf_values[row_leaf.long()]
 
-    def add_score_by_device_tree(self, out, n_splits, depth, scale,
-                                 curr_class):
-        """Valid-set scoring: device bin-space traversal of the builder's
-        output dict."""
+    def add_score_by_device_tree(self, out, depth, scale, curr_class):
+        """Valid-set scoring: the builder's output dict as a one-tree
+        stack (`depth` a host int, known once the tree was fetched)."""
+        stk = {k: out[k][None] for k in ("split_feature",
+                                         "split_threshold_bin", "left_child",
+                                         "right_child", "leaf_value")}
+        stk["n_splits"] = out["n_splits"].reshape(1)
+        stk["depth"] = depth
+        self.score[curr_class].add_(
+            self.deltas_by_stacked_device_trees(stk, scale)[0])
+
+    def _is_cat(self):
         if self._is_cat_dev is None:
             self._is_cat_dev = torch.from_numpy(
                 self.dataset.feature_is_categorical()).to(self.device)
-        self.score[curr_class] = traverse_add(
-            self.score[curr_class], self.dataset.device_bins(self.device),
-            self._is_cat_dev, out["split_feature"],
-            out["split_threshold_bin"], out["left_child"],
-            out["right_child"], out["leaf_value"], n_splits, depth, scale)
+        return self._is_cat_dev
 
-    def add_score_by_tree(self, tree, curr_class, sign=1.0):
-        """Host bin-space traversal (re-scoring materialized models);
-        sign=-1 removes a tree (early-stopping truncation)."""
-        vals = sign * tree.predict_by_bins(self.dataset.traversal_bins())
-        self.score[curr_class] += torch.from_numpy(
-            vals.astype(np.float32)).to(self.device)
+    def deltas_by_stacked_device_trees(self, stk, scale):
+        """(M, N) scaled deltas of M stacked trees (stacked_deltas) on
+        this dataset's device bins. No host sync."""
+        return stacked_deltas(self.dataset.device_bins(self.device),
+                              self._is_cat(), stk, scale)
+
+    def add_score_by_stacked_trees(self, stk, num_class, scale, sign=1.0):
+        """Add (sign=-1: subtract) M class-major stacked trees' deltas,
+        one tree at a time in order, in place; the traversal runs in
+        batches of at most CHUNK_BYTES of deltas."""
+        m = stk["split_feature"].shape[0]
+        step = max(1, self.CHUNK_BYTES // (4 * max(1, self.num_data)))
+        for t0 in range(0, m, step):
+            deltas = self.deltas_by_stacked_device_trees(
+                slice_trees(stk, t0, t0 + step), scale)
+            for i in range(deltas.shape[0]):
+                self.score[(t0 + i) % num_class].add_(deltas[i], alpha=sign)
+
+    def add_score_by_trees(self, trees, num_class, sign=1.0):
+        """Batched update from many class-major materialized trees: one
+        device traversal of all of them. sign=-1 removes them
+        (early-stopping truncation, rollback)."""
+        if trees:
+            self.add_score_by_stacked_trees(
+                stack_host_trees(trees, self.device), num_class, 1.0, sign)
+
+    def sub_score_by_trees(self, trees, num_class):
+        self.add_score_by_trees(trees, num_class, sign=-1.0)
 
     def host_score(self):
         """Flat class-major (K*N,) float64 host array (score[k*N + i])."""

@@ -168,51 +168,6 @@ class Tree:
                             coef[:, j] * xf[:, j], 0.0)
         return np.where((cnt > 0) & ~has_nan, lin, fallback)
 
-    def get_leaf_by_bins(self, bins):
-        """Leaf lookup on a binned (F, N) matrix (tree.h:211-224); used to
-        add scores on aligned train/valid datasets."""
-        n = bins.shape[1]
-        if self.num_leaves <= 1:
-            return np.zeros(n, dtype=np.int32)
-        node = np.zeros(n, dtype=np.int32)
-        active = node >= 0
-        for _ in range(self.max_depth + 1):
-            if not active.any():
-                break
-            nd = node[active]
-            feat = self.split_feature[nd]
-            thr = self.threshold_in_bin[nd]
-            dt = self.decision_type[nd]
-            fval = bins[feat, np.nonzero(active)[0]].astype(np.int64)
-            go_left = np.where(dt == self.CATEGORICAL, fval == thr, fval <= thr)
-            node[active] = np.where(go_left, self.left_child[nd], self.right_child[nd])
-            active = node >= 0
-        return (~node).astype(np.int32)
-
-    def predict_by_bins(self, bins, bin_values=None):
-        """Per-row outputs on a binned (F, N) matrix. Linear leaves need
-        `bin_values` — the dataset's (F, max_bin) f64 bin representative
-        table (CoreDataset.bin_value_table()) — because a dot product
-        needs VALUES, not bin ids; feature ids here are INNER indices
-        (leaf_coeff_feat_inner), matching `split_feature`."""
-        leaf = self.get_leaf_by_bins(bins)
-        base = self.leaf_value[leaf]
-        if not self.is_linear:
-            return base
-        if bin_values is None:
-            Log.fatal("scoring a linear tree in bin space needs the "
-                      "dataset's bin_value_table")
-        cnt = self.leaf_coeff_count[leaf]                     # (N,)
-        feats = self.leaf_coeff_feat_inner[leaf]              # (N, C)
-        coef = self.leaf_coeff[leaf]                          # (N, C)
-        rows = np.arange(leaf.shape[0])
-        ids = np.asarray(bins[feats, rows[:, None]])          # (N, C)
-        xf = bin_values[feats, ids]
-        valid = np.arange(coef.shape[1])[None, :] < cnt[:, None]
-        lin = self.leaf_const[leaf] + np.sum(
-            np.where(valid, coef * xf, 0.0), axis=1)
-        return np.where(cnt > 0, lin, base)
-
     # -------------------------------------------------------- serialization
     def to_string(self):
         """Text block (tree.cpp ToString)."""

@@ -60,6 +60,61 @@ C_FEAT, C_THR, C_LG, C_LH, C_LC, C_RG, C_RH, C_RC, C_LOUT, C_ROUT = range(10)
 TREE_KEYS = ("split_feature", "split_threshold_bin", "split_gain",
              "left_child", "right_child", "leaf_parent", "leaf_value",
              "leaf_count", "internal_value", "internal_count")
+LEAF_KEYS = ("leaf_parent", "leaf_value", "leaf_count")     # (L,); others (L-1,)
+FLOAT_KEYS = ("split_gain", "leaf_value", "internal_value")  # bit-cast to int32
+
+
+def _as_int32(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 \
+        else t.to(torch.int32)
+
+
+def tree_layout(num_leaves):
+    """[(key, offset, size)] of every TREE_KEYS array in a packed tree
+    row (pack_tree), which starts with n_splits at offset 0."""
+    l = int(num_leaves)
+    out, pos = [], 1
+    for k in TREE_KEYS:
+        size = l if k in LEAF_KEYS else l - 1
+        out.append((k, pos, size))
+        pos += size
+    return out
+
+
+def packed_size(num_leaves):
+    """Length of a packed tree row."""
+    _, pos, size = tree_layout(num_leaves)[-1]
+    return pos + size
+
+
+def pack_tree(out, extra=()):
+    """One tree's arrays as one flat int32 device tensor: n_splits, then
+    TREE_KEYS in order (float32 arrays bit-cast), then `extra` int32 /
+    float32 / bool scalars."""
+    parts = [out["n_splits"].reshape(1).to(torch.int32)]
+    parts += [_as_int32(out[k]) for k in TREE_KEYS]
+    parts += [_as_int32(e.reshape(1)) for e in extra]
+    return torch.cat(parts)
+
+
+def unpack_tree(flat, num_leaves):
+    """pack_tree's inverse on one host int32 row: the host dict of the
+    tree's numpy arrays (views of `flat`)."""
+    host = {"n_splits": int(flat[0])}
+    for k, pos, size in tree_layout(num_leaves):
+        arr = flat[pos:pos + size]
+        host[k] = arr.view(np.float32) if k in FLOAT_KEYS else arr
+    return host
+
+
+def tree_views(rows, num_leaves):
+    """Device views of (M, P) packed tree rows: n_splits (M,) and every
+    TREE_KEYS array as (M, size), float32 ones bit-cast back."""
+    views = {"n_splits": rows[:, 0]}
+    for k, pos, size in tree_layout(num_leaves):
+        v = rows[:, pos:pos + size]
+        views[k] = v.view(torch.float32) if k in FLOAT_KEYS else v
+    return views
 
 
 def _tristate(value, name):
@@ -373,6 +428,10 @@ class SerialTreeLearner:
             is_cat = np.concatenate([is_cat, np.zeros(extra, bool)])
         dev = self.device
         self.bins = self._place_bins(bins)
+        # the feature_fraction mask of the tree being built: every tree
+        # reads this one buffer, so a captured CUDA graph reads it too
+        self.fmask = torch.ones(self.f_pad, dtype=torch.bool, device=dev)
+        self.packed_size = packed_size(cfg.num_leaves)
         self.num_bin_pf = torch.from_numpy(num_bin_pf).to(dev)
         self.is_cat = torch.from_numpy(is_cat).to(dev)
         self._threshold_table = threshold_table(train_set)
@@ -436,15 +495,26 @@ class SerialTreeLearner:
             v = torch.nn.functional.pad(v, (0, self.n_pad - self.num_data))
         return v
 
-    def train_device(self, grad, hess, inbag=None, **engines):
+    def load_fmask(self, masks, out):
+        """Copy host bool `masks` into the device tensor `out` without a
+        host sync: from pinned memory, asynchronously, on the card."""
+        src = torch.from_numpy(np.ascontiguousarray(masks))
+        if out.device.type == "cuda":
+            src = src.pin_memory()
+        return out.copy_(src, non_blocking=True)
+
+    def train_device(self, grad, hess, inbag=None, fmask=None, **engines):
         """Grow one tree on the device with the builder that is on;
         returns its output dict without waiting for the device.
+        `fmask` is the tree's (f_pad,) device feature mask; by default
+        one is drawn (feature_fraction) into the learner's mask buffer.
         `engines` override the masked builder's histogram engines
         (masked_fn, frontier_fn; by default the dispatchers)."""
         if inbag is None:
             inbag = torch.ones(self.num_data, dtype=torch.float32,
                                device=self.device)
-        fmask = torch.from_numpy(self._sample_features()).to(self.device)
+        if fmask is None:
+            fmask = self.load_fmask(self._sample_features(), self.fmask)
         cfg = self.config
         if self.use_partitioned:
             from .partitioned import build_tree_partitioned as build
@@ -461,20 +531,9 @@ class SerialTreeLearner:
         """The tree's ONE device -> host transfer: every tree array (and
         any `extra` int32/float32 scalars) packed into one int32 buffer
         and copied in a single call. Returns (host dict, extra values)."""
-        parts = [out["n_splits"].reshape(1)]
-        parts += [out[k].to(torch.int32) if out[k].dtype != torch.float32
-                  else out[k].view(torch.int32) for k in TREE_KEYS]
-        parts += [e.reshape(1).view(torch.int32)
-                  if e.dtype == torch.float32 else e.reshape(1).to(torch.int32)
-                  for e in extra]
-        flat = torch.cat(parts).cpu().numpy()
-        host, pos = {"n_splits": int(flat[0])}, 1
-        for k in TREE_KEYS:
-            size = out[k].numel()
-            arr = flat[pos:pos + size]
-            host[k] = arr.view(np.float32) if out[k].dtype == torch.float32 \
-                else arr
-            pos += size
+        flat = pack_tree(out, extra).cpu().numpy()
+        host = unpack_tree(flat, self.config.num_leaves)
+        pos = self.packed_size
         extras = [flat[pos + j:pos + j + 1].view(np.float32)[0]
                   if e.dtype == torch.float32 else int(flat[pos + j])
                   for j, e in enumerate(extra)]

@@ -14,7 +14,10 @@ loaded with ctypes; its name hashes the source, the headers it includes
 and the flags) and launched on PyTorch's current stream. Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs and
 scratch with torch.empty, raises when the launch reports an error, and
-counts its launches in `KERNELS[name].launches`.
+counts its launches in `KERNELS[name].launches`. A launch made while
+the current stream captures a CUDA graph (CapturedGraph) runs nothing
+yet: it is counted into the graph, and each replay adds the graph's
+count.
 
 Dispatch is by the tensors' device only: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (or an exception), anything else
@@ -32,6 +35,7 @@ each kernel against them. Nothing on the training path calls them when
 its tensors are on the card.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -58,7 +62,8 @@ _BIN_BYTES = {torch.uint8: 1, torch.int16: 2}
 
 class KernelStats:
     """Launch counter of one kernel wrapper: `launches` grows by one
-    where the wrapper launches its kernel, and nowhere else."""
+    where the wrapper launches its kernel, and by a graph's captured
+    count where CapturedGraph.replay launches it again; nowhere else."""
 
     def __init__(self, name):
         self.name = name
@@ -67,6 +72,8 @@ class KernelStats:
 
 KERNELS = {name: KernelStats(name)
            for name in ("masked_hist", "frontier_hist", "seg_hist")}
+# the launches recorded into the graph being captured (CapturedGraph)
+_CAPTURED = None
 
 
 def reset_launch_counts():
@@ -76,6 +83,46 @@ def reset_launch_counts():
 
 def launch_counts():
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _count(name):
+    """One launch of `name`'s kernel; while the current stream captures
+    a graph it is recorded into that graph instead."""
+    if torch.cuda.is_current_stream_capturing():
+        if _CAPTURED is None:
+            raise RuntimeError(f"{name} launched inside a CUDA graph capture "
+                               "not made by CapturedGraph: its replays "
+                               "would not be counted")
+        _CAPTURED[name] += 1
+    else:
+        KERNELS[name].launches += 1
+
+
+class CapturedGraph:
+    """A torch.cuda.CUDAGraph whose captured kernel launches count on
+    every replay: `launches` holds what one replay launches."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = {}
+
+    @contextlib.contextmanager
+    def capture(self, pool=None):
+        """Capture the block's work on a side stream (torch.cuda.graph);
+        raises when the capture fails."""
+        global _CAPTURED
+        _CAPTURED = dict.fromkeys(KERNELS, 0)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                yield self
+            self.launches = {k: v for k, v in _CAPTURED.items() if v}
+        finally:
+            _CAPTURED = None
+
+    def replay(self):
+        self.graph.replay()
+        for name, count in self.launches.items():
+            KERNELS[name].launches += count
 
 
 # ------------------------------------------------------------------ build
@@ -362,7 +409,7 @@ def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
     if status != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.hist_status_string(status).decode()}")
-    KERNELS[name].launches += 1
+    _count(name)
     return hi, lo
 
 
@@ -424,5 +471,5 @@ def seg_hist(words, ghc_t, bounds, num_bins):
     if status != 0:
         raise RuntimeError("seg_hist launch failed: "
                            f"{lib.seg_status_string(status).decode()}")
-    KERNELS["seg_hist"].launches += 1
+    _count("seg_hist")
     return hi, lo

@@ -190,8 +190,8 @@ def test_convert_trees_from_builder_output():
 @pytest.mark.parametrize("params", [
     {"boosting_type": "dart"}, {"hist_compaction": "true"},
     {"boosting_type": "goss"}, {"linear_tree": True},
-    {"out_of_core": True}, {"nonfinite_guard": "warn_skip"},
-    {"hist_frontier": "false"}, {"nonfinite_guard": "clamp"},
+    {"out_of_core": True}, {"tree_learner": "voting", "num_machines": 2},
+    {"hist_frontier": "false"}, {"tree_learner": "data", "num_machines": 2},
     {"objective": "multiclass", "num_class": 3}])
 def test_later_slice_settings_raise(params):
     x, y = _matrix(9, n=300)

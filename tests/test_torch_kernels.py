@@ -175,6 +175,45 @@ def test_seg_hist_skewed_bins_bitwise_on_card(begin, cnt, skew):
     assert torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl)
 
 
+@pytest.mark.cuda
+def test_graph_replay_gives_eager_bits_and_counts_on_card():
+    """masked_hist and seg_hist captured in one CUDA graph
+    (CapturedGraph, as the fused trainer captures a boosting
+    iteration): the capture launches nothing, each replay gives the
+    eager launches' bits, and every replay adds the captured launches
+    to the counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (lightgbm_tpu_torch kernels)")
+    bins, ghc, rl = _inputs(255, np.uint8, 12)
+    hist_in = [t.cuda() for t in _t(bins, ghc, rl) + [_ids([1])]]
+    rng = np.random.RandomState(13)
+    n = 3 * HIST_CHUNK
+    words = pack_feature_words(rng.randint(0, 255, size=(28, n))
+                               .astype(np.uint8))
+    seg_in = [t.cuda() for t in _t(words, _stats(n, rng))
+              + [torch.tensor([1001, HIST_CHUNK + 500], dtype=torch.int32)]]
+    eager = [hk.masked_hist(*hist_in, 255), hk.seg_hist(*seg_in, 255)]
+    torch.cuda.synchronize()
+    before = hk.launch_counts()
+    graph = hk.CapturedGraph()
+    with graph.capture():
+        static = [hk.masked_hist(*hist_in, 255), hk.seg_hist(*seg_in, 255)]
+    assert graph.launches == {"masked_hist": 1, "seg_hist": 1}
+    assert hk.launch_counts() == before
+    for replays in (1, 2):
+        for pair in static:     # a replay that computes nothing shows
+            for t in pair:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for (hi, lo), (want_hi, want_lo) in zip(static, eager):
+            assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+        counts = hk.launch_counts()
+        for name in ("masked_hist", "seg_hist"):
+            assert counts[name] == before[name] + replays
+        assert counts["frontier_hist"] == before["frontier_hist"]
+
+
 def test_library_path_follows_included_headers(tmp_path):
     """A library is named by its source AND the headers it includes: a
     changed chunk_hist.cuh gives every source a new library, a header
