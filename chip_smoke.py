@@ -13,7 +13,8 @@ comparison in one run.
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
-   kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once;
+   kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once
+   (hist.cu, seg_hist.cu and traverse.cu);
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
    int16 case with 300 bins; frontier with L = 1 at the root, every row
@@ -75,8 +76,34 @@ Phases (any failure exits non-zero and prints no result line):
    categories that enter the label's logit, declared categorical, 3
    rounds with each builder: categorical splits, the same first tree,
    predict against the host traversal;
-10. a `kernels` JSON line (launches from the fused phases), the card
-    line, and the result line.
+10. serving (lightgbm_tpu_torch.serving): the bench model trained 100
+    rounds (fused masked) and frozen from its model text with
+    CompiledPredictor.from_model_file (max_batch_rows 4096) in f32 and
+    bf16; tree_leaf bit for bit against its plain version on the card
+    over 100k rows with NaN, +-inf, +-1e10 and -0.5 planted, also on a
+    predictor of the categorical phase's masked model (whose served
+    leaves must equal the host traversal's); tree_raw with K = 1 (the
+    bench model, float32 and bfloat16 leaf values) and K = 3 (random
+    valid trees) within 1e-6 of the per-row leaf-value scale of its
+    plain version, bfloat16 within the predictor's accuracy_bound of the
+    exact f64 sum, two launches bitwise equal; both kernels timed at the
+    4096-row and the 1-row bucket beside their bound and plain version.
+    Then the main path, launch counts read from zero: bench.py
+    serving_probe's numbers for each predictor (single-row predict
+    p50/p99 over 100 calls, predict throughput over 100k rows, cold
+    dispatches 0), and make_server in process: POSTs of 1, 64 and 4096
+    rows bit-equal to CompiledPredictor.predict, 8 client threads of
+    single-row requests coalescing into fewer batches, /healthz and
+    /metricz. Then predict's stages timed apart on 1 row and on 100k
+    rows (canonicalise and pad, the two copies, the launch, the f64
+    gather and product, the sigmoid), the staged answer bit-equal to
+    predict's. Served leaves must equal the host float64 traversal's
+    (force_host_predict) and predict the f64 product of those leaves;
+    against the host path's per-class sum it is held within the f64
+    association bound (coalesced_tol);
+11. a `kernels` JSON line (launches from the fused phases, and for the
+    traversal kernels from the serving main path), the card line, and
+    the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -680,13 +707,16 @@ def phase_profile(torch, booster):
 
 
 def check_predict(torch, booster, xp, what):
-    """Booster.predict (device traversal) against the host float64
-    traversal of the saved model text."""
+    """Booster.predict on the device path (device_predict=true: below
+    device_predict_cells it would take the host path) against the host
+    float64 traversal of the saved model text."""
     from lightgbm_tpu_torch.models.gbdt import GBDT
+    booster.gbdt.device_predict = "true"
     t0 = time.perf_counter()
     pred = booster.predict(xp)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
+    booster.gbdt.device_predict = "auto"
     host = GBDT(device="cpu")
     host.load_model_from_string(booster.model_to_string())
     raw = sum(t.predict(xp.astype(np.float64)) for t in host.models)
@@ -821,7 +851,7 @@ def phase_categorical(torch, lgt, seed):
     check(same_feat and same_thr and rel <= 1e-4,
           "categorical: the two builders grew different first trees")
     res["first_tree_leaf_rel_diff"] = rel
-    return res
+    return res, boosters["masked"], x
 
 
 def fused_runner(booster):
@@ -1142,6 +1172,570 @@ def phase_blockwise(torch, lgt, ds, seed):
     return res
 
 
+# ---------------------------------------------------------------- serving
+
+SERVE_ROUNDS = 100
+SERVE_BUCKET = 4096
+SERVE_ROWS = 100_000
+# rows held against the host float64 path (its numpy walk of 100 trees
+# takes about 0.2 s a 1,000 rows)
+HOST_CHECK_ROWS = 20_000
+HTTP_CLIENTS = 8
+HTTP_REQUESTS_EACH = 25
+
+
+def plant_specials(x, rng, cols=None, frac=0.02):
+    """x with NaN, +-inf, +-1e10 and -0.5 planted in `frac` of the
+    entries of `cols` (all columns by default)."""
+    x = np.array(x, dtype=np.float32)
+    cols = np.arange(x.shape[1]) if cols is None else np.asarray(cols)
+    specials = np.array([np.nan, np.inf, -np.inf, 1e10, -1e10, -0.5],
+                        np.float32)
+    mask = rng.rand(len(x), len(cols)) < frac
+    sub = x[:, cols]
+    sub[mask] = specials[rng.randint(len(specials), size=int(mask.sum()))]
+    x[:, cols] = sub
+    return x
+
+
+def random_forest(rng, t_cnt, max_leaves, f):
+    """Random valid trees (random leaf splits, a third categorical):
+    the (T, S) arrays traverse_kernels.freeze takes, and (T, L) leaf
+    values."""
+    s = max_leaves - 1
+    sf = np.zeros((t_cnt, s), np.int32)
+    thr = np.zeros((t_cnt, s), np.float32)
+    cat = np.zeros((t_cnt, s), bool)
+    lc = np.full((t_cnt, s), ~0, np.int32)
+    rc = np.full((t_cnt, s), ~0, np.int32)
+    lv = np.zeros((t_cnt, max_leaves), np.float32)
+    node0 = np.zeros(t_cnt, np.int32)
+    depth = 1
+    for t in range(t_cnt):
+        nl = rng.randint(2, max_leaves + 1)
+        leaves, leaf_depth = [(-1, 0)], [0]
+        for ns in range(nl - 1):
+            li = rng.randint(len(leaves))
+            parent, side = leaves[li]
+            if parent >= 0:
+                (lc if side == 0 else rc)[t, parent] = ns
+            sf[t, ns] = rng.randint(f)
+            cat[t, ns] = rng.rand() < 0.3
+            thr[t, ns] = (rng.randint(N_CATEGORIES) if cat[t, ns]
+                          else np.float32(rng.randn()))
+            lc[t, ns], rc[t, ns] = ~li, ~len(leaves)
+            leaves[li] = (ns, 0)
+            leaves.append((ns, 1))
+            leaf_depth[li] += 1
+            leaf_depth.append(leaf_depth[li])
+        lv[t, :nl] = rng.randn(nl) * 0.1
+        depth = max(depth, max(leaf_depth))
+    return (sf, thr, cat, lc, rc, node0, depth), lv
+
+
+def leaf_depths(forest):
+    """(T, S + 1) steps from the root to each leaf of a Forest (the
+    walk's length for a row that lands there)."""
+    lc, rc = forest.lc.cpu().numpy(), forest.rc.cpu().numpy()
+    node0 = forest.node0.cpu().numpy()
+    out = np.zeros((lc.shape[0], lc.shape[1] + 1), np.int64)
+    for t in range(lc.shape[0]):
+        stack = [(int(node0[t]), 0)]
+        while stack:
+            node, d = stack.pop()
+            if node < 0:
+                out[t, ~node] = d
+                continue
+            stack += [(int(lc[t, node]), d + 1), (int(rc[t, node]), d + 1)]
+    return out
+
+
+def traverse_bound_ms(x, forest, leaves, lv=None, num_class=1):
+    """Least time for one traversal call on this run's rows and the
+    model's own trees (a frozen forest holds no padding): x, the node
+    records and node0 read once and the output written once (tree_leaf: (B, T) int32;
+    tree_raw: the (T, L) leaf values read once and (B, K) float32
+    written), over HBM bandwidth; against one float32 compare per step
+    this run's rows take (and one add per (row, tree) for tree_raw)
+    over the float32 rate. Returns (ms, bound_by)."""
+    b, f = x.shape
+    t, s = forest.nodes.shape[:2]
+    nbytes = b * f * 4 + t * s * 16 + t * 4
+    steps = float(leaf_depths(forest)[np.arange(leaves.shape[1])[None, :],
+                                      leaves].sum())
+    if lv is None:
+        nbytes += b * t * 4
+        ops = steps
+    else:
+        nbytes += lv.numel() * lv.element_size() + b * num_class * 4
+        ops = steps + b * leaves.shape[1]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
+    """One traversal kernel of a frozen predictor on `x_host` rows (a
+    bucket's shape): against its plain version on the card (leaves bit
+    for bit; float32 sums within 1e-6 of the per-row leaf-value scale),
+    launched twice and required bitwise equal, timed beside its bound
+    and the plain version. There is no PyTorch library call for the
+    same function (library_ms None)."""
+    forest = pred._forest
+    x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
+    if name == "tree_leaf":
+        def kern():
+            return tk.tree_leaf(x, forest)
+
+        def plain():
+            return tk.tree_leaf_plain(x, forest)
+        lv = None
+    else:
+        lv = (pred._lv16 if pred.serving_precision == "bf16"
+              else pred._f32_values())
+
+        def kern():
+            return tk.tree_raw(x, forest, lv, pred.num_class)
+
+        def plain():
+            return tk.tree_raw_plain(x, forest, lv, pred.num_class)
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    res = {"name": name, "shape": {"B": x.shape[0], "F": x.shape[1],
+                                   "T": int(forest.nodes.shape[0]),
+                                   "S": int(forest.nodes.shape[1]),
+                                   "depth": forest.depth,
+                                   "precision": pred.serving_precision},
+           "max_abs_err": err, "bitwise_vs_plain": bool(torch.equal(got,
+                                                                    want)),
+           "deterministic": bool(torch.equal(got, again))}
+    leaves = tk.tree_leaf(x, forest).cpu().numpy()
+    res["bound_ms"], res["bound_by"] = traverse_bound_ms(
+        x, forest, leaves, lv, pred.num_class)
+    res["ms"] = timer(kern, reps)
+    res["ms_enqueued"] = timer(kern, reps, sleep=False)
+    res["host_us"] = host_us(torch, kern)
+    res["plain_ms"] = timer(plain, 5)
+    res["library_ms"] = None
+    log(f"{name} {res['shape']}: err {err:.3g} bitwise {res['bitwise_vs_plain']}"
+        f" deterministic {res['deterministic']} ms {res['ms']:.4f} enqueued "
+        f"{res['ms_enqueued']:.4f} bound {res['bound_ms']:.5f} "
+        f"({res['bound_by']}) plain {res['plain_ms']:.3f} host_us "
+        f"{res['host_us']:.1f}")
+    check(res["deterministic"], f"{name}: two launches gave different bits")
+    if name == "tree_leaf":
+        check(res["bitwise_vs_plain"], f"{name}: differs from plain")
+    else:
+        scale = float(lv.float().abs().amax(dim=1).sum())
+        check(err <= 1e-6 * scale,
+              f"{name}: differs from plain by {err} (scale {scale})")
+    return res
+
+
+def check_raw_cases(torch, tk, pred, bf16, x_host, rng):
+    """tree_raw for K = 1 (the bench model, float32 and bfloat16 leaf
+    values) and K = 3 (random valid trees): within 1e-6 of the per-row
+    leaf-value scale of the plain version, bfloat16 within the
+    predictor's accuracy_bound of the exact float64 sum, and two
+    launches bitwise equal."""
+    out = {}
+    x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
+    leaves = tk.tree_leaf(x, pred._forest).long()
+    exact = (pred._lv64[np.arange(pred.num_trees)[None, :],
+                        leaves.cpu().numpy()] @ pred._onehot64)
+    for p in (pred, bf16):
+        lv = p._lv16 if p.serving_precision == "bf16" else p._f32_values()
+        got = tk.tree_raw(x, p._forest, lv, p.num_class)
+        again = tk.tree_raw(x, p._forest, lv, p.num_class)
+        want = tk.tree_raw_plain(x, p._forest, lv, p.num_class)
+        torch.cuda.synchronize()
+        scale = float(lv.float().abs().amax(dim=1).sum())
+        err = float((got - want).abs().max())
+        vs_exact = float(np.abs(got.cpu().numpy() - exact).max())
+        out[p.serving_precision] = {
+            "max_abs_err": err, "scale": scale, "vs_exact_f64": vs_exact,
+            "accuracy_bound": p.accuracy_bound,
+            "bitwise_vs_plain": bool(torch.equal(got, want)),
+            "deterministic": bool(torch.equal(got, again))}
+        log(f"tree_raw K=1 {p.serving_precision}: {out[p.serving_precision]}")
+        check(torch.equal(got, again),
+              f"tree_raw {p.serving_precision}: launches differ in bits")
+        check(err <= 1e-6 * scale,
+              f"tree_raw {p.serving_precision}: {err} from plain")
+        if p.serving_precision == "bf16":
+            check(vs_exact <= p.accuracy_bound,
+                  f"tree_raw bf16: {vs_exact} from exact, bound "
+                  f"{p.accuracy_bound}")
+        else:
+            check(vs_exact <= 1e-6 * scale,
+                  f"tree_raw f32: {vs_exact} from exact")
+    arrays, lv = random_forest(rng, 96, 63, N_FEATURES)
+    forest = tk.freeze(*arrays, DEVICE)
+    x3 = torch.from_numpy(plant_specials(
+        np.where(rng.rand(len(x_host), N_FEATURES) < 0.3,
+                 rng.randint(0, N_CATEGORIES, (len(x_host), N_FEATURES)),
+                 x_host).astype(np.float32), rng)).to(DEVICE)
+    lv32 = torch.from_numpy(lv).to(DEVICE)
+    for vals in (lv32, lv32.to(torch.bfloat16)):
+        got = tk.tree_raw(x3, forest, vals, 3)
+        again = tk.tree_raw(x3, forest, vals, 3)
+        want = tk.tree_raw_plain(x3, forest, vals, 3)
+        leaves3 = tk.tree_leaf(x3, forest)
+        torch.cuda.synchronize()
+        scale = float(vals.float().abs().amax(dim=1).sum())
+        err = float((got - want).abs().max())
+        key = "k3_" + str(vals.dtype).replace("torch.", "")
+        out[key] = {"max_abs_err": err, "scale": scale,
+                    "bitwise_vs_plain": bool(torch.equal(got, want)),
+                    "deterministic": bool(torch.equal(got, again)),
+                    "leaves_bitwise": bool(torch.equal(
+                        leaves3, tk.tree_leaf_plain(x3, forest)))}
+        log(f"tree_raw K=3 {key}: {out[key]}")
+        check(out[key]["deterministic"] and out[key]["leaves_bitwise"],
+              f"tree_raw {key}: not deterministic or leaves differ")
+        check(err <= 1e-6 * scale, f"tree_raw {key}: {err} from plain")
+    return out
+
+
+def check_leaves(torch, tk, pred, x_host, what):
+    """tree_leaf bit for bit against its plain version on the card, and
+    the predictor's leaf indices against the host float64 traversal."""
+    x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
+    got = tk.tree_leaf(x, pred._forest)
+    want = tk.tree_leaf_plain(x, pred._forest)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    log(f"tree_leaf {what}: {tuple(got.shape)} bitwise vs plain {same}")
+    check(same, f"tree_leaf {what}: differs from its plain version")
+    return {"rows": len(x_host), "trees": int(got.shape[1]),
+            "bitwise_vs_plain": same}
+
+
+def serving_probe(torch, pred, rows, label):
+    """bench.py serving_probe's numbers for one predictor: single-row
+    predict p50/p99 over 100 calls (nearest rank) and predict
+    throughput over `rows`."""
+    row = rows[:1]
+    pred.predict(row)
+    lats = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        pred.predict(row)
+        lats.append(time.perf_counter() - t0)
+    lats.sort()
+    t0 = time.perf_counter()
+    out = pred.predict(rows)
+    rows_s = len(rows) / (time.perf_counter() - t0)
+    res = {"latency_p50_ms": lats[49] * 1e3, "latency_p99_ms": lats[98] * 1e3,
+           "throughput_rows_s": rows_s, "probe_rows": len(rows),
+           "cold_dispatches": pred.stats["cold_dispatches"],
+           "warm_dispatches": pred.stats["warm_dispatches"]}
+    log(f"serving probe {label}: p50 {res['latency_p50_ms']:.4f} ms p99 "
+        f"{res['latency_p99_ms']:.4f} ms, {rows_s:.0f} rows/s over "
+        f"{len(rows)} rows, cold dispatches {res['cold_dispatches']}")
+    check(res["cold_dispatches"] == 0, f"{label}: a cold dispatch")
+    check(out.shape == (len(rows), 1) and np.all(np.isfinite(out)),
+          f"{label}: predictions not finite or of the wrong shape")
+    return res, out
+
+
+PREDICT_STAGES = ("canon_pad", "h2d", "launch", "d2h", "gather", "product",
+                  "transform")
+
+
+def predict_stages(torch, pred, rows, reps):
+    """Host-clock time of each stage of CompiledPredictor.predict's exact
+    path, run as predict_raw and _blocks run them, with the card
+    synchronised after the host-to-device copy and after the launch so
+    each device stage ends inside its own span: canonicalise and pad to
+    the bucket, the copy to the card, the tree_leaf launch to its end,
+    the copy back, the float64 gather of the leaf values, their product
+    with the class one-hot, and the sigmoid (stages of several blocks
+    add up). Medians over `reps` runs, in ms, beside the median of
+    pred.predict itself on the same rows, run in turn with the stages;
+    the staged answer must equal pred.predict's bit for bit."""
+    samples = {k: [] for k in PREDICT_STAGES + ("staged_total", "predict")}
+    want = pred.predict(rows)
+    same = True
+    top = pred.buckets[-1]
+    for _ in range(reps):
+        st = dict.fromkeys(PREDICT_STAGES, 0.0)
+        t0 = time.perf_counter()
+        x = pred._canon(rows)
+        st["canon_pad"] += time.perf_counter() - t0
+        outs = []
+        for s in range(0, len(x), top):
+            t0 = time.perf_counter()
+            xb = x[s:s + top]
+            b = pred._bucket(len(xb))
+            pad = b - len(xb)
+            if pad:
+                xb = np.pad(xb, ((0, pad), (0, 0)))
+            xb = np.ascontiguousarray(xb)
+            t1 = time.perf_counter()
+            dev = torch.from_numpy(xb).to(pred.device)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            leaf = pred._dispatch_leaf(dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            outs.append(leaf.cpu().numpy()[:b - pad])
+            t4 = time.perf_counter()
+            st["canon_pad"] += t1 - t0
+            st["h2d"] += t2 - t1
+            st["launch"] += t3 - t2
+            st["d2h"] += t4 - t3
+        t0 = time.perf_counter()
+        leaves = np.concatenate(outs, axis=0)
+        vals = pred._lv64[np.arange(pred.num_trees)[None, :], leaves]
+        t1 = time.perf_counter()
+        raw = vals @ pred._onehot64
+        t2 = time.perf_counter()
+        got = 1.0 / (1.0 + np.exp(-2.0 * pred.sigmoid * raw))
+        t3 = time.perf_counter()
+        st["gather"], st["product"], st["transform"] = \
+            t1 - t0, t2 - t1, t3 - t2
+        same = same and bool(np.array_equal(got, want))
+        for k, v in st.items():
+            samples[k].append(v)
+        samples["staged_total"].append(sum(st.values()))
+        t0 = time.perf_counter()
+        pred.predict(rows)
+        samples["predict"].append(time.perf_counter() - t0)
+    res = {k + "_ms": 1e3 * float(np.median(v)) for k, v in samples.items()}
+    res.update(rows=len(rows), reps=reps, bit_equal_to_predict=same)
+    log(f"predict stages, {len(rows)} rows (median of {reps}, ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
+                    if k.endswith("_ms")))
+    check(same, f"staged predict of {len(rows)} rows differs from predict")
+    return res
+
+
+def coalesced_tol(pred):
+    """Bound on two f64 sums of the same leaf values in two orders: T
+    trees x float64 eps x the sum of each tree's largest |leaf value|
+    (a sigmoid only shrinks the difference)."""
+    return (pred.num_trees * float(np.finfo(np.float64).eps)
+            * float(np.abs(pred._lv64).max(axis=1).sum()))
+
+
+def http_phase(pred, rows):
+    """make_server in process on 127.0.0.1, port 0: POSTs of 1, 64 and
+    4096 rows must equal pred.predict on the same rows bit for bit; 8
+    client threads of single-row requests must coalesce (fewer batches
+    than requests) and agree with pred.predict on each row alone within
+    coalesced_tol (a coalesced batch's f64 product associates its sums
+    in another order); /healthz and /metricz answer."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.serving import make_server
+
+    srv = make_server(pred, host="127.0.0.1", port=0, max_wait_ms=2.0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def post(r):
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps({"rows": r.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return np.asarray(json.loads(resp.read())["predictions"])
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    res = {}
+    try:
+        exact = {}
+        for n in (1, 64, SERVE_BUCKET):
+            t0 = time.perf_counter()
+            got = post(rows[:n])
+            exact[n] = bool(np.array_equal(got, pred.predict(rows[:n])))
+            res[f"post_{n}_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["bit_equal"] = exact
+        errors, answers = [], {}
+        m0 = get("/metricz")
+
+        def client(k):
+            try:
+                for i in range(HTTP_REQUESTS_EACH):
+                    j = k * HTTP_REQUESTS_EACH + i
+                    answers[j] = post(rows[j:j + 1])
+            except Exception as e:  # noqa: BLE001
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(HTTP_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(120)
+        res["concurrent_s"] = time.perf_counter() - t0
+        m1 = get("/metricz")
+        n_req = HTTP_CLIENTS * HTTP_REQUESTS_EACH
+        want = pred.predict(rows[:n_req])
+        got = np.concatenate([answers[j] for j in range(n_req)]) \
+            if len(answers) == n_req else None
+        res["concurrent"] = {
+            "requests": n_req,
+            "batches": m1["batch_count"] - m0["batch_count"],
+            "errors": errors, "tol": coalesced_tol(pred),
+            "max_abs_diff": (float(np.max(np.abs(got - want)))
+                             if got is not None else None)}
+        health = get("/healthz")
+        res["healthz"] = {"status": health["status"],
+                          "num_trees": health["model"]["num_trees"]}
+        res["metricz"] = {k: m1[k] for k in (
+            "request_count", "rows_served", "batch_count", "error_count",
+            "latency_p50_ms", "latency_p99_ms", "cold_dispatches",
+            "warm_dispatches")}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        thread.join(10)
+    log(f"http: bit-equal {res['bit_equal']}, concurrent {res['concurrent']}"
+        f", healthz {res['healthz']}, metricz {res['metricz']}")
+    check(all(res["bit_equal"].values()),
+          "HTTP answers differ from CompiledPredictor.predict")
+    c = res["concurrent"]
+    check(not c["errors"] and c["max_abs_diff"] is not None
+          and c["max_abs_diff"] <= c["tol"],
+          f"concurrent requests failed or disagree: {c}")
+    check(c["batches"] < c["requests"],
+          f"no coalescing: {c['batches']} batches for {c['requests']}")
+    check(res["healthz"]["status"] == "ok", "healthz not ok")
+    check(res["metricz"]["error_count"] == 0
+          and res["metricz"]["cold_dispatches"] == 0,
+          f"metricz: {res['metricz']}")
+    return res
+
+
+def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
+    """The serving path at full width: the bench model trained 100
+    rounds (fused masked trainer), frozen from its model text in f32 and
+    bf16 (max_batch_rows 4096); the traversal kernels held against their
+    plain versions and timed; bench.py serving_probe's numbers; the HTTP
+    server. Launch counts of the serving main path (probe + HTTP) are
+    read from zero."""
+    import tempfile
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.ops import traverse_kernels as tk
+    from lightgbm_tpu_torch.serving import CompiledPredictor
+
+    rng = np.random.RandomState(seed + 5)
+    res = {}
+    t0 = time.perf_counter()
+    booster = lgt.train(BENCH_PARAMS, ds, SERVE_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    check(len(booster.gbdt.models) == SERVE_ROUNDS,
+          "the serving model stopped early")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench_model.txt")
+        booster.save_model(path)
+        t0 = time.perf_counter()
+        pred = CompiledPredictor.from_model_file(path, max_batch_rows=SERVE_BUCKET)
+        res["warmup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bf16 = CompiledPredictor.from_model_file(
+            path, max_batch_rows=SERVE_BUCKET, serving_precision="bf16")
+        res["warmup_bf16_s"] = time.perf_counter() - t0
+        host = GBDT(device="cpu")
+        with open(path) as f:
+            host.load_model_from_string(f.read())
+    host.force_host_predict = True
+    res.update(num_trees=pred.num_trees, depth=pred.depth,
+               node_slots=int(pred._forest.nodes.shape[1]),
+               compile_cache_hits=pred.stats["compile_cache_hits"],
+               accuracy_bound=bf16.accuracy_bound)
+    log(f"serving model: {pred.num_trees} trees ({res['node_slots']} node "
+        f"slots each), depth {pred.depth}, trained in "
+        f"{res['train_s']:.1f}s; warm-up f32 {res['warmup_s']:.3f}s bf16 "
+        f"{res['warmup_bf16_s']:.3f}s, library found built "
+        f"{res['compile_cache_hits']}, bf16 bound {bf16.accuracy_bound:.3g}")
+
+    # kernel checks (their launches are not the main path's)
+    xv, _ = make_valid(SERVE_ROWS, seed)
+    xv = plant_specials(xv, rng)
+    res["leaf_check"] = check_leaves(torch, tk, pred, xv, "bench model")
+    cats = list(range(N_FEATURES, N_FEATURES + N_CAT))
+    xc = plant_specials(cat_x[:SERVE_ROWS], rng, cols=cats, frac=0.05)
+    cat_pred = CompiledPredictor.from_booster(cat_booster,
+                                              max_batch_rows=SERVE_BUCKET)
+    res["leaf_check_categorical"] = check_leaves(torch, tk, cat_pred, xc,
+                                                 "categorical model")
+    cat_leaves = cat_pred.predict_leaf_index(xc[:20_000])
+    check(np.array_equal(cat_leaves, cat_booster.predict(
+        xc[:20_000], pred_leaf=True)),
+          "categorical: served leaf indices differ from the host traversal")
+    res["raw_checks"] = check_raw_cases(torch, tk, pred, bf16,
+                                        xv[:SERVE_BUCKET * 4], rng)
+    cases = {
+        "tree_leaf": traverse_case(torch, tk, timer, "tree_leaf", pred,
+                                   xv[:SERVE_BUCKET]),
+        "tree_raw": traverse_case(torch, tk, timer, "tree_raw", pred,
+                                  xv[:SERVE_BUCKET]),
+        "tree_leaf_1": traverse_case(torch, tk, timer, "tree_leaf", pred,
+                                     xv[:1]),
+        "tree_raw_1": traverse_case(torch, tk, timer, "tree_raw", pred,
+                                    xv[:1]),
+        "tree_raw_bf16": traverse_case(torch, tk, timer, "tree_raw", bf16,
+                                       xv[:SERVE_BUCKET])}
+    res["kernel_cases"] = cases
+
+    # the main path: bench.py serving_probe on both predictors, then HTTP
+    rows = np.ascontiguousarray(x[:SERVE_ROWS], dtype=np.float32)
+    tk.reset_launch_counts()
+    res["probe_f32"], _ = serving_probe(torch, pred, rows, "f32")
+    res["probe_bf16"], served16 = serving_probe(torch, bf16, rows, "bf16")
+    res["http"] = http_phase(pred, rows)
+    res["launches"] = tk.launch_counts()
+    log(f"serving main path launches: {res['launches']}")
+    check(res["launches"]["tree_leaf"] > 0 and res["launches"]["tree_raw"] > 0,
+          f"the serving path missed a kernel: {res['launches']}")
+    check(res["launches"]["tree_leaf"] >= res["http"]["metricz"]["batch_count"],
+          "HTTP batches did not all launch tree_leaf")
+    # where a request's time goes: predict's stages timed apart (these
+    # launches come after the main path's counts were read)
+    res["stages_1_row"] = predict_stages(torch, pred, rows[:1], 100)
+    res["stages_100k"] = predict_stages(torch, pred, rows, 5)
+
+    # exactness: the predictor's leaves are the host f64 traversal's, and
+    # its f64 reduce is the JAX predictor's product of those leaves; the
+    # host path's per-class pairwise sum associates differently
+    rows = rows[:HOST_CHECK_ROWS]
+    served = pred.predict(rows)
+    leaves = pred.predict_leaf_index(rows)
+    host_leaves = host.predict_leaf_index(rows)
+    res["leaves_equal_host"] = bool(np.array_equal(leaves, host_leaves))
+    product = host._stacked_model_arrays(pred.num_trees)[5][
+        np.arange(pred.num_trees)[None, :], host_leaves] @ pred._onehot64
+    want = 1.0 / (1.0 + np.exp(-2.0 * pred.sigmoid * product))
+    res["equal_to_host_leaf_product"] = bool(np.array_equal(served, want))
+    host_pred = host.predict(rows)
+    diff = np.abs(served - host_pred)
+    res["vs_host_path"] = {"rows_bit_equal": int((diff == 0).sum()),
+                           "rows": len(rows), "max_abs_diff": float(diff.max())}
+    res["bf16_vs_exact"] = float(np.abs(served16[:len(rows)] - served).max())
+    log(f"exact path: leaves equal host {res['leaves_equal_host']}, equal to "
+        f"the host leaves' product {res['equal_to_host_leaf_product']}, vs "
+        f"the host path {res['vs_host_path']}; bf16 vs exact "
+        f"{res['bf16_vs_exact']:.3g} (bound {bf16.accuracy_bound:.3g})")
+    check(res["leaves_equal_host"], "served leaves differ from the host's")
+    check(res["equal_to_host_leaf_product"],
+          "predict differs from the f64 product of the host leaves")
+    check(res["vs_host_path"]["max_abs_diff"] <= coalesced_tol(pred),
+          f"predict differs from the host path: {res['vs_host_path']}")
+    check(res["bf16_vs_exact"] <= bf16.accuracy_bound,
+          "bf16 predict outside its accuracy bound")
+    return res, cases
+
+
 def kernel_line(case, launches, source, replaces):
     """One entry of the `kernels` JSON line."""
     return {"name": case["name"], "route": "cuda", "source": source,
@@ -1168,6 +1762,7 @@ def main():
     try:
         import lightgbm_tpu_torch as lgt
         from lightgbm_tpu_torch.ops import hist_kernels as hk
+        from lightgbm_tpu_torch.ops import traverse_kernels
     except ImportError as e:
         print(f"chip_smoke: lightgbm_tpu_torch not importable ({e}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -1185,7 +1780,9 @@ def main():
     t_start = time.time()
     try:
         t0 = time.time()
-        hk.build()
+        # every kernel source at once: the histogram kernels' and the
+        # serving path's traversal kernels
+        hk.build(hk.SOURCES + (traverse_kernels.SOURCE,))
         report["build_s"] = time.time() - t0
         report["ptxas"] = {src: ptxas_usage(out)
                            for src, out in hk.BUILD_OUTPUT.items()}
@@ -1246,8 +1843,13 @@ def main():
             dict(BENCH_PARAMS, partitioned_build="true"), "partitioned")
         report["fused_sampled"] = phase_fused_sampled(torch, lgt, ds)
         report["blockwise"] = phase_blockwise(torch, lgt, ds, args.seed)
-        del ds, booster, part
-        report["categorical"] = phase_categorical(torch, lgt, args.seed)
+        del booster, part
+        report["categorical"], cat_booster, cat_x = phase_categorical(
+            torch, lgt, args.seed)
+        serving, serve_cases = phase_serving(torch, lgt, ds, x, cat_booster,
+                                             cat_x, timer, args.seed)
+        report["serving"] = serving
+        del ds, cat_booster
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         _write(args.out, report)
@@ -1268,6 +1870,17 @@ def main():
         kernel_line(seg_cases[0], part_counts["seg_hist"],
                     "lightgbm_tpu_torch/csrc/seg_hist.cu",
                     "lightgbm_tpu/ops/ordered_hist.py:123")]
+    # the serving path's kernels, launches from its requests; the JAX
+    # package runs this walk as XLA under the jitted serving kernels
+    trav_src = "lightgbm_tpu_torch/csrc/traverse.cu"
+    serve_counts = report["serving"]["launches"]
+    kernels += [
+        kernel_line(serve_cases["tree_leaf"], serve_counts["tree_leaf"],
+                    trav_src, "lightgbm_tpu/serving/compiled_model.py:76 "
+                    "(XLA device_traverse, no Pallas counterpart)"),
+        kernel_line(serve_cases["tree_raw"], serve_counts["tree_raw"],
+                    trav_src, "lightgbm_tpu/serving/compiled_model.py:110 "
+                    "(XLA device_traverse, no Pallas counterpart)")]
     report["kernels"] = kernels
     _write(args.out, report)
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,16 @@
 Reference: src/boosting/gbdt.h:17-310, src/boosting/gbdt.cpp. This
 slice covers the per-iteration, single-process, constant-leaf loop
 (train_one_iter :835-955), record-level bagging (_bagging :769-832),
-metric output with early stopping, device prediction
-(f32_safe_thresholds :47-62, device_traverse :65-97) and the model text
+metric output with early stopping, prediction and the model text
 (save_model_to_string / load_model_from_string :1837-1945).
+
+Prediction routes as the JAX package's does (predict_raw and
+_use_device_predict :1679-1760): below DEVICE_PREDICT_CELLS rows x
+trees the host float64 traversal (_traverse_host) with per-class
+float64 sums, which pins the bits; above it, or with device_predict=
+true, the device path (f32_safe_thresholds :47-62), one tree_raw
+launch per block (ops/traverse_kernels.py; device_traverse :65-97 is
+its plain version). Leaf indices always come from the host traversal.
 
 One tree costs one host sync: the learner builds it on the device
 without reading anything back, then fetches all its arrays in one
@@ -29,13 +36,14 @@ packages one mask where they compare trees.
 """
 
 import copy
+import os
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops import hist_kernels
+from ..ops import hist_kernels, traverse_kernels
 from ..utils import common, guardrails
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
@@ -316,6 +324,18 @@ class _BlockSnapshots:
 class GBDT:
     name = "gbdt"
 
+    # predict routing (lightgbm_tpu/models/gbdt.py:1570-1583): rows x
+    # trees at or above this run the device traversal, below it the host
+    # float64 path; the `device_predict_cells` / `host_traverse_cells` /
+    # `device_predict` knobs override per booster (apply_predict_config)
+    DEVICE_PREDICT_CELLS = 20_000_000
+    # host-path (rows x trees) cells per traversal block (peak memory)
+    _HOST_TRAVERSE_CELLS = 4_000_000
+    device_predict = "auto"
+    # a precision reference (serving/drift.py host_reference_scorer)
+    # stays on the host path whatever the knobs and the environment say
+    force_host_predict = False
+
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self.models = []            # Tree list, class-major per iteration
@@ -359,6 +379,7 @@ class GBDT:
         self.sigmoid = -1.0
         if objective is not None and objective.name == "binary":
             self.sigmoid = config.sigmoid
+        self.apply_predict_config(config)
         self.tree_learner = create_tree_learner(config.tree_learner, config,
                                                 self.device)
         self.tree_learner.init(train_data)
@@ -790,9 +811,22 @@ class GBDT:
             return min(self.num_iteration_for_pred * self.num_class, total)
         return total
 
+    def _model_cache(self, n_used):
+        """Per-model-list-state cache of the stacked arrays (host) and
+        the frozen device model; every change to self.models sets
+        _device_model_cache to None."""
+        key = (n_used, len(self.models))
+        if self._device_model_cache is None \
+                or self._device_model_cache[0] != key:
+            self._device_model_cache = (key, {})
+        return self._device_model_cache[1]
+
     def _stacked_model_arrays(self, n_used):
         """All trees' arrays padded to one (T, ...) set so prediction
         traverses every tree at once."""
+        cache = self._model_cache(n_used)
+        if "stack" in cache:
+            return cache["stack"]
         trees = self.models[:n_used]
         max_l = max(t.num_leaves for t in trees)
         t_cnt = len(trees)
@@ -818,62 +852,124 @@ class GBDT:
                 has_split[i] = True
                 depth = max(depth, t.max_depth)
             lv[i, :t.num_leaves] = t.leaf_value
-        return sf, thr, dt, lc, rc, lv, has_split, depth
+        cache["stack"] = (sf, thr, dt, lc, rc, lv, has_split, depth)
+        return cache["stack"]
 
     def _device_model(self, n_used):
-        """Stacked tree arrays on the device (float32 thresholds rounded
-        toward -inf, float32 leaf values), cached per model-list state."""
-        key = (n_used, len(self.models))
-        if self._device_model_cache is not None \
-                and self._device_model_cache[0] == key:
-            return self._device_model_cache[1]
-        sf, thr, dt, lc, rc, lv, has_split, depth = \
-            self._stacked_model_arrays(n_used)
-        dev = self.device
+        """The frozen trees on the device (traverse_kernels.Forest,
+        float32 thresholds rounded toward -inf) and their (T, L) float32
+        leaf values, cached per model-list state."""
+        cache = self._model_cache(n_used)
+        if "device" not in cache:
+            sf, thr, dt, lc, rc, lv, has_split, depth = \
+                self._stacked_model_arrays(n_used)
+            forest = traverse_kernels.freeze(
+                sf, f32_safe_thresholds(thr, dt), dt == Tree.CATEGORICAL,
+                lc, rc, np.where(has_split, 0, ~0).astype(np.int32), depth,
+                self.device)
+            lv32 = torch.from_numpy(lv.astype(np.float32)).to(self.device)
+            cache["device"] = (forest, lv32)
+        return cache["device"]
 
-        def put(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return t.to(device=dev, dtype=dtype)
-
-        model = (put(sf), put(f32_safe_thresholds(thr, dt)),
-                 put(dt == Tree.CATEGORICAL), put(lc), put(rc),
-                 put(lv, torch.float32),
-                 put(np.where(has_split, 0, ~0).astype(np.int32)),
-                 int(depth))
-        self._device_model_cache = (key, model)
-        return model
-
-    def _predict_nodes(self, x, n_used, reduce_fn):
-        """Device traversal of (N, F) rows in PREDICT_BLOCK blocks;
-        `reduce_fn(node (b, T), model)` -> host array per block."""
-        model = self._device_model(n_used)
-        sf, thr, cat, lc, rc, _, node0, depth = model
+    def _predict_raw_device(self, x, n_used):
+        """(N, K) raw scores on the device in PREDICT_BLOCK-row blocks:
+        the traversal and the per-class float32 sum in one tree_raw
+        launch (on a CPU booster its plain version)."""
+        forest, lv32 = self._device_model(n_used)
         outs = []
         for s in range(0, x.shape[0], PREDICT_BLOCK):
             xb = torch.from_numpy(np.ascontiguousarray(
                 x[s:s + PREDICT_BLOCK], dtype=np.float32)).to(self.device)
-            node = device_traverse(xb, sf, thr, cat, lc, rc, node0, depth)
-            outs.append(reduce_fn(node, model))
-        return np.concatenate(outs, axis=0)
+            outs.append(traverse_kernels.tree_raw(
+                xb, forest, lv32, self.num_class).cpu().numpy())
+        return np.concatenate(outs, axis=0).astype(np.float64)
 
     def predict_raw(self, x, num_iteration=-1):
-        """Raw scores for (N, num_total_features) raw values -> (N, K):
-        one lockstep device traversal of all trees, float32 sums."""
+        """Raw scores for (N, num_total_features) raw values -> (N, K).
+
+        The JAX package's routing (lightgbm_tpu/models/gbdt.py
+        predict_raw): below DEVICE_PREDICT_CELLS rows x trees the host
+        float64 traversal and per-class sums, above it (or when the
+        `device_predict` knob says so) the device traversal with float32
+        sums."""
         x = np.atleast_2d(np.asarray(x, dtype=np.float64))
         n_used = self._num_used_models(num_iteration)
-        if n_used == 0 or x.shape[0] == 0:
-            return np.zeros((x.shape[0], self.num_class))
-        k = self.num_class
-        cls = torch.arange(n_used, device=self.device) % k
+        n = x.shape[0]
+        out = np.zeros((n, self.num_class))
+        if n_used == 0 or n == 0:
+            return out
+        if self._use_device_predict(n, n_used):
+            return self._predict_raw_device(x, n_used)
+        lv = self._stacked_model_arrays(n_used)[5]
+        t_cnt = lv.shape[0]
+        t_idx = np.arange(t_cnt)
+        cls = t_idx % self.num_class       # class-major model list
+        block = max(1, min(n, self._HOST_TRAVERSE_CELLS // max(t_cnt, 1)))
+        for s in range(0, n, block):
+            node = self._traverse_host(x[s:s + block], n_used)   # (b, T)
+            vals = lv[t_idx[None, :], ~node]                     # (b, T)
+            for k in range(self.num_class):
+                out[s:s + block, k] = vals[:, cls == k].sum(axis=1)
+        return out
 
-        def raw(node, model):
-            lv = model[5]
-            t_idx = torch.arange(lv.shape[0], device=self.device)
-            vals = lv[t_idx[None, :], (~node).long()]          # (b, T)
-            return torch.stack([vals[:, cls == c].sum(1) for c in range(k)],
-                               1).cpu().numpy()
+    def apply_predict_config(self, config):
+        """The predict-routing knobs of a Config onto this booster
+        (init calls it; a booster loaded from a model file keeps the
+        class defaults)."""
+        self.DEVICE_PREDICT_CELLS = int(getattr(
+            config, "device_predict_cells", self.DEVICE_PREDICT_CELLS))
+        self._HOST_TRAVERSE_CELLS = int(getattr(
+            config, "host_traverse_cells", self._HOST_TRAVERSE_CELLS))
+        self.device_predict = str(getattr(config, "device_predict", "auto"))
 
-        return self._predict_nodes(x, n_used, raw).astype(np.float64)
+    def _use_device_predict(self, n, n_used):
+        """Route a predict_raw call host vs device. `force_host_predict`
+        wins (a booster serving as a precision reference, serving/drift.py
+        host_reference_scorer), then the LIGHTGBM_TPU_DEVICE_PREDICT
+        environment flag ("0"/"false" forces the host, "force"/"true"
+        the device), then the `device_predict` knob, else rows x trees
+        >= DEVICE_PREDICT_CELLS."""
+        if self.force_host_predict:
+            return False
+        knob = os.environ.get("LIGHTGBM_TPU_DEVICE_PREDICT")
+        if knob in (None, "", "1"):  # "1" was the legacy auto default
+            knob = str(self.device_predict)
+        knob = knob.lower()
+        if knob in ("0", "false", "off", "-"):
+            return False
+        if knob in ("force", "true", "+"):
+            return True
+        return n * n_used >= self.DEVICE_PREDICT_CELLS
+
+    def _traverse_host(self, xb, n_used):
+        """Host float64 traversal of one row block through all stacked
+        trees: the final (b, T) node states (~leaf encoded). NaN goes
+        right on numeric and on categorical nodes."""
+        sf, thr, dt, lc, rc, lv, has_split, depth = \
+            self._stacked_model_arrays(n_used)
+        t_cnt = sf.shape[0]
+        t_idx = np.arange(t_cnt)
+        xbs = np.nan_to_num(xb)  # the int cast below needs a finite input
+        node = np.where(has_split[None, :], 0, ~0).astype(np.int32)
+        node = np.broadcast_to(node, (len(xb), t_cnt)).copy()
+        for _ in range(depth):
+            active = node >= 0
+            if not active.any():
+                break
+            nd = np.maximum(node, 0)
+            feat = sf[t_idx[None, :], nd]
+            th = thr[t_idx[None, :], nd]
+            d = dt[t_idx[None, :], nd]
+            fval = xb[np.arange(len(xb))[:, None], feat]
+            fcat = xbs[np.arange(len(xb))[:, None], feat]
+            go_left = np.where(d == Tree.CATEGORICAL,
+                               (fcat.astype(np.int64) == th.astype(np.int64))
+                               & ~np.isnan(fval),
+                               fval <= th)
+            nxt = np.where(go_left, lc[t_idx[None, :], nd],
+                           rc[t_idx[None, :], nd])
+            node = np.where(active, nxt, node)
+        return node
 
     def predict(self, x, num_iteration=-1):
         """gbdt.cpp:622-636: sigmoid-transformed predictions."""
@@ -885,13 +981,19 @@ class GBDT:
         return raw
 
     def predict_leaf_index(self, x, num_iteration=-1):
-        """(N, T) leaf indices from the same device traversal."""
+        """(N, T) leaf indices from the host traversal, in blocks of
+        _HOST_TRAVERSE_CELLS cells (the JAX package's route)."""
         x = np.atleast_2d(np.asarray(x, dtype=np.float64))
         n_used = self._num_used_models(num_iteration)
-        if n_used == 0 or x.shape[0] == 0:
-            return np.zeros((x.shape[0], n_used), dtype=np.int32)
-        return self._predict_nodes(
-            x, n_used, lambda node, _: (~node).to(torch.int32).cpu().numpy())
+        n = x.shape[0]
+        if n_used == 0 or n == 0:
+            return np.zeros((n, n_used), dtype=np.int32)
+        block = max(1, min(n, self._HOST_TRAVERSE_CELLS // n_used))
+        outs = []
+        for s in range(0, n, block):
+            node = self._traverse_host(x[s:s + block], n_used)
+            outs.append((~node).astype(np.int32))
+        return np.concatenate(outs, axis=0)
 
     # --------------------------------------------------------- serialization
     def feature_importance_values(self, importance_type="split"):

@@ -1,11 +1,27 @@
 """Leveled logger (the port's copy of lightgbm_tpu/utils/log.py).
 
-Reference: include/LightGBM/utils/log.h:14-98. Fatal raises. The JAX
-package's structured-line and rank-prefix extensions belong to its
-telemetry and distributed planes, which the port has not reached yet.
+Reference: include/LightGBM/utils/log.h:14-98. Fatal raises.
+
+`Log.structured` writes one machine-attributable record (the serving
+access and slow-request logs, drift and skew warnings): with
+`LIGHTGBM_TPU_LOG_JSON=1` in the environment every line is one JSON
+object `{"ts", "level", ...}`, otherwise `event k=v ...` text. The flag
+is read per line, as in the JAX package. The rank prefix belongs to the
+distributed plane, which the port has not reached yet.
 """
 
+import datetime
+import json
+import os
 import sys
+
+
+def _json_mode():
+    return os.environ.get("LIGHTGBM_TPU_LOG_JSON", "") not in ("", "0")
+
+
+def _now():
+    return datetime.datetime.now().isoformat(timespec="milliseconds")
 
 
 class LightGBMError(Exception):
@@ -52,9 +68,31 @@ class Log:
         msg = (fmt % args) if args else str(fmt)
         raise LightGBMError(msg)
 
+    _LEVELS = {"Debug": 2, "Info": 1, "Warning": 0}
+
+    @classmethod
+    def structured(cls, level, event, **fields):
+        """One record of `event` with `fields`; `level` is "Debug" /
+        "Info" / "Warning" and gates like the plain methods."""
+        if cls._level < cls._LEVELS.get(level, 1):
+            return
+        if _json_mode():
+            rec = {"ts": _now(), "level": level, "event": str(event)}
+            rec.update(fields)
+            sys.stdout.write(json.dumps(rec, default=str) + "\n")
+            sys.stdout.flush()
+            return
+        kv = " ".join(f"{k}={v}" for k, v in fields.items())
+        cls._write(level, "%s %s", (event, kv))
+
     @classmethod
     def _write(cls, level_str, fmt, args):
         msg = (fmt % args) if args else str(fmt)
+        if _json_mode():
+            sys.stdout.write(json.dumps({"ts": _now(), "level": level_str,
+                                         "msg": msg}) + "\n")
+            sys.stdout.flush()
+            return
         sys.stdout.write(f"[LightGBM-Torch] [{level_str}] {msg}\n")
         sys.stdout.flush()
 
