@@ -5,11 +5,12 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed 42] [--out DIR] [--baseline DIR]
 
-With --baseline, the kernel checks also run the histogram wrappers of
-another checkout of the repo (DIR/lightgbm_tpu_torch/ops/hist_kernels.py,
-built from DIR's csrc) on the same inputs: their bits must equal these
-kernels', and both are timed in the same way, for a before-and-after
-comparison in one run.
+With --baseline, the kernel checks also run the wrappers of another
+checkout of the repo (DIR's lightgbm_tpu_torch, imported under another
+name, its kernels built from DIR's csrc) on the same inputs: the
+histogram kernels and the traversal kernels (every traversal case and
+check) must give these kernels' bits, and both are timed in the same
+way, for a before-and-after comparison in one run.
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
@@ -84,10 +85,12 @@ Phases (any failure exits non-zero and prints no result line):
     predictor of the categorical phase's masked model (whose served
     leaves must equal the host traversal's); tree_raw with K = 1 (the
     bench model, float32 and bfloat16 leaf values) and K = 3 (random
-    valid trees) within 1e-6 of the per-row leaf-value scale of its
-    plain version, bfloat16 within the predictor's accuracy_bound of the
-    exact f64 sum, two launches bitwise equal; both kernels timed at the
-    4096-row and the 1-row bucket beside their bound and plain version.
+    valid trees) bit for bit its plain version (f32 adds in tree order),
+    bfloat16 within the predictor's accuracy_bound of the exact f64 sum,
+    two launches bitwise equal; both kernels timed at the 4096-row and
+    the 1-row bucket beside their bound and plain version, with L2
+    flushed and L2-warm (and with --baseline the other checkout's
+    kernels: same bits, both times).
     Then the main path, launch counts read from zero: bench.py
     serving_probe's numbers for each predictor (single-row predict
     p50/p99 over 100 calls, predict throughput over 100k rows, cold
@@ -132,7 +135,7 @@ N_ROUNDS = 10
 N_CAT = 4
 N_CATEGORIES = 32
 DEVICE = "cuda"
-BASELINE = None  # another checkout's hist_kernels module (--baseline)
+BASELINE = None  # another checkout's lightgbm_tpu_torch.ops (--baseline)
 BENCH_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": MAX_BIN,
                 "learning_rate": 0.1, "verbose": 0}
 
@@ -203,15 +206,18 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def __call__(self, fn, reps, sleep=True):
+    def __call__(self, fn, reps, sleep=True, flush=True):
         """With sleep=False the time includes the host's enqueue of the
-        call where it outlasts the flush."""
+        call where it outlasts the flush; with flush=False L2 keeps what
+        the previous launch left (L2-warm, as a server finds its forest
+        between requests)."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
             if sleep:
                 torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
@@ -294,15 +300,21 @@ def skew_bins(bins, rng):
 
 
 def load_baseline(path):
-    """The histogram wrappers of the checkout at `path`, loaded under
-    another module name (they build that checkout's csrc into its own
-    csrc/build and count their launches apart from this one's)."""
+    """The lightgbm_tpu_torch package of the checkout at `path`, imported
+    under another name (its modules import each other relatively): its
+    wrappers build that checkout's csrc into its own csrc/build and count
+    their launches apart from this one's."""
+    import importlib
     import importlib.util
-    src = os.path.join(os.path.abspath(path), "lightgbm_tpu_torch", "ops",
-                       "hist_kernels.py")
-    spec = importlib.util.spec_from_file_location("baseline_hist_kernels", src)
+    pkg = os.path.join(os.path.abspath(path), "lightgbm_tpu_torch")
+    name = "baseline_lightgbm_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
+    importlib.import_module(name + ".ops.traverse_kernels")
     return mod
 
 
@@ -311,14 +323,14 @@ def time_baseline(torch, timer, res, call, got):
     must give the same bits; both of its times go beside this one's."""
     if BASELINE is None:
         return
-    hi, lo = call(BASELINE)
+    hi, lo = call(BASELINE.hist_kernels)
     torch.cuda.synchronize()
     res["baseline_same_bits"] = bool(torch.equal(hi, got[0])
                                      and torch.equal(lo, got[1]))
-    res["baseline_ms"] = timer(lambda: call(BASELINE), 20)
-    res["baseline_ms_enqueued"] = timer(lambda: call(BASELINE), 20,
-                                        sleep=False)
-    res["baseline_host_us"] = host_us(torch, lambda: call(BASELINE))
+    base = BASELINE.hist_kernels
+    res["baseline_ms"] = timer(lambda: call(base), 20)
+    res["baseline_ms_enqueued"] = timer(lambda: call(base), 20, sleep=False)
+    res["baseline_host_us"] = host_us(torch, lambda: call(base))
     log(f"  baseline: same bits {res['baseline_same_bits']} ms "
         f"{res['baseline_ms']:.4f} (this {res['ms']:.4f}), enqueued "
         f"{res['baseline_ms_enqueued']:.4f} (this {res['ms_enqueued']:.4f}), "
@@ -1276,16 +1288,19 @@ def traverse_bound_ms(x, forest, leaves, lv=None, num_class=1):
 
 def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
     """One traversal kernel of a frozen predictor on `x_host` rows (a
-    bucket's shape): against its plain version on the card (leaves bit
-    for bit; float32 sums within 1e-6 of the per-row leaf-value scale),
-    launched twice and required bitwise equal, timed beside its bound
-    and the plain version. There is no PyTorch library call for the
-    same function (library_ms None)."""
+    bucket's shape): against its plain version on the card, bit for bit
+    (tree_raw's plain version adds in the kernel's tree order), launched
+    twice and required bitwise equal, timed beside its bound and the plain
+    version with L2 flushed (`ms`) and L2-warm (`ms_warm`: no flush, as a
+    server finds its forest between requests). With --baseline the other
+    checkout's kernel runs on the same inputs: same bits, its flushed and
+    L2-warm times beside. There is no PyTorch library call for the same
+    function (library_ms None)."""
     forest = pred._forest
     x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
     if name == "tree_leaf":
-        def kern():
-            return tk.tree_leaf(x, forest)
+        def kern(m=tk):
+            return m.tree_leaf(x, forest)
 
         def plain():
             return tk.tree_leaf_plain(x, forest)
@@ -1294,19 +1309,23 @@ def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
         lv = (pred._lv16 if pred.serving_precision == "bf16"
               else pred._f32_values())
 
-        def kern():
-            return tk.tree_raw(x, forest, lv, pred.num_class)
+        def kern(m=tk):
+            return m.tree_raw(x, forest, lv, pred.num_class)
 
         def plain():
             return tk.tree_raw_plain(x, forest, lv, pred.num_class)
     got, again, want = kern(), kern(), plain()
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    plan = tk.plan(x.shape[0], x.shape[1], forest.nodes.shape[0],
+                   forest.nodes.shape[1],
+                   None if lv is None else pred.num_class)
     res = {"name": name, "shape": {"B": x.shape[0], "F": x.shape[1],
                                    "T": int(forest.nodes.shape[0]),
                                    "S": int(forest.nodes.shape[1]),
                                    "depth": forest.depth,
                                    "precision": pred.serving_precision},
+           "plan": plan._asdict(),
            "max_abs_err": err, "bitwise_vs_plain": bool(torch.equal(got,
                                                                     want)),
            "deterministic": bool(torch.equal(got, again))}
@@ -1314,31 +1333,41 @@ def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
     res["bound_ms"], res["bound_by"] = traverse_bound_ms(
         x, forest, leaves, lv, pred.num_class)
     res["ms"] = timer(kern, reps)
+    res["ms_warm"] = timer(kern, reps, flush=False)
     res["ms_enqueued"] = timer(kern, reps, sleep=False)
     res["host_us"] = host_us(torch, kern)
     res["plain_ms"] = timer(plain, 5)
     res["library_ms"] = None
+    if BASELINE is not None:
+        base = BASELINE.traverse_kernels
+        res["baseline_same_bits"] = bool(torch.equal(kern(base), got))
+        res["baseline_ms"] = timer(lambda: kern(base), reps)
+        res["baseline_ms_warm"] = timer(lambda: kern(base), reps,
+                                        flush=False)
+        res["baseline_host_us"] = host_us(torch, lambda: kern(base))
     log(f"{name} {res['shape']}: err {err:.3g} bitwise {res['bitwise_vs_plain']}"
-        f" deterministic {res['deterministic']} ms {res['ms']:.4f} enqueued "
-        f"{res['ms_enqueued']:.4f} bound {res['bound_ms']:.5f} "
-        f"({res['bound_by']}) plain {res['plain_ms']:.3f} host_us "
-        f"{res['host_us']:.1f}")
+        f" deterministic {res['deterministic']} ms {res['ms']:.4f} warm "
+        f"{res['ms_warm']:.4f} enqueued {res['ms_enqueued']:.4f} bound "
+        f"{res['bound_ms']:.5f} ({res['bound_by']}) plain "
+        f"{res['plain_ms']:.3f} host_us {res['host_us']:.1f}"
+        + (f"; baseline same bits {res['baseline_same_bits']} ms "
+           f"{res['baseline_ms']:.4f} warm {res['baseline_ms_warm']:.4f} "
+           f"host_us {res['baseline_host_us']:.1f}"
+           if BASELINE is not None else ""))
     check(res["deterministic"], f"{name}: two launches gave different bits")
-    if name == "tree_leaf":
-        check(res["bitwise_vs_plain"], f"{name}: differs from plain")
-    else:
-        scale = float(lv.float().abs().amax(dim=1).sum())
-        check(err <= 1e-6 * scale,
-              f"{name}: differs from plain by {err} (scale {scale})")
+    check(res["bitwise_vs_plain"], f"{name}: differs from plain by {err}")
+    if BASELINE is not None:
+        check(res["baseline_same_bits"], f"{name}: the baseline gave other "
+              "bits")
     return res
 
 
 def check_raw_cases(torch, tk, pred, bf16, x_host, rng):
     """tree_raw for K = 1 (the bench model, float32 and bfloat16 leaf
-    values) and K = 3 (random valid trees): within 1e-6 of the per-row
-    leaf-value scale of the plain version, bfloat16 within the
-    predictor's accuracy_bound of the exact float64 sum, and two
-    launches bitwise equal."""
+    values) and K = 3 (random valid trees): bit for bit the plain
+    version (its f32 adds in tree order), bfloat16 within the predictor's
+    accuracy_bound of the exact float64 sum, two launches bitwise equal,
+    and with --baseline the other checkout's bits on the same inputs."""
     out = {}
     x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
     leaves = tk.tree_leaf(x, pred._forest).long()
@@ -1361,8 +1390,16 @@ def check_raw_cases(torch, tk, pred, bf16, x_host, rng):
         log(f"tree_raw K=1 {p.serving_precision}: {out[p.serving_precision]}")
         check(torch.equal(got, again),
               f"tree_raw {p.serving_precision}: launches differ in bits")
-        check(err <= 1e-6 * scale,
+        check(torch.equal(got, want),
               f"tree_raw {p.serving_precision}: {err} from plain")
+        if BASELINE is not None:
+            base = BASELINE.traverse_kernels.tree_raw(x, p._forest, lv,
+                                                      p.num_class)
+            out[p.serving_precision]["baseline_same_bits"] = bool(
+                torch.equal(base, got))
+            check(torch.equal(base, got),
+                  f"tree_raw {p.serving_precision}: the baseline gave "
+                  "other bits")
         if p.serving_precision == "bf16":
             check(vs_exact <= p.accuracy_bound,
                   f"tree_raw bf16: {vs_exact} from exact, bound "
@@ -1394,22 +1431,39 @@ def check_raw_cases(torch, tk, pred, bf16, x_host, rng):
         log(f"tree_raw K=3 {key}: {out[key]}")
         check(out[key]["deterministic"] and out[key]["leaves_bitwise"],
               f"tree_raw {key}: not deterministic or leaves differ")
-        check(err <= 1e-6 * scale, f"tree_raw {key}: {err} from plain")
+        check(out[key]["bitwise_vs_plain"],
+              f"tree_raw {key}: {err} from plain")
+        if BASELINE is not None:
+            base = BASELINE.traverse_kernels
+            same = bool(torch.equal(base.tree_raw(x3, forest, vals, 3), got)
+                        and torch.equal(base.tree_leaf(x3, forest), leaves3))
+            out[key]["baseline_same_bits"] = same
+            check(same, f"tree_raw {key}: the baseline gave other bits")
     return out
 
 
 def check_leaves(torch, tk, pred, x_host, what):
-    """tree_leaf bit for bit against its plain version on the card, and
-    the predictor's leaf indices against the host float64 traversal."""
+    """tree_leaf bit for bit against its plain version on the card, two
+    launches bitwise equal, and with --baseline the other checkout's
+    bits on the same inputs."""
     x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
     got = tk.tree_leaf(x, pred._forest)
+    again = tk.tree_leaf(x, pred._forest)
     want = tk.tree_leaf_plain(x, pred._forest)
     torch.cuda.synchronize()
-    same = bool(torch.equal(got, want))
-    log(f"tree_leaf {what}: {tuple(got.shape)} bitwise vs plain {same}")
-    check(same, f"tree_leaf {what}: differs from its plain version")
-    return {"rows": len(x_host), "trees": int(got.shape[1]),
-            "bitwise_vs_plain": same}
+    res = {"rows": len(x_host), "trees": int(got.shape[1]),
+           "bitwise_vs_plain": bool(torch.equal(got, want)),
+           "deterministic": bool(torch.equal(got, again))}
+    if BASELINE is not None:
+        res["baseline_same_bits"] = bool(torch.equal(
+            BASELINE.traverse_kernels.tree_leaf(x, pred._forest), got))
+    log(f"tree_leaf {what}: {tuple(got.shape)} {res}")
+    check(res["bitwise_vs_plain"],
+          f"tree_leaf {what}: differs from its plain version")
+    check(res["deterministic"], f"tree_leaf {what}: launches differ")
+    check(res.get("baseline_same_bits", True),
+          f"tree_leaf {what}: the baseline gave other bits")
+    return res
 
 
 def serving_probe(torch, pred, rows, label):
@@ -1792,8 +1846,10 @@ def main():
                     f"registers, spills {r['spill_stores']}/"
                     f"{r['spill_loads']} bytes")
         if args.baseline:
-            BASELINE = load_baseline(args.baseline)
-            BASELINE.build()
+            BASELINE = load_baseline(args.baseline).ops
+            BASELINE.hist_kernels.build(
+                BASELINE.hist_kernels.SOURCES
+                + (BASELINE.traverse_kernels.SOURCE,))
             report["baseline"] = args.baseline
         log(f"kernels built in {report['build_s']:.1f}s")
 

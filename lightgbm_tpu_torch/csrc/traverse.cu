@@ -14,186 +14,583 @@
 //                           leaf_value[t, leaf[r, t]], in tree order, f32
 //
 // A node is one 16-byte record packed at freeze time
-// (ops/traverse_kernels.py pack_nodes): x = split feature with the
-// categorical flag in bit 31, y = the f32-safe threshold's bits, z = left
-// child, w = right child (a leaf is ~leaf, negative). One step of a walk
-// is one 16-byte load. The decision is device_traverse's for every input:
-// numeric `x <= thr` (NaN goes right), categorical
-// `!isnan(x) && int(x) == int(thr)` with the cast saturating at +-inf
-// (__float2int_rz; category ids are small and non-negative, so the
-// decision equals the JAX package's and the plain version's).
-//
-// Design (simple first). One thread walks one (row, tree) pair until it
-// reaches a leaf or `depth` steps, which is the lockstep loop's result.
-// A block takes `rows` consecutive rows and stages them in shared memory
-// once; the pairs of the block are numbered row-major (r * T + t), so
-// consecutive lanes of a warp take consecutive trees of one row: the
-// (B, T) store of tree_leaf is coalesced, and the lanes share the row's
-// feature values in shared memory. tree_raw takes the trees in tiles:
-// each pair writes its leaf value (f32, or bf16 widened to f32) to shared
-// memory, then one thread per (row, class) adds its class's trees of the
-// tile in tree order into an f32 accumulator that lives in shared memory
-// across tiles. The order of every sum is fixed, so two launches give the
-// same bits, and the plain version (the same sequential f32 adds) gives
-// them too.
+// (ops/traverse_kernels.py pack_nodes, then interleave): x = the split
+// feature times 4 (a byte offset in a row) with the categorical flag in
+// bit 31, y = the f32-safe threshold's bits, z / w = the left / right
+// child, as the child record's byte offset in its tree's column of the
+// tile (node x 512) or ~leaf for a leaf. The decision is
+// device_traverse's for every input: numeric `x <= thr` (NaN goes
+// right), categorical `!isnan(x) && int(x) == int(thr)` with the cast
+// saturating at +-inf (__float2int_rz; category ids are small and
+// non-negative, so the decision equals the JAX package's and the plain
+// version's). A walk cut short by `depth` (not a valid model) gives
+// tree_leaf ~node, as the lockstep walk does, and tree_raw leaf 0.
 //
 // Bound on this card. A 4096-row bucket of 28 features through 100
-// trees of 63 leaves reads x once (0.46 MB) and the node records once
-// (100 x 62 x 16 bytes, 0.10 MB) and writes 4096 x 100 int32 leaves
-// (1.6 MB): about 2.2 MB, 0.66 us at 3.35 TB/s. The real floor is latency: each walk is a
-// chain of up to `depth` dependent loads (node record, then the feature
-// value), so a pair costs depth x (L2 or L1 hit latency); the design
-// relies on many pairs in flight (hundreds of thousands per bucket) to
-// hide it, and on the node records (tens of KB per model) staying in L1
-// and L2. Trees in shared memory and several rows per thread are later
-// work.
+// trees of 62 node slots reads x once (0.46 MB) and the records once
+// (0.10 MB) and writes 4096 x 100 int32 leaves (1.6 MB): 0.66 us at 3.35
+// TB/s. What the time follows is the walk: a chain of up to `depth`
+// dependent loads (record, then the feature value) a (row, tree) pair,
+// 410k pairs a bucket, about 0.6 us a link from device memory once L2
+// is cold. The design keeps every link in shared memory:
+//
+// 1. Trees walked from shared memory. The records of 32 trees are
+//    interleaved into a tile (record n of tree j at [n][j]); a block
+//    copies its tiles into dynamic shared memory with TMA bulk copies
+//    (cp.async.bulk completing on an mbarrier), issued by one thread:
+//    the whole group of tiles at once when it fits (and the grid is
+//    under a wave), else a ring of two one-tile windows, the next copy
+//    running while the current window is walked. The trees' roots and,
+//    where they fit, the block's rows are staged too. A tile larger
+//    than shared memory is walked from device memory, and rows too wide
+//    to stage are read from device memory, so every shape the wrappers
+//    accept runs.
+// 2. A warp walks one row through one tile: lane j takes tree j, so the
+//    32 record loads of a step hit 32 consecutive 16-byte words (no bank
+//    conflict), the feature loads one row (a broadcast where they
+//    agree), and the 32 leaves are one row-contiguous store. A step is
+//    a record load, a feature load, a compare and a select; the records'
+//    byte offsets leave no index arithmetic, and a forest without
+//    categorical nodes takes an instantiation without the categorical
+//    rule. Latency is hidden by warps (up to 1024 threads a block, about
+//    two (tile, row) items a warp): walks of one thread do not overlap,
+//    since the compiler runs one walk's load-compare-select chain after
+//    the other's (measured: four walks a thread were slower than one).
+// 3. Small batches spread over blocks. The grid is (row blocks, tile
+//    groups): tree_leaf takes one tile a block, so the 1-row bucket of
+//    the bench model is 4 blocks of 32 trees.
+// 4. Fixed-order sums. tree_raw sums in the block (one tile group; each
+//    (row, class) cell adds its class's trees of a window in tree order
+//    from shared memory into an accumulator that lives across windows),
+//    or, with the tiles spread over blocks, writes each (row, tree) value
+//    to a (B, T) scratch that the wrapper allocates; the last block of a
+//    row block to finish (found through a per-row-block counter, after
+//    __threadfence, and reset to zero for the next launch on the stream)
+//    stages its rows' values in shared memory and adds each (row, class)
+//    cell's trees in order. Either way each sum is the plain version's
+//    sequential f32 adds, so two launches and the plain version give the
+//    same bits.
+// The launch plan (rows, tiles a block and a window, slots, staged rows,
+// threads) is made by traverse_kernels.plan; this file checks it, lays
+// out shared memory (layout()) and opts each kernel in to the card's
+// largest dynamic shared memory once a device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
-constexpr int kThreads = 256;
-// pairs a block aims at (several per thread keeps walks in flight)
-constexpr int kPairsPerBlock = 1024;
-// shared memory a block may use (below the 48 KB static limit)
-constexpr int kSmemBytes = 40 * 1024;
+constexpr int kMaxThreads = 1024;  // a walk block (Plan::threads)
+constexpr int kTile = 32;  // trees a tile interleaves (a warp's lanes)
 constexpr int kBadShape = -1;
 constexpr int kNoFit = -2;
+constexpr int kMaxDevices = 64;
+constexpr int kMaxGridY = 65535;
+
+enum Mode { kLeaf = 0, kValue = 1, kSum = 2 };
+
+// A launch plan (ops/traverse_kernels.py plan): rows a block, tiles a
+// block (group), tiles a window, shared-memory window slots (0: records
+// read from device memory), rows staged in shared memory or not,
+// whether the forest has categorical nodes, and threads a block.
+struct Plan {
+  int rows, group, window, slots, stage_rows, categorical, threads;
+};
+
+// Byte offsets in dynamic shared memory; a 32-byte head (two mbarriers
+// and the last-block flag) comes first.
+struct Layout {
+  size_t tiles, node0, xs, vals, acc, total;
+};
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+Layout layout(const Plan& p, int f, int s, int k, bool sums, bool last) {
+  Layout l;
+  const size_t win_bytes = (size_t)p.window * s * kTile * 16;
+  const int vbufs = sums ? (p.group > p.window ? 2 : 1) : 0;
+  l.tiles = 32;
+  l.node0 = l.tiles + align16((size_t)p.slots * win_bytes);
+  l.xs = l.node0 + align16((size_t)p.group * kTile * 4);
+  l.vals = l.xs + (p.stage_rows ? align16((size_t)p.rows * (f | 1) * 4) : 0);
+  l.acc = l.vals +
+          align16((size_t)vbufs * p.rows * ((p.window * kTile) | 1) * 4);
+  l.total = l.acc + (sums ? align16((size_t)p.rows * k * 4) : 0);
+  // the last block of a row block stages its rows' values, 32 trees at
+  // least at a time, over what the walk used
+  if (last) l.total = max(l.total, 32 + align16((size_t)p.rows * kTile * 4));
+  return l;
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// One walk from `node` through the records of one tree; returns the
-// final node state (~leaf once a leaf is reached).
-__device__ __forceinline__ int walk(const float* xrow,
-                                    const int4* __restrict__ tree, int node,
-                                    int depth) {
-  for (int d = 0; d < depth && node >= 0; ++d) {
-    const int4 rec = __ldg(tree + node);
-    const float v = xrow[rec.x & 0x7fffffff];
-    const float thr = __int_as_float(rec.y);
-    const bool left = rec.x < 0
-        ? (!isnan(v) && __float2int_rz(v) == __float2int_rz(thr))
-        : (v <= thr);
-    node = left ? rec.z : rec.w;
+// ------------------------------------------------- mbarrier and TMA copy
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(1)
+               : "memory");
+}
+
+// make the initialised barriers visible to the async (TMA) proxy
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// order this block's earlier shared-memory accesses before a TMA write
+__device__ __forceinline__ void async_proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// one bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) that completes the barrier's current phase
+__device__ __forceinline__ void tile_copy(uint64_t* bar, void* dst,
+                                          const void* src, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for a tile; a copy that has not landed after a second is a fault
+// (trap: the launch fails instead of hanging the card). The clock is read
+// only once the wait has lasted 1024 tries.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (uint32_t tries = 1; !bar_try(bar, parity); ++tries) {
+    if (tries % 1024) continue;
+    const uint64_t now = now_ns();
+    if (start == 0) start = now;
+    else if (now - start > 1000000000ull) __trap();
   }
+}
+
+// the leaf values of `count` trees from `first` pulled into L2 while the
+// trees are walked (one 32-byte sector a thread at a time)
+template <typename V>
+__device__ __forceinline__ void prefetch_values(const V* lv, int l,
+                                                int first, int count) {
+  const char* base = reinterpret_cast<const char*>(lv + (size_t)first * l);
+  const size_t bytes = (size_t)count * l * sizeof(V);
+  for (size_t o = (size_t)threadIdx.x * 32; o < bytes; o += blockDim.x * 32)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + o));
+}
+
+// ------------------------------------------------------------ the walks
+
+// A walk's loads. From shared memory they take 32-bit shared addresses
+// (base + byte offset: the records hold byte offsets, so a step computes
+// no index).
+template <bool kShared>
+__device__ __forceinline__ int4 load_record(const char* base, uint32_t sbase,
+                                            int off) {
+  if (!kShared) return *reinterpret_cast<const int4*>(base + off);
+  int4 r;
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "r"(sbase + off));
+  return r;
+}
+
+template <bool kShared>
+__device__ __forceinline__ float load_value(const char* base, uint32_t sbase,
+                                            int off) {
+  if (!kShared) return *reinterpret_cast<const float*>(base + off);
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(sbase + off));
+  return v;
+}
+
+// One step of a walk at `node` (a record's byte offset in its tree's
+// column `tree`) of the row at `xrow`; returns the next state (a child's
+// byte offset, or ~leaf). kCat: the forest has categorical nodes (else
+// the numeric rule alone, with no mask or conversion on the chain).
+template <bool kShared, bool kCat>
+__device__ __forceinline__ int step(int node, const char* tree,
+                                    uint32_t tree_s, const char* xrow,
+                                    uint32_t xrow_s) {
+  const int4 rec = load_record<kShared>(tree, tree_s, node);
+  const float v = load_value<kShared>(xrow, xrow_s,
+                                      kCat ? (rec.x & 0x7fffffff) : rec.x);
+  const float thr = __int_as_float(rec.y);
+  bool left = v <= thr;
+  if (kCat)
+    left = rec.x < 0
+               ? ((v == v) & (__float2int_rz(v) == __float2int_rz(thr)))
+               : left;
+  return left ? rec.z : rec.w;
+}
+
+// One walk from `node` through the tree whose column starts at `tree`,
+// reading the row at `xrow`, until a leaf or `depth` steps; returns the
+// final state.
+template <bool kShared, bool kCat>
+__device__ __forceinline__ int walk(int node, const char* tree,
+                                    const char* xrow, int depth) {
+  const uint32_t tree_s = kShared ? smem_addr(tree) : 0u;
+  const uint32_t xrow_s = kShared ? smem_addr(xrow) : 0u;
+  for (int d = 0; d < depth && node >= 0; ++d)
+    node = step<kShared, kCat>(node, tree, tree_s, xrow, xrow_s);
   return node;
 }
 
-// Copy the block's rows of x into shared memory (one contiguous span).
-__device__ __forceinline__ const float* stage_rows(const float* __restrict__ x,
-                                                   float* xs, bool stage,
-                                                   int count) {
-  if (!stage) return x;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) xs[i] = x[i];
-  return xs;
-}
+// One block: rows [row0, row0 + rows) through the trees of tiles [gt0,
+// gt0 + group). The group's tiles are walked a window of `window` tiles
+// at a time, each window copied into one of `slots` shared-memory slots
+// (slots 0: walked from device memory). A warp takes (tile, row) items
+// of the window: lane j walks tree j of the tile for the row, so the 32
+// lanes read 32 consecutive 16-byte words (no bank conflict), one row's
+// features (a broadcast where they agree), and store 32 consecutive
+// outputs. Many warps a SM hide the chain's latency: the compiler runs
+// several walks of one thread one after another, not overlapped.
+// kMode kLeaf writes leaves to out (B, T) int32, kValue the leaf values
+// to out (B, T) f32 (a scratch; the row block's last block adds them
+// into sums (B, K)), kSum the class sums to
+// out (B, K) f32 (one tree group). kFast: the records and rows are both
+// in shared memory, so every load of the walk is a shared one.
+template <int kMode, typename V, bool kFast, bool kCat>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+walk_kernel(const float* __restrict__ x, int b, int f,
+            const int4* __restrict__ tiles, const int* __restrict__ node0,
+            int t, int s, int depth, const V* __restrict__ lv, int l, int k,
+            Plan p, Layout lay, uint32_t* __restrict__ out,
+            float* __restrict__ sums, int* __restrict__ counters) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int4* buf = reinterpret_cast<int4*>(smem + lay.tiles);
+  int* n0s = reinterpret_cast<int*>(smem + lay.node0);
+  float* xs = reinterpret_cast<float*>(smem + lay.xs);
+  float* vals = reinterpret_cast<float*>(smem + lay.vals);
+  float* acc = reinterpret_cast<float*>(smem + lay.acc);
 
-__global__ void __launch_bounds__(kThreads)
-tree_leaf_kernel(const float* __restrict__ x, int b, int f,
-                 const int4* __restrict__ nodes,
-                 const int* __restrict__ node0, int t, int s, int depth,
-                 int rows, bool stage, int* __restrict__ out) {
-  extern __shared__ float xs[];
-  const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, b - row0);
-  const float* src = stage_rows(x + (size_t)row0 * f, xs, stage, nrows * f);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * p.rows;
+  const int nrows = min(p.rows, b - row0);
+  const int ntiles = (t + kTile - 1) / kTile;
+  const int gt0 = blockIdx.y * p.group;      // first tile of the group
+  const int gtn = min(p.group, ntiles - gt0);
+  const int g0 = gt0 * kTile;                // first tree of the group
+  const int gn = min(gtn * kTile, t - g0);
+  const int nwin = (gtn + p.window - 1) / p.window;
+  const size_t tile_recs = (size_t)s * kTile;
+  const size_t win_recs = tile_recs * p.window;
+  const bool ring = kFast || p.slots > 0;
+  const int pitch = (p.window * kTile) | 1;
+  const bool staged = kFast || p.stage_rows;
+  const int xstride = staged ? (f | 1) : f;
+
+  if (ring && tid == 0) {
+    // the same thread initialises the barriers and issues the copies
+    for (int i = 0; i < p.slots; ++i) bar_init(bars + i);
+    bar_init_fence();
+    for (int i = 0; i < p.slots && i < nwin; ++i) {
+      const int wt = min(p.window, gtn - i * p.window);
+      tile_copy(bars + i, buf + i * win_recs,
+                tiles + (gt0 + (size_t)i * p.window) * tile_recs,
+                static_cast<uint32_t>(wt * tile_recs * 16));
+    }
+  }
+  // while the first windows arrive: roots (as byte offsets), rows, the
+  // first values
+  for (int i = tid; i < gn; i += nthreads) {
+    const int n = __ldg(node0 + g0 + i);
+    n0s[i] = n >= 0 ? n * kTile * 16 : n;
+  }
+  const float* xg = x + (size_t)row0 * f;
+  if (staged) {
+    for (int i = tid; i < nrows * f; i += nthreads) {
+      const int r = i / f;
+      xs[r * xstride + (i - r * f)] = __ldg(xg + i);
+    }
+  }
+  if (kMode == kSum)
+    for (int q = tid; q < nrows * k; q += nthreads) acc[q] = 0.0f;
+  if (kMode != kLeaf)
+    prefetch_values(lv, l, g0, min(p.window * kTile, gn));
   __syncthreads();
-  const int pairs = nrows * t;
-  int* dst = out + (size_t)row0 * t;
-  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-    const int r = p / t;
-    const int tr = p - r * t;
-    const int node = walk(src + (size_t)r * f, nodes + (size_t)tr * s,
-                          __ldg(node0 + tr), depth);
-    dst[p] = ~node;
-  }
-}
+  const char* xbase = reinterpret_cast<const char*>(staged ? xs : xg);
 
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-tree_raw_kernel(const float* __restrict__ x, int b, int f,
-                const int4* __restrict__ nodes,
-                const int* __restrict__ node0, int t, int s, int depth,
-                const V* __restrict__ lv, int l, int k, int rows, int tile,
-                bool stage, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* acc = smem;                 // (rows, k)
-  float* vals = acc + rows * k;      // (rows, tile)
-  float* xs = vals + rows * tile;    // (rows, f) when staged
-  const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, b - row0);
-  const float* src = stage_rows(x + (size_t)row0 * f, xs, stage, nrows * f);
-  const int cells = nrows * k;
-  for (int q = threadIdx.x; q < cells; q += blockDim.x) acc[q] = 0.0f;
-  for (int t0 = 0; t0 < t; t0 += tile) {
-    const int tn = min(tile, t - t0);
-    __syncthreads();  // rows staged; the previous tile's adds are done
-    for (int p = threadIdx.x; p < nrows * tn; p += blockDim.x) {
-      const int r = p / tn;
-      const int j = p - r * tn;
-      const int tr = t0 + j;
-      const int node = walk(src + (size_t)r * f, nodes + (size_t)tr * s,
-                            __ldg(node0 + tr), depth);
-      // a walk cut short by `depth` (not a valid model) reads leaf 0
-      const int leaf = node < 0 ? ~node : 0;
-      vals[r * tile + j] = widen(lv[(size_t)tr * l + leaf]);
+  for (int wi = 0; wi < nwin; ++wi) {
+    const int wt0 = wi * p.window;           // first tile, from gt0
+    const int wtiles = min(p.window, gtn - wt0);
+    const int wtrees0 = wt0 * kTile;         // first tree, from g0
+    const int wtn = min(wtiles * kTile, gn - wtrees0);
+    const int slot = ring ? wi % p.slots : 0;
+    if (kMode != kLeaf && wi + 1 < nwin)
+      prefetch_values(lv, l, g0 + wtrees0 + wtiles * kTile,
+                      min(p.window * kTile, gn - wtrees0 - wtiles * kTile));
+    if (ring) bar_wait(bars + slot, (wi / p.slots) & 1);
+    const int4* wbuf = ring ? buf + slot * win_recs
+                            : tiles + (gt0 + (size_t)wt0) * tile_recs;
+    float* wvals = vals + (p.group > p.window ? (wi & 1) * p.rows * pitch : 0);
+    // A warp's (tile, row) items u = warp, warp + 8, ...: lane j walks
+    // tree j of the item's tile for the row. (A lane that took its next
+    // item as soon as its walk ended was measured twice as slow: the
+    // store-and-restart path runs divergent within the warp.)
+    for (int u = warp; u < wtiles * nrows; u += nthreads / 32) {
+      const int r = u / wtiles;
+      const int tl = u - r * wtiles;         // tile of the window
+      const int jw = tl * kTile + lane;      // tree of the window
+      if (jw >= wtn) continue;
+      int node = walk<kFast, kCat>(
+          n0s[wtrees0 + jw],
+          reinterpret_cast<const char*>(wbuf + tl * tile_recs + lane),
+          xbase + (size_t)r * xstride * 4, depth);
+      if (node >= 0) node /= kTile * 16;     // cut short: the node index
+      const int tree = g0 + wtrees0 + jw;    // in the forest
+      const size_t o = (size_t)(row0 + r) * t + tree;
+      if (kMode == kLeaf) {
+        out[o] = ~node;
+      } else {
+        const float v = widen(lv[(size_t)tree * l + (node < 0 ? ~node : 0)]);
+        if (kMode == kValue)
+          out[o] = __float_as_uint(v);
+        else
+          wvals[r * pitch + jw] = v;
+      }
     }
+    __syncthreads();  // the window is walked: its slot is free
+    if (ring && tid == 0 && wi + p.slots < nwin) {
+      const int wn = wi + p.slots;
+      const int wt = min(p.window, gtn - wn * p.window);
+      async_proxy_fence();
+      tile_copy(bars + slot, buf + slot * win_recs,
+                tiles + (gt0 + (size_t)wn * p.window) * tile_recs,
+                static_cast<uint32_t>(wt * tile_recs * 16));
+    }
+    if (kMode == kSum) {
+      // each (row, class) cell adds its class's trees of the window in
+      // tree order (g0 is 0: one tree group); vals is double-buffered, so
+      // the next window's walks do not wait for these adds
+      for (int q = tid; q < nrows * k; q += nthreads) {
+        const int rr = q / k;
+        const int c = q - rr * k;
+        const float* vr = wvals + rr * pitch;
+        float a = acc[q];
+        int j = ((c - wtrees0) % k + k) % k;
+        for (; j + 3 * k < wtn; j += 4 * k) {  // four loads, then the adds
+          const float v0 = vr[j], v1 = vr[j + k], v2 = vr[j + 2 * k],
+                      v3 = vr[j + 3 * k];
+          a += v0;
+          a += v1;
+          a += v2;
+          a += v3;
+        }
+        for (; j < wtn; j += k) a += vr[j];
+        acc[q] = a;
+      }
+    }
+  }
+  if (kMode == kSum) {
+    // each thread stores the cells it added
+    float* dst = reinterpret_cast<float*>(out) + (size_t)row0 * k;
+    for (int q = tid; q < nrows * k; q += nthreads) dst[q] = acc[q];
+  }
+  if (kMode == kValue) {
+    // The last of the row block's gridDim.y blocks to finish adds the
+    // scratch values of its rows in tree order; its counter goes back to
+    // 0 for the next launch on this stream.
+    int* last = reinterpret_cast<int*>(smem + 16);
+    __threadfence();  // this block's values, before its ticket
     __syncthreads();
-    for (int q = threadIdx.x; q < cells; q += blockDim.x) {
-      const int r = q / k;
-      const int c = q - r * k;
-      float a = acc[q];
-      for (int j = ((c - t0) % k + k) % k; j < tn; j += k)
-        a += vals[r * tile + j];
-      acc[q] = a;
+    if (tid == 0)
+      *last = atomicAdd(counters + blockIdx.x, 1) == (int)gridDim.y - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    // stage the rows' values a chunk of trees at a time in shared memory
+    // (one coalesced pass), then each (row, class) cell adds its class's
+    // trees of the chunk in order, carrying its sum in `sums`
+    float* stage = reinterpret_cast<float*>(smem + 32);
+    const int chunk = static_cast<int>((lay.total - 32) / 4 / nrows);
+    for (int c0 = 0; c0 < t; c0 += chunk) {
+      const int cn = min(chunk, t - c0);
+      for (int i = tid; i < nrows * cn; i += nthreads) {
+        const int r = i / cn;
+        stage[i] = __uint_as_float(
+            __ldcg(out + (size_t)(row0 + r) * t + c0 + (i - r * cn)));
+      }
+      __syncthreads();
+      for (int q = tid; q < nrows * k; q += nthreads) {
+        const int r = q / k;
+        const int c = q - r * k;
+        float* cell = sums + (size_t)row0 * k + q;
+        float a = c0 == 0 ? 0.0f : *cell;
+        const float* vr = stage + r * cn;
+        int j = ((c - c0) % k + k) % k;
+        for (; j + 3 * k < cn; j += 4 * k) {  // four loads, then the adds
+          const float v0 = vr[j], v1 = vr[j + k], v2 = vr[j + 2 * k],
+                      v3 = vr[j + 3 * k];
+          a += v0;
+          a += v1;
+          a += v2;
+          a += v3;
+        }
+        for (; j < cn; j += k) a += vr[j];
+        *cell = a;
+      }
+      __syncthreads();
     }
+    if (tid == 0) counters[blockIdx.x] = 0;
   }
-  // each thread wrote the cells it stores: no barrier needed
-  float* dst = out + (size_t)row0 * k;
-  for (int q = threadIdx.x; q < cells; q += blockDim.x) dst[q] = acc[q];
 }
 
-// Rows a block takes: enough pairs to keep the walks in flight, and the
-// rows' features staged in shared memory when they fit.
-int plan_rows(int b, int per_row, int fixed_floats_per_row, int f,
-              bool* stage) {
-  int rows = kPairsPerBlock / per_row;
-  rows = rows < 1 ? 1 : (rows > b ? b : rows);
-  *stage = true;
-  while (rows > 1 &&
-         (size_t)rows * (fixed_floats_per_row + f) * 4 > kSmemBytes)
-    rows /= 2;
-  if ((size_t)rows * (fixed_floats_per_row + f) * 4 > kSmemBytes)
-    *stage = false;
-  return rows;
+// ---------------------------------------------------------------- host
+
+// A launch's outputs: `out` (leaves, in-block sums, or the value
+// scratch); with the scratch, `sums` (B, K) and the row blocks'
+// `counters` (zero before the launch, zero again after it).
+struct Outputs {
+  void* out;
+  float* sums;
+  int* counters;
+};
+
+std::mutex g_opt_in_lock;
+
+int smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}
+
+// Opt a kernel in to the device's largest dynamic shared memory, once a
+// device (the batcher's worker and the HTTP threads launch at once).
+template <int kMode, typename V, bool kFast, bool kCat>
+int opt_in(int device) {
+  static bool done[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return kBadShape;
+  std::lock_guard<std::mutex> guard(g_opt_in_lock);
+  if (done[device]) return 0;
+  int bytes = 0;
+  int status = smem_optin(device, &bytes);
+  if (status != 0) return status;
+  status = static_cast<int>(cudaFuncSetAttribute(
+      walk_kernel<kMode, V, kFast, kCat>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (status != 0) return status;
+  done[device] = true;
+  return 0;
 }
 
 int check_launch() { return static_cast<int>(cudaGetLastError()); }
 
-template <typename V>
-int launch_raw(const float* x, int b, int f, const void* nodes,
-               const int* node0, int t, int s, int depth, const V* lv,
-               int l, int k, float* out, void* stream) {
+template <int kMode, typename V, bool kFast, bool kCat>
+int launch_one(dim3 grid, const Layout& lay, cudaStream_t stream, int device,
+               const float* x, int b, int f, const void* nodes,
+               const int* node0, int t, int s, int depth, const V* lv, int l,
+               int k, const Plan& p, const Outputs& o) {
+  const int status = opt_in<kMode, V, kFast, kCat>(device);
+  if (status != 0) return status;
+  walk_kernel<kMode, V, kFast, kCat><<<grid, p.threads, lay.total, stream>>>(
+      x, b, f, static_cast<const int4*>(nodes), node0, t, s, depth, lv, l, k,
+      p, lay, static_cast<uint32_t*>(o.out), o.sums, o.counters);
+  return check_launch();
+}
+
+template <int kMode, typename V>
+int launch_walk(const float* x, int b, int f, const void* nodes,
+                const int* node0, int t, int s, int depth, const V* lv,
+                int l, int k, const int* plan, const Outputs& o,
+                cudaStream_t stream) {
   if (b < 0 || f < 1 || t < 1 || s < 1 || depth < 0 || l < 1 || k < 1)
     return kBadShape;
   if (b == 0) return 0;
-  const int tile = t < kPairsPerBlock ? t : kPairsPerBlock;
-  bool stage;
-  const int rows = plan_rows(b, tile, tile + k, f, &stage);
-  const size_t smem =
-      (size_t)rows * (tile + k + (stage ? f : 0)) * sizeof(float);
-  if (smem > kSmemBytes) return kNoFit;
-  const int grid = (b + rows - 1) / rows;
-  tree_raw_kernel<V><<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, b, f, static_cast<const int4*>(nodes), node0, t, s, depth, lv,
-      l, k, rows, tile, stage, out);
-  return check_launch();
+  const Plan p{plan[0], plan[1], plan[2], plan[3],
+               plan[4], plan[5], plan[6]};
+  const long long ntiles = (t + kTile - 1) / kTile;
+  if (p.rows < 1 || p.group < 1 || p.window < 1 || p.window > p.group ||
+      p.slots < 0 || p.slots > 2 || (kMode == kSum && p.group < ntiles) ||
+      p.threads < 32 || p.threads > kMaxThreads || p.threads % 32)
+    return kBadShape;
+  const long long groups = (ntiles + p.group - 1) / p.group;
+  // an mbarrier counts at most 2^20 - 1 bytes of one window's copy; a
+  // child's byte offset (node x 512) must fit an int
+  if (groups > kMaxGridY || (long long)s * kTile * 16 > 0x7fffffffLL ||
+      (p.slots > 0 && (long long)p.window * s * kTile * 16 >= (1 << 20)))
+    return kBadShape;
+  if (p.slots > 0 && (reinterpret_cast<uintptr_t>(nodes) & 15))
+    return kBadShape;  // TMA copies need 16-byte-aligned records
+  const Layout lay = layout(p, f, s, k, kMode == kSum, kMode == kValue);
+  int device = 0, limit = 0;
+  int status = static_cast<int>(cudaGetDevice(&device));
+  if (status == 0) status = smem_optin(device, &limit);
+  if (status != 0) return status;
+  if (lay.total > static_cast<size_t>(limit)) return kNoFit;
+  const dim3 grid((b + p.rows - 1) / p.rows, static_cast<int>(groups));
+  const bool fast = p.slots > 0 && p.stage_rows;
+  if (fast && p.categorical)
+    return launch_one<kMode, V, true, true>(grid, lay, stream, device, x, b,
+                                            f, nodes, node0, t, s, depth,
+                                            lv, l, k, p, o);
+  if (fast)
+    return launch_one<kMode, V, true, false>(grid, lay, stream, device, x,
+                                             b, f, nodes, node0, t, s, depth,
+                                             lv, l, k, p, o);
+  if (p.categorical)
+    return launch_one<kMode, V, false, true>(grid, lay, stream, device, x,
+                                             b, f, nodes, node0, t, s, depth,
+                                             lv, l, k, p, o);
+  return launch_one<kMode, V, false, false>(grid, lay, stream, device, x, b,
+                                            f, nodes, node0, t, s, depth, lv,
+                                            l, k, p, o);
+}
+
+template <typename V>
+int launch_raw(const float* x, int b, int f, const void* nodes,
+               const int* node0, int t, int s, int depth, const V* lv,
+               int l, int k, const int* plan, float* scratch, int* counters,
+               float* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scratch == nullptr)
+    return launch_walk<kSum, V>(x, b, f, nodes, node0, t, s, depth, lv, l,
+                                k, plan, Outputs{out, nullptr, nullptr}, st);
+  if (counters == nullptr) return kBadShape;
+  return launch_walk<kValue, V>(x, b, f, nodes, node0, t, s, depth, lv, l, k,
+                                plan, Outputs{scratch, out, counters}, st);
 }
 
 }  // namespace
@@ -201,45 +598,54 @@ int launch_raw(const float* x, int b, int f, const void* nodes,
 extern "C" {
 
 // (B, T) int32 leaf indices of B rows of x (B, F) f32 row-major through T
-// trees of S node records each (nodes (T, S) int4, node0 (T,) int32).
+// trees of S node slots each (nodes: the (ceil(T / 32), S, 32) int4 tiles
+// of traverse_kernels.interleave; node0 (T,) int32), launched by `plan`
+// (7 ints, traverse_kernels.Plan.args).
 int tree_leaf(const float* x, int b, int f, const void* nodes,
-              const int* node0, int t, int s, int depth, int* out,
-              void* stream) {
-  if (b < 0 || f < 1 || t < 1 || s < 1 || depth < 0) return kBadShape;
-  if (b == 0) return 0;
-  bool stage;
-  const int rows = plan_rows(b, t, 0, f, &stage);
-  const size_t smem = stage ? (size_t)rows * f * sizeof(float) : 0;
-  const int grid = (b + rows - 1) / rows;
-  tree_leaf_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, b, f, static_cast<const int4*>(nodes), node0, t, s, depth, rows,
-      stage, out);
-  return check_launch();
+              const int* node0, int t, int s, int depth, const int* plan,
+              int* out, void* stream) {
+  return launch_walk<kLeaf, float>(x, b, f, nodes, node0, t, s, depth,
+                                   nullptr, 1, 1, plan,
+                                   Outputs{out, nullptr, nullptr},
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // (B, K) f32 class sums of the T trees' leaf values, lv (T, L) float32:
-// tree t adds to class t % K, in tree order.
+// tree t adds to class t % K, in tree order. scratch: null for sums in
+// the block (one tile group); else (B, T) float32 for the leaf values,
+// added by the last block of each row block, whose counter (one int a
+// row block, zero before the launch) it resets to zero.
 int tree_raw_f32(const float* x, int b, int f, const void* nodes,
-                 const int* node0, int t, int s, int depth,
-                 const float* lv, int l, int k, float* out, void* stream) {
+                 const int* node0, int t, int s, int depth, const float* lv,
+                 int l, int k, const int* plan, float* scratch, int* counters,
+                 float* out, void* stream) {
   return launch_raw<float>(x, b, f, nodes, node0, t, s, depth, lv, l, k,
-                           out, stream);
+                           plan, scratch, counters, out, stream);
 }
 
 // The same with bfloat16 leaf values, accumulated in f32.
 int tree_raw_bf16(const float* x, int b, int f, const void* nodes,
-                  const int* node0, int t, int s, int depth,
-                  const void* lv, int l, int k, float* out, void* stream) {
+                  const int* node0, int t, int s, int depth, const void* lv,
+                  int l, int k, const int* plan, float* scratch,
+                  int* counters, float* out, void* stream) {
   return launch_raw<__nv_bfloat16>(
       x, b, f, nodes, node0, t, s, depth,
-      static_cast<const __nv_bfloat16*>(lv), l, k, out, stream);
+      static_cast<const __nv_bfloat16*>(lv), l, k, plan, scratch, counters,
+      out, stream);
+}
+
+// The dynamic shared memory a block may opt in to on `device` (bytes), or
+// a negative CUDA status.
+int traverse_smem_optin(int device) {
+  int bytes = 0;
+  const int status = smem_optin(device, &bytes);
+  return status != 0 ? -status : bytes;
 }
 
 const char* traverse_status_string(int status) {
-  if (status == kBadShape) return "unsupported shape";
+  if (status == kBadShape) return "unsupported shape or launch plan";
   if (status == kNoFit)
-    return "too many classes for one row's sums in shared memory";
+    return "the launch plan needs more shared memory than the card has";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 

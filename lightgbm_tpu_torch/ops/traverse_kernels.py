@@ -12,8 +12,20 @@ in lightgbm_tpu_torch/csrc/traverse.cu (design and bound are noted
 there), built at first use by hist_kernels.build (this source alone, so
 a server does not wait for the histogram kernels) and loaded with
 ctypes. A frozen model is a `Forest`: the (T, S) node
-arrays the plain walk reads, and the same nodes packed into one 16-byte
-record each (pack_nodes), which is what the kernel reads.
+arrays the plain walk reads, the same nodes packed into one 16-byte
+record each (pack_nodes), and those records interleaved into tiles of
+32 trees (interleave), which is what the kernels read.
+
+The kernels walk their trees from shared memory: the records of 32
+trees interleaved into a tile (interleave, at freeze time), copied in by
+TMA, a warp walking one row through a tile with lane j on tree j.
+`plan` chooses each launch's shape from the call's (B, F, T, S, K) and
+the card's SM count and shared memory: rows and threads a block, tiles
+a block (small batches spread their tiles over blocks) and a window,
+window slots in shared memory, staged rows, and for tree_raw whether the
+class sums are added in the block or from a (B, T) scratch of leaf
+values, in tree order, by the last block of each row block to finish. The kernel checks the plan and
+lays out shared memory itself; a plan it refuses raises.
 
 Dispatch is by the row tensor's device only: a CPU tensor takes the
 plain version, a CUDA tensor the kernel (or an exception), anything else
@@ -21,16 +33,18 @@ raises. There is no fallback from a failed build or launch to the plain
 version. A wrapper launches on PyTorch's current stream of the tensor's
 own device, with that device made current for the launch (the serving
 batcher's worker and the HTTP handler threads call it), allocates its
-output per call (no scratch shared across threads) and counts its
+output and scratch per call (nothing shared across threads) and counts its
 launches in `KERNELS[name].launches` under a lock.
 
 The plain versions are the lockstep walk of models/gbdt.py
 device_traverse and, for tree_raw, f32 adds of the leaf values in tree
 order, the kernel's order: on the same inputs they give the kernel's
-bits.
+bits. A walk cut short by `depth` (not a valid model) reads leaf 0 in
+tree_raw, in both.
 """
 
 import ctypes
+import functools
 import os
 import threading
 import time
@@ -89,6 +103,8 @@ class Forest(NamedTuple):
     nodes: torch.Tensor
     depth: int
     width: int
+    tiles: torch.Tensor
+    categorical: bool
 
 
 def pack_nodes(sf, thr32, is_cat, lc, rc):
@@ -112,11 +128,159 @@ def freeze(sf, thr32, is_cat, lc, rc, node0, depth, device):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
     sf = np.asarray(sf, np.int32)
+    rec = pack_nodes(sf, thr32, is_cat, lc, rc)
     return Forest(put(sf, np.int32), put(thr32, np.float32),
                   put(is_cat, np.bool_), put(lc, np.int32),
                   put(rc, np.int32), put(node0, np.int32),
-                  put(pack_nodes(sf, thr32, is_cat, lc, rc), np.int32),
-                  int(depth), int(sf.max()) + 1 if sf.size else 1)
+                  put(rec, np.int32), int(depth),
+                  int(sf.max()) + 1 if sf.size else 1,
+                  put(interleave(rec), np.int32),
+                  bool(np.asarray(is_cat, bool).any()))
+
+
+# ------------------------------------------------------------ launch plan
+
+TILE = 32              # trees a tile interleaves (kTile): a warp's lanes
+# dynamic shared memory a block may opt in to on sm_90 (H100), for
+# planning without a card; the wrappers ask the card
+SMEM_OPTIN_SM90 = 232_448
+SMS_H100 = 132
+ROW_BYTES = 64 << 10   # a block's staged rows at most
+SUM_BYTES = 16 << 10   # a block's (rows, K) class sums at most
+MAX_GROUP = 256        # tiles a block takes (their trees' roots are staged)
+MAX_GROUPS = 65535     # grid.y
+MAX_COPY = (1 << 20) - 16  # bytes one mbarrier counts for a window's copy
+
+
+class Plan(NamedTuple):
+    """One launch: `rows` a block, `group` tiles of 32 trees a block
+    (grid.y = ceil(tiles / group)), `window` tiles walked between two
+    barriers, `slots` shared-memory windows (2: a ring, the next
+    window's copy overlapping this one's walks; 0: records read from
+    device memory), `stage_rows`, `scratch` (tree_raw: leaf values to a
+    (B, T) scratch, summed by each row block's last block, instead of
+    sums in one block), the dynamic shared memory it takes (`smem`,
+    csrc/traverse.cu layout()), and threads a block."""
+    rows: int
+    group: int
+    window: int
+    slots: int
+    stage_rows: bool
+    scratch: bool
+    smem: int
+    threads: int
+
+    def grid(self, b, t):
+        return -(-b // self.rows), -(-(-(-t // TILE)) // self.group)
+
+    def args(self, categorical):
+        """The kernel's plan argument; `categorical`: the forest has
+        categorical nodes (Forest.categorical)."""
+        return (ctypes.c_int * 7)(self.rows, self.group, self.window,
+                                  self.slots, int(self.stage_rows),
+                                  int(categorical), self.threads)
+
+
+def smem_bytes(rows, group, window, slots, stage_rows, f, s, k, sums,
+               last=False):
+    """Bytes of dynamic shared memory of a block (csrc/traverse.cu
+    layout(): a 32-byte head, the window slots, the roots, the rows, the
+    window's leaf values and the class sums when summing in the block;
+    with `last` (tree_raw from scratch) at least room for 32 trees of the
+    rows' values, which the row block's last block stages)."""
+    def a16(n):
+        return (n + 15) & ~15
+    vbufs = (2 if group > window else 1) if sums else 0
+    total = (32 + a16(slots * window * s * TILE * 16) + a16(group * TILE * 4)
+             + (a16(rows * (f | 1) * 4) if stage_rows else 0)
+             + a16(vbufs * rows * ((window * TILE) | 1) * 4)
+             + (a16(rows * k * 4) if sums else 0))
+    return max(total, 32 + a16(rows * TILE * 4)) if last else total
+
+
+def plan(b, f, t, s, num_class=None, sms=SMS_H100,
+         smem_limit=SMEM_OPTIN_SM90, rows=None, groups=None, window=None,
+         threads=None):
+    """The launch plan of tree_leaf (num_class None) or tree_raw on B
+    rows of F features through T trees of S node slots (T / 32 tiles),
+    as measured best on the H100 (bench/traverse_plans.py).
+
+    Rows a block: about B x tiles / `sms` (up to 64; 32 for tree_raw),
+    so that small batches still fill the SMs and large ones copy each
+    tile into few blocks. tree_leaf: a tile a block (grid.y = tiles).
+    tree_raw: one tile group, the class sums added in the block; when the
+    (rows, K) sums do not fit in shared memory, a tile a block and the
+    sums from scratch. A block keeps its whole group in shared memory
+    when that fits and the grid is under one wave of blocks (or the
+    group is one tile); otherwise a ring of two one-tile windows;
+    otherwise one; otherwise the records are read from device memory.
+    Threads a block: a (tile, row) item of a window a warp, 256 to
+    1024. `rows`, `groups`, `window` and `threads` override the choice
+    (for measuring other plans)."""
+    ntiles = -(-t // TILE)
+    raw = num_class is not None
+    sums = raw and (rows or 1) * num_class * 4 <= SUM_BYTES
+    if rows is None:
+        rows = min(32 if sums else 64, max(1, -(-b * ntiles // sms)))
+        sums = sums and rows * num_class * 4 <= SUM_BYTES
+    row_blocks = max(1, -(-b // rows))
+    if groups is None:
+        groups = 1 if sums else ntiles
+    group = -(-ntiles // max(1, min(groups, ntiles)))
+    group = max(min(group, MAX_GROUP), -(-ntiles // MAX_GROUPS))
+    groups = -(-ntiles // group)
+    sums = sums and groups == 1
+    k = num_class if sums else 1
+    stage_rows = rows * (f | 1) * 4 <= ROW_BYTES
+    tile_bytes = s * TILE * 16
+
+    def size(win, slots):
+        return smem_bytes(rows, group, win, slots, stage_rows, f, s, k, sums,
+                          raw and not sums)
+
+    options = []
+    if window is not None:
+        window = min(window, group)
+        options.append((window, 1 if window == group else 2))
+    elif group == 1 or row_blocks * groups < sms:
+        options.append((group, 1))
+    options += [(1, 2), (1, 1)]
+    for win, slots in options:
+        if win * tile_bytes <= MAX_COPY and size(win, slots) <= smem_limit:
+            break
+    else:  # not one tile fits: records read from device memory
+        win, slots = 1, 0
+    if threads is None:   # a (tile, row) item a warp
+        threads = min(1024, max(256, 32 * rows * (win if slots else 1)))
+    return Plan(rows, group, win, slots, stage_rows, raw and not sums,
+                size(win, slots), threads)
+
+
+def interleave(rec):
+    """The kernels' (ceil(T / 32), S, 32, 4) int32 tiles of the (T, S, 4)
+    records (pack_nodes): record n of tree t at [t // 32, n, t % 32], so
+    that a warp's lanes, one tree each, read consecutive 16-byte words
+    (no shared-memory bank conflict) and a tile is one contiguous copy.
+    Each record holds byte offsets, so that a step of the walk computes no
+    index: the split feature times 4 (the categorical flag stays in bit
+    31), and each child that is a node times 512 (a record's offset in its
+    tree's column of the tile); a leaf child stays ~leaf. The trees that
+    pad the last tile are all zeros and never walked."""
+    rec = np.asarray(rec, np.int32)
+    t, s = rec.shape[:2]
+    ntiles = -(-t // TILE)
+    feat = rec[..., 0]
+    cat = feat < 0
+    scaled = np.stack([
+        np.where(cat, (feat & 0x7FFFFFFF) * 4 | _CATEGORICAL_BIT, feat * 4),
+        rec[..., 1],
+        np.where(rec[..., 2] >= 0, rec[..., 2] * TILE * 16, rec[..., 2]),
+        np.where(rec[..., 3] >= 0, rec[..., 3] * TILE * 16, rec[..., 3])],
+        axis=-1).astype(np.int32)
+    out = np.zeros((ntiles * TILE, s, 4), np.int32)
+    out[:t] = scaled
+    return np.ascontiguousarray(
+        out.reshape(ntiles, TILE, s, 4).transpose(0, 2, 1, 3))
 
 
 # ------------------------------------------------------------- plain path
@@ -155,9 +319,10 @@ def _check_values(forest, lv, num_class):
 
 def tree_raw_plain(x, forest, lv, num_class):
     """(B, K) float32 sums: tree t adds its leaf value (bf16 widened to
-    f32) to class t % K, in tree order."""
+    f32) to class t % K, in tree order; a walk cut short by `depth`
+    reads leaf 0."""
     _check_values(forest, lv, num_class)
-    leaves = tree_leaf_plain(x, forest).long()
+    leaves = tree_leaf_plain(x, forest).long().clamp(min=0)
     num_trees = leaves.shape[1]
     t_idx = torch.arange(num_trees, device=x.device)
     vals = lv[t_idx[None, :], leaves].float()                 # (B, T)
@@ -172,11 +337,13 @@ def tree_raw_plain(x, forest, lv, num_class):
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tree_leaf.argtypes = [p, i, i, p, p, i, i, i, p, p]
+    lib.tree_leaf.argtypes = [p, i, i, p, p, i, i, i, p, p, p]
     lib.tree_leaf.restype = i
     for fn in (lib.tree_raw_f32, lib.tree_raw_bf16):
-        fn.argtypes = [p, i, i, p, p, i, i, i, p, i, i, p, p]
+        fn.argtypes = [p, i, i, p, p, i, i, i, p, i, i, p, p, p, p, p]
         fn.restype = i
+    lib.traverse_smem_optin.argtypes = [i]
+    lib.traverse_smem_optin.restype = i
     lib.traverse_status_string.argtypes = [i]
     lib.traverse_status_string.restype = ctypes.c_char_p
 
@@ -185,6 +352,8 @@ def library():
     """The loaded traversal library, built or found built at the first
     call of the process; LOAD_INFO records which and how long."""
     global _LIB
+    if _LIB is not None:   # set once, after binding
+        return _LIB
     with _LIB_LOCK:
         if _LIB is None:
             path = hist_kernels._library_path(SOURCE)
@@ -200,19 +369,76 @@ def library():
         return _LIB
 
 
-def _launch(name, fn, x, forest, args, out):
-    for t in (x, forest.nodes, forest.node0):
+_COUNTERS = {}
+
+
+def _counters(device, stream, n):
+    """The row blocks' int32 counters of tree_raw's last-block sums on
+    one stream of one device: zero before every launch on that stream,
+    and zero again after it (its last blocks reset them). Launches on one
+    stream run in order, so they may share the buffer; launches on other
+    streams get their own."""
+    key = (device.index, stream)
+    with _LIB_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _COUNTERS[key] = buf
+        return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index):
+    """(SM count, opt-in shared memory bytes) of CUDA device `index`."""
+    lib = library()
+    optin = lib.traverse_smem_optin(index)
+    if optin <= 0:
+        raise RuntimeError("traversal: cannot read the card's shared memory "
+                           "limit: " + lib.traverse_status_string(
+                               -optin).decode())
+    return torch.cuda.get_device_properties(index).multi_processor_count, optin
+
+
+@functools.lru_cache(maxsize=4096)
+def _planned(b, f, t, s, num_class, index, categorical):
+    """plan() on device `index`, its ctypes argument and that argument's
+    address, once a shape (a server launches the same few buckets; the
+    kernel's host code only reads the argument, and the cache keeps it
+    alive)."""
+    sms, optin = _card_limits(index)
+    p = plan(b, f, t, s, num_class, sms=sms, smem_limit=optin)
+    arg = p.args(categorical)
+    return p, arg, ctypes.addressof(arg)
+
+
+def _launch(name, fn, x, forest, num_class, extra, out, launch_plan):
+    """Plan (unless `launch_plan` is given) and launch one call; `extra`
+    are tree_raw's leaf-value arguments (pointer, L, K)."""
+    for t in (x, forest.tiles, forest.node0):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     lib = library()
     b, f = x.shape
     t, s = forest.nodes.shape[:2]
+    if launch_plan is None:
+        p, arg, ptr = _planned(b, f, t, s, num_class, x.device.index,
+                               forest.categorical)
+    else:
+        p, arg = launch_plan, launch_plan.args(forest.categorical)
+        ptr = ctypes.addressof(arg)
+    args = [x.data_ptr(), b, f, forest.tiles.data_ptr(),
+            forest.node0.data_ptr(), t, s, forest.depth, *extra, ptr]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = getattr(lib, fn)(
-            x.data_ptr(), b, f, forest.nodes.data_ptr(),
-            forest.node0.data_ptr(), args[0], s, forest.depth,
-            *args[1:], out.data_ptr(), stream)
+        if num_class is not None:
+            scratch, counters = None, None
+            if p.scratch:
+                scratch = torch.empty((b, t), dtype=torch.float32,
+                                      device=x.device)
+                counters = _counters(x.device, stream, p.grid(b, t)[0])
+            args += [scratch.data_ptr() if scratch is not None else None,
+                     counters.data_ptr() if counters is not None else None]
+        status = getattr(lib, fn)(*args, out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.traverse_status_string(status).decode()}")
@@ -225,22 +451,24 @@ def _device_ok(x, name):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def tree_leaf(x, forest):
+def tree_leaf(x, forest, launch_plan=None):
     """(B, T) int32 leaf index of each row in each tree of `forest`;
-    x (B, F) float32, F >= forest.width."""
+    x (B, F) float32, F >= forest.width. `launch_plan` (a Plan) replaces
+    plan()'s choice, for measuring other plans."""
     if x.device.type == "cpu":
         return tree_leaf_plain(x, forest)
     _device_ok(x, "tree_leaf")
     _check(x, forest, "tree_leaf")
     t = forest.nodes.shape[0]
     out = torch.empty((x.shape[0], t), dtype=torch.int32, device=x.device)
-    return _launch("tree_leaf", "tree_leaf", x, forest, (t,), out)
+    return _launch("tree_leaf", "tree_leaf", x, forest, None, (), out,
+                   launch_plan)
 
 
-def tree_raw(x, forest, lv, num_class):
+def tree_raw(x, forest, lv, num_class, launch_plan=None):
     """(B, K) float32 class sums of the leaf values `lv` (T, L) float32
     or bfloat16 that each row reaches: tree t adds to class t % K, in
-    tree order, accumulated in float32."""
+    tree order, accumulated in float32. `launch_plan` as in tree_leaf."""
     if x.device.type == "cpu":
         return tree_raw_plain(x, forest, lv, num_class)
     _device_ok(x, "tree_raw")
@@ -251,6 +479,6 @@ def tree_raw(x, forest, lv, num_class):
     fn = "tree_raw_f32" if lv.dtype == torch.float32 else "tree_raw_bf16"
     out = torch.empty((x.shape[0], int(num_class)), dtype=torch.float32,
                       device=x.device)
-    return _launch("tree_raw", fn, x, forest,
-                   (forest.nodes.shape[0], lv.data_ptr(), lv.shape[1],
-                    int(num_class)), out)
+    return _launch("tree_raw", fn, x, forest, int(num_class),
+                   (lv.data_ptr(), lv.shape[1], int(num_class)), out,
+                   launch_plan)

@@ -386,6 +386,233 @@ def test_wrappers_check_their_inputs():
     assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0}
 
 
+
+def _rz(v):
+    """__float2int_rz: toward zero, saturating at +-inf."""
+    return int(np.clip(np.trunc(v), -2.0 ** 31, 2.0 ** 31 - 1))
+
+
+def _walk_tile(col, node, xrow, depth):
+    """One walk through a tree's column of an interleaved tile
+    (interleave: byte offsets), by the kernel's rule; returns the final
+    state with a cut-short walk's node as its index."""
+    node = node * tk.TILE * 16 if node >= 0 else node
+    for _ in range(depth):
+        if node < 0:
+            break
+        feat, thr_bits, left_child, right_child = (
+            int(v) for v in col[node // (tk.TILE * 16)])
+        v = xrow[(feat & 0x7FFFFFFF) // 4]
+        thr = np.int32(thr_bits).view(np.float32)
+        if feat < 0:
+            left = not np.isnan(v) and _rz(v) == _rz(thr)
+        else:
+            left = v <= thr
+        node = left_child if left else right_child
+    return node // (tk.TILE * 16) if node >= 0 else node
+
+
+def _emulate_launch(p, tiles, node0, x, depth, lv, num_class):
+    """csrc/traverse.cu under plan `p`, in Python: the blocks (row block,
+    group of tiles), their windows, each warp's (tile, row) items and each
+    lane's walk (tree `lane` of the tile) through the interleaved records;
+    every pair counted. Returns (the (B, T) leaves or scratch values as
+    stored, the (B, K) sums or None, the per-pair count)."""
+    b, t = x.shape[0], len(node0)
+    store = np.zeros((b, t), np.int64 if lv is None else np.float32)
+    count = np.zeros((b, t), np.int64)
+    in_block = lv is not None and not p.scratch
+    sums = np.zeros((b, num_class), np.float32) if in_block else None
+    warps = p.threads // 32
+    n_rb, n_g = p.grid(b, t)
+    for bx in range(n_rb):
+        row0 = bx * p.rows
+        nrows = min(p.rows, b - row0)
+        for by in range(n_g):
+            gt0 = by * p.group
+            gtn = min(p.group, tiles.shape[0] - gt0)
+            g0 = gt0 * tk.TILE
+            gn = min(gtn * tk.TILE, t - g0)
+            for wt0 in range(0, gtn, p.window):
+                wtiles = min(p.window, gtn - wt0)
+                wtrees0 = wt0 * tk.TILE
+                wtn = min(wtiles * tk.TILE, gn - wtrees0)
+                vals = {}
+                for warp in range(warps):
+                    for u in range(warp, wtiles * nrows, warps):
+                        r, tl = divmod(u, wtiles)
+                        for lane in range(32):
+                            jw = tl * tk.TILE + lane
+                            if jw >= wtn:
+                                continue
+                            tree, row = g0 + wtrees0 + jw, row0 + r
+                            count[row, tree] += 1
+                            node = _walk_tile(tiles[gt0 + wt0 + tl, :, lane],
+                                              int(node0[tree]), x[row], depth)
+                            if lv is None:
+                                v = ~node
+                            else:
+                                v = lv[tree, ~node if node < 0 else 0]
+                            if in_block:
+                                vals[r, jw] = v
+                            else:
+                                store[row, tree] = v
+                if in_block:
+                    for q in range(nrows * num_class):
+                        rr, c = divmod(q, num_class)
+                        a = sums[row0 + rr, c]
+                        for j in range((c - wtrees0) % num_class, wtn,
+                                       num_class):
+                            a = np.float32(a + vals[rr, j])
+                        sums[row0 + rr, c] = a
+    if lv is not None and p.scratch:   # the last blocks: tree order a cell
+        sums = np.zeros((b, num_class), np.float32)
+        for tree in range(t):
+            sums[:, tree % num_class] = (sums[:, tree % num_class]
+                                         + store[:, tree])
+    return store, sums, count
+
+
+@pytest.mark.parametrize("b,t_cnt,num_class,groups,ring,cut", [
+    (1, 9, None, None, "auto", 0),     # one part-filled tile
+    (45, 90, None, None, "auto", 0),   # row blocks x tiles
+    (45, 100, None, 1, "auto", 0),     # a ring of two one-tile windows
+    (45, 100, None, 1, "one", 0),      # two do not fit: one
+    (33, 70, None, 1, "none", 0),      # records from device memory
+    (3, 70, 1, None, "auto", 0),       # the whole group resident, sums
+    (70, 80, 3, None, "auto", 0),      # sums in the block
+    (70, 80, 3, None, "one", 0),       # sums in the block, one window
+    (5, 40, 3, 2, "auto", 0),          # scratch + the last blocks' sums
+    (31, 10, 2, None, "auto", 2),      # walks cut short by depth
+])
+def test_launch_plan_covers_every_pair_as_jax_traverse(b, t_cnt, num_class,
+                                                       groups, ring, cut):
+    rng = np.random.RandomState(b + t_cnt)
+    f = 5
+    sf, thr, cat, lc, rc, node0, depth, lv = _random_forest(rng, t_cnt, 9, f)
+    depth = max(0, depth - cut)
+    x = _random_rows(rng, b, f)
+    rec = tk.pack_nodes(sf, thr, cat, lc, rc)
+    tiles = tk.interleave(rec)
+    s = rec.shape[1]
+    kw = dict(sms=2, rows=min(b, 32), groups=groups)
+    p = tk.plan(b, f, t_cnt, s, num_class, **kw)
+    sums = num_class is not None and not p.scratch
+    smem_limit = tk.SMEM_OPTIN_SM90
+    if ring == "one":
+        assert p.slots == 2 or p.window > 1
+        smem_limit = tk.smem_bytes(p.rows, p.group, 1, 2, p.stage_rows, f, s,
+                                   num_class if sums else 1, sums) - 1
+    elif ring == "none":
+        smem_limit = tk.smem_bytes(p.rows, p.group, 1, 1, p.stage_rows, f, s,
+                                   num_class if sums else 1, sums) - 1
+    p = tk.plan(b, f, t_cnt, s, num_class, smem_limit=smem_limit, **kw)
+    assert p.scratch == (groups == 2)
+    assert p.smem <= smem_limit
+    assert p.slots == {"one": 1, "none": 0}.get(ring, p.slots)
+    assert p.window == 1 or ring == "auto"
+    lv32 = None if num_class is None else lv.astype(np.float32)
+    store, sums, count = _emulate_launch(p, tiles, node0, x, depth, lv32,
+                                         num_class)
+    assert (count == 1).all()
+    jnode = np.asarray(jax_traverse(
+        jnp.asarray(x), jnp.asarray(sf), jnp.asarray(thr), jnp.asarray(cat),
+        jnp.asarray(lc), jnp.asarray(rc), jnp.asarray(node0), depth))
+    if num_class is None:
+        np.testing.assert_array_equal(store, ~jnode)
+        forest = tk.freeze(sf, thr, cat, lc, rc, node0, depth, CPU)
+        np.testing.assert_array_equal(
+            store, tk.tree_leaf(torch.from_numpy(x), forest).numpy())
+        return
+    # the plain version's bits: f32 adds in tree order, leaf 0 where a
+    # walk was cut short
+    forest = tk.freeze(sf, thr, cat, lc, rc, node0, depth, CPU)
+    want = tk.tree_raw(torch.from_numpy(x), forest, torch.from_numpy(lv32),
+                       num_class).numpy()
+    np.testing.assert_array_equal(sums, want)
+    if not cut:
+        onehot = (np.arange(t_cnt)[:, None] % num_class
+                  == np.arange(num_class)[None, :]).astype(np.float32)
+        jraw = np.asarray(_raw_kernel(
+            *[jnp.asarray(a) for a in (x, sf, thr, cat, lc, rc)],
+            jnp.asarray(lv32), jnp.asarray(node0), jnp.asarray(onehot),
+            depth))
+        np.testing.assert_allclose(sums, jraw, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,f,t_cnt,s,num_class", [
+    (4096, 28, 100, 62, None), (4096, 28, 100, 62, 1), (1, 28, 100, 62, 1),
+    (65536, 28, 100, 62, 1), (4097, 3000, 1500, 62, None),
+    (1, 60000, 1500, 62, 1), (33, 28, 16, 62, 10224),
+    (257, 28, 1200, 62, 9216), (31, 28, 3, 16383, 3),
+    (2, 28, 200000, 62, None), (100, 28, 1, 1, 1)])
+def test_launch_plan_fits_every_shape(b, f, t_cnt, s, num_class):
+    """Every (K, F, T, S) the earlier 40 KB-shared-memory kernel took (K
+    up to 10240 - min(T, 1024), any F, T and S) gets a plan within the
+    card's shared memory:
+    wide rows unstaged, a tree larger than a stage read from device
+    memory, too many classes summed from scratch."""
+    p = tk.plan(b, f, t_cnt, s, num_class)
+    n_rb, n_g = p.grid(b, t_cnt)
+    sums = num_class is not None and not p.scratch
+    assert p.smem <= tk.SMEM_OPTIN_SM90
+    assert p.smem == tk.smem_bytes(p.rows, p.group, p.window, p.slots,
+                                   p.stage_rows, f, s,
+                                   num_class if sums else 1, sums)
+    assert 1 <= p.rows <= 64 and n_rb * p.rows >= max(b, 1)
+    assert 256 <= p.threads <= 1024 and p.threads % 32 == 0
+    assert 1 <= p.window <= p.group <= tk.MAX_GROUP
+    assert n_g <= tk.MAX_GROUPS and (n_g - 1) * p.group * tk.TILE < t_cnt
+    assert p.stage_rows == (p.rows * (f | 1) * 4 <= tk.ROW_BYTES)
+    assert p.slots == 0 or p.window * s * tk.TILE * 16 <= tk.MAX_COPY
+    if sums:
+        assert n_g == 1
+    if s * tk.TILE * 16 > tk.SMEM_OPTIN_SM90:
+        assert p.slots == 0
+
+
+def test_interleave_puts_a_tile_of_trees_side_by_side():
+    rng = np.random.RandomState(5)
+    sf, thr, cat, lc, rc, node0, depth, lv = _random_forest(rng, 40, 9, 6)
+    rec = tk.pack_nodes(sf, thr, cat, lc, rc)
+    tiles = tk.interleave(rec)
+    assert tiles.shape == (2, rec.shape[1], 32, 4)
+    assert tiles.flags.c_contiguous
+    for t in range(40):
+        col = tiles[t // 32, :, t % 32]
+        # the feature as a byte offset, the categorical flag kept
+        np.testing.assert_array_equal(col[:, 0] & 0x7FFFFFFF,
+                                      (rec[t, :, 0] & 0x7FFFFFFF) * 4)
+        np.testing.assert_array_equal(col[:, 0] < 0, rec[t, :, 0] < 0)
+        np.testing.assert_array_equal(col[:, 1], rec[t, :, 1])
+        for c in (2, 3):     # node children as byte offsets, leaves kept
+            want = np.where(rec[t, :, c] >= 0, rec[t, :, c] * 512,
+                            rec[t, :, c])
+            np.testing.assert_array_equal(col[:, c], want)
+    assert not tiles[1, :, 8:].any()      # the padding trees
+
+
+def test_tree_raw_plain_reads_leaf_zero_where_a_walk_is_cut_short():
+    # one tree: root splits on feature 0, its left child splits again
+    sf = np.array([[0, 0]], np.int32)
+    thr = np.array([[0.5, 0.25]], np.float32)
+    cat = np.zeros((1, 2), bool)
+    lc = np.array([[1, ~0]], np.int32)
+    rc = np.array([[~2, ~1]], np.int32)
+    lv = torch.tensor([[1.0, 2.0, 4.0]])
+    x = torch.tensor([[0.0], [0.3], [0.9]])
+    full = tk.freeze(sf, thr, cat, lc, rc, np.zeros(1, np.int32), 2, CPU)
+    cut = full._replace(depth=1)
+    np.testing.assert_array_equal(tk.tree_leaf(x, full).numpy().ravel(),
+                                  [0, 1, 2])
+    # the left walks stop at node 1: tree_leaf keeps ~node, tree_raw
+    # reads leaf 0
+    np.testing.assert_array_equal(tk.tree_leaf(x, cut).numpy().ravel(),
+                                  [~1, ~1, 2])
+    np.testing.assert_array_equal(tk.tree_raw(x, cut, lv, 1).numpy().ravel(),
+                                  [1.0, 1.0, 4.0])
+
+
 # ------------------------------------------------------ the predict routing
 @pytest.mark.parametrize("name", ["binary", "multiclass", "categorical"])
 def test_host_path_bit_equal_to_jax_host_path(models, name):

@@ -10,6 +10,15 @@ A wrapper given a CUDA tensor launches its kernel and never the plain
 version, and a CompiledPredictor called from two threads at once gives
 the bits of one thread alone.
 
+The launch plans of the shared-memory design are held to the same bits
+at their edges: forests larger than shared memory (1,500 trees of 63
+leaves; trees of 16,384 leaves, larger than a block's shared memory,
+walked from device memory), rows too wide to stage (F = 3000 and
+60,000), the largest class counts of the earlier 40 KB design, walks
+cut short by `depth`, row counts around the tiles (1, 31, 33, 4095,
+4097), single-leaf trees, two threads launching at once, and plans the
+kernel must refuse (it raises; nothing falls back).
+
 They need a CUDA device and skip without one (`cuda` marker). They
 import neither JAX nor the JAX package:
 
@@ -37,8 +46,10 @@ def _card():
         pytest.skip("needs a CUDA card")
 
 
-def _random_forest(rng, t_cnt, max_leaves, f, cat_frac=0.3, num_cat=5):
-    """Random valid trees grown by random leaf splits."""
+def _random_forest(rng, t_cnt, max_leaves, f, cat_frac=0.3, num_cat=5,
+                   exact=False, single_frac=0.0):
+    """Random valid trees grown by random leaf splits (`max_leaves`
+    leaves each with `exact`; a `single_frac` share single-leaf)."""
     s = max_leaves - 1
     sf = np.zeros((t_cnt, s), np.int32)
     thr = np.zeros((t_cnt, s), np.float32)
@@ -49,7 +60,9 @@ def _random_forest(rng, t_cnt, max_leaves, f, cat_frac=0.3, num_cat=5):
     node0 = np.zeros(t_cnt, np.int32)
     depth = 1
     for t in range(t_cnt):
-        nl = rng.randint(1, max_leaves + 1)
+        nl = max_leaves if exact else rng.randint(1, max_leaves + 1)
+        if rng.rand() < single_frac:
+            nl = 1
         leaves, leaf_depth = [(-1, 0)], [0]
         for ns in range(nl - 1):
             li = rng.randint(len(leaves))
@@ -190,3 +203,162 @@ def test_predictor_from_two_threads_gives_one_threads_bits():
                 cp.predict_leaf_index(x[:2000]),
                 b.predict(x[:2000], pred_leaf=True))
         assert cp.stats["cold_dispatches"] == 0
+
+
+def _same_bits(x, forest, lv=None, num_class=None):
+    """The kernel twice against the plain version: equal bits."""
+    if lv is None:
+        got = tk.tree_leaf(x, forest)
+        again = tk.tree_leaf(x, forest)
+        want = tk.tree_leaf_plain(x, forest)
+    else:
+        got = tk.tree_raw(x, forest, lv, num_class)
+        again = tk.tree_raw(x, forest, lv, num_class)
+        want = tk.tree_raw_plain(x, forest, lv, num_class)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    return got
+
+
+def _all_kernels(x, forest, lv, classes=(1, 3)):
+    _same_bits(x, forest)
+    lv32 = torch.from_numpy(lv).to(DEV)
+    for k in classes:
+        for vals in (lv32, lv32.to(torch.bfloat16)):
+            _same_bits(x, forest, vals, k)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4095, 4097])
+def test_row_counts_around_the_tiles(n):
+    rng = np.random.RandomState(n)
+    arrays, lv = _random_forest(rng, 100, 63, 28, single_frac=0.05)
+    forest = tk.freeze(*arrays, DEV)
+    _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest, lv)
+
+
+@pytest.mark.parametrize("n", [1, 4097])
+def test_forest_larger_than_shared_memory(n):
+    rng = np.random.RandomState(15)
+    arrays, lv = _random_forest(rng, 1500, 63, 28, exact=True)
+    forest = tk.freeze(*arrays, DEV)
+    assert forest.nodes.numel() * 4 > tk.SMEM_OPTIN_SM90     # 1.49 MB
+    _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest, lv)
+
+
+def test_trees_larger_than_a_block_shared_memory():
+    rng = np.random.RandomState(16)
+    arrays, lv = _random_forest(rng, 3, 16384, 28, exact=True)
+    forest = tk.freeze(*arrays, DEV)
+    assert forest.nodes.shape[1] * 16 > tk.SMEM_OPTIN_SM90
+    assert tk.plan(2000, 28, 3, forest.nodes.shape[1]).slots == 0
+    for n in (1, 2000):
+        _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest,
+                     lv, classes=(1, 2))
+
+
+@pytest.mark.parametrize("f,n", [(3000, 1), (3000, 4097), (60000, 3)])
+def test_rows_too_wide_to_stage(f, n):
+    rng = np.random.RandomState(f + n)
+    arrays, lv = _random_forest(rng, 120, 63, f)
+    forest = tk.freeze(*arrays, DEV)
+    if n > 1 or f > 3000:
+        assert not tk.plan(n, f, 120, forest.nodes.shape[1]).stage_rows
+    _all_kernels(torch.from_numpy(_rows(rng, n, f)).to(DEV), forest, lv)
+
+
+@pytest.mark.parametrize("t_cnt", [16, 1200])
+def test_largest_class_count_of_the_first_kernel(t_cnt):
+    """The earlier kernel took K up to 10240 - min(T, 1024) (its 40 KB
+    of shared memory); this one takes them from scratch."""
+    k = 10240 - min(t_cnt, 1024)
+    rng = np.random.RandomState(t_cnt)
+    arrays, lv = _random_forest(rng, t_cnt, 31, 28)
+    forest = tk.freeze(*arrays, DEV)
+    x = torch.from_numpy(_rows(rng, 33, 28)).to(DEV)
+    lv32 = torch.from_numpy(lv).to(DEV)
+    for vals in (lv32, lv32.to(torch.bfloat16)):
+        got = _same_bits(x, forest, vals, k)
+        assert got.shape == (33, k)
+
+
+def test_walks_cut_short_by_depth():
+    rng = np.random.RandomState(21)
+    arrays, lv = _random_forest(rng, 100, 63, 28)
+    arrays = arrays[:-1] + (max(1, arrays[-1] - 4),)
+    forest = tk.freeze(*arrays, DEV)
+    for n in (1, 4096):
+        x = torch.from_numpy(_rows(rng, n, 28)).to(DEV)
+        leaves = tk.tree_leaf(x, forest)
+        if n > 1:
+            assert bool((leaves < 0).any())   # some walks were cut short
+        _all_kernels(x, forest, lv)
+
+
+def test_single_leaf_trees():
+    rng = np.random.RandomState(22)
+    arrays, lv = _random_forest(rng, 64, 63, 28, single_frac=0.5)
+    assert (arrays[5] == ~0).sum() > 10
+    forest = tk.freeze(*arrays, DEV)
+    for n in (1, 1000):
+        _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest, lv)
+
+
+def test_two_threads_launch_at_once():
+    rng = np.random.RandomState(23)
+    arrays, lv = _random_forest(rng, 300, 63, 28)
+    forest = tk.freeze(*arrays, DEV)
+    lv32 = torch.from_numpy(lv).to(DEV)
+    xs = [torch.from_numpy(_rows(rng, n, 28)).to(DEV)
+          for n in (1, 64, 4096, 777)]
+    want = [(tk.tree_leaf_plain(x, forest),
+             tk.tree_raw_plain(x, forest, lv32, 3)) for x in xs]
+    torch.cuda.synchronize()
+    got = {}
+    barrier = threading.Barrier(2)
+
+    def worker(k):
+        stream = torch.cuda.Stream()
+        barrier.wait()
+        with torch.cuda.stream(stream):
+            for rep in range(20):
+                for i, x in enumerate(xs):
+                    got[k, rep, i] = (tk.tree_leaf(x, forest),
+                                      tk.tree_raw(x, forest, lv32, 3))
+        stream.synchronize()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert len(got) == 2 * 20 * len(xs)
+    for (k, rep, i), (leaf, raw) in got.items():
+        assert torch.equal(leaf, want[i][0]) and torch.equal(raw, want[i][1])
+
+
+def test_a_refused_launch_raises():
+    rng = np.random.RandomState(24)
+    arrays, lv = _random_forest(rng, 100, 15, 8)
+    forest = tk.freeze(*arrays, DEV)
+    x = torch.from_numpy(_rows(rng, 40, 8)).to(DEV)
+    s = forest.nodes.shape[1]
+    good = tk.plan(40, 8, 100, s)
+    tk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tk.tree_leaf(x, forest, launch_plan=good._replace(rows=0))
+    # a plan needing more shared memory than the card opts in to (the
+    # roots of 2000 tiles)
+    huge = good._replace(group=2000, window=1, slots=1)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tk.tree_leaf(x, forest, launch_plan=huge)
+    # a window larger than its group
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tk.tree_leaf(x, forest, launch_plan=good._replace(group=1, window=2))
+    # tree_raw sums in the block need one tile group
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tk.tree_raw(x, forest, torch.from_numpy(lv).to(DEV), 1,
+                    launch_plan=good._replace(group=1, window=1,
+                                              scratch=False))
+    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0}
+
