@@ -10,7 +10,9 @@ checkout of the repo (DIR's lightgbm_tpu_torch, imported under another
 name, its kernels built from DIR's csrc) on the same inputs: the
 histogram kernels and the traversal kernels (every traversal case and
 check) must give these kernels' bits, and both are timed in the same
-way, for a before-and-after comparison in one run.
+way, for a before-and-after comparison in one run; the serving phase
+also runs DIR's CompiledPredictor on the same model file in turns with
+this one (single-row latency, predict's stages, same answers).
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
@@ -103,7 +105,10 @@ Phases (any failure exits non-zero and prints no result line):
     predict's. Served leaves must equal the host float64 traversal's
     (force_host_predict) and predict the f64 product of those leaves;
     against the host path's per-class sum it is held within the f64
-    association bound (coalesced_tol);
+    association bound (coalesced_tol). With --baseline, the other
+    checkout's predictor and this one in ten pairs of turns: single-row
+    p50, stages on one row, pairs won, the tree_leaf dispatch's host
+    microseconds;
 11. a `kernels` JSON line (launches from the fused phases, and for the
     traversal kernels from the serving main path), the card line, and
     the result line.
@@ -316,6 +321,28 @@ def load_baseline(path):
     spec.loader.exec_module(mod)
     importlib.import_module(name + ".ops.traverse_kernels")
     return mod
+
+
+def baseline_module(name):
+    """A module of the other checkout's package (--baseline)."""
+    import importlib
+    return importlib.import_module(
+        BASELINE.__name__.rsplit(".", 1)[0] + "." + name)
+
+
+_BASELINE_FORESTS = {}
+
+
+def baseline_forest(forest):
+    """The same trees frozen by the other checkout's traverse_kernels
+    (its kernels read its own record layout), once a forest."""
+    key = id(forest)
+    if key not in _BASELINE_FORESTS:
+        host = [a.cpu().numpy() for a in (forest.sf, forest.thr, forest.cat,
+                                          forest.lc, forest.rc, forest.node0)]
+        _BASELINE_FORESTS[key] = (forest, BASELINE.traverse_kernels.freeze(
+            *host, forest.depth, forest.sf.device))
+    return _BASELINE_FORESTS[key][1]
 
 
 def time_baseline(torch, timer, res, call, got):
@@ -1271,7 +1298,7 @@ def traverse_bound_ms(x, forest, leaves, lv=None, num_class=1):
     this run's rows take (and one add per (row, tree) for tree_raw)
     over the float32 rate. Returns (ms, bound_by)."""
     b, f = x.shape
-    t, s = forest.nodes.shape[:2]
+    t, s = forest.sf.shape
     nbytes = b * f * 4 + t * s * 16 + t * 4
     steps = float(leaf_depths(forest)[np.arange(leaves.shape[1])[None, :],
                                       leaves].sum())
@@ -1299,8 +1326,8 @@ def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
     forest = pred._forest
     x = torch.from_numpy(np.ascontiguousarray(x_host)).to(DEVICE)
     if name == "tree_leaf":
-        def kern(m=tk):
-            return m.tree_leaf(x, forest)
+        def kern(m=tk, fr=forest):
+            return m.tree_leaf(x, fr)
 
         def plain():
             return tk.tree_leaf_plain(x, forest)
@@ -1309,20 +1336,19 @@ def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
         lv = (pred._lv16 if pred.serving_precision == "bf16"
               else pred._f32_values())
 
-        def kern(m=tk):
-            return m.tree_raw(x, forest, lv, pred.num_class)
+        def kern(m=tk, fr=forest):
+            return m.tree_raw(x, fr, lv, pred.num_class)
 
         def plain():
             return tk.tree_raw_plain(x, forest, lv, pred.num_class)
     got, again, want = kern(), kern(), plain()
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    plan = tk.plan(x.shape[0], x.shape[1], forest.nodes.shape[0],
-                   forest.nodes.shape[1],
+    t, s = forest.sf.shape
+    plan = tk.plan(x.shape[0], x.shape[1], t, s,
                    None if lv is None else pred.num_class)
     res = {"name": name, "shape": {"B": x.shape[0], "F": x.shape[1],
-                                   "T": int(forest.nodes.shape[0]),
-                                   "S": int(forest.nodes.shape[1]),
+                                   "T": int(t), "S": int(s),
                                    "depth": forest.depth,
                                    "precision": pred.serving_precision},
            "plan": plan._asdict(),
@@ -1339,12 +1365,12 @@ def traverse_case(torch, tk, timer, name, pred, x_host, reps=50):
     res["plain_ms"] = timer(plain, 5)
     res["library_ms"] = None
     if BASELINE is not None:
-        base = BASELINE.traverse_kernels
-        res["baseline_same_bits"] = bool(torch.equal(kern(base), got))
-        res["baseline_ms"] = timer(lambda: kern(base), reps)
-        res["baseline_ms_warm"] = timer(lambda: kern(base), reps,
+        base, bfr = BASELINE.traverse_kernels, baseline_forest(forest)
+        res["baseline_same_bits"] = bool(torch.equal(kern(base, bfr), got))
+        res["baseline_ms"] = timer(lambda: kern(base, bfr), reps)
+        res["baseline_ms_warm"] = timer(lambda: kern(base, bfr), reps,
                                         flush=False)
-        res["baseline_host_us"] = host_us(torch, lambda: kern(base))
+        res["baseline_host_us"] = host_us(torch, lambda: kern(base, bfr))
     log(f"{name} {res['shape']}: err {err:.3g} bitwise {res['bitwise_vs_plain']}"
         f" deterministic {res['deterministic']} ms {res['ms']:.4f} warm "
         f"{res['ms_warm']:.4f} enqueued {res['ms_enqueued']:.4f} bound "
@@ -1393,8 +1419,8 @@ def check_raw_cases(torch, tk, pred, bf16, x_host, rng):
         check(torch.equal(got, want),
               f"tree_raw {p.serving_precision}: {err} from plain")
         if BASELINE is not None:
-            base = BASELINE.traverse_kernels.tree_raw(x, p._forest, lv,
-                                                      p.num_class)
+            base = BASELINE.traverse_kernels.tree_raw(
+                x, baseline_forest(p._forest), lv, p.num_class)
             out[p.serving_precision]["baseline_same_bits"] = bool(
                 torch.equal(base, got))
             check(torch.equal(base, got),
@@ -1434,9 +1460,9 @@ def check_raw_cases(torch, tk, pred, bf16, x_host, rng):
         check(out[key]["bitwise_vs_plain"],
               f"tree_raw {key}: {err} from plain")
         if BASELINE is not None:
-            base = BASELINE.traverse_kernels
-            same = bool(torch.equal(base.tree_raw(x3, forest, vals, 3), got)
-                        and torch.equal(base.tree_leaf(x3, forest), leaves3))
+            base, bfr = BASELINE.traverse_kernels, baseline_forest(forest)
+            same = bool(torch.equal(base.tree_raw(x3, bfr, vals, 3), got)
+                        and torch.equal(base.tree_leaf(x3, bfr), leaves3))
             out[key]["baseline_same_bits"] = same
             check(same, f"tree_raw {key}: the baseline gave other bits")
     return out
@@ -1456,7 +1482,8 @@ def check_leaves(torch, tk, pred, x_host, what):
            "deterministic": bool(torch.equal(got, again))}
     if BASELINE is not None:
         res["baseline_same_bits"] = bool(torch.equal(
-            BASELINE.traverse_kernels.tree_leaf(x, pred._forest), got))
+            BASELINE.traverse_kernels.tree_leaf(
+                x, baseline_forest(pred._forest)), got))
     log(f"tree_leaf {what}: {tuple(got.shape)} {res}")
     check(res["bitwise_vs_plain"],
           f"tree_leaf {what}: differs from its plain version")
@@ -1669,6 +1696,57 @@ def http_phase(pred, rows):
     return res
 
 
+def compare_predictors(torch, pred, base, rows, pairs=10):
+    """This checkout's predictor and the other checkout's (--baseline) on
+    the same model file, in `pairs` pairs of turns whose order alternates
+    (this, other, other, this, ...): a turn is 100 single-row predict
+    calls (its p50) and predict's stages on one row (20 runs). Reports
+    each side's median turn p50 and stages, the pairs this side won, the
+    other side's own quartile spread, and the host microseconds of one
+    tree_leaf dispatch at the 1-row bucket. Both must give the same
+    answers."""
+    preds = {"this": pred, "baseline": base}
+    row = rows[:1]
+    turns = {k: [] for k in preds}
+    for i in range(pairs):
+        for name in (("this", "baseline") if i % 2 == 0
+                     else ("baseline", "this")):
+            p = preds[name]
+            p.predict(row)
+            lats = []
+            for _ in range(100):
+                t0 = time.perf_counter()
+                p.predict(row)
+                lats.append(time.perf_counter() - t0)
+            turns[name].append((1e3 * float(np.median(lats)),
+                                predict_stages(torch, p, row, 20)))
+    xb = torch.from_numpy(np.ascontiguousarray(row)).to(DEVICE)
+    out = {"pairs": pairs, "same_answers": bool(np.array_equal(
+        pred.predict(rows[:SERVE_BUCKET]), base.predict(rows[:SERVE_BUCKET])))}
+    for name, p in preds.items():
+        p50s = [t[0] for t in turns[name]]
+        stages = {k: float(np.median([t[1][k] for t in turns[name]]))
+                  for k in turns[name][0][1] if k.endswith("_ms")}
+        out[name] = {"turn_p50_ms": p50s,
+                     "latency_p50_ms": float(np.median(p50s)),
+                     "quartile_spread_ms": float(np.subtract(
+                         *np.percentile(p50s, [75, 25]))),
+                     "stages_1_row_ms": stages,
+                     "leaf_host_us": host_us(
+                         torch, lambda p=p: p._dispatch_leaf(xb))}
+        log(f"single-row predict, {name}: median turn p50 "
+            f"{out[name]['latency_p50_ms']:.4f} ms (quartile spread "
+            f"{out[name]['quartile_spread_ms']:.4f}), launch stage "
+            f"{stages['launch_ms'] * 1e3:.1f} us, tree_leaf host "
+            f"{out[name]['leaf_host_us']:.1f} us")
+    out["this_wins"] = sum(a < b for a, b in zip(out["this"]["turn_p50_ms"],
+                                               out["baseline"]["turn_p50_ms"]))
+    log(f"single-row predict: this side won {out['this_wins']} of {pairs} "
+        "pairs")
+    check(out["same_answers"], "the baseline predictor gave other answers")
+    return out
+
+
 def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
     """The serving path at full width: the bench model trained 100
     rounds (fused masked trainer), frozen from its model text in f32 and
@@ -1702,9 +1780,12 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
         host = GBDT(device="cpu")
         with open(path) as f:
             host.load_model_from_string(f.read())
+        if BASELINE is not None:
+            base_pred = baseline_module("serving").CompiledPredictor \
+                .from_model_file(path, max_batch_rows=SERVE_BUCKET)
     host.force_host_predict = True
     res.update(num_trees=pred.num_trees, depth=pred.depth,
-               node_slots=int(pred._forest.nodes.shape[1]),
+               node_slots=int(pred._forest.sf.shape[1]),
                compile_cache_hits=pred.stats["compile_cache_hits"],
                accuracy_bound=bf16.accuracy_bound)
     log(f"serving model: {pred.num_trees} trees ({res['node_slots']} node "
@@ -1758,6 +1839,9 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
     # launches come after the main path's counts were read)
     res["stages_1_row"] = predict_stages(torch, pred, rows[:1], 100)
     res["stages_100k"] = predict_stages(torch, pred, rows, 5)
+    if BASELINE is not None:
+        res["baseline_predictor"] = compare_predictors(torch, pred,
+                                                       base_pred, rows)
 
     # exactness: the predictor's leaves are the host f64 traversal's, and
     # its f64 reduce is the JAX predictor's product of those leaves; the

@@ -40,11 +40,13 @@
 //    (cp.async.bulk completing on an mbarrier), issued by one thread:
 //    the whole group of tiles at once when it fits (and the grid is
 //    under a wave), else a ring of two one-tile windows, the next copy
-//    running while the current window is walked. The trees' roots and,
-//    where they fit, the block's rows are staged too. A tile larger
+//    running while the current window is walked. Each window's roots
+//    and, where they fit, the block's rows are staged too. A tile larger
 //    than shared memory is walked from device memory, and rows too wide
 //    to stage are read from device memory, so every shape the wrappers
-//    accept runs.
+//    accept runs. A wait for a copy has no time limit: the host checks
+//    rule out a copy that could never land (and a trap would end the
+//    process's CUDA context).
 // 2. A warp walks one row through one tile: lane j takes tree j, so the
 //    32 record loads of a step hit 32 consecutive 16-byte words (no bank
 //    conflict), the feature loads one row (a broadcast where they
@@ -56,20 +58,16 @@
 //    two (tile, row) items a warp): walks of one thread do not overlap,
 //    since the compiler runs one walk's load-compare-select chain after
 //    the other's (measured: four walks a thread were slower than one).
-// 3. Small batches spread over blocks. The grid is (row blocks, tile
-//    groups): tree_leaf takes one tile a block, so the 1-row bucket of
-//    the bench model is 4 blocks of 32 trees.
-// 4. Fixed-order sums. tree_raw sums in the block (one tile group; each
-//    (row, class) cell adds its class's trees of a window in tree order
-//    from shared memory into an accumulator that lives across windows),
-//    or, with the tiles spread over blocks, writes each (row, tree) value
-//    to a (B, T) scratch that the wrapper allocates; the last block of a
-//    row block to finish (found through a per-row-block counter, after
-//    __threadfence, and reset to zero for the next launch on the stream)
-//    stages its rows' values in shared memory and adds each (row, class)
-//    cell's trees in order. Either way each sum is the plain version's
-//    sequential f32 adds, so two launches and the plain version give the
-//    same bits.
+// 3. Small batches spread over blocks. tree_leaf's grid is (row blocks,
+//    tiles): a tile a block, so the 1-row bucket of the bench model is 4
+//    blocks of 32 trees.
+// 4. Fixed-order sums. tree_raw walks the whole forest in each block
+//    (one tile group); each (row, class) cell adds its class's trees of
+//    a window in tree order from shared memory into an accumulator that
+//    lives across windows, so each sum is the plain version's sequential
+//    f32 adds and two launches and the plain version give the same bits.
+//    A block's rows shrink until their (rows, K) sums fit in shared
+//    memory (one row holds K of about 50,000).
 // The launch plan (rows, tiles a block and a window, slots, staged rows,
 // threads) is made by traverse_kernels.plan; this file checks it, lays
 // out shared memory (layout()) and opts each kernel in to the card's
@@ -91,8 +89,6 @@ constexpr int kNoFit = -2;
 constexpr int kMaxDevices = 64;
 constexpr int kMaxGridY = 65535;
 
-enum Mode { kLeaf = 0, kValue = 1, kSum = 2 };
-
 // A launch plan (ops/traverse_kernels.py plan): rows a block, tiles a
 // block (group), tiles a window, shared-memory window slots (0: records
 // read from device memory), rows staged in shared memory or not,
@@ -101,30 +97,31 @@ struct Plan {
   int rows, group, window, slots, stage_rows, categorical, threads;
 };
 
-// Byte offsets in dynamic shared memory; a 32-byte head (two mbarriers
-// and the last-block flag) comes first.
+// Byte offsets in dynamic shared memory. A 128-byte head (two mbarriers)
+// comes first, so that the tiles start on a 128-byte boundary: bulk
+// copies into a 16- or 32-byte-aligned buffer made the walks measurably
+// slower on the H100.
 struct Layout {
-  size_t tiles, node0, xs, vals, acc, total;
+  size_t tiles, roots, xs, vals, acc, total;
 };
 
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
-Layout layout(const Plan& p, int f, int s, int k, bool sums, bool last) {
+// A group of more than one window keeps two buffers of roots (and, for
+// sums, of leaf values): the next window's fill while this one is read.
+Layout layout(const Plan& p, int f, int s, int k, bool sums) {
   Layout l;
-  const size_t win_bytes = (size_t)p.window * s * kTile * 16;
-  const int vbufs = sums ? (p.group > p.window ? 2 : 1) : 0;
-  l.tiles = 32;
-  l.node0 = l.tiles + align16((size_t)p.slots * win_bytes);
-  l.xs = l.node0 + align16((size_t)p.group * kTile * 4);
+  const size_t win_trees = (size_t)p.window * kTile;
+  const size_t bufs = p.group > p.window ? 2 : 1;
+  l.tiles = 128;
+  l.roots = l.tiles + align16((size_t)p.slots * win_trees * s * 16);
+  l.xs = l.roots + align16(bufs * win_trees * 4);
   l.vals = l.xs + (p.stage_rows ? align16((size_t)p.rows * (f | 1) * 4) : 0);
   l.acc = l.vals +
-          align16((size_t)vbufs * p.rows * ((p.window * kTile) | 1) * 4);
+          (sums ? align16(bufs * p.rows * (win_trees | 1) * 4) : 0);
   l.total = l.acc + (sums ? align16((size_t)p.rows * k * 4) : 0);
-  // the last block of a row block stages its rows' values, 32 trees at
-  // least at a time, over what the walk used
-  if (last) l.total = max(l.total, 32 + align16((size_t)p.rows * kTile * 4));
   return l;
 }
 
@@ -173,12 +170,6 @@ __device__ __forceinline__ void tile_copy(uint64_t* bar, void* dst,
       : "memory");
 }
 
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -193,16 +184,10 @@ __device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
   return done != 0;
 }
 
-// Wait for a tile; a copy that has not landed after a second is a fault
-// (trap: the launch fails instead of hanging the card). The clock is read
-// only once the wait has lasted 1024 tries.
+// wait for a window's copy (the host's checks rule out one that cannot
+// land)
 __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (uint32_t tries = 1; !bar_try(bar, parity); ++tries) {
-    if (tries % 1024) continue;
-    const uint64_t now = now_ns();
-    if (start == 0) start = now;
-    else if (now - start > 1000000000ull) __trap();
+  while (!bar_try(bar, parity)) {
   }
 }
 
@@ -215,6 +200,15 @@ __device__ __forceinline__ void prefetch_values(const V* lv, int l,
   const size_t bytes = (size_t)count * l * sizeof(V);
   for (size_t o = (size_t)threadIdx.x * 32; o < bytes; o += blockDim.x * 32)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(base + o));
+}
+
+// the roots of `count` trees from `first`, as byte offsets (or ~leaf)
+__device__ __forceinline__ void stage_roots(int* dst, const int* node0,
+                                            int first, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int n = __ldg(node0 + first + i);
+    dst[i] = n >= 0 ? n * kTile * 16 : n;
+  }
 }
 
 // ------------------------------------------------------------ the walks
@@ -284,22 +278,20 @@ __device__ __forceinline__ int walk(int node, const char* tree,
 // features (a broadcast where they agree), and store 32 consecutive
 // outputs. Many warps a SM hide the chain's latency: the compiler runs
 // several walks of one thread one after another, not overlapped.
-// kMode kLeaf writes leaves to out (B, T) int32, kValue the leaf values
-// to out (B, T) f32 (a scratch; the row block's last block adds them
-// into sums (B, K)), kSum the class sums to
-// out (B, K) f32 (one tree group). kFast: the records and rows are both
-// in shared memory, so every load of the walk is a shared one.
-template <int kMode, typename V, bool kFast, bool kCat>
+// kRaw false writes leaves to out (B, T) int32; kRaw true (one tile
+// group, the whole forest) the class sums to out (B, K) f32. kFast: the
+// records and rows are both in shared memory, so every load of the walk
+// is a shared one.
+template <bool kRaw, typename V, bool kFast, bool kCat>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 walk_kernel(const float* __restrict__ x, int b, int f,
             const int4* __restrict__ tiles, const int* __restrict__ node0,
             int t, int s, int depth, const V* __restrict__ lv, int l, int k,
-            Plan p, Layout lay, uint32_t* __restrict__ out,
-            float* __restrict__ sums, int* __restrict__ counters) {
+            Plan p, Layout lay, void* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int4* buf = reinterpret_cast<int4*>(smem + lay.tiles);
-  int* n0s = reinterpret_cast<int*>(smem + lay.node0);
+  int* roots = reinterpret_cast<int*>(smem + lay.roots);
   float* xs = reinterpret_cast<float*>(smem + lay.xs);
   float* vals = reinterpret_cast<float*>(smem + lay.vals);
   float* acc = reinterpret_cast<float*>(smem + lay.acc);
@@ -319,7 +311,9 @@ walk_kernel(const float* __restrict__ x, int b, int f,
   const size_t tile_recs = (size_t)s * kTile;
   const size_t win_recs = tile_recs * p.window;
   const bool ring = kFast || p.slots > 0;
-  const int pitch = (p.window * kTile) | 1;
+  const int win_trees = p.window * kTile;
+  const bool two = p.group > p.window;       // two root / value buffers
+  const int pitch = win_trees | 1;
   const bool staged = kFast || p.stage_rows;
   const int xstride = staged ? (f | 1) : f;
 
@@ -334,12 +328,9 @@ walk_kernel(const float* __restrict__ x, int b, int f,
                 static_cast<uint32_t>(wt * tile_recs * 16));
     }
   }
-  // while the first windows arrive: roots (as byte offsets), rows, the
-  // first values
-  for (int i = tid; i < gn; i += nthreads) {
-    const int n = __ldg(node0 + g0 + i);
-    n0s[i] = n >= 0 ? n * kTile * 16 : n;
-  }
+  // while the first windows arrive: the first window's roots, the rows,
+  // the first values
+  stage_roots(roots, node0, g0, min(win_trees, gn));
   const float* xg = x + (size_t)row0 * f;
   if (staged) {
     for (int i = tid; i < nrows * f; i += nthreads) {
@@ -347,10 +338,10 @@ walk_kernel(const float* __restrict__ x, int b, int f,
       xs[r * xstride + (i - r * f)] = __ldg(xg + i);
     }
   }
-  if (kMode == kSum)
+  if (kRaw) {
     for (int q = tid; q < nrows * k; q += nthreads) acc[q] = 0.0f;
-  if (kMode != kLeaf)
-    prefetch_values(lv, l, g0, min(p.window * kTile, gn));
+    prefetch_values(lv, l, g0, min(win_trees, gn));
+  }
   __syncthreads();
   const char* xbase = reinterpret_cast<const char*>(staged ? xs : xg);
 
@@ -359,14 +350,15 @@ walk_kernel(const float* __restrict__ x, int b, int f,
     const int wtiles = min(p.window, gtn - wt0);
     const int wtrees0 = wt0 * kTile;         // first tree, from g0
     const int wtn = min(wtiles * kTile, gn - wtrees0);
+    const int next = wtrees0 + wtiles * kTile;  // the next window's
     const int slot = ring ? wi % p.slots : 0;
-    if (kMode != kLeaf && wi + 1 < nwin)
-      prefetch_values(lv, l, g0 + wtrees0 + wtiles * kTile,
-                      min(p.window * kTile, gn - wtrees0 - wtiles * kTile));
+    const int* wroots = roots + (two ? (wi & 1) * win_trees : 0);
+    float* wvals = vals + (two ? (wi & 1) * p.rows * pitch : 0);
+    if (kRaw && wi + 1 < nwin)
+      prefetch_values(lv, l, g0 + next, min(win_trees, gn - next));
     if (ring) bar_wait(bars + slot, (wi / p.slots) & 1);
     const int4* wbuf = ring ? buf + slot * win_recs
                             : tiles + (gt0 + (size_t)wt0) * tile_recs;
-    float* wvals = vals + (p.group > p.window ? (wi & 1) * p.rows * pitch : 0);
     // A warp's (tile, row) items u = warp, warp + 8, ...: lane j walks
     // tree j of the item's tile for the row. (A lane that took its next
     // item as soon as its walk ended was measured twice as slow: the
@@ -377,22 +369,22 @@ walk_kernel(const float* __restrict__ x, int b, int f,
       const int jw = tl * kTile + lane;      // tree of the window
       if (jw >= wtn) continue;
       int node = walk<kFast, kCat>(
-          n0s[wtrees0 + jw],
+          wroots[jw],
           reinterpret_cast<const char*>(wbuf + tl * tile_recs + lane),
           xbase + (size_t)r * xstride * 4, depth);
       if (node >= 0) node /= kTile * 16;     // cut short: the node index
       const int tree = g0 + wtrees0 + jw;    // in the forest
-      const size_t o = (size_t)(row0 + r) * t + tree;
-      if (kMode == kLeaf) {
-        out[o] = ~node;
-      } else {
-        const float v = widen(lv[(size_t)tree * l + (node < 0 ? ~node : 0)]);
-        if (kMode == kValue)
-          out[o] = __float_as_uint(v);
-        else
-          wvals[r * pitch + jw] = v;
-      }
+      if (kRaw)
+        wvals[r * pitch + jw] =
+            widen(lv[(size_t)tree * l + (node < 0 ? ~node : 0)]);
+      else
+        static_cast<int*>(out)[(size_t)(row0 + r) * t + tree] = ~node;
     }
+    // the next window's roots, into the buffer the window before this
+    // one read (its walks ended at the last barrier)
+    if (wi + 1 < nwin)
+      stage_roots(roots + ((wi + 1) & 1) * win_trees, node0, g0 + next,
+                  min(win_trees, gn - next));
     __syncthreads();  // the window is walked: its slot is free
     if (ring && tid == 0 && wi + p.slots < nwin) {
       const int wn = wi + p.slots;
@@ -402,7 +394,7 @@ walk_kernel(const float* __restrict__ x, int b, int f,
                 tiles + (gt0 + (size_t)wn * p.window) * tile_recs,
                 static_cast<uint32_t>(wt * tile_recs * 16));
     }
-    if (kMode == kSum) {
+    if (kRaw) {
       // each (row, class) cell adds its class's trees of the window in
       // tree order (g0 is 0: one tree group); vals is double-buffered, so
       // the next window's walks do not wait for these adds
@@ -425,70 +417,14 @@ walk_kernel(const float* __restrict__ x, int b, int f,
       }
     }
   }
-  if (kMode == kSum) {
+  if (kRaw) {
     // each thread stores the cells it added
-    float* dst = reinterpret_cast<float*>(out) + (size_t)row0 * k;
+    float* dst = static_cast<float*>(out) + (size_t)row0 * k;
     for (int q = tid; q < nrows * k; q += nthreads) dst[q] = acc[q];
-  }
-  if (kMode == kValue) {
-    // The last of the row block's gridDim.y blocks to finish adds the
-    // scratch values of its rows in tree order; its counter goes back to
-    // 0 for the next launch on this stream.
-    int* last = reinterpret_cast<int*>(smem + 16);
-    __threadfence();  // this block's values, before its ticket
-    __syncthreads();
-    if (tid == 0)
-      *last = atomicAdd(counters + blockIdx.x, 1) == (int)gridDim.y - 1;
-    __syncthreads();
-    if (!*last) return;
-    __threadfence();
-    // stage the rows' values a chunk of trees at a time in shared memory
-    // (one coalesced pass), then each (row, class) cell adds its class's
-    // trees of the chunk in order, carrying its sum in `sums`
-    float* stage = reinterpret_cast<float*>(smem + 32);
-    const int chunk = static_cast<int>((lay.total - 32) / 4 / nrows);
-    for (int c0 = 0; c0 < t; c0 += chunk) {
-      const int cn = min(chunk, t - c0);
-      for (int i = tid; i < nrows * cn; i += nthreads) {
-        const int r = i / cn;
-        stage[i] = __uint_as_float(
-            __ldcg(out + (size_t)(row0 + r) * t + c0 + (i - r * cn)));
-      }
-      __syncthreads();
-      for (int q = tid; q < nrows * k; q += nthreads) {
-        const int r = q / k;
-        const int c = q - r * k;
-        float* cell = sums + (size_t)row0 * k + q;
-        float a = c0 == 0 ? 0.0f : *cell;
-        const float* vr = stage + r * cn;
-        int j = ((c - c0) % k + k) % k;
-        for (; j + 3 * k < cn; j += 4 * k) {  // four loads, then the adds
-          const float v0 = vr[j], v1 = vr[j + k], v2 = vr[j + 2 * k],
-                      v3 = vr[j + 3 * k];
-          a += v0;
-          a += v1;
-          a += v2;
-          a += v3;
-        }
-        for (; j < cn; j += k) a += vr[j];
-        *cell = a;
-      }
-      __syncthreads();
-    }
-    if (tid == 0) counters[blockIdx.x] = 0;
   }
 }
 
 // ---------------------------------------------------------------- host
-
-// A launch's outputs: `out` (leaves, in-block sums, or the value
-// scratch); with the scratch, `sums` (B, K) and the row blocks'
-// `counters` (zero before the launch, zero again after it).
-struct Outputs {
-  void* out;
-  float* sums;
-  int* counters;
-};
 
 std::mutex g_opt_in_lock;
 
@@ -499,7 +435,7 @@ int smem_optin(int device, int* bytes) {
 
 // Opt a kernel in to the device's largest dynamic shared memory, once a
 // device (the batcher's worker and the HTTP threads launch at once).
-template <int kMode, typename V, bool kFast, bool kCat>
+template <bool kRaw, typename V, bool kFast, bool kCat>
 int opt_in(int device) {
   static bool done[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return kBadShape;
@@ -509,7 +445,7 @@ int opt_in(int device) {
   int status = smem_optin(device, &bytes);
   if (status != 0) return status;
   status = static_cast<int>(cudaFuncSetAttribute(
-      walk_kernel<kMode, V, kFast, kCat>,
+      walk_kernel<kRaw, V, kFast, kCat>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (status != 0) return status;
   done[device] = true;
@@ -518,24 +454,23 @@ int opt_in(int device) {
 
 int check_launch() { return static_cast<int>(cudaGetLastError()); }
 
-template <int kMode, typename V, bool kFast, bool kCat>
+template <bool kRaw, typename V, bool kFast, bool kCat>
 int launch_one(dim3 grid, const Layout& lay, cudaStream_t stream, int device,
                const float* x, int b, int f, const void* nodes,
                const int* node0, int t, int s, int depth, const V* lv, int l,
-               int k, const Plan& p, const Outputs& o) {
-  const int status = opt_in<kMode, V, kFast, kCat>(device);
+               int k, const Plan& p, void* out) {
+  const int status = opt_in<kRaw, V, kFast, kCat>(device);
   if (status != 0) return status;
-  walk_kernel<kMode, V, kFast, kCat><<<grid, p.threads, lay.total, stream>>>(
+  walk_kernel<kRaw, V, kFast, kCat><<<grid, p.threads, lay.total, stream>>>(
       x, b, f, static_cast<const int4*>(nodes), node0, t, s, depth, lv, l, k,
-      p, lay, static_cast<uint32_t*>(o.out), o.sums, o.counters);
+      p, lay, out);
   return check_launch();
 }
 
-template <int kMode, typename V>
+template <bool kRaw, typename V>
 int launch_walk(const float* x, int b, int f, const void* nodes,
                 const int* node0, int t, int s, int depth, const V* lv,
-                int l, int k, const int* plan, const Outputs& o,
-                cudaStream_t stream) {
+                int l, int k, const int* plan, void* out, void* stream) {
   if (b < 0 || f < 1 || t < 1 || s < 1 || depth < 0 || l < 1 || k < 1)
     return kBadShape;
   if (b == 0) return 0;
@@ -543,7 +478,7 @@ int launch_walk(const float* x, int b, int f, const void* nodes,
                plan[4], plan[5], plan[6]};
   const long long ntiles = (t + kTile - 1) / kTile;
   if (p.rows < 1 || p.group < 1 || p.window < 1 || p.window > p.group ||
-      p.slots < 0 || p.slots > 2 || (kMode == kSum && p.group < ntiles) ||
+      p.slots < 0 || p.slots > 2 || (kRaw && p.group < ntiles) ||
       p.threads < 32 || p.threads > kMaxThreads || p.threads % 32)
     return kBadShape;
   const long long groups = (ntiles + p.group - 1) / p.group;
@@ -554,43 +489,30 @@ int launch_walk(const float* x, int b, int f, const void* nodes,
     return kBadShape;
   if (p.slots > 0 && (reinterpret_cast<uintptr_t>(nodes) & 15))
     return kBadShape;  // TMA copies need 16-byte-aligned records
-  const Layout lay = layout(p, f, s, k, kMode == kSum, kMode == kValue);
+  const Layout lay = layout(p, f, s, k, kRaw);
   int device = 0, limit = 0;
   int status = static_cast<int>(cudaGetDevice(&device));
   if (status == 0) status = smem_optin(device, &limit);
   if (status != 0) return status;
   if (lay.total > static_cast<size_t>(limit)) return kNoFit;
   const dim3 grid((b + p.rows - 1) / p.rows, static_cast<int>(groups));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fast = p.slots > 0 && p.stage_rows;
   if (fast && p.categorical)
-    return launch_one<kMode, V, true, true>(grid, lay, stream, device, x, b,
-                                            f, nodes, node0, t, s, depth,
-                                            lv, l, k, p, o);
+    return launch_one<kRaw, V, true, true>(grid, lay, st, device, x, b, f,
+                                           nodes, node0, t, s, depth, lv, l,
+                                           k, p, out);
   if (fast)
-    return launch_one<kMode, V, true, false>(grid, lay, stream, device, x,
-                                             b, f, nodes, node0, t, s, depth,
-                                             lv, l, k, p, o);
+    return launch_one<kRaw, V, true, false>(grid, lay, st, device, x, b, f,
+                                            nodes, node0, t, s, depth, lv, l,
+                                            k, p, out);
   if (p.categorical)
-    return launch_one<kMode, V, false, true>(grid, lay, stream, device, x,
-                                             b, f, nodes, node0, t, s, depth,
-                                             lv, l, k, p, o);
-  return launch_one<kMode, V, false, false>(grid, lay, stream, device, x, b,
-                                            f, nodes, node0, t, s, depth, lv,
-                                            l, k, p, o);
-}
-
-template <typename V>
-int launch_raw(const float* x, int b, int f, const void* nodes,
-               const int* node0, int t, int s, int depth, const V* lv,
-               int l, int k, const int* plan, float* scratch, int* counters,
-               float* out, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (scratch == nullptr)
-    return launch_walk<kSum, V>(x, b, f, nodes, node0, t, s, depth, lv, l,
-                                k, plan, Outputs{out, nullptr, nullptr}, st);
-  if (counters == nullptr) return kBadShape;
-  return launch_walk<kValue, V>(x, b, f, nodes, node0, t, s, depth, lv, l, k,
-                                plan, Outputs{scratch, out, counters}, st);
+    return launch_one<kRaw, V, false, true>(grid, lay, st, device, x, b, f,
+                                            nodes, node0, t, s, depth, lv, l,
+                                            k, p, out);
+  return launch_one<kRaw, V, false, false>(grid, lay, st, device, x, b, f,
+                                           nodes, node0, t, s, depth, lv, l,
+                                           k, p, out);
 }
 
 }  // namespace
@@ -604,34 +526,26 @@ extern "C" {
 int tree_leaf(const float* x, int b, int f, const void* nodes,
               const int* node0, int t, int s, int depth, const int* plan,
               int* out, void* stream) {
-  return launch_walk<kLeaf, float>(x, b, f, nodes, node0, t, s, depth,
-                                   nullptr, 1, 1, plan,
-                                   Outputs{out, nullptr, nullptr},
-                                   static_cast<cudaStream_t>(stream));
+  return launch_walk<false, float>(x, b, f, nodes, node0, t, s, depth,
+                                   nullptr, 1, 1, plan, out, stream);
 }
 
 // (B, K) f32 class sums of the T trees' leaf values, lv (T, L) float32:
-// tree t adds to class t % K, in tree order. scratch: null for sums in
-// the block (one tile group); else (B, T) float32 for the leaf values,
-// added by the last block of each row block, whose counter (one int a
-// row block, zero before the launch) it resets to zero.
+// tree t adds to class t % K, in tree order (the plan's one tile group).
 int tree_raw_f32(const float* x, int b, int f, const void* nodes,
                  const int* node0, int t, int s, int depth, const float* lv,
-                 int l, int k, const int* plan, float* scratch, int* counters,
-                 float* out, void* stream) {
-  return launch_raw<float>(x, b, f, nodes, node0, t, s, depth, lv, l, k,
-                           plan, scratch, counters, out, stream);
+                 int l, int k, const int* plan, float* out, void* stream) {
+  return launch_walk<true, float>(x, b, f, nodes, node0, t, s, depth, lv, l,
+                                  k, plan, out, stream);
 }
 
 // The same with bfloat16 leaf values, accumulated in f32.
 int tree_raw_bf16(const float* x, int b, int f, const void* nodes,
                   const int* node0, int t, int s, int depth, const void* lv,
-                  int l, int k, const int* plan, float* scratch,
-                  int* counters, float* out, void* stream) {
-  return launch_raw<__nv_bfloat16>(
+                  int l, int k, const int* plan, float* out, void* stream) {
+  return launch_walk<true, __nv_bfloat16>(
       x, b, f, nodes, node0, t, s, depth,
-      static_cast<const __nv_bfloat16*>(lv), l, k, plan, scratch, counters,
-      out, stream);
+      static_cast<const __nv_bfloat16*>(lv), l, k, plan, out, stream);
 }
 
 // The dynamic shared memory a block may opt in to on `device` (bytes), or

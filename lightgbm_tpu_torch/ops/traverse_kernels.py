@@ -12,20 +12,21 @@ in lightgbm_tpu_torch/csrc/traverse.cu (design and bound are noted
 there), built at first use by hist_kernels.build (this source alone, so
 a server does not wait for the histogram kernels) and loaded with
 ctypes. A frozen model is a `Forest`: the (T, S) node
-arrays the plain walk reads, the same nodes packed into one 16-byte
-record each (pack_nodes), and those records interleaved into tiles of
-32 trees (interleave), which is what the kernels read.
+arrays the plain walk reads, and the same nodes packed into one 16-byte
+record each (pack_nodes) and interleaved into tiles of 32 trees
+(interleave), which is what the kernels read.
 
-The kernels walk their trees from shared memory: the records of 32
-trees interleaved into a tile (interleave, at freeze time), copied in by
-TMA, a warp walking one row through a tile with lane j on tree j.
-`plan` chooses each launch's shape from the call's (B, F, T, S, K) and
-the card's SM count and shared memory: rows and threads a block, tiles
-a block (small batches spread their tiles over blocks) and a window,
-window slots in shared memory, staged rows, and for tree_raw whether the
-class sums are added in the block or from a (B, T) scratch of leaf
-values, in tree order, by the last block of each row block to finish. The kernel checks the plan and
-lays out shared memory itself; a plan it refuses raises.
+The kernels walk their trees from shared memory: a tile of 32 trees
+copied in by TMA, a warp walking one row through a tile with lane j on
+tree j. `plan` chooses each launch's shape from the call's (B, F, T, S,
+K) and the card's SM count and shared memory: rows and threads a block,
+tiles a block (tree_leaf spreads a small batch's tiles over blocks;
+tree_raw walks the whole forest in a block and adds each (row, class)
+sum there, in tree order, with rows shrunk until the sums fit) and a
+window, window slots in shared memory, and staged rows. The kernel
+checks the plan and lays out shared memory itself; a plan it refuses
+raises. The bound is the walk's chain of dependent loads, not the bytes
+moved (csrc/traverse.cu's header).
 
 Dispatch is by the row tensor's device only: a CPU tensor takes the
 plain version, a CUDA tensor the kernel (or an exception), anything else
@@ -33,7 +34,7 @@ raises. There is no fallback from a failed build or launch to the plain
 version. A wrapper launches on PyTorch's current stream of the tensor's
 own device, with that device made current for the launch (the serving
 batcher's worker and the HTTP handler threads call it), allocates its
-output and scratch per call (nothing shared across threads) and counts its
+output per call (nothing shared across threads) and counts its
 launches in `KERNELS[name].launches` under a lock.
 
 The plain versions are the lockstep walk of models/gbdt.py
@@ -91,16 +92,16 @@ class Forest(NamedTuple):
     """A frozen ensemble on one device: (T, S) split feature (int32),
     f32-safe threshold (float32), categorical flag (bool), left and
     right child (int32, a leaf is ~leaf); (T,) root state node0 (0, or
-    ~0 for a single-leaf tree); `nodes` the (T, S, 4) int32 packed
-    records; `depth` the walk's step count; `width` the least row width
-    (largest split feature + 1)."""
+    ~0 for a single-leaf tree); `depth` the walk's step count; `width`
+    the least row width (largest split feature + 1); `tiles` the packed
+    records interleaved (interleave), which the kernels read;
+    `categorical` whether any node is categorical."""
     sf: torch.Tensor
     thr: torch.Tensor
     cat: torch.Tensor
     lc: torch.Tensor
     rc: torch.Tensor
     node0: torch.Tensor
-    nodes: torch.Tensor
     depth: int
     width: int
     tiles: torch.Tensor
@@ -131,8 +132,7 @@ def freeze(sf, thr32, is_cat, lc, rc, node0, depth, device):
     rec = pack_nodes(sf, thr32, is_cat, lc, rc)
     return Forest(put(sf, np.int32), put(thr32, np.float32),
                   put(is_cat, np.bool_), put(lc, np.int32),
-                  put(rc, np.int32), put(node0, np.int32),
-                  put(rec, np.int32), int(depth),
+                  put(rc, np.int32), put(node0, np.int32), int(depth),
                   int(sf.max()) + 1 if sf.size else 1,
                   put(interleave(rec), np.int32),
                   bool(np.asarray(is_cat, bool).any()))
@@ -146,27 +146,24 @@ TILE = 32              # trees a tile interleaves (kTile): a warp's lanes
 SMEM_OPTIN_SM90 = 232_448
 SMS_H100 = 132
 ROW_BYTES = 64 << 10   # a block's staged rows at most
-SUM_BYTES = 16 << 10   # a block's (rows, K) class sums at most
-MAX_GROUP = 256        # tiles a block takes (their trees' roots are staged)
+SUM_BYTES = 16 << 10   # tree_raw: a block's (rows, K) class sums at most,
+                       # unless one row needs more
 MAX_GROUPS = 65535     # grid.y
-MAX_COPY = (1 << 20) - 16  # bytes one mbarrier counts for a window's copy
 
 
 class Plan(NamedTuple):
     """One launch: `rows` a block, `group` tiles of 32 trees a block
-    (grid.y = ceil(tiles / group)), `window` tiles walked between two
-    barriers, `slots` shared-memory windows (2: a ring, the next
-    window's copy overlapping this one's walks; 0: records read from
-    device memory), `stage_rows`, `scratch` (tree_raw: leaf values to a
-    (B, T) scratch, summed by each row block's last block, instead of
-    sums in one block), the dynamic shared memory it takes (`smem`,
-    csrc/traverse.cu layout()), and threads a block."""
+    (grid.y = ceil(tiles / group); tree_raw: all of them), `window`
+    tiles walked between two barriers, `slots` shared-memory windows (2:
+    a ring, the next window's copy overlapping this one's walks; 0:
+    records read from device memory), `stage_rows`, the dynamic shared
+    memory it takes (`smem`, csrc/traverse.cu layout()), and threads a
+    block."""
     rows: int
     group: int
     window: int
     slots: int
     stage_rows: bool
-    scratch: bool
     smem: int
     threads: int
 
@@ -181,79 +178,62 @@ class Plan(NamedTuple):
                                   int(categorical), self.threads)
 
 
-def smem_bytes(rows, group, window, slots, stage_rows, f, s, k, sums,
-               last=False):
+def smem_bytes(rows, group, window, slots, stage_rows, f, s, k, sums):
     """Bytes of dynamic shared memory of a block (csrc/traverse.cu
-    layout(): a 32-byte head, the window slots, the roots, the rows, the
-    window's leaf values and the class sums when summing in the block;
-    with `last` (tree_raw from scratch) at least room for 32 trees of the
-    rows' values, which the row block's last block stages)."""
+    layout(): a 128-byte head, the window slots, the roots, the rows, and
+    when summing the window's leaf values and the class sums; a group of
+    more than one window keeps two buffers of roots and of values)."""
     def a16(n):
         return (n + 15) & ~15
-    vbufs = (2 if group > window else 1) if sums else 0
-    total = (32 + a16(slots * window * s * TILE * 16) + a16(group * TILE * 4)
-             + (a16(rows * (f | 1) * 4) if stage_rows else 0)
-             + a16(vbufs * rows * ((window * TILE) | 1) * 4)
-             + (a16(rows * k * 4) if sums else 0))
-    return max(total, 32 + a16(rows * TILE * 4)) if last else total
+    bufs = 2 if group > window else 1
+    wt = window * TILE
+    return (128 + a16(slots * wt * s * 16) + a16(bufs * wt * 4)
+            + (a16(rows * (f | 1) * 4) if stage_rows else 0)
+            + (a16(bufs * rows * (wt | 1) * 4) + a16(rows * k * 4)
+               if sums else 0))
 
 
 def plan(b, f, t, s, num_class=None, sms=SMS_H100,
-         smem_limit=SMEM_OPTIN_SM90, rows=None, groups=None, window=None,
-         threads=None):
+         smem_limit=SMEM_OPTIN_SM90):
     """The launch plan of tree_leaf (num_class None) or tree_raw on B
     rows of F features through T trees of S node slots (T / 32 tiles),
-    as measured best on the H100 (bench/traverse_plans.py).
+    as measured best on the H100 (PERF.md, the traversal findings).
 
     Rows a block: about B x tiles / `sms` (up to 64; 32 for tree_raw),
     so that small batches still fill the SMs and large ones copy each
-    tile into few blocks. tree_leaf: a tile a block (grid.y = tiles).
-    tree_raw: one tile group, the class sums added in the block; when the
-    (rows, K) sums do not fit in shared memory, a tile a block and the
-    sums from scratch. A block keeps its whole group in shared memory
+    tile into few blocks; tree_raw's rows shrink until their (rows, K)
+    sums take at most SUM_BYTES (one row at least). tree_leaf: a tile a
+    block (grid.y = tiles). tree_raw: the whole forest a block, the class
+    sums added there. A block keeps its whole group in shared memory
     when that fits and the grid is under one wave of blocks (or the
     group is one tile); otherwise a ring of two one-tile windows;
     otherwise one; otherwise the records are read from device memory.
     Threads a block: a (tile, row) item of a window a warp, 256 to
-    1024. `rows`, `groups`, `window` and `threads` override the choice
-    (for measuring other plans)."""
+    1024. A plan whose sums alone exceed `smem_limit` is returned as it
+    is; the kernel refuses it and the wrapper raises."""
     ntiles = -(-t // TILE)
-    raw = num_class is not None
-    sums = raw and (rows or 1) * num_class * 4 <= SUM_BYTES
-    if rows is None:
-        rows = min(32 if sums else 64, max(1, -(-b * ntiles // sms)))
-        sums = sums and rows * num_class * 4 <= SUM_BYTES
-    row_blocks = max(1, -(-b // rows))
-    if groups is None:
-        groups = 1 if sums else ntiles
-    group = -(-ntiles // max(1, min(groups, ntiles)))
-    group = max(min(group, MAX_GROUP), -(-ntiles // MAX_GROUPS))
+    sums = num_class is not None
+    rows = min(32 if sums else 64, max(1, -(-b * ntiles // sms)))
+    if sums:
+        rows = max(1, min(rows, SUM_BYTES // (4 * num_class)))
+    row_blocks = -(-b // rows)
+    group = ntiles if sums else -(-ntiles // MAX_GROUPS)
     groups = -(-ntiles // group)
-    sums = sums and groups == 1
-    k = num_class if sums else 1
     stage_rows = rows * (f | 1) * 4 <= ROW_BYTES
-    tile_bytes = s * TILE * 16
 
     def size(win, slots):
-        return smem_bytes(rows, group, win, slots, stage_rows, f, s, k, sums,
-                          raw and not sums)
+        return smem_bytes(rows, group, win, slots, stage_rows, f, s,
+                          num_class or 1, sums)
 
-    options = []
-    if window is not None:
-        window = min(window, group)
-        options.append((window, 1 if window == group else 2))
-    elif group == 1 or row_blocks * groups < sms:
-        options.append((group, 1))
-    options += [(1, 2), (1, 1)]
-    for win, slots in options:
-        if win * tile_bytes <= MAX_COPY and size(win, slots) <= smem_limit:
+    options = [(group, 1)] if group == 1 or row_blocks * groups < sms else []
+    for win, slots in options + [(1, 2), (1, 1)]:
+        if size(win, slots) <= smem_limit:
             break
     else:  # not one tile fits: records read from device memory
         win, slots = 1, 0
-    if threads is None:   # a (tile, row) item a warp
-        threads = min(1024, max(256, 32 * rows * (win if slots else 1)))
-    return Plan(rows, group, win, slots, stage_rows, raw and not sums,
-                size(win, slots), threads)
+    threads = min(1024, max(256, 32 * rows * (win if slots else 1)))
+    return Plan(rows, group, win, slots, stage_rows, size(win, slots),
+                threads)
 
 
 def interleave(rec):
@@ -291,7 +271,7 @@ def _check(x, forest, name):
     if x.shape[1] < forest.width:
         raise ValueError(f"{name}: rows have {x.shape[1]} features, the "
                          f"trees split on feature {forest.width - 1}")
-    if forest.nodes.device != x.device:
+    if forest.tiles.device != x.device:
         raise ValueError(f"{name}: rows and trees on different devices")
 
 
@@ -305,12 +285,12 @@ def tree_leaf_plain(x, forest):
 
 
 def _check_values(forest, lv, num_class):
-    t = forest.nodes.shape[0]
+    t = forest.sf.shape[0]
     if lv.dim() != 2 or lv.shape[0] != t:
         raise ValueError(f"tree_raw: leaf values must be (T={t}, L)")
     if lv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("tree_raw: leaf values must be float32 or bfloat16")
-    if lv.device != forest.nodes.device:
+    if lv.device != forest.tiles.device:
         raise ValueError("tree_raw: leaf values and trees on different "
                          "devices")
     if int(num_class) < 1:
@@ -340,7 +320,7 @@ def _bind(lib):
     lib.tree_leaf.argtypes = [p, i, i, p, p, i, i, i, p, p, p]
     lib.tree_leaf.restype = i
     for fn in (lib.tree_raw_f32, lib.tree_raw_bf16):
-        fn.argtypes = [p, i, i, p, p, i, i, i, p, i, i, p, p, p, p, p]
+        fn.argtypes = [p, i, i, p, p, i, i, i, p, i, i, p, p, p]
         fn.restype = i
     lib.traverse_smem_optin.argtypes = [i]
     lib.traverse_smem_optin.restype = i
@@ -369,24 +349,6 @@ def library():
         return _LIB
 
 
-_COUNTERS = {}
-
-
-def _counters(device, stream, n):
-    """The row blocks' int32 counters of tree_raw's last-block sums on
-    one stream of one device: zero before every launch on that stream,
-    and zero again after it (its last blocks reset them). Launches on one
-    stream run in order, so they may share the buffer; launches on other
-    streams get their own."""
-    key = (device.index, stream)
-    with _LIB_LOCK:
-        buf = _COUNTERS.get(key)
-        if buf is None or buf.numel() < n:
-            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-            _COUNTERS[key] = buf
-        return buf
-
-
 @functools.lru_cache(maxsize=None)
 def _card_limits(index):
     """(SM count, opt-in shared memory bytes) of CUDA device `index`."""
@@ -411,34 +373,22 @@ def _planned(b, f, t, s, num_class, index, categorical):
     return p, arg, ctypes.addressof(arg)
 
 
-def _launch(name, fn, x, forest, num_class, extra, out, launch_plan):
-    """Plan (unless `launch_plan` is given) and launch one call; `extra`
-    are tree_raw's leaf-value arguments (pointer, L, K)."""
+def _launch(name, fn, x, forest, num_class, extra, out):
+    """Plan and launch one call; `extra` are tree_raw's leaf-value
+    arguments (pointer, L, K)."""
     for t in (x, forest.tiles, forest.node0):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     lib = library()
     b, f = x.shape
-    t, s = forest.nodes.shape[:2]
-    if launch_plan is None:
-        p, arg, ptr = _planned(b, f, t, s, num_class, x.device.index,
-                               forest.categorical)
-    else:
-        p, arg = launch_plan, launch_plan.args(forest.categorical)
-        ptr = ctypes.addressof(arg)
-    args = [x.data_ptr(), b, f, forest.tiles.data_ptr(),
-            forest.node0.data_ptr(), t, s, forest.depth, *extra, ptr]
+    t, s = forest.sf.shape
+    _, _, ptr = _planned(b, f, t, s, num_class, x.device.index,
+                         forest.categorical)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if num_class is not None:
-            scratch, counters = None, None
-            if p.scratch:
-                scratch = torch.empty((b, t), dtype=torch.float32,
-                                      device=x.device)
-                counters = _counters(x.device, stream, p.grid(b, t)[0])
-            args += [scratch.data_ptr() if scratch is not None else None,
-                     counters.data_ptr() if counters is not None else None]
-        status = getattr(lib, fn)(*args, out.data_ptr(), stream)
+        status = getattr(lib, fn)(x.data_ptr(), b, f, forest.tiles.data_ptr(),
+                                  forest.node0.data_ptr(), t, s, forest.depth,
+                                  *extra, ptr, out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.traverse_status_string(status).decode()}")
@@ -451,24 +401,22 @@ def _device_ok(x, name):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def tree_leaf(x, forest, launch_plan=None):
+def tree_leaf(x, forest):
     """(B, T) int32 leaf index of each row in each tree of `forest`;
-    x (B, F) float32, F >= forest.width. `launch_plan` (a Plan) replaces
-    plan()'s choice, for measuring other plans."""
+    x (B, F) float32, F >= forest.width."""
     if x.device.type == "cpu":
         return tree_leaf_plain(x, forest)
     _device_ok(x, "tree_leaf")
     _check(x, forest, "tree_leaf")
-    t = forest.nodes.shape[0]
-    out = torch.empty((x.shape[0], t), dtype=torch.int32, device=x.device)
-    return _launch("tree_leaf", "tree_leaf", x, forest, None, (), out,
-                   launch_plan)
+    out = torch.empty((x.shape[0], forest.sf.shape[0]), dtype=torch.int32,
+                      device=x.device)
+    return _launch("tree_leaf", "tree_leaf", x, forest, None, (), out)
 
 
-def tree_raw(x, forest, lv, num_class, launch_plan=None):
+def tree_raw(x, forest, lv, num_class):
     """(B, K) float32 class sums of the leaf values `lv` (T, L) float32
     or bfloat16 that each row reaches: tree t adds to class t % K, in
-    tree order, accumulated in float32. `launch_plan` as in tree_leaf."""
+    tree order, accumulated in float32."""
     if x.device.type == "cpu":
         return tree_raw_plain(x, forest, lv, num_class)
     _device_ok(x, "tree_raw")
@@ -480,5 +428,4 @@ def tree_raw(x, forest, lv, num_class, launch_plan=None):
     out = torch.empty((x.shape[0], int(num_class)), dtype=torch.float32,
                       device=x.device)
     return _launch("tree_raw", fn, x, forest, int(num_class),
-                   (lv.data_ptr(), lv.shape[1], int(num_class)), out,
-                   launch_plan)
+                   (lv.data_ptr(), lv.shape[1], int(num_class)), out)

@@ -416,15 +416,16 @@ def _emulate_launch(p, tiles, node0, x, depth, lv, num_class):
     """csrc/traverse.cu under plan `p`, in Python: the blocks (row block,
     group of tiles), their windows, each warp's (tile, row) items and each
     lane's walk (tree `lane` of the tile) through the interleaved records;
-    every pair counted. Returns (the (B, T) leaves or scratch values as
-    stored, the (B, K) sums or None, the per-pair count)."""
+    every pair counted. Returns (the (B, T) leaves, or None for tree_raw;
+    the (B, K) sums added window by window in tree order, or None; the
+    per-pair count)."""
     b, t = x.shape[0], len(node0)
-    store = np.zeros((b, t), np.int64 if lv is None else np.float32)
+    leaves = np.zeros((b, t), np.int64) if lv is None else None
+    sums = None if lv is None else np.zeros((b, num_class), np.float32)
     count = np.zeros((b, t), np.int64)
-    in_block = lv is not None and not p.scratch
-    sums = np.zeros((b, num_class), np.float32) if in_block else None
     warps = p.threads // 32
     n_rb, n_g = p.grid(b, t)
+    assert lv is None or n_g == 1     # tree_raw: the whole forest a block
     for bx in range(n_rb):
         row0 = bx * p.rows
         nrows = min(p.rows, b - row0)
@@ -450,14 +451,11 @@ def _emulate_launch(p, tiles, node0, x, depth, lv, num_class):
                             node = _walk_tile(tiles[gt0 + wt0 + tl, :, lane],
                                               int(node0[tree]), x[row], depth)
                             if lv is None:
-                                v = ~node
+                                leaves[row, tree] = ~node
                             else:
-                                v = lv[tree, ~node if node < 0 else 0]
-                            if in_block:
-                                vals[r, jw] = v
-                            else:
-                                store[row, tree] = v
-                if in_block:
+                                vals[r, jw] = lv[tree,
+                                                 ~node if node < 0 else 0]
+                if lv is not None:
                     for q in range(nrows * num_class):
                         rr, c = divmod(q, num_class)
                         a = sums[row0 + rr, c]
@@ -465,28 +463,23 @@ def _emulate_launch(p, tiles, node0, x, depth, lv, num_class):
                                        num_class):
                             a = np.float32(a + vals[rr, j])
                         sums[row0 + rr, c] = a
-    if lv is not None and p.scratch:   # the last blocks: tree order a cell
-        sums = np.zeros((b, num_class), np.float32)
-        for tree in range(t):
-            sums[:, tree % num_class] = (sums[:, tree % num_class]
-                                         + store[:, tree])
-    return store, sums, count
+    return leaves, sums, count
 
 
-@pytest.mark.parametrize("b,t_cnt,num_class,groups,ring,cut", [
-    (1, 9, None, None, "auto", 0),     # one part-filled tile
-    (45, 90, None, None, "auto", 0),   # row blocks x tiles
-    (45, 100, None, 1, "auto", 0),     # a ring of two one-tile windows
-    (45, 100, None, 1, "one", 0),      # two do not fit: one
-    (33, 70, None, 1, "none", 0),      # records from device memory
-    (3, 70, 1, None, "auto", 0),       # the whole group resident, sums
-    (70, 80, 3, None, "auto", 0),      # sums in the block
-    (70, 80, 3, None, "one", 0),       # sums in the block, one window
-    (5, 40, 3, 2, "auto", 0),          # scratch + the last blocks' sums
-    (31, 10, 2, None, "auto", 2),      # walks cut short by depth
+@pytest.mark.parametrize("b,t_cnt,num_class,smem,cut", [
+    (1, 9, None, "auto", 0),       # one part-filled tile
+    (45, 90, None, "auto", 0),     # row blocks x tiles
+    (33, 70, None, "none", 0),     # records from device memory
+    (45, 100, 1, "auto", 0),       # a ring of two one-tile windows
+    (45, 100, 1, "one", 0),        # two do not fit: one
+    (3, 70, 1, "auto", 0),         # the whole group resident
+    (70, 80, 3, "auto", 0),        # sums in the block, a ring
+    (70, 80, 3, "one", 0),         # sums in the block, one window
+    (7, 40, 1100, "auto", 0),      # many classes: the rows shrink
+    (31, 10, 2, "auto", 2),        # walks cut short by depth
 ])
 def test_launch_plan_covers_every_pair_as_jax_traverse(b, t_cnt, num_class,
-                                                       groups, ring, cut):
+                                                       smem, cut):
     rng = np.random.RandomState(b + t_cnt)
     f = 5
     sf, thr, cat, lc, rc, node0, depth, lv = _random_forest(rng, t_cnt, 9, f)
@@ -495,38 +488,36 @@ def test_launch_plan_covers_every_pair_as_jax_traverse(b, t_cnt, num_class,
     rec = tk.pack_nodes(sf, thr, cat, lc, rc)
     tiles = tk.interleave(rec)
     s = rec.shape[1]
-    kw = dict(sms=2, rows=min(b, 32), groups=groups)
-    p = tk.plan(b, f, t_cnt, s, num_class, **kw)
-    sums = num_class is not None and not p.scratch
+    sums = num_class is not None
+    p = tk.plan(b, f, t_cnt, s, num_class, sms=2)
     smem_limit = tk.SMEM_OPTIN_SM90
-    if ring == "one":
-        assert p.slots == 2 or p.window > 1
-        smem_limit = tk.smem_bytes(p.rows, p.group, 1, 2, p.stage_rows, f, s,
-                                   num_class if sums else 1, sums) - 1
-    elif ring == "none":
-        smem_limit = tk.smem_bytes(p.rows, p.group, 1, 1, p.stage_rows, f, s,
-                                   num_class if sums else 1, sums) - 1
-    p = tk.plan(b, f, t_cnt, s, num_class, smem_limit=smem_limit, **kw)
-    assert p.scratch == (groups == 2)
+    if smem != "auto":   # a card with less shared memory
+        smem_limit = tk.smem_bytes(p.rows, p.group, 1, 2 if smem == "one"
+                                   else 1, p.stage_rows, f, s,
+                                   num_class or 1, sums) - 1
+        p = tk.plan(b, f, t_cnt, s, num_class, sms=2, smem_limit=smem_limit)
     assert p.smem <= smem_limit
-    assert p.slots == {"one": 1, "none": 0}.get(ring, p.slots)
-    assert p.window == 1 or ring == "auto"
+    assert p.slots == {"one": 1, "none": 0}.get(smem, p.slots)
+    if sums:
+        assert p.grid(b, t_cnt)[1] == 1
+        assert p.rows * num_class * 4 <= tk.SUM_BYTES
+    if (num_class, smem) == (1, "auto"):
+        assert (p.window, p.slots) == ((3, 1) if b == 3 else (1, 2))
     lv32 = None if num_class is None else lv.astype(np.float32)
-    store, sums, count = _emulate_launch(p, tiles, node0, x, depth, lv32,
-                                         num_class)
+    leaves, sums, count = _emulate_launch(p, tiles, node0, x, depth, lv32,
+                                          num_class)
     assert (count == 1).all()
     jnode = np.asarray(jax_traverse(
         jnp.asarray(x), jnp.asarray(sf), jnp.asarray(thr), jnp.asarray(cat),
         jnp.asarray(lc), jnp.asarray(rc), jnp.asarray(node0), depth))
+    forest = tk.freeze(sf, thr, cat, lc, rc, node0, depth, CPU)
     if num_class is None:
-        np.testing.assert_array_equal(store, ~jnode)
-        forest = tk.freeze(sf, thr, cat, lc, rc, node0, depth, CPU)
+        np.testing.assert_array_equal(leaves, ~jnode)
         np.testing.assert_array_equal(
-            store, tk.tree_leaf(torch.from_numpy(x), forest).numpy())
+            leaves, tk.tree_leaf(torch.from_numpy(x), forest).numpy())
         return
     # the plain version's bits: f32 adds in tree order, leaf 0 where a
     # walk was cut short
-    forest = tk.freeze(sf, thr, cat, lc, rc, node0, depth, CPU)
     want = tk.tree_raw(torch.from_numpy(x), forest, torch.from_numpy(lv32),
                        num_class).numpy()
     np.testing.assert_array_equal(sums, want)
@@ -545,28 +536,29 @@ def test_launch_plan_covers_every_pair_as_jax_traverse(b, t_cnt, num_class,
     (65536, 28, 100, 62, 1), (4097, 3000, 1500, 62, None),
     (1, 60000, 1500, 62, 1), (33, 28, 16, 62, 10224),
     (257, 28, 1200, 62, 9216), (31, 28, 3, 16383, 3),
-    (2, 28, 200000, 62, None), (100, 28, 1, 1, 1)])
+    (2, 28, 200000, 62, None), (100, 28, 1, 1, 1),
+    (5, 28, 20000, 62, 1), (1, 28, 100, 62, 50000)])
 def test_launch_plan_fits_every_shape(b, f, t_cnt, s, num_class):
     """Every (K, F, T, S) the earlier 40 KB-shared-memory kernel took (K
-    up to 10240 - min(T, 1024), any F, T and S) gets a plan within the
-    card's shared memory:
-    wide rows unstaged, a tree larger than a stage read from device
-    memory, too many classes summed from scratch."""
+    up to 10240 - min(T, 1024), any F, T and S) and more classes and
+    trees get a plan within the card's shared memory: wide rows
+    unstaged, a tree larger than a stage read from device memory, the
+    rows of many classes shrunk until their sums fit, more than 8192
+    trees summed in one block."""
     p = tk.plan(b, f, t_cnt, s, num_class)
     n_rb, n_g = p.grid(b, t_cnt)
-    sums = num_class is not None and not p.scratch
+    sums = num_class is not None
     assert p.smem <= tk.SMEM_OPTIN_SM90
     assert p.smem == tk.smem_bytes(p.rows, p.group, p.window, p.slots,
-                                   p.stage_rows, f, s,
-                                   num_class if sums else 1, sums)
+                                   p.stage_rows, f, s, num_class or 1, sums)
     assert 1 <= p.rows <= 64 and n_rb * p.rows >= max(b, 1)
     assert 256 <= p.threads <= 1024 and p.threads % 32 == 0
-    assert 1 <= p.window <= p.group <= tk.MAX_GROUP
+    assert 1 <= p.window <= p.group
     assert n_g <= tk.MAX_GROUPS and (n_g - 1) * p.group * tk.TILE < t_cnt
     assert p.stage_rows == (p.rows * (f | 1) * 4 <= tk.ROW_BYTES)
-    assert p.slots == 0 or p.window * s * tk.TILE * 16 <= tk.MAX_COPY
     if sums:
         assert n_g == 1
+        assert p.rows == 1 or p.rows * num_class * 4 <= tk.SUM_BYTES
     if s * tk.TILE * 16 > tk.SMEM_OPTIN_SM90:
         assert p.slots == 0
 

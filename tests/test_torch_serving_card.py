@@ -25,6 +25,7 @@ import neither JAX nor the JAX package:
     python -m pytest tests/test_torch_serving_card.py -m cuda --noconftest
 """
 
+import ctypes
 import threading
 
 import numpy as np
@@ -242,7 +243,7 @@ def test_forest_larger_than_shared_memory(n):
     rng = np.random.RandomState(15)
     arrays, lv = _random_forest(rng, 1500, 63, 28, exact=True)
     forest = tk.freeze(*arrays, DEV)
-    assert forest.nodes.numel() * 4 > tk.SMEM_OPTIN_SM90     # 1.49 MB
+    assert forest.tiles.numel() * 4 > tk.SMEM_OPTIN_SM90     # 1.49 MB
     _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest, lv)
 
 
@@ -250,8 +251,8 @@ def test_trees_larger_than_a_block_shared_memory():
     rng = np.random.RandomState(16)
     arrays, lv = _random_forest(rng, 3, 16384, 28, exact=True)
     forest = tk.freeze(*arrays, DEV)
-    assert forest.nodes.shape[1] * 16 > tk.SMEM_OPTIN_SM90
-    assert tk.plan(2000, 28, 3, forest.nodes.shape[1]).slots == 0
+    assert forest.sf.shape[1] * 16 > tk.SMEM_OPTIN_SM90
+    assert tk.plan(2000, 28, 3, forest.sf.shape[1]).slots == 0
     for n in (1, 2000):
         _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest,
                      lv, classes=(1, 2))
@@ -263,14 +264,14 @@ def test_rows_too_wide_to_stage(f, n):
     arrays, lv = _random_forest(rng, 120, 63, f)
     forest = tk.freeze(*arrays, DEV)
     if n > 1 or f > 3000:
-        assert not tk.plan(n, f, 120, forest.nodes.shape[1]).stage_rows
+        assert not tk.plan(n, f, 120, forest.sf.shape[1]).stage_rows
     _all_kernels(torch.from_numpy(_rows(rng, n, f)).to(DEV), forest, lv)
 
 
 @pytest.mark.parametrize("t_cnt", [16, 1200])
 def test_largest_class_count_of_the_first_kernel(t_cnt):
     """The earlier kernel took K up to 10240 - min(T, 1024) (its 40 KB
-    of shared memory); this one takes them from scratch."""
+    of shared memory); this one sums them in one block of few rows."""
     k = 10240 - min(t_cnt, 1024)
     rng = np.random.RandomState(t_cnt)
     arrays, lv = _random_forest(rng, t_cnt, 31, 28)
@@ -280,6 +281,17 @@ def test_largest_class_count_of_the_first_kernel(t_cnt):
     for vals in (lv32, lv32.to(torch.bfloat16)):
         got = _same_bits(x, forest, vals, k)
         assert got.shape == (33, k)
+
+
+@pytest.mark.parametrize("n", [1, 257])
+def test_more_trees_than_a_block_stages_roots_for(n):
+    """10,000 trees (313 tiles) summed in one block: each window's roots
+    staged in turn."""
+    rng = np.random.RandomState(n + 30)
+    arrays, lv = _random_forest(rng, 10_000, 15, 28)
+    forest = tk.freeze(*arrays, DEV)
+    _all_kernels(torch.from_numpy(_rows(rng, n, 28)).to(DEV), forest, lv,
+                 classes=(1, 3))
 
 
 def test_walks_cut_short_by_depth():
@@ -337,28 +349,34 @@ def test_two_threads_launch_at_once():
         assert torch.equal(leaf, want[i][0]) and torch.equal(raw, want[i][1])
 
 
-def test_a_refused_launch_raises():
+def test_a_refused_launch_raises(monkeypatch):
     rng = np.random.RandomState(24)
     arrays, lv = _random_forest(rng, 100, 15, 8)
     forest = tk.freeze(*arrays, DEV)
     x = torch.from_numpy(_rows(rng, 40, 8)).to(DEV)
-    s = forest.nodes.shape[1]
-    good = tk.plan(40, 8, 100, s)
-    tk.reset_launch_counts()
-    with pytest.raises(RuntimeError, match="unsupported"):
-        tk.tree_leaf(x, forest, launch_plan=good._replace(rows=0))
-    # a plan needing more shared memory than the card opts in to (the
-    # roots of 2000 tiles)
-    huge = good._replace(group=2000, window=1, slots=1)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        tk.tree_leaf(x, forest, launch_plan=huge)
-    # a window larger than its group
-    with pytest.raises(RuntimeError, match="unsupported"):
-        tk.tree_leaf(x, forest, launch_plan=good._replace(group=1, window=2))
-    # tree_raw sums in the block need one tile group
-    with pytest.raises(RuntimeError, match="unsupported"):
-        tk.tree_raw(x, forest, torch.from_numpy(lv).to(DEV), 1,
-                    launch_plan=good._replace(group=1, window=1,
-                                              scratch=False))
-    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0}
+    lv32 = torch.from_numpy(lv).to(DEV)
+    good = tk.plan(40, 8, 100, forest.sf.shape[1])
 
+    def force(p):   # the wrappers launch `p` instead of plan()'s choice
+        arg = p.args(forest.categorical)
+        monkeypatch.setattr(tk, "_planned", lambda *a: (p, arg,
+                                                        ctypes.addressof(arg)))
+
+    tk.reset_launch_counts()
+    force(good._replace(rows=0))
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tk.tree_leaf(x, forest)
+    # a plan needing more shared memory than the card opts in to (the
+    # roots of a window of 2000 tiles)
+    force(good._replace(group=2000, window=2000, slots=0))
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tk.tree_leaf(x, forest)
+    # a window larger than its group
+    force(good._replace(group=1, window=2))
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tk.tree_leaf(x, forest)
+    # tree_raw sums in one block: its plan must take every tile
+    force(good._replace(group=1, window=1))
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tk.tree_raw(x, forest, lv32, 1)
+    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0}
