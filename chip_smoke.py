@@ -40,7 +40,7 @@ Phases (any failure exits non-zero and prints no result line):
    host's enqueue included (ms_enqueued, no device sleep ahead of the
    launch) beside each;
 3. the masked main path at full width: the bench workload (1,000,000 x
-   28 binary, 63 leaves, 255 bins, learning rate 0.1, 10 rounds)
+   28 binary, 63 leaves, 255 bins, learning rate 0.1, 5 rounds)
    through lightgbm_tpu_torch.train, with launch counts read from zero;
    the first tree grown again with the plain histogram functions;
    predict on 100k rows against a host traversal of the saved model
@@ -55,9 +55,9 @@ Phases (any failure exits non-zero and prints no result line):
 6. the fused trainer (one boosting iteration captured as a CUDA graph,
    replayed once an iteration), masked and then partitioned:
    lightgbm_tpu_torch.train with no callbacks (the fast path, one
-   block of 10), launch counts read from zero and counted through the
-   replays (the warm-up step's and 10 replays' launches, so 620
-   masked_hist + 10 frontier_hist, or 630 seg_hist, at least), the
+   block of 5), launch counts read from zero and counted through the
+   replays (the warm-up step's and 5 replays' launches, so 310
+   masked_hist + 5 frontier_hist, or 315 seg_hist, at least), the
    model against the per-iteration phase's (splits exact, leaf values
    within 1e-4 relative, and whether the text is equal byte for byte),
    AUC, peak memory within 2x the per-iteration phase's; then on a
@@ -70,16 +70,37 @@ Phases (any failure exits non-zero and prints no result line):
    loop's byte for byte, and no host sync in a block but its one
    transfer;
 8. blockwise engine.train: a 100k-row valid set, early stopping after
-   5 rounds, evals_result, 20 rounds, against the per-iteration path
+   5 rounds, evals_result, 10 rounds, against the per-iteration path
    (a no-op callback): the same best iteration, trees and history
    (exact when the model text is equal, else within 1e-5 relative);
    once with the held-out labels (no stop) and once with labels drawn
    at random, where the stop breaks inside a block;
-9. categorical features: the bench matrix plus 4 integer columns of 32
-   categories that enter the label's logit, declared categorical, 3
+9. multiclass: the bench matrix with its logit cut at the quintiles (5
+   classes), 10 rounds (50 trees) per-iteration, fused with the masked
+   builder (model text against the per-iteration one) and with the
+   partitioned one (first round's trees against the masked ones), launch
+   counts read from zero and counted through the replays (5 x (62
+   masked_hist + 1 frontier_hist) a replay, or 5 x 63 seg_hist),
+   multi_logloss after 10 rounds below the first round's, each fused
+   round timed and one replay profiled; predict on 100k rows against a
+   host traversal of the model text; the model frozen by
+   CompiledPredictor and served through tree_raw with K = 5 (its sums
+   bit-equal to predict's device path, the exact answers within the
+   f64 association bound of the host path), tree_raw K = 5 timed;
+10. lambdarank: the bench matrix in queries of 50-200 documents (about
+   8,000, M = 200), relevance 0-4 from the logit's quantiles within each
+   query, max_position 20, the default label_gain: the pair-gradient
+   program against its host float64 path (2e-4 of the largest |value|),
+   two calls bitwise equal, one call timed with CUDA events beside its
+   bound (the (Q, M, M) pair arithmetic and bytes) and profiled; 10
+   rounds per-iteration and fused (NDCG@1,3,5 after 10 rounds above the
+   first round's, model text), and query-unit bagging (0.7, every 2
+   rounds) fused against its per-iteration loop;
+11. categorical features: the bench matrix plus 4 integer columns of 32
+   categories that enter the label's logit, declared categorical, 2
    rounds with each builder: categorical splits, the same first tree,
    predict against the host traversal;
-10. serving (lightgbm_tpu_torch.serving): the bench model trained 100
+12. serving (lightgbm_tpu_torch.serving): the bench model trained 100
     rounds (fused masked) and frozen from its model text with
     CompiledPredictor.from_model_file (max_batch_rows 4096) in f32 and
     bf16; tree_leaf bit for bit against its plain version on the card
@@ -109,9 +130,11 @@ Phases (any failure exits non-zero and prints no result line):
     checkout's predictor and this one in ten pairs of turns: single-row
     p50, stages on one row, pairs won, the tree_leaf dispatch's host
     microseconds;
-11. a `kernels` JSON line (launches from the fused phases, and for the
-    traversal kernels from the serving main path), the card line, and
-    the result line.
+13. a `kernels` JSON line (launches from the fused phases, binary,
+    multiclass and lambdarank, and for the traversal kernels from the
+    serving main path and the multiclass serving), the LambdaRank pair
+    gradients' time and bound on a line of their own (a torch program,
+    no hand-written kernel yet), the card line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -136,7 +159,13 @@ SLEEP_CYCLES = 2_000_000
 N_ROWS = 1_000_000
 N_FEATURES = 28
 MAX_BIN = 255
-N_ROUNDS = 10
+# rounds of the binary bench, blockwise and categorical phases, kept
+# short so that the multiclass and lambdarank phases (NEW_ROUNDS each)
+# fit the run's time
+N_ROUNDS = 5
+NEW_ROUNDS = 10
+BLOCKWISE_ROUNDS = 10
+CATEGORICAL_ROUNDS = 2
 N_CAT = 4
 N_CATEGORIES = 32
 DEVICE = "cuda"
@@ -158,11 +187,11 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
-def make_data(n, seed, f=N_FEATURES, n_cat=0):
+def make_data(n, seed, f=N_FEATURES, n_cat=0, with_logit=False):
     """bench.py make_data's generator (without its label memo-buster);
     with n_cat, that many integer columns of N_CATEGORIES categories
     are appended, each adding a random per-category effect to the
-    logit."""
+    logit. with_logit: (x, y, logit)."""
     rng = np.random.RandomState(seed)
     x = rng.randn(n, f).astype(np.float32)
     w = rng.randn(f).astype(np.float32) / np.sqrt(f)
@@ -172,6 +201,8 @@ def make_data(n, seed, f=N_FEATURES, n_cat=0):
         effect = rng.randn(n_cat, N_CATEGORIES).astype(np.float32)
         logit = logit + effect[np.arange(n_cat), cats].sum(1)
         x = np.concatenate([x, cats.astype(np.float32)], axis=1)
+    if with_logit:
+        return x, (logit > 0).astype(np.float32), logit
     return x, (logit > 0).astype(np.float32)
 
 
@@ -561,9 +592,10 @@ def seg_kernel_cases(torch, hk, timer, rng):
 
 # ------------------------------------------------------------------ phases
 
-def train_rounds(torch, lgt, params, ds, rounds):
+def train_rounds(torch, lgt, params, ds, rounds, first_score=None):
     """lightgbm_tpu_torch.train for `rounds` rounds, host ms per round
-    (each ends in a device sync)."""
+    (each ends in a device sync); `first_score`, a list, receives the
+    train score after the first round."""
     round_ms = []
     marks = [None]
 
@@ -571,7 +603,9 @@ def train_rounds(torch, lgt, params, ds, rounds):
         torch.cuda.synchronize()
         now = time.perf_counter()
         round_ms.append(1e3 * (now - marks[0]))
-        marks[0] = now
+        if first_score is not None and env.iteration == 0:
+            first_score.append(env.model.gbdt.get_training_score())
+        marks[0] = time.perf_counter()
 
     timing_cb.order = 0
     marks[0] = time.perf_counter()
@@ -596,7 +630,7 @@ def memory_peak(torch, start):
 
 
 def phase_main(torch, lgt, hk, ds, y):
-    """10 rounds of the bench workload; counts read from zero."""
+    """N_ROUNDS rounds of the bench workload; counts read from zero."""
     mem0 = memory_mark(torch)
     hk.reset_launch_counts()
     booster, round_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds, N_ROUNDS)
@@ -719,8 +753,7 @@ def phase_profile(torch, booster):
     g, h = gbdt.objective.get_gradients(
         torch.zeros(1, gbdt.num_data, device=gbdt.device))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         learner.fetch(learner.train_device(g[0], h[0]))
         torch.cuda.synchronize()
@@ -731,6 +764,7 @@ def phase_profile(torch, booster):
             kernels.setdefault(evt.name, [0, 0.0])
             kernels[evt.name][0] += 1
             kernels[evt.name][1] += evt.device_time_total / 1e3
+    check(kernels, "the profiler recorded no device kernel")
     busy_ms = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     res = {"tree_wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -860,15 +894,15 @@ def phase_partitioned_cacheless(torch, lgt, hk, ds):
 
 
 def phase_categorical(torch, lgt, seed):
-    """4 categorical columns beside the bench matrix, 3 rounds with each
-    builder."""
+    """4 categorical columns beside the bench matrix, CATEGORICAL_ROUNDS
+    rounds with each builder."""
     x, y = make_data(N_ROWS, seed, n_cat=N_CAT)
     cats = list(range(N_FEATURES, N_FEATURES + N_CAT))
     ds = lgt.Dataset(x, y, categorical_feature=cats)
     res, boosters = {}, {}
     for build in ("false", "true"):
         booster = lgt.train(dict(BENCH_PARAMS, partitioned_build=build), ds,
-                            3, verbose_eval=False)
+                            CATEGORICAL_ROUNDS, verbose_eval=False)
         torch.cuda.synchronize()
         n_cat_splits = sum(int((t.decision_type == 1).sum())
                            for t in booster.gbdt.models)
@@ -953,12 +987,12 @@ def profile_replay(torch, runner, reps=5):
     from torch.profiler import ProfilerActivity, profile
     runner.counter.zero_()     # a replay reads and writes row 0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         runner.graph.replay()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if getattr(e, "device_type", None)
                == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the profiler recorded no device kernel in a replay")
     busy = sum(e.device_time_total for e in kernels) / 1e3
     span = ((max(e.time_range.end for e in kernels)
              - min(e.time_range.start for e in kernels)) / 1e3
@@ -985,10 +1019,10 @@ def profile_replay(torch, runner, reps=5):
 def phase_fused(torch, lgt, hk, ds, y, per_iter, per_iter_res, params,
                 name):
     """The fused trainer on the bench workload: lgt.train with no
-    callbacks (the fast path: one block of 10 replays of a captured
+    callbacks (the fast path: one block of N_ROUNDS replays of a captured
     iteration), counts read from zero; its model against the
     per-iteration phase's; then, on a booster of its own, the capture
-    timed (warm_up_fused), three blocks of 10 timed, the block's host
+    timed (warm_up_fused), three blocks of N_ROUNDS timed, the block's host
     syncs listed, and one replay profiled."""
     mem0 = memory_mark(torch)
     hk.reset_launch_counts()
@@ -1183,8 +1217,8 @@ def blockwise_case(torch, lgt, ds, dva, rounds):
 
 
 def phase_blockwise(torch, lgt, ds, seed):
-    """Blockwise engine.train, 20 rounds, early stopping after 5: with a
-    100k-row held-out valid set (no stop inside 20 rounds: the last
+    """Blockwise engine.train, BLOCKWISE_ROUNDS rounds, early stopping
+    after 5: with a 100k-row held-out valid set (no stop inside them: the last
     block runs to its end), and with the same rows under labels drawn
     at random (the valid loss is least after a few rounds: the stop
     breaks inside a block of 5, whose tail the replay drops, its
@@ -1196,7 +1230,7 @@ def phase_blockwise(torch, lgt, ds, seed):
             ("early_stop", (np.random.RandomState(seed + 2).rand(len(yv))
                             < yv.mean()).astype(np.float32))):
         dva = lgt.Dataset(xv, labels, reference=ds)
-        res[name] = r = blockwise_case(torch, lgt, ds, dva, 20)
+        res[name] = r = blockwise_case(torch, lgt, ds, dva, BLOCKWISE_ROUNDS)
         log(f"blockwise {name}: {r['blockwise_s']:.2f} s against "
             f"per-iteration {r['per_iteration_s']:.2f} s, {r['rounds']} trees "
             f"({r['history_len']} rounds evaluated), best iteration "
@@ -1204,10 +1238,373 @@ def phase_blockwise(torch, lgt, ds, seed):
             f"model text equal {r['model_text_equal']}, history equal "
             f"{r['history_equal']}, train score equal "
             f"{r['train_score_equal']}, valid AUC {r['valid_auc']:.5f}")
-    check(res["early_stop"]["history_len"] < 20,
+    check(res["early_stop"]["history_len"] < BLOCKWISE_ROUNDS,
           "blockwise early_stop: training did not stop early")
     check(res["early_stop"]["history_len"] % 5 != 0,
           "blockwise early_stop: the stop fell on a block's end")
+    return res
+
+
+# ------------------------------------------------- multiclass, lambdarank
+
+MC_CLASSES = 5
+MC_PARAMS = dict(BENCH_PARAMS, objective="multiclass", num_class=MC_CLASSES)
+RANK_PARAMS = dict(BENCH_PARAMS, objective="lambdarank", max_position=20)
+RANK_EVAL_AT = (1, 3, 5)
+RANK_DOCS = (50, 200)
+RANK_BAGGING = {"bagging_fraction": 0.7, "bagging_freq": 2}
+
+
+def multiclass_labels(logit):
+    """The bench's logit cut at its quintiles: five classes of 200,000
+    rows (LightGBM's examples/multiclass_classification uses 5)."""
+    cuts = np.quantile(logit, np.arange(1, MC_CLASSES) / MC_CLASSES)
+    return np.searchsorted(cuts, logit).astype(np.float32)
+
+
+def rank_queries(logit, seed):
+    """Query lengths drawn from 50-200 documents (the last query takes
+    the rows left), relevance 0-4 from the logit's quantiles within
+    each query: web-search-ranking traffic (MSLR-WEB10K averages about
+    120 documents a query). Returns (labels, counts)."""
+    n = len(logit)
+    rng = np.random.RandomState(seed + 7)
+    counts = rng.randint(RANK_DOCS[0], RANK_DOCS[1] + 1,
+                         n // RANK_DOCS[0] + 1)
+    bounds = np.cumsum(counts)
+    nq = int(np.searchsorted(bounds, n)) + 1
+    counts = counts[:nq].copy()
+    counts[-1] = n - int(bounds[nq - 2]) if nq > 1 else n
+    qid = np.repeat(np.arange(nq), counts)
+    order = np.lexsort((logit, qid))
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(n) - start[qid[order]]
+    label = np.empty(n, np.float32)
+    label[order] = (rank * 5) // counts[qid[order]]
+    return label, counts
+
+
+def softmax_rows(raw):
+    e = np.exp(raw - raw.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def check_predict_multiclass(torch, booster, xp, what):
+    """Booster.predict on the device path (tree_raw with K classes)
+    against the host float64 traversal of the saved model text, softmax
+    on both."""
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    booster.gbdt.device_predict = "true"
+    t0 = time.perf_counter()
+    pred = booster.predict(xp)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    booster.gbdt.device_predict = "auto"
+    host = GBDT(device="cpu")
+    host.load_model_from_string(booster.model_to_string())
+    k = host.num_class
+    raw = np.zeros((len(xp), k))
+    for i, t in enumerate(host.models):
+        raw[:, i % k] += t.predict(xp.astype(np.float64))
+    err = float(np.max(np.abs(pred - softmax_rows(raw))))
+    log(f"{what}: predict {len(xp)} rows {ms:.1f} ms, max |device - host| "
+        f"{err:.3g}")
+    check(pred.shape == (len(xp), k) and np.all(np.isfinite(pred)),
+          f"{what}: predictions not finite or of the wrong shape")
+    check(err <= 1e-5,
+          f"{what}: device predict differs from host traversal by {err}")
+    return {"predict_ms": ms, "max_abs_err": err}
+
+
+def fused_case(torch, lgt, hk, ds, params, per_iter, name, first_trees,
+               profile=True):
+    """lgt.train's fast path (one block of NEW_ROUNDS replays), launch
+    counts read from zero and counted through the replays, the round
+    time without the runner's setup (warm-up step and capture), the
+    model against `per_iter` (text byte for byte, else splits exact and
+    leaves within 1e-4 relative) or, with first_trees, its first
+    `first_trees` trees against per_iter's (another builder: same
+    splits, leaves within 1e-4 of the tree's largest); with profile, one
+    replay profiled."""
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    booster = lgt.train(params, ds, NEW_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = hk.launch_counts()
+    runner = fused_runner(booster)
+    check(runner.graph is not None, f"{name}: no graph was captured")
+    per_replay = dict(runner.graph.launches)
+    setup_s = runner.warm_step_s + runner.capture_s
+    res = {"train_s": train_s, "warm_step_s": runner.warm_step_s,
+           "capture_s": runner.capture_s,
+           "round_ms": 1e3 * (train_s - setup_s) / NEW_ROUNDS,
+           "launches": counts, "launches_per_replay": per_replay,
+           "trees": len(booster.gbdt.models)}
+    for kname, c in per_replay.items():
+        check(counts[kname] == (NEW_ROUNDS + 1) * c,
+              f"{name}: {kname} counted {counts[kname]}, not "
+              f"{NEW_ROUNDS + 1} x {c}")
+    if first_trees:
+        # leaves relative to the tree's largest |leaf|: a class tree can
+        # hold leaves near 0 whose own relative error means nothing
+        rel = 0.0
+        for a, b in zip(booster.gbdt.models[:first_trees],
+                        per_iter.gbdt.models[:first_trees]):
+            check(np.array_equal(a.split_feature, b.split_feature)
+                  and np.array_equal(a.threshold_in_bin, b.threshold_in_bin),
+                  f"{name}: a first-round tree differs from the masked "
+                  "builder's")
+            rel = max(rel, float(np.max(np.abs(a.leaf_value - b.leaf_value))
+                                 / np.max(np.abs(b.leaf_value))))
+        res["first_trees_leaf_rel_diff"] = rel
+        check(rel <= 1e-4, f"{name}: first-round leaves differ by {rel}")
+    else:
+        text_equal, splits_equal, rel = same_trees(booster, per_iter)
+        res.update(model_text_equal=text_equal, splits_equal=splits_equal,
+                   leaf_rel_diff=rel)
+        check(splits_equal and rel <= 1e-4,
+              f"{name}: trees differ from the per-iteration ones")
+    prof = res["profile"] = profile_replay(torch, runner) if profile else {}
+    log(f"{name}: train {train_s:.2f} s (warm-up step "
+        f"{runner.warm_step_s:.2f} s, capture {runner.capture_s:.2f} s), "
+        f"round {res['round_ms']:.1f} ms without them, launches {counts} "
+        f"({per_replay} a replay); "
+        f"{({k: v for k, v in res.items() if 'equal' in k or 'rel' in k})}"
+        + (f"; one replay: device busy {prof['device_busy_ms']} ms over "
+           f"{prof['device_ops']} ops in a span of {prof['device_span_ms']} "
+           f"ms, idle share {prof['device_idle_share']}, unprofiled "
+           f"replays {[round(v, 2) for v in prof['replay_event_ms_all']]} "
+           "ms" if profile else ""))
+    return res
+
+
+def bench_subset(ds, **fields):
+    """The bench Dataset's bins for other labels: a subset of every row
+    (Dataset.subset shares the parent's bin mappers and copies its
+    bins) with `fields` (group=) set before it is built and the label
+    after."""
+    label = fields.pop("label")
+    sub = ds.subset(np.arange(ds.num_data()))
+    for name, value in fields.items():
+        getattr(sub, "set_" + name)(value)
+    sub.construct()
+    sub.set_label(label)
+    return sub
+
+
+def phase_multiclass(torch, lgt, hk, ds_bench, x, logit, timer):
+    """Multiclass at full width: 5 classes on the bench matrix, 10
+    rounds (50 trees) per-iteration (masked builder), fused (masked and
+    partitioned); multi_logloss falls; predict on 100k rows against the
+    host traversal; the model frozen by CompiledPredictor and served
+    through tree_raw with K = 5."""
+    import tempfile
+    from lightgbm_tpu_torch.metrics import create_metric
+    from lightgbm_tpu_torch.ops import traverse_kernels as tk
+    from lightgbm_tpu_torch.serving import CompiledPredictor
+
+    y = multiclass_labels(logit)
+    ds = bench_subset(ds_bench, label=y)
+    k = MC_CLASSES
+    res = {"classes": k, "class_counts": np.bincount(
+        y.astype(np.int64)).tolist()}
+    first = []
+    hk.reset_launch_counts()
+    per_iter, round_ms = train_rounds(torch, lgt, MC_PARAMS, ds, NEW_ROUNDS,
+                                      first_score=first)
+    counts = hk.launch_counts()
+    metric = create_metric("multi_logloss", per_iter.config)
+    metric.init(ds._core.metadata, ds.num_data())
+    loss0 = metric.eval(first[0])[0]
+    loss = metric.eval(per_iter.gbdt.get_training_score())[0]
+    res["per_iteration"] = {"round_ms": round_ms,
+                            "round_ms_median": float(np.median(round_ms)),
+                            "launches": counts,
+                            "multi_logloss_first": loss0,
+                            "multi_logloss_last": loss}
+    log(f"multiclass per-iteration: rounds {[round(v, 1) for v in round_ms]} "
+        f"ms, launches {counts}, multi_logloss {loss0:.5f} -> {loss:.5f}")
+    check(len(per_iter.gbdt.models) == NEW_ROUNDS * k,
+          "multiclass: training stopped early")
+    check(counts["masked_hist"] >= NEW_ROUNDS * k * 62
+          and counts["frontier_hist"] >= NEW_ROUNDS * k,
+          f"multiclass: histogram kernels launched {counts}")
+    check(loss < loss0, "multiclass: multi_logloss did not fall")
+    res["fused"] = fused_case(torch, lgt, hk, ds, MC_PARAMS, per_iter,
+                              "multiclass fused masked", 0)
+    per_replay = res["fused"]["launches_per_replay"]
+    check(per_replay.get("masked_hist", 0) >= k * 62
+          and per_replay.get("frontier_hist", 0) >= k,
+          f"multiclass fused: a replay launches {per_replay}")
+    res["fused_partitioned"] = fused_case(
+        torch, lgt, hk, ds, dict(MC_PARAMS, partitioned_build="true"),
+        per_iter, "multiclass fused partitioned", k, profile=False)
+    per_replay = res["fused_partitioned"]["launches_per_replay"]
+    check(per_replay.get("seg_hist", 0) >= k * 63
+          and not per_replay.get("masked_hist"),
+          f"multiclass fused partitioned: a replay launches {per_replay}")
+    res["predict"] = check_predict_multiclass(torch, per_iter, x[:100_000],
+                                              "multiclass")
+
+    # served: the model file frozen, tree_raw with K = 5
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "multiclass.txt")
+        per_iter.save_model(path)
+        pred = CompiledPredictor.from_model_file(path,
+                                                 max_batch_rows=SERVE_BUCKET)
+    rows = np.ascontiguousarray(x[:SERVE_ROWS], dtype=np.float32)
+    tk.reset_launch_counts()
+    served_raw = pred.predict_raw_device(rows)
+    served = pred.predict_device(rows)
+    res["serving_launches"] = tk.launch_counts()
+    per_iter.gbdt.device_predict = "true"
+    want_raw = per_iter.predict(rows, raw_score=True)
+    want = per_iter.predict(rows)
+    per_iter.gbdt.device_predict = "auto"
+    exact = pred.predict(rows[:HOST_CHECK_ROWS])
+    host = per_iter.predict(rows[:HOST_CHECK_ROWS])
+    res["served_vs_predict"] = {
+        "device_raw_bit_equal": bool(np.array_equal(served_raw, want_raw)),
+        "device_max_abs_diff": float(np.abs(served - want).max()),
+        "exact_max_abs_diff": float(np.abs(exact - host).max())}
+    res["tree_raw_k5"] = traverse_case(torch, tk, timer, "tree_raw", pred,
+                                       rows[:SERVE_BUCKET])
+    log(f"multiclass served: {pred.num_trees} trees, K = {pred.num_class}, "
+        f"launches {res['serving_launches']}, {res['served_vs_predict']}")
+    check(pred.num_class == k, "multiclass: the predictor lost its classes")
+    check(res["serving_launches"].get("tree_raw", 0) > 0,
+          "multiclass: serving did not launch tree_raw")
+    check(res["served_vs_predict"]["device_raw_bit_equal"],
+          "multiclass: served tree_raw sums differ from predict's")
+    check(res["served_vs_predict"]["device_max_abs_diff"] <= 1e-6,
+          "multiclass: served answers differ from predict's")
+    check(res["served_vs_predict"]["exact_max_abs_diff"]
+          <= coalesced_tol(pred),
+          "multiclass: the exact served answers differ from predict's")
+    return res
+
+
+def rank_grad_bound_ms(layout, n):
+    """Least time for one pair-gradient call: the score read and the two
+    (N,) outputs written, the padded layout (int64 rows, bool mask,
+    float32 gains, int64 row -> slot map, one float32 per query) read
+    once, over HBM bandwidth; against 27 float32 operations for each
+    pair this run's queries hold (sum of n_q^2: differences, gaps, the
+    discount and score terms, the clamped sigmoid with its exp, the
+    lambda and hessian products and their row and column sums) over the
+    float32 rate. Returns (ms, bound_by, pairs)."""
+    pairs = int(np.sum(layout.counts.astype(np.int64) ** 2))
+    slots = layout.idx.size
+    nbytes = 3 * n * 4 + slots * (8 + 1 + 4) + n * 8 \
+        + layout.padded_queries * 4
+    ops = 27.0 * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
+
+
+def rank_gradients_case(torch, booster, timer):
+    """The pair-gradient program at the phase's shape: against the
+    objective's host float64 path (2e-4 of the largest |value|,
+    tests/test_rank_device.py's bound), two calls bitwise equal, timed
+    with CUDA events (L2 flushed, the device sleep ahead) beside its
+    bound and the host path's time, and one call profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    obj = booster.objective
+    n = booster.gbdt.num_data
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    score = torch.randn(1, n, device=DEVICE, generator=gen)
+    g, h = obj.get_gradients(score)
+    g2, h2 = obj.get_gradients(score)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gh, hh = obj.get_gradients_host(score.cpu().numpy())
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    err_g = float(np.abs(g.cpu().numpy() - gh).max() / np.abs(gh).max())
+    err_h = float(np.abs(h.cpu().numpy() - hh).max() / np.abs(hh).max())
+    lay = obj.layout
+    bound, bound_by, pairs = rank_grad_bound_ms(lay, n)
+    res = {"queries": lay.num_queries, "max_docs": lay.max_docs,
+           "blocks": lay.num_blocks, "block_queries": lay.block_queries,
+           "pairs": pairs, "grad_rel_err": err_g, "hess_rel_err": err_h,
+           "deterministic": bool(torch.equal(g, g2) and torch.equal(h, h2)),
+           "ms": timer(lambda: obj.get_gradients(score), 10),
+           "host_f64_ms": host_ms, "bound_ms": bound, "bound_by": bound_by}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        obj.get_gradients(score)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the profiler recorded no device kernel in a call")
+    res["device_ops"] = len(kernels)
+    res["device_busy_ms"] = sum(e.device_time_total for e in kernels) / 1e3
+    log(f"lambdarank gradients: {lay.num_queries} queries padded to "
+        f"({lay.padded_queries}, {lay.max_docs}) in {lay.num_blocks} blocks "
+        f"of {lay.block_queries}, {pairs} pairs; ms {res['ms']:.3f} "
+        f"(device busy {res['device_busy_ms']:.3f} over "
+        f"{res['device_ops']} ops) bound {bound:.4f} ({bound_by}); host "
+        f"f64 {host_ms:.0f} ms; rel err grad {err_g:.3g} hess {err_h:.3g}; "
+        f"two calls equal {res['deterministic']}")
+    check(err_g < 2e-4 and err_h < 2e-4,
+          f"lambdarank gradients: {err_g}, {err_h} from the host f64 path")
+    check(res["deterministic"], "lambdarank gradients: two calls differ")
+    return res
+
+
+def phase_lambdarank(torch, lgt, hk, ds_bench, logit, timer, seed):
+    """LambdaRank at full width: the bench matrix in queries of 50-200
+    documents with relevance 0-4, max_position 20, default label_gain;
+    the pair gradients checked and timed; 10 rounds per-iteration and
+    fused (model text), NDCG@1,3,5 rises; query-unit bagging (0.7,
+    every 2 rounds) fused against its per-iteration loop."""
+    from lightgbm_tpu_torch.metrics import create_metric
+
+    label, counts = rank_queries(logit, seed)
+    ds = bench_subset(ds_bench, label=label, group=counts)
+    res = {"queries": len(counts), "docs_mean": float(counts.mean()),
+           "docs_max": int(counts.max())}
+    booster = lgt.Booster(RANK_PARAMS, ds)
+    res["gradients"] = rank_gradients_case(torch, booster, timer)
+    del booster
+    first = []
+    hk.reset_launch_counts()
+    per_iter, round_ms = train_rounds(torch, lgt, RANK_PARAMS, ds, NEW_ROUNDS,
+                                      first_score=first)
+    counts_pi = hk.launch_counts()
+    metric = create_metric("ndcg", type(per_iter.config).from_params(
+        dict(RANK_PARAMS, ndcg_eval_at=",".join(map(str, RANK_EVAL_AT)))))
+    metric.init(ds._core.metadata, ds.num_data())
+    ndcg0 = metric.eval(first[0])
+    ndcg = metric.eval(per_iter.gbdt.get_training_score())
+    res["per_iteration"] = {"round_ms": round_ms,
+                            "round_ms_median": float(np.median(round_ms)),
+                            "launches": counts_pi, "ndcg_first": ndcg0,
+                            "ndcg_last": ndcg}
+    log(f"lambdarank per-iteration: rounds {[round(v, 1) for v in round_ms]}"
+        f" ms, launches {counts_pi}, ndcg@{RANK_EVAL_AT} {ndcg0} -> {ndcg}")
+    check(len(per_iter.gbdt.models) == NEW_ROUNDS,
+          "lambdarank: training stopped early")
+    check(all(b > a for a, b in zip(ndcg0, ndcg)),
+          f"lambdarank: NDCG did not rise: {ndcg0} -> {ndcg}")
+    res["fused"] = fused_case(torch, lgt, hk, ds, RANK_PARAMS, per_iter,
+                              "lambdarank fused", 0)
+    del per_iter
+    params = dict(RANK_PARAMS, **RANK_BAGGING)
+    loop = lgt.train(params, ds, NEW_ROUNDS, verbose_eval=False,
+                     callbacks=[lambda env: None])
+    fused = lgt.train(params, ds, NEW_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    text_equal, splits_equal, rel = same_trees(fused, loop)
+    res["bagging"] = {"model_text_equal": text_equal,
+                      "splits_equal": splits_equal, "leaf_rel_diff": rel,
+                      "fused_runner": bool(fused.gbdt._fused_cache)}
+    log(f"lambdarank query bagging fused: {res['bagging']}")
+    check(res["bagging"]["fused_runner"],
+          "lambdarank bagging: the fused trainer did not run")
+    check(splits_equal and rel <= 1e-4,
+          "lambdarank bagging: fused trees differ from the per-iteration ones")
     return res
 
 
@@ -1960,7 +2357,7 @@ def main():
         seg_cases = seg_kernel_cases(torch, hk, timer, rng)
         report["seg_kernel_cases"] = seg_cases
 
-        x, y = make_data(N_ROWS, args.seed)
+        x, y, logit = make_data(N_ROWS, args.seed, with_logit=True)
         ds = lgt.Dataset(x, y)
         t0 = time.time()
         ds.construct()
@@ -1984,6 +2381,14 @@ def main():
         report["fused_sampled"] = phase_fused_sampled(torch, lgt, ds)
         report["blockwise"] = phase_blockwise(torch, lgt, ds, args.seed)
         del booster, part
+        t0 = time.time()
+        report["multiclass"] = phase_multiclass(torch, lgt, hk, ds, x,
+                                                logit, timer)
+        report["multiclass"]["phase_s"] = time.time() - t0
+        t0 = time.time()
+        report["lambdarank"] = phase_lambdarank(torch, lgt, hk, ds, logit,
+                                                timer, args.seed)
+        report["lambdarank"]["phase_s"] = time.time() - t0
         report["categorical"], cat_booster, cat_x = phase_categorical(
             torch, lgt, args.seed)
         serving, serve_cases = phase_serving(torch, lgt, ds, x, cat_booster,
@@ -1997,30 +2402,46 @@ def main():
     report["total_s"] = time.time() - t_start
     log(f"all phases passed in {report['total_s']:.1f}s")
 
-    main_counts = report["fused"]["launches"]
-    part_counts = report["fused_partitioned"]["launches"]
+    def fused_launches(name):
+        """A kernel's launches on the fused main paths (counted through
+        the graph's replays): the binary bench phases and the
+        multiclass and lambdarank phases."""
+        return sum(report[a][b]["launches"].get(name, 0) if b else
+                   report[a]["launches"].get(name, 0)
+                   for a, b in (("fused", None), ("fused_partitioned", None),
+                                ("multiclass", "fused"),
+                                ("multiclass", "fused_partitioned"),
+                                ("lambdarank", "fused")))
+
     hist_src = "lightgbm_tpu_torch/csrc/hist.cu"
     kernels = [
-        # each kernel at its main-path shape, launches from its own fused
-        # path (counted through the graph's replays)
-        kernel_line(cases[0], main_counts["masked_hist"], hist_src,
+        # each kernel at its main-path shape, launches from the fused
+        # paths
+        kernel_line(cases[0], fused_launches("masked_hist"), hist_src,
                     "lightgbm_tpu/ops/pallas_hist.py:62"),
-        kernel_line(cases[1], main_counts["frontier_hist"], hist_src,
+        kernel_line(cases[1], fused_launches("frontier_hist"), hist_src,
                     "lightgbm_tpu/ops/pallas_hist.py:81"),
-        kernel_line(seg_cases[0], part_counts["seg_hist"],
+        kernel_line(seg_cases[0], fused_launches("seg_hist"),
                     "lightgbm_tpu_torch/csrc/seg_hist.cu",
                     "lightgbm_tpu/ops/ordered_hist.py:123")]
     # the serving path's kernels, launches from its requests; the JAX
     # package runs this walk as XLA under the jitted serving kernels
     trav_src = "lightgbm_tpu_torch/csrc/traverse.cu"
     serve_counts = report["serving"]["launches"]
+    mc_serve = report["multiclass"]["serving_launches"]
     kernels += [
-        kernel_line(serve_cases["tree_leaf"], serve_counts["tree_leaf"],
+        kernel_line(serve_cases["tree_leaf"], serve_counts["tree_leaf"]
+                    + mc_serve.get("tree_leaf", 0),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:76 "
                     "(XLA device_traverse, no Pallas counterpart)"),
-        kernel_line(serve_cases["tree_raw"], serve_counts["tree_raw"],
+        kernel_line(serve_cases["tree_raw"], serve_counts["tree_raw"]
+                    + mc_serve.get("tree_raw", 0),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:110 "
                     "(XLA device_traverse, no Pallas counterpart)")]
+    grad = report["lambdarank"]["gradients"]
+    log(f"lambdarank pair gradients (torch formulation, no hand-written "
+        f"kernel): {grad['ms']:.4f} ms a call, bound {grad['bound_ms']:.4f} "
+        f"ms ({grad['bound_by']}), one call an iteration")
     report["kernels"] = kernels
     _write(args.out, report)
     print(json.dumps({"kernels": kernels}))

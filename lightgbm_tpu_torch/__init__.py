@@ -7,22 +7,24 @@ there is no card and no device. On the card the histogram engines are
 hand-written CUDA (csrc/hist.cu and csrc/seg_hist.cu, built with nvcc
 at first use); on the CPU they are the kernels' plain PyTorch versions.
 
-The port covers dense in-memory binary or L2 data with numerical and
-categorical features, the serial learner with the full-scan masked
-builder (the default) or the leaf-contiguous one
-(partitioned_build=true), the fused multi-iteration trainer (one
-boosting iteration captured as a CUDA graph and replayed), and
-prediction. ROADMAP.md lists the modules still to port.
+The port covers dense in-memory data with numerical and categorical
+features under the binary, L2, multiclass and lambdarank objectives
+(with weights, query groups, init scores and custom objectives and
+metrics), the serial learner with the full-scan masked builder (the
+default) or the leaf-contiguous one (partitioned_build=true), the fused
+multi-iteration trainer (one boosting iteration captured as a CUDA
+graph and replayed), continued training, cv, prediction and serving.
+ROADMAP.md lists the modules still to port.
 """
 
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
-                       record_evaluation)
-from .engine import train
+                       record_evaluation, reset_parameter)
+from .engine import cv, train
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Dataset", "Booster", "LightGBMError", "train",
-           "print_evaluation", "record_evaluation", "early_stopping",
-           "EarlyStopException"]
+__all__ = ["Dataset", "Booster", "LightGBMError", "train", "cv",
+           "print_evaluation", "record_evaluation", "reset_parameter",
+           "early_stopping", "EarlyStopException"]

@@ -678,29 +678,33 @@ class Config:
               "nonfinite_guard must be one of " + "|".join(NONFINITE_POLICIES))
 
     def check_slice(self):
-        """Reject settings whose code paths the port does not have yet
-        (they belong to later slices of the port, ROADMAP.md queue 1):
-        training runs the serial learner with the full-scan masked
-        histogram engine, which is what "auto" resolves to here, or with
-        the leaf-contiguous builder (partitioned_build=true)."""
+        """Reject settings whose code paths the port does not have yet,
+        each naming its item of ROADMAP.md queue 1: training runs the
+        serial learner with the full-scan masked histogram engine, which
+        is what "auto" resolves to here, or with the leaf-contiguous
+        builder (partitioned_build=true)."""
         later = []
         if str(self.hist_compaction).lower() in ("true", "1", "on", "+"):
-            later.append("hist_compaction=true (gather-compacted engine)")
+            later.append("hist_compaction=true (gather-compacted engine, "
+                         "item 2)")
         if str(self.hist_frontier).lower() in ("false", "0", "off", "-"):
-            later.append("hist_frontier=false (per-leaf root passes)")
+            later.append("hist_frontier=false (per-leaf root passes, "
+                         "item 3)")
         if self.boosting_type != "gbdt":
-            later.append(f"boosting_type={self.boosting_type} (samplers)")
+            later.append(f"boosting_type={self.boosting_type} (samplers, "
+                         "item 3)")
+        if self.linear_tree:
+            later.append("linear_tree=true (linear leaves, item 3)")
+        if self.out_of_core:
+            later.append("out_of_core=true (block-store training, item 5)")
         if self.tree_learner != "serial" or self.num_machines > 1:
             later.append(f"tree_learner={self.tree_learner} "
-                         "(parallel learners)")
-        if self.linear_tree:
-            later.append("linear_tree=true (linear leaves)")
-        if self.out_of_core:
-            later.append("out_of_core=true (block-store training)")
+                         "(parallel learners, item 6)")
         if later:
             raise NotImplementedError(
                 "lightgbm_tpu_torch does not run " + "; ".join(later)
-                + " yet: a later slice of the port adds it")
+                + " yet: a later slice of the port adds it (ROADMAP.md "
+                "queue 1)")
 
     def check_param_conflict(self):
         """Reference config.cpp:139-187."""

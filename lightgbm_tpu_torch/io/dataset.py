@@ -10,10 +10,11 @@ then moves to the device once, at that width, and every histogram
 kernel streams it there (`device_bins`).
 
 This slice binds dense in-memory matrices (construct_from_matrix), with
-numerical and categorical features. Text files, the binary cache, sparse
-column sources and exclusive feature bundling are later slices; the
-loader raises NotImplementedError where the JAX package would take one
-of those paths.
+numerical and categorical features, and their row subsets. Text files,
+the binary cache and sparse column sources are ROADMAP queue 1 item 1,
+exclusive feature bundling item 3; the loader raises
+NotImplementedError where the JAX package would take one of those
+paths.
 """
 
 import numpy as np
@@ -119,6 +120,21 @@ class CoreDataset:
             self._device_bins[key] = to_device_bins(self.bins, device)
         return self._device_bins[key]
 
+    def subset(self, indices) -> "CoreDataset":
+        """Row subset sharing bin mappers (dataset.cpp Subset; Dataset.subset
+        and cv use it)."""
+        indices = np.asarray(indices, dtype=np.int64)
+        out = CoreDataset()
+        out.bins = np.ascontiguousarray(self.bins[:, indices])
+        out.bin_mappers = self.bin_mappers
+        out.used_feature_map = self.used_feature_map
+        out.real_feature_idx = self.real_feature_idx
+        out.feature_names = self.feature_names
+        out.num_total_features = self.num_total_features
+        out.label_idx = self.label_idx
+        out.metadata = self.metadata.subset(indices)
+        return out
+
     # ------------------------------------------------------------- alignment
     def check_align(self, other: "CoreDataset") -> bool:
         """Bin-mapper compatibility between train/valid (dataset.h CheckAlign)."""
@@ -222,7 +238,8 @@ class DatasetLoader:
         if candidates >= 2:
             raise NotImplementedError(
                 f"{candidates} sparse features are bundling candidates; "
-                "exclusive feature bundling is a later slice of "
+                "exclusive feature bundling (ROADMAP queue 1 item 3) is a "
+                "later slice of "
                 "lightgbm_tpu_torch (set is_enable_sparse=false to store "
                 "them unbundled)")
 

@@ -1,7 +1,8 @@
-"""Evaluation metrics (port of lightgbm_tpu/metrics/metrics.py :49,76,94).
+"""Evaluation metrics (port of lightgbm_tpu/metrics/metrics.py).
 
 Reference: src/metric/regression_metric.hpp, binary_metric.hpp,
-factory src/metric/metric.cpp:9-28. Metrics evaluate on the host
+multiclass_metric.hpp, rank_metric.hpp, factory
+src/metric/metric.cpp:9-28. Metrics evaluate on the host
 (numpy) on scores pulled from the device once per metric_freq
 iterations; that is never the training bottleneck. The reference's `l2`
 metric reports sqrt(mean squared error); reproduced as-is.
@@ -10,6 +11,7 @@ metric reports sqrt(mean squared error); reproduced as-is.
 import numpy as np
 
 from ..utils.log import Log
+from .dcg_calculator import DCGCalculator
 
 K_EPSILON = 1e-15
 
@@ -47,6 +49,14 @@ class L2Metric(Metric):
         return [float(np.sqrt(self._weighted_mean(d * d)))]
 
 
+class L1Metric(Metric):
+    names = ("l1",)
+
+    def eval(self, score):
+        d = np.abs(np.asarray(score, dtype=np.float64)[:self.num_data] - self.label)
+        return [self._weighted_mean(d)]
+
+
 class _BinaryMetric(Metric):
     def __init__(self, config):
         self.sigmoid = float(config.sigmoid)
@@ -64,6 +74,15 @@ class BinaryLoglossMetric(_BinaryMetric):
     def eval(self, score):
         p = np.clip(self._prob(score), K_EPSILON, 1.0 - K_EPSILON)
         loss = np.where(self.label == 0, -np.log(1.0 - p), -np.log(p))
+        return [self._weighted_mean(loss)]
+
+
+class BinaryErrorMetric(_BinaryMetric):
+    names = ("error",)  # display name per binary_metric.hpp:138
+
+    def eval(self, score):
+        p = self._prob(score)
+        loss = np.where(p < 0.5, self.label, 1.0 - self.label)
         return [self._weighted_mean(loss)]
 
 
@@ -100,18 +119,85 @@ class AUCMetric(Metric):
         return [1.0]
 
 
+class _MulticlassMetric(Metric):
+    def __init__(self, config):
+        self.num_class = int(config.num_class)
+
+    def _probs(self, score):
+        s = np.asarray(score, dtype=np.float64)
+        n = self.num_data
+        mat = np.stack([s[k * n:(k + 1) * n] for k in range(self.num_class)], axis=1)
+        m = mat.max(axis=1, keepdims=True)
+        e = np.exp(mat - m)
+        return e / e.sum(axis=1, keepdims=True)  # (N, K)
+
+
+class MultiLoglossMetric(_MulticlassMetric):
+    names = ("multi_logloss",)
+
+    def eval(self, score):
+        p = self._probs(score)
+        idx = self.label.astype(np.int64)
+        pl = np.clip(p[np.arange(self.num_data), idx], K_EPSILON, None)
+        return [self._weighted_mean(-np.log(pl))]
+
+
+class MultiErrorMetric(_MulticlassMetric):
+    names = ("multi_error",)
+
+    def eval(self, score):
+        p = self._probs(score)
+        pred = np.argmax(p, axis=1)
+        loss = (pred != self.label.astype(np.int64)).astype(np.float64)
+        return [self._weighted_mean(loss)]
+
+
+class NDCGMetric(Metric):
+    """NDCG@k averaged over queries with query weights
+    (rank_metric.hpp:16-165), over the padded-query layout in one
+    argsort (rank_device.ndcg_eval_padded)."""
+
+    factor_to_bigger_better = 1.0
+
+    def __init__(self, config):
+        self.eval_at = tuple(config.ndcg_eval_at)
+        self.names = tuple(f"ndcg@{k}" for k in self.eval_at)
+        self.dcg = DCGCalculator(config.label_gain)
+
+    def init(self, metadata, num_data):
+        from ..objectives.rank_device import PaddedQueryLayout
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            Log.fatal("The NDCG metric requires query information")
+        self.query_boundaries = np.asarray(metadata.query_boundaries)
+        self.num_queries = len(self.query_boundaries) - 1
+        self.query_weights = metadata.query_weights
+        self.layout = PaddedQueryLayout(self.query_boundaries, num_data)
+
+    def eval(self, score):
+        from ..objectives.rank_device import ndcg_eval_padded
+        s = np.asarray(score, dtype=np.float64)[:self.num_data]
+        return ndcg_eval_padded(self.layout, self.label, self.dcg.label_gain,
+                                self.eval_at, s, self.query_weights)
+
+
 def create_metric(name, config):
-    """Factory (metric.cpp:9-28). Returns None for unknown names; the
-    metrics of later slices raise."""
+    """Factory (metric.cpp:9-28). Returns None for unknown names."""
     name = str(name).lower()
     if name == "l2":
         return L2Metric()
+    if name == "l1":
+        return L1Metric()
     if name == "binary_logloss":
         return BinaryLoglossMetric(config)
+    if name == "binary_error":
+        return BinaryErrorMetric(config)
     if name == "auc":
         return AUCMetric(config)
-    if name in ("l1", "binary_error", "ndcg", "multi_logloss",
-                "multi_error"):
-        raise NotImplementedError(
-            f"metric={name} is a later slice of lightgbm_tpu_torch")
+    if name == "ndcg":
+        return NDCGMetric(config)
+    if name == "multi_logloss":
+        return MultiLoglossMetric(config)
+    if name == "multi_error":
+        return MultiErrorMetric(config)
     return None

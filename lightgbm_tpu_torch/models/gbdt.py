@@ -2,7 +2,9 @@
 
 Reference: src/boosting/gbdt.h:17-310, src/boosting/gbdt.cpp. This
 slice covers the per-iteration, single-process, constant-leaf loop
-(train_one_iter :835-955), record-level bagging (_bagging :769-832),
+(train_one_iter :835-955) for one tree or K class trees an iteration,
+record- and query-unit bagging (_bagging :769-832), continued training
+(merge_from), parameter resets,
 metric output with early stopping, prediction and the model text
 (save_model_to_string / load_model_from_string :1837-1945).
 
@@ -27,8 +29,9 @@ arrays into slot t of a stacked buffer) is captured once as a CUDA
 graph and replayed T times; on the CPU the same step runs eagerly.
 The trees it grows are the per-iteration loop's, bit for bit.
 
-Bagging draws an exact-count bag (int(bagging_fraction * N) rows) from
-a torch.Generator on the training device, seeded from
+Bagging draws an exact-count bag (int(bagging_fraction * N) rows, or
+whole queries: int(bagging_fraction * num_queries) of them) from a
+torch.Generator on the training device, seeded from
 (bagging_seed, iteration // bagging_freq): bags are redrawn every
 bagging_freq iterations and are a pure function of the window, as in
 the JAX package. The bits differ from jax.random's; the tests feed both
@@ -362,6 +365,7 @@ class GBDT:
         self.best_msg = []
         self._bag_rows = None
         self._bag_window = None
+        self._row_query = None
         self._device_model_cache = None
         self._fused_cache = {}
 
@@ -409,16 +413,42 @@ class GBDT:
             self.best_score.append([K_MIN_SCORE] * len(valid_metrics))
             self.best_msg.append([""] * len(valid_metrics))
 
+    def reset_config(self, config, objective):
+        """A new config and objective on the same training data
+        (gbdt.py:390-441 with the data unchanged): the learner takes the
+        config, the bagging and fused caches go (a graph holds the old
+        learner's shapes and the old objective)."""
+        config.check_slice()
+        self.config = config
+        self.early_stopping_round = config.early_stopping_round
+        self.shrinkage_rate = config.learning_rate
+        self.objective = objective
+        self.sigmoid = -1.0
+        if objective is not None and objective.name == "binary":
+            self.sigmoid = config.sigmoid
+        self.apply_predict_config(config)
+        self._bag_rows = self._bag_window = None
+        self._fused_cache = {}
+        self.tree_learner.config = config
+        self.tree_learner.init(self.train_data)
+
+    def merge_from(self, other):
+        """Continued training (gbdt.h:44-61): the other booster's trees go
+        first, and count as this booster's init iterations."""
+        self.models = list(other.models) + self.models
+        self.num_init_iteration += len(other.models) // max(self.num_class, 1)
+        self._device_model_cache = None
+
     # --------------------------------------------------------------- bagging
     def _bagging(self, it):
         """gbdt.cpp:150-201: the (N,) float32 in-bag mask on the device,
-        or None when bagging is off. Cached per re-bag window."""
+        or None when bagging is off. Cached per re-bag window. With
+        query boundaries whole queries go in or out of the bag
+        (int(num_queries * bagging_fraction) of them), spread to their
+        rows through the row -> query map (gbdt.py:798-812)."""
         cfg = self.config
         if not (cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0):
             return None
-        if self.train_data.metadata.query_boundaries is not None:
-            raise NotImplementedError("query-unit bagging is a later slice "
-                                      "of lightgbm_tpu_torch")
         window = it // int(cfg.bagging_freq)
         if window == self._bag_window and self._bag_rows is not None:
             return self._bag_rows
@@ -427,10 +457,21 @@ class GBDT:
         # generator keeps only 32 bits of its seed
         gen.manual_seed(int(np.random.SeedSequence(
             [int(cfg.bagging_seed) & 0xFFFFFFFF, window]).generate_state(1)[0]))
-        perm = torch.randperm(self.num_data, generator=gen,
-                              device=self.device)
-        bag_cnt = int(cfg.bagging_fraction * self.num_data)
-        self._bag_rows = (perm < bag_cnt).to(torch.float32)
+        qb = self.train_data.metadata.query_boundaries
+        if qb is None:
+            perm = torch.randperm(self.num_data, generator=gen,
+                                  device=self.device)
+            bag_cnt = int(cfg.bagging_fraction * self.num_data)
+            self._bag_rows = (perm < bag_cnt).to(torch.float32)
+        else:
+            nq = len(qb) - 1
+            if self._row_query is None:
+                self._row_query = torch.from_numpy(np.searchsorted(
+                    np.asarray(qb), np.arange(self.num_data),
+                    side="right") - 1).to(self.device)
+            perm = torch.randperm(nq, generator=gen, device=self.device)
+            qmask = (perm < int(nq * cfg.bagging_fraction)).to(torch.float32)
+            self._bag_rows = qmask[self._row_query]
         self._bag_window = window
         return self._bag_rows
 
@@ -794,7 +835,11 @@ class GBDT:
     def get_predict_at(self, data_idx):
         """gbdt.cpp:381-419: transformed per-row predictions of a bound
         dataset."""
-        raw = self._updater(data_idx).host_score()
+        updater = self._updater(data_idx)
+        raw = updater.host_score()
+        if self.num_class > 1:
+            mat = raw.reshape(self.num_class, updater.num_data).T
+            return common.softmax(mat, axis=1).T.reshape(-1)
         if self.sigmoid > 0:
             return 1.0 / (1.0 + np.exp(-2.0 * self.sigmoid * raw))
         return raw
@@ -840,8 +885,9 @@ class GBDT:
         depth = 1
         for i, t in enumerate(trees):
             if t.is_linear:
-                raise NotImplementedError("linear-leaf prediction is a "
-                                          "later slice of lightgbm_tpu_torch")
+                raise NotImplementedError(
+                    "linear-leaf prediction is a later slice of "
+                    "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
             ns = t.num_leaves - 1
             if ns > 0:
                 sf[i, :ns] = t.split_feature_real
@@ -1028,8 +1074,9 @@ class GBDT:
         n_used = len(self.models) if num_iteration <= 0 else min(
             num_iteration * self.num_class, len(self.models))
         if any(self.models[i].is_linear for i in range(n_used)):
-            raise NotImplementedError("writing linear-leaf models is a "
-                                      "later slice of lightgbm_tpu_torch")
+            raise NotImplementedError(
+                "writing linear-leaf models is a later slice of "
+                "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
         lines = [self.name,
                  f"num_class={self.num_class}",
                  f"label_index={self.label_idx}",
@@ -1053,6 +1100,23 @@ class GBDT:
     def save_model_to_file(self, num_iteration, filename):
         with open(filename, "w") as f:
             f.write(self.save_model_to_string(num_iteration))
+
+    def dump_model(self):
+        """JSON dump (gbdt.cpp:431-466)."""
+        out = ["{"]
+        out.append(f'"name":"{self.name}",')
+        out.append(f'"num_class":{self.num_class},')
+        out.append(f'"label_index":{self.label_idx},')
+        out.append(f'"max_feature_idx":{self.max_feature_idx},')
+        out.append(f'"sigmoid":{self.sigmoid:g},')
+        names = '","'.join(self.feature_names)
+        out.append(f'"feature_names":["{names}"],')
+        tree_parts = []
+        for i, tree in enumerate(self.models):
+            tree_parts.append('{' + f'"tree_index":{i},' + tree.to_json() + '}')
+        out.append('"tree_info":[' + ",".join(tree_parts) + "]")
+        out.append("}")
+        return "\n".join(out) + "\n"
 
     def load_model_from_string(self, model_str):
         """gbdt.cpp:515-583."""
@@ -1116,6 +1180,7 @@ class GBDT:
 def create_boosting(boosting_type, device=None):
     """Factory: gbdt only in this slice."""
     if boosting_type != "gbdt":
-        raise NotImplementedError(f"boosting_type={boosting_type} is a "
-                                  "later slice of lightgbm_tpu_torch")
+        raise NotImplementedError(
+            f"boosting_type={boosting_type} is a later slice of "
+            "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
     return GBDT(device)

@@ -593,5 +593,5 @@ def create_tree_learner(learner_type, config, device=None):
     if learner_type != "serial":
         raise NotImplementedError(
             f"tree_learner={learner_type} is a later slice of "
-            "lightgbm_tpu_torch")
+            "lightgbm_tpu_torch (ROADMAP queue 1 item 6)")
     return SerialTreeLearner(config, device)

@@ -1,7 +1,8 @@
 """Objective functions: gradients/hessians from scores."""
 
-from .objectives import (BinaryLogloss, ObjectiveFunction, RegressionL2loss,
+from .objectives import (BinaryLogloss, LambdarankNDCG, MulticlassLogloss,
+                         ObjectiveFunction, RegressionL2loss,
                          create_objective)
 
 __all__ = ["ObjectiveFunction", "RegressionL2loss", "BinaryLogloss",
-           "create_objective"]
+           "MulticlassLogloss", "LambdarankNDCG", "create_objective"]

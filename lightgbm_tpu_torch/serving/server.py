@@ -777,7 +777,7 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8099)
     ap.add_argument("--registry", default="",
                     help="fleet model-registry directory: not yet in "
-                         "lightgbm_tpu_torch (ROADMAP queue 1 item 9)")
+                         "lightgbm_tpu_torch (ROADMAP queue 1 item 7)")
     ap.add_argument("--follow", action="store_true",
                     help="poll the registry and hot-swap (with "
                          "--registry; not yet in lightgbm_tpu_torch)")
@@ -868,7 +868,7 @@ def main(argv=None):
     if args.registry or args.follow:
         ap.error("--registry/--follow need the fleet model registry, "
                  "which lightgbm_tpu_torch does not have yet (ROADMAP "
-                 "queue 1 item 9): serve a model file")
+                 "queue 1 item 7): serve a model file")
 
     t0 = time.time()
     model_path, model_version = args.model, None

@@ -432,8 +432,8 @@ def test_fused_eligible_matches_jax(extra, with_valid, ignore):
 
 def test_train_routes():
     """No callbacks: train_many; valid sets: the blockwise replay; a
-    user callback: the per-iteration loop; fobj / feval / init_model /
-    resume_from: later slices."""
+    user callback or a custom objective: the per-iteration loop;
+    resume_from: a later slice (ROADMAP queue 1 item 4)."""
     x, y = _data(seed=2, n=1000)
     params = dict(BASE, objective="binary", metric="auc")
     calls = []
@@ -458,11 +458,13 @@ def test_train_routes():
         lgt.train(params, lgt.Dataset(x, y), 3, verbose_eval=False,
                   callbacks=[_noop], device=CPU)
         assert calls == []
+        lgt.train(params, lgt.Dataset(x, y), 2, verbose_eval=False,
+                  fobj=lambda p, d: (p - d.get_label(), np.ones_like(p)),
+                  device=CPU)
+        assert calls == []
     finally:
         type(gbdt_cls).train_many = orig_many
         type(gbdt_cls).train_many_eval = orig_eval
-    for kw in ({"fobj": lambda p, d: p}, {"feval": lambda p, d: p},
-               {"init_model": "model.txt"}, {"resume_from": "ckpt"}):
-        with pytest.raises(NotImplementedError):
-            lgt.train(params, lgt.Dataset(x, y), 1, verbose_eval=False,
-                      device=CPU, **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        lgt.train(params, lgt.Dataset(x, y), 1, verbose_eval=False,
+                  device=CPU, resume_from="ckpt")

@@ -192,7 +192,7 @@ def test_convert_trees_from_builder_output():
     {"boosting_type": "goss"}, {"linear_tree": True},
     {"out_of_core": True}, {"tree_learner": "voting", "num_machines": 2},
     {"hist_frontier": "false"}, {"tree_learner": "data", "num_machines": 2},
-    {"objective": "multiclass", "num_class": 3}])
+    {"tree_learner": "feature", "num_machines": 2}])
 def test_later_slice_settings_raise(params):
     x, y = _matrix(9, n=300)
     with pytest.raises(NotImplementedError):

@@ -680,4 +680,4 @@ def test_serve_cli_flags_and_registry_error(served):
                         "--device", "cpu"], capture_output=True, text=True,
                        timeout=120, cwd=REPO, env=env)
     assert r.returncode == 2
-    assert "queue 1 item 9" in r.stderr
+    assert "queue 1 item 7" in r.stderr
