@@ -17,7 +17,7 @@ this one (single-row latency, predict's stages, same answers).
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
    kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once
-   (hist.cu, seg_hist.cu and traverse.cu);
+   (hist.cu, seg_hist.cu, bin.cu and traverse.cu);
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
    int16 case with 300 bins; frontier with L = 1 at the root, every row
@@ -39,20 +39,38 @@ Phases (any failure exits non-zero and prints no result line):
    microseconds per call (200 launches, no sync) and the time with the
    host's enqueue included (ms_enqueued, no device sleep ahead of the
    launch) beside each;
-3. the masked main path at full width: the bench workload (1,000,000 x
+3. data ingestion: the bench matrix (1,000,000 x 28 float32) binned on
+   the card by the bench's own construction, Dataset(X).construct() with
+   launch counts read from zero, against device="cpu" (bin_dense's plain
+   version on the CPU) and the host pass: the same bins, each timed;
+   bin_dense on the matrix with NaN, +-inf and every bound (and one
+   float32 step either side) planted, in uint8 and in int16 (max_bin
+   1023), bit for bit its plain version on the card and the host pass,
+   two launches bitwise equal, timed with CUDA events beside its byte
+   bound, the plain version and one torch.searchsorted over the same
+   (F, N) values and (F, B) bounds; the matrix written as a TSV file with
+   a header (%.9g), Dataset(path) against the host pass of the parsed
+   matrix, save_binary and the reloaded cache (equal bins), 5 rounds
+   trained from the text and from the cache (model text byte-equal),
+   each stage's seconds; then the CLI as subprocesses (python -m
+   lightgbm_tpu_torch task=train, then task=predict) on a 100,000-row
+   LibSVM file of the same columns, the result file line for line
+   Booster.predict's values written as Predictor.predict_file writes
+   them ({v:g}); the rest of the run trains on the card-built dataset;
+4. the masked main path at full width: the bench workload (1,000,000 x
    28 binary, 63 leaves, 255 bins, learning rate 0.1, 5 rounds)
    through lightgbm_tpu_torch.train, with launch counts read from zero;
    the first tree grown again with the plain histogram functions;
    predict on 100k rows against a host traversal of the saved model
    text; one tree build profiled with torch.profiler;
-4. a 2-round cache-less run (histogram_pool_size below the cache) that
+5. a 2-round cache-less run (histogram_pool_size below the cache) that
    drives frontier_hist with L = 2;
-5. the partitioned main path: the same workload with
+6. the partitioned main path: the same workload with
    partitioned_build=true (seg_hist at every histogram, no masked or
    frontier launch), its first tree against the masked path's, no host
    sync inside build_tree_partitioned, one tree build profiled; then a
    2-round cache-less partitioned run;
-6. the fused trainer (one boosting iteration captured as a CUDA graph,
+7. the fused trainer (one boosting iteration captured as a CUDA graph,
    replayed once an iteration), masked and then partitioned:
    lightgbm_tpu_torch.train with no callbacks (the fast path, one
    block of 5), launch counts read from zero and counted through the
@@ -64,18 +82,18 @@ Phases (any failure exits non-zero and prints no result line):
    booster of its own the capture timed (warm_up_fused), three blocks
    of 10 timed, no host sync in a block but its one transfer (sync
    debug "warn"), and one replay profiled;
-7. the fused trainer with bagging (0.7, every 2 rounds) and
+8. the fused trainer with bagging (0.7, every 2 rounds) and
    feature_fraction 0.75 on the masked, partitioned and cache-less
    builders, 4 rounds each: model text equal to the per-iteration
    loop's byte for byte, and no host sync in a block but its one
    transfer;
-8. blockwise engine.train: a 100k-row valid set, early stopping after
+9. blockwise engine.train: a 100k-row valid set, early stopping after
    5 rounds, evals_result, 10 rounds, against the per-iteration path
    (a no-op callback): the same best iteration, trees and history
    (exact when the model text is equal, else within 1e-5 relative);
    once with the held-out labels (no stop) and once with labels drawn
    at random, where the stop breaks inside a block;
-9. multiclass: the bench matrix with its logit cut at the quintiles (5
+10. multiclass: the bench matrix with its logit cut at the quintiles (5
    classes), 10 rounds (50 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
    partitioned one (first round's trees against the masked ones), launch
@@ -87,7 +105,7 @@ Phases (any failure exits non-zero and prints no result line):
    CompiledPredictor and served through tree_raw with K = 5 (its sums
    bit-equal to predict's device path, the exact answers within the
    f64 association bound of the host path), tree_raw K = 5 timed;
-10. lambdarank: the bench matrix in queries of 50-200 documents (about
+11. lambdarank: the bench matrix in queries of 50-200 documents (about
    8,000, M = 200), relevance 0-4 from the logit's quantiles within each
    query, max_position 20, the default label_gain: the pair-gradient
    program against its host float64 path (2e-4 of the largest |value|),
@@ -96,11 +114,11 @@ Phases (any failure exits non-zero and prints no result line):
    rounds per-iteration and fused (NDCG@1,3,5 after 10 rounds above the
    first round's, model text), and query-unit bagging (0.7, every 2
    rounds) fused against its per-iteration loop;
-11. categorical features: the bench matrix plus 4 integer columns of 32
+12. categorical features: the bench matrix plus 4 integer columns of 32
    categories that enter the label's logit, declared categorical, 2
    rounds with each builder: categorical splits, the same first tree,
    predict against the host traversal;
-12. serving (lightgbm_tpu_torch.serving): the bench model trained 100
+13. serving (lightgbm_tpu_torch.serving): the bench model trained 100
     rounds (fused masked) and frozen from its model text with
     CompiledPredictor.from_model_file (max_batch_rows 4096) in f32 and
     bf16; tree_leaf bit for bit against its plain version on the card
@@ -130,9 +148,10 @@ Phases (any failure exits non-zero and prints no result line):
     checkout's predictor and this one in ten pairs of turns: single-row
     p50, stages on one row, pairs won, the tree_leaf dispatch's host
     microseconds;
-13. a `kernels` JSON line (launches from the fused phases, binary,
-    multiclass and lambdarank, and for the traversal kernels from the
-    serving main path and the multiclass serving), the LambdaRank pair
+14. a `kernels` JSON line (launches from the fused phases, binary,
+    multiclass and lambdarank, for the traversal kernels from the
+    serving main path and the multiclass serving, for bin_dense from the
+    bench's construction), the LambdaRank pair
     gradients' time and bound on a line of their own (a torch program,
     no hand-written kernel yet), the card line, and the result line.
 
@@ -144,6 +163,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -2271,6 +2291,283 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
     return res, cases
 
 
+# ---------------------------------------------------------------- ingestion
+
+INGEST_INT16_BINS = 1023
+CLI_ROWS = 100_000
+CLI_ROUNDS = 5
+TORCH_BIN_DTYPE = {np.dtype(np.uint8): "uint8", np.dtype(np.int16): "int16",
+                   np.dtype(np.int32): "int32"}
+
+
+def bin_bound_ms(n, f, b, out_bytes):
+    """Least time for one bin_dense call: x's used columns read once
+    (f32), the bounds and columns read once and the (F, N) bins written
+    once, over HBM bandwidth; against the binary search's float32
+    compares (ceil(log2(B + 1)) a value) over the float32 rate.
+    Returns (ms, bound_by)."""
+    nbytes = n * f * 4 + f * b * 4 + f * 4 + n * f * out_bytes
+    ops = float(n) * f * int(np.ceil(np.log2(b + 1)))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def plant_on_bounds(x, mappers, real_idx, rng):
+    """x with each feature's finite bounds (as float32) planted, and one
+    float32 step on either side of them, in random rows (in place)."""
+    n = len(x)
+    for j, m in zip(real_idx, mappers):
+        b = np.asarray(m.bin_upper_bound[np.isfinite(m.bin_upper_bound)],
+                       np.float32)
+        on = np.concatenate([b, np.nextafter(b, np.float32(np.inf)),
+                             np.nextafter(b, np.float32(-np.inf))])
+        x[rng.choice(n, len(on), replace=False), j] = on
+    return x
+
+
+def bin_kernel_case(torch, bk, timer, x, core, label):
+    """bin_dense at the bench shape against its plain version on the
+    card and the host pass (bit for bit), two launches bitwise equal,
+    timed beside its bound, its plain version and torch.searchsorted
+    over the same (F, N) values and (F, B) bounds."""
+    dt = core.bins.dtype
+    tdt = getattr(torch, TORCH_BIN_DTYPE[np.dtype(dt)])
+    mappers, real = core.bin_mappers, core.real_feature_idx
+    bounds_np = bk.dense_bounds([m.bin_upper_bound for m in mappers])
+    xd = torch.from_numpy(x).to(DEVICE)
+    cols = torch.from_numpy(real.astype(np.int32)).to(DEVICE)
+    bounds = torch.from_numpy(bounds_np).to(DEVICE)
+
+    def call():
+        return bk.bin_dense(xd, cols, bounds, tdt)
+
+    one, two = call(), call()
+    torch.cuda.synchronize()
+    plain = bk.bin_dense_plain(xd, cols, bounds, tdt)
+    host = np.stack([m.value_to_bin(x[:, j]).astype(dt)
+                     for j, m in zip(real, mappers)])
+    got = one.cpu().numpy()
+    # torch.searchsorted (left) over the transposed values: #{b < v}
+    # for every sorted bound row, the same function
+    xt = torch.nan_to_num(xd.index_select(1, cols.long()).t().contiguous(),
+                          nan=0.0, posinf=float("inf"),
+                          neginf=float("-inf"))
+    lib = torch.searchsorted(bounds, xt)
+    n, f = x.shape[0], len(real)
+    res = {"name": "bin_dense", "case": label, "rows": n, "features": f,
+           "bins": int(bounds_np.shape[1]), "dtype": TORCH_BIN_DTYPE[
+               np.dtype(dt)],
+           "deterministic": bool(torch.equal(one, two)),
+           "bitwise_vs_plain": bool(torch.equal(one, plain)),
+           "bitwise_vs_host": bool(np.array_equal(got, host)),
+           "library_same": bool(torch.equal(lib.to(tdt), one)),
+           "max_abs_err": float((one.long() - plain.long()).abs().max())}
+    res["bound_ms"], res["bound_by"] = bin_bound_ms(
+        n, f, res["bins"], one.element_size())
+    res["ms"] = timer(call, 20)
+    res["plain_ms"] = timer(
+        lambda: bk.bin_dense_plain(xd, cols, bounds, tdt), 3)
+    res["library_ms"] = timer(lambda: torch.searchsorted(bounds, xt), 20)
+    res["host_us"] = host_us(torch, call, reps=50)
+    log(f"bin_dense {label}: {res['ms']:.4f} ms (bound {res['bound_ms']:.4f}"
+        f" {res['bound_by']}, plain {res['plain_ms']:.3f}, searchsorted "
+        f"{res['library_ms']:.4f}), bits = plain {res['bitwise_vs_plain']},"
+        f" = host {res['bitwise_vs_host']}, two launches equal "
+        f"{res['deterministic']}")
+    check(res["deterministic"], f"bin_dense {label}: two launches differ")
+    check(res["bitwise_vs_plain"], f"bin_dense {label}: differs from plain")
+    check(res["bitwise_vs_host"], f"bin_dense {label}: differs from host")
+    return res
+
+
+def write_tsv(path, x, y):
+    """The matrix as TSV with a header, label first, %.9g (float32 round
+    trips)."""
+    header = "\t".join(["label"] + [f"f{j}" for j in range(x.shape[1])])
+    np.savetxt(path, np.column_stack([y.astype(np.float64), x]),
+               fmt="%.9g", delimiter="\t", header=header, comments="")
+
+
+def write_libsvm(path, x, y):
+    with open(path, "w") as f:
+        for row, lab in zip(x, y):
+            f.write("%g " % lab + " ".join(
+                f"{j}:{v:.9g}" for j, v in enumerate(row) if v != 0.0)
+                + "\n")
+
+
+def cli_phase(torch, lgt, x, y, work):
+    """The CLI as subprocesses on a LibSVM file of the bench's columns:
+    task=train, then task=predict; the result file line for line
+    Booster.predict's values written as Predictor.predict_file writes
+    them ({v:g})."""
+    from lightgbm_tpu_torch.io.parser import parse_text_file
+    data = os.path.join(work, "cli.svm")
+    model = os.path.join(work, "cli_model.txt")
+    result = os.path.join(work, "cli_pred.txt")
+    t0 = time.time()
+    write_libsvm(data, x[:CLI_ROWS], y[:CLI_ROWS])
+    res = {"rows": CLI_ROWS, "write_s": time.time() - t0}
+    params = {k: v for k, v in BENCH_PARAMS.items() if k != "verbose"}
+    argv = [f"{k}={v}" for k, v in params.items()]
+    for task, extra in (("train", [f"num_trees={CLI_ROUNDS}",
+                                   f"output_model={model}"]),
+                        ("predict", [f"input_model={model}",
+                                     f"output_result={result}"])):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lightgbm_tpu_torch", f"task={task}",
+             f"data={data}"] + argv + extra, capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        res[f"{task}_s"] = time.time() - t0
+        check(proc.returncode == 0,
+              f"CLI task={task} exited {proc.returncode}: "
+              f"{(proc.stdout + proc.stderr)[-2000:]}")
+    _, feats, _, _, _ = parse_text_file(data)
+    booster = lgt.Booster(model_file=model)
+    pred = booster.predict(feats)
+    want = [f"{v:g}" for v in pred]
+    with open(result) as f:
+        got = f.read().splitlines()
+    res["lines_equal"] = got == want
+    res["trees"] = len(booster.gbdt.models)
+    log(f"CLI: train {res['train_s']:.1f}s, predict {res['predict_s']:.1f}s "
+        f"on {CLI_ROWS} LibSVM rows, {res['trees']} trees, result file = "
+        f"Booster.predict line for line: {res['lines_equal']}")
+    check(res["trees"] == CLI_ROUNDS, "the CLI model lacks trees")
+    check(res["lines_equal"], "CLI predictions differ from Booster.predict")
+    return res
+
+
+def phase_ingest(torch, lgt, timer, x, y, seed, work):
+    """Data ingestion on the card: bin_dense at the bench shape (uint8,
+    and int16 at max_bin 1023); the bench's own construction
+    (Dataset(X).construct() on the card, launches counted from zero)
+    against device="cpu" and the host pass; the bench matrix through a
+    TSV file, the binary cache and training from both; the CLI. Returns
+    (the card-built dataset, report, kernel cases)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import CoreDataset, DatasetLoader
+    from lightgbm_tpu_torch.io.parser import parse_text_file
+    from lightgbm_tpu_torch.ops import bin_kernels as bk
+    from lightgbm_tpu_torch.utils.device import resolve_device
+    rng = np.random.RandomState(seed + 8)
+    res = {}
+    # the bench's construction, launches read from zero
+    bk.reset_launch_counts()
+    t0 = time.time()
+    ds = lgt.Dataset(x, y).construct(device=DEVICE)
+    torch.cuda.synchronize()
+    res["construct_card_s"] = time.time() - t0
+    res["launches"] = bk.launch_counts()
+    t0 = time.time()
+    on_cpu = lgt.Dataset(x, y).construct(device="cpu")
+    res["construct_cpu_plain_s"] = time.time() - t0
+    t0 = time.time()
+    host = lgt.Dataset(x, y).construct()
+    res["construct_host_s"] = time.time() - t0
+    core = ds._core
+    res["same_bins_cpu"] = bool(np.array_equal(core.bins, on_cpu._core.bins))
+    res["same_bins_host"] = bool(np.array_equal(core.bins, host._core.bins))
+    res["device_bins_seeded"] = str(resolve_device(DEVICE)) in \
+        core._device_bins
+    log(f"ingest: Dataset(X).construct() on the card {res['construct_card_s']:.2f}"
+        f"s, device=cpu {res['construct_cpu_plain_s']:.2f}s, host pass "
+        f"{res['construct_host_s']:.2f}s; same bins {res['same_bins_cpu']} /"
+        f" {res['same_bins_host']}; launches {res['launches']}")
+    check(res["launches"]["bin_dense"] >= 1,
+          "the card's construction did not launch bin_dense")
+    check(res["same_bins_cpu"] and res["same_bins_host"],
+          "bins on the card differ from the CPU's")
+    check(res["device_bins_seeded"], "the card's bins did not seed the cache")
+    del on_cpu, host
+
+    # the kernel at the bench shape, specials planted
+    xs = plant_specials(x, rng)
+    plant_on_bounds(xs, core.bin_mappers, core.real_feature_idx, rng)
+    cases = [bin_kernel_case(torch, bk, timer, xs, core, "uint8")]
+    wide = DatasetLoader(Config.from_params(
+        {"max_bin": INGEST_INT16_BINS, "verbose": 0})).construct_from_matrix(x)
+    xw = plant_specials(x, rng)
+    plant_on_bounds(xw, wide.bin_mappers, wide.real_feature_idx, rng)
+    cases.append(bin_kernel_case(torch, bk, timer, xw, wide,
+                                 f"int16 (max_bin {INGEST_INT16_BINS})"))
+    del xs, xw, wide
+    res["kernel_cases"] = cases
+
+    # the file path: TSV with a header, the binary cache
+    tsv = os.path.join(work, "bench.tsv")
+    t0 = time.time()
+    write_tsv(tsv, x, y)
+    res["tsv_write_s"] = time.time() - t0
+    res["tsv_bytes"] = os.path.getsize(tsv)
+    params = dict(BENCH_PARAMS, has_header=True)
+    t0 = time.time()
+    label, feats, names, _, _ = parse_text_file(tsv, has_header=True)
+    res["parse_s"] = time.time() - t0
+    t0 = time.time()
+    from_text = lgt.Dataset(tsv, params=params).construct(device=DEVICE)
+    res["text_load_s"] = time.time() - t0
+    tcore = from_text._core
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    meta = Metadata(len(label))
+    meta.set_label(label)
+    t0 = time.time()
+    want = DatasetLoader(Config.from_params(params))._construct(
+        feats, names, set(), set(), meta)
+    res["host_binning_of_parsed_s"] = time.time() - t0
+    res["text_same_bins_as_parsed_host_pass"] = bool(
+        np.array_equal(tcore.bins, want.bins))
+    # %.9g round-trips float32, but the parse keeps float64 (the JAX
+    # parser's rule), so bounds and bins may move in the last bit: a
+    # count for the record, not a check
+    res["text_bins_unlike_matrix"] = int((tcore.bins != core.bins).sum())
+    res["text_label_equal"] = bool(np.array_equal(tcore.metadata.label, y))
+    del feats, want
+    cache = os.path.join(work, "bench.bin")
+    t0 = time.time()
+    from_text.save_binary(cache)
+    res["save_binary_s"] = time.time() - t0
+    t0 = time.time()
+    loaded = CoreDataset.load_binary(cache)
+    res["load_binary_s"] = time.time() - t0
+    res["cache_bytes"] = os.path.getsize(cache)
+    res["cache_same_bins"] = bool(np.array_equal(np.asarray(loaded.bins),
+                                                 tcore.bins))
+    del loaded
+    t0 = time.time()
+    from_cache = lgt.Dataset(cache, params=params).construct(device=DEVICE)
+    res["cache_dataset_s"] = time.time() - t0
+    texts = []
+    for d in (from_text, from_cache):
+        booster = lgt.train(BENCH_PARAMS, d, N_ROUNDS, verbose_eval=False)
+        texts.append(booster.model_to_string())
+    res["model_text_equal"] = texts[0] == texts[1]
+    log(f"ingest files: TSV {res['tsv_bytes'] / 1e6:.0f} MB written in "
+        f"{res['tsv_write_s']:.1f}s; parse {res['parse_s']:.2f}s, "
+        f"Dataset(path) {res['text_load_s']:.2f}s (host binning of the "
+        f"parsed matrix alone {res['host_binning_of_parsed_s']:.2f}s), "
+        f"save_binary {res['save_binary_s']:.2f}s, load_binary "
+        f"{res['load_binary_s']:.3f}s, Dataset(cache) "
+        f"{res['cache_dataset_s']:.2f}s; bins = parsed host pass "
+        f"{res['text_same_bins_as_parsed_host_pass']}, unlike the float32 "
+        f"matrix's {res['text_bins_unlike_matrix']}, cache "
+        f"{res['cache_same_bins']}; model text from text = from cache "
+        f"{res['model_text_equal']}")
+    check(res["text_same_bins_as_parsed_host_pass"],
+          "Dataset(path) bins differ from the host pass of the parse")
+    check(res["text_label_equal"], "the TSV round trip changed the labels")
+    check(res["cache_same_bins"], "the binary cache changed the bins")
+    check(res["model_text_equal"], "training from the cache gave another "
+          "model than training from the text")
+    del from_text, from_cache
+    os.remove(tsv)
+    os.remove(cache)
+    res["cli"] = cli_phase(torch, lgt, x, y, work)
+    return ds, res, cases
+
+
 def kernel_line(case, launches, source, replaces):
     """One entry of the `kernels` JSON line."""
     return {"name": case["name"], "route": "cuda", "source": source,
@@ -2358,10 +2655,11 @@ def main():
         report["seg_kernel_cases"] = seg_cases
 
         x, y, logit = make_data(N_ROWS, args.seed, with_logit=True)
-        ds = lgt.Dataset(x, y)
         t0 = time.time()
-        ds.construct()
-        report["binning_s"] = time.time() - t0
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            ds, report["ingest"], bin_cases = phase_ingest(
+                torch, lgt, timer, x, y, args.seed, work)
+        report["ingest"]["phase_s"] = time.time() - t0
         booster, report["main"] = phase_main(torch, lgt, hk, ds, y)
         report["plain_tree"] = phase_plain_tree(torch, hk, booster)
         report["predict"] = phase_predict(torch, booster, x)
@@ -2438,6 +2736,12 @@ def main():
                     + mc_serve.get("tree_raw", 0),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:110 "
                     "(XLA device_traverse, no Pallas counterpart)")]
+    # the dataset's binning kernel, launches from the bench's construction
+    kernels.append(kernel_line(
+        bin_cases[0], report["ingest"]["launches"]["bin_dense"],
+        "lightgbm_tpu_torch/csrc/bin.cu",
+        "lightgbm_tpu/io/dataset.py:156 (XLA _bin_dense_on_device, no "
+        "Pallas counterpart)"))
     grad = report["lambdarank"]["gradients"]
     log(f"lambdarank pair gradients (torch formulation, no hand-written "
         f"kernel): {grad['ms']:.4f} ms a call, bound {grad['bound_ms']:.4f} "

@@ -1,13 +1,17 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
 The JAX package beside it is the reference; this package imports
-neither it nor JAX. Its entry points (`train`, `Booster.predict`) run on
-a CUDA device unless the caller passes device="cpu", and raise when
-there is no card and no device. On the card the histogram engines are
-hand-written CUDA (csrc/hist.cu and csrc/seg_hist.cu, built with nvcc
-at first use); on the CPU they are the kernels' plain PyTorch versions.
+neither it nor JAX. Its entry points (`train`, `Booster.predict`, the
+CLI `python -m lightgbm_tpu_torch task=train ...`) run on a CUDA device
+unless the caller passes device="cpu", and raise when there is no card
+and no device. On the card the histogram engines and the binning of a
+dense float32 matrix are hand-written CUDA (csrc/hist.cu, csrc/seg_hist.cu
+and csrc/bin.cu, built with nvcc at first use); on the CPU they are the
+kernels' plain PyTorch versions.
 
-The port covers dense in-memory data with numerical and categorical
+The port covers in-memory matrices, scipy sparse matrices, CSV/TSV/LibSVM
+files (in memory or streamed in two rounds) and the binary dataset
+cache, with numerical and categorical
 features under the binary, L2, multiclass and lambdarank objectives
 (with weights, query groups, init scores and custom objectives and
 metrics), the serial learner with the full-scan masked builder (the

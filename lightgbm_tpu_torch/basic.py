@@ -5,37 +5,62 @@ delegates to the PyTorch core (io.dataset.CoreDataset, models.gbdt.GBDT).
 A Booster lives on one torch.device: CUDA unless the caller passes
 device="cpu"; with no card and no device it raises.
 
-This slice binds in-memory matrices, with categorical columns by index
-or by name (`categorical_feature`), weights, query groups and init
-scores, row subsets sharing their parent's bins (`subset`, for cv), and
-continued training: a predictor attached to a Dataset seeds its init
-scores and the new Booster merges the predictor's trees
-(basic.py:182-390, 1227-1231). Custom objectives run through
-`update(fobj=...)`, custom metrics through `eval*(feval=...)`. Text
-files and the binary dataset cache are ROADMAP queue 1 item 1.
+A Dataset takes an in-memory matrix, a scipy sparse matrix (binned one
+column at a time through CscColumns, never densified), or a path: a
+CSV/TSV/LibSVM file or a binary cache (`save_binary`). It is built
+lazily, on the device of the Booster that first uses it
+(construct(device=)): there a dense float32 matrix is binned on the
+card. Categorical columns go by index or by name (`categorical_feature`),
+with weights, query groups and init scores, row subsets sharing their
+parent's bins (`subset`, for cv), and continued training: a predictor
+attached to a Dataset seeds its init scores and the new Booster merges
+the predictor's trees (basic.py:182-390, 1227-1231). Custom objectives
+run through `update(fobj=...)`, custom metrics through
+`eval*(feval=...)`.
 """
 
 import numpy as np
 
 from .config import Config, key_alias_transform
-from .io.dataset import DatasetLoader
+from .io.dataset import CscColumns, DatasetLoader, is_column_source
+from .io.parser import parse_text_file
 from .metrics import create_metric
 from .models.gbdt import GBDT, create_boosting
 from .objectives import create_objective
 from .utils.log import LightGBMError, Log
 
-_INGESTION = ("is not ported yet (ROADMAP queue 1 item 1, data "
-              "ingestion)")
-
 
 def _coerce_2d(data):
-    """numpy 2-D / pandas / list-of-rows -> float32 ndarray."""
+    """numpy 2-D / pandas / scipy sparse / list-of-rows -> float32
+    ndarray."""
+    if hasattr(data, "toarray"):          # scipy sparse
+        data = data.toarray()
     if hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values
     arr = np.asarray(data, dtype=np.float32)
     if arr.ndim == 1:
         arr = arr.reshape(1, -1)
     return np.ascontiguousarray(arr)
+
+
+def _matrix_source(data):
+    """What the loader bins: a column source as it is, a scipy sparse
+    matrix as CSC columns (one column dense at a time, as the JAX
+    package's column sources), anything else as a float32 ndarray."""
+    if is_column_source(data):
+        return data
+    if hasattr(data, "tocsr"):            # scipy sparse
+        csr = data.tocsr()
+        return CscColumns.from_csr(csr.indptr, csr.indices, csr.data,
+                                   csr.shape[1])
+    return _coerce_2d(data)
+
+
+def _parse_features(path, has_header=False, label_column=""):
+    """The feature matrix of a data file (the label column dropped)."""
+    _, feats, _, _, _ = parse_text_file(path, has_header=has_header,
+                                        label_column=label_column)
+    return feats
 
 
 def _coerce_label(label):
@@ -64,8 +89,6 @@ class Dataset:
     def __init__(self, data, label=None, max_bin=255, reference=None,
                  weight=None, group=None, silent=False, feature_name=None,
                  categorical_feature=None, params=None, free_raw_data=True):
-        if isinstance(data, str):
-            raise NotImplementedError("loading text files " + _INGESTION)
         self.data = data
         self.label = _coerce_label(label)
         self.max_bin = max_bin
@@ -83,35 +106,51 @@ class Dataset:
         self._used_indices = None      # set by subset()
         self._parent = None
 
-    def construct(self) -> "Dataset":
+    def construct(self, device=None) -> "Dataset":
+        """Bin the data once. A Booster passes its device: there a dense
+        float32 matrix of numerical features is binned (the card's
+        kernel, or its plain version on the CPU); with no device the
+        host pass bins it. Either gives the same bins."""
         if self._core is not None:
             return self
         if self._parent is not None:   # subset path (basic.py:1012-1035)
-            self._core = self._parent.construct()._core.subset(
+            self._core = self._parent.construct(device)._core.subset(
                 self._used_indices)
             self._apply_fields()
             return self
-        params = key_alias_transform(dict(self.params))
-        params.setdefault("max_bin", self.max_bin)
-        if self.silent:
-            params.setdefault("verbose", 0)
-        loader = DatasetLoader(Config.from_params(params))
+        cfg = self._config()
+        loader = DatasetLoader(cfg, device=device)
         ref_core = None
         if self.reference is not None:
             if not isinstance(self.reference, Dataset):
                 raise TypeError("Reference dataset should be None or dataset")
-            ref_core = self.reference.construct()._core
+            ref_core = self.reference.construct(device)._core
             self._set_predictor(self.reference._predictor)
-        self._core = loader.construct_from_matrix(
-            _coerce_2d(self.data), label=self.label, reference=ref_core,
-            categorical_features=self._resolve_categorical())
+        if isinstance(self.data, str):
+            if ref_core is not None:
+                self._core = loader.load_from_file_align_with_other_dataset(
+                    self.data, ref_core)
+            else:
+                self._core = loader.load_from_file(self.data)
+        else:
+            self._core = loader.construct_from_matrix(
+                _matrix_source(self.data), label=self.label,
+                reference=ref_core,
+                categorical_features=self._resolve_categorical())
         if self.feature_name is not None:
             self._core.feature_names = list(self.feature_name)
         self._apply_fields()
         self._apply_predictor_init_score()
-        if self.free_raw_data:
+        if self.free_raw_data and not isinstance(self.data, str):
             self.data = None
         return self
+
+    def _config(self):
+        params = key_alias_transform(dict(self.params))
+        params.setdefault("max_bin", self.max_bin)
+        if self.silent:
+            params.setdefault("verbose", 0)
+        return Config.from_params(params)
 
     def _resolve_categorical(self):
         """Categorical column indices; names resolve through
@@ -147,7 +186,15 @@ class Dataset:
             raise LightGBMError(
                 "Cannot set predictor after freed raw data, "
                 "Set free_raw_data=False when construct Dataset to avoid this.")
-        raw = self._predictor.predict_raw(_coerce_2d(self.data))
+        if isinstance(self.data, str):
+            # the file's features as the loader reads them (its header
+            # and label column), the model's feature space
+            cfg = self._config()
+            data = _parse_features(self.data, cfg.has_header,
+                                   cfg.label_column)
+        else:
+            data = self.data
+        raw = self._predictor.predict_raw(_coerce_2d(data))
         self._core.metadata.set_init_score(raw.T.reshape(-1))
 
     def create_valid(self, data, label=None, weight=None, group=None,
@@ -246,7 +293,10 @@ class Dataset:
         return self.construct()._core.num_features
 
     def save_binary(self, filename):
-        raise NotImplementedError("the binary dataset cache " + _INGESTION)
+        """The binary cache of the constructed dataset
+        (lightgbm_tpu basic.py save_binary): its bins, mappers and
+        metadata, in the JAX package's format."""
+        self.construct()._core.save_binary(filename)
 
 
 class Booster:
@@ -272,7 +322,7 @@ class Booster:
             self.config = Config.from_params(params)
             self.config.check_slice()
             self.gbdt = create_boosting(self.config.boosting_type, device)
-            train_set.construct()
+            train_set.construct(self.gbdt.device)
             core = train_set._core
             self.objective = self._make_objective(core)
             self.gbdt.init(self.config, core, self.objective,
@@ -319,7 +369,7 @@ class Booster:
         if data._predictor is not self._init_predictor:
             raise LightGBMError("Add validation data failed, you should use "
                                 "same predictor for these data")
-        data.construct()
+        data.construct(self.gbdt.device)
         self.gbdt.add_valid_dataset(data._core,
                                     self._create_metrics(data._core))
         self._valid_datasets.append(data)
@@ -411,8 +461,12 @@ class Booster:
 
     # ----------------------------------------------------------- prediction
     def predict(self, data, num_iteration=-1, raw_score=False,
-                pred_leaf=False, is_reshape=True):
-        """Predictions of raw rows on the booster's device."""
+                pred_leaf=False, data_has_header=False, is_reshape=True):
+        """Predictions of raw rows on the booster's device; `data` may be
+        a data file's path, whose first column is the label
+        (lightgbm_tpu basic.py:74-80)."""
+        if isinstance(data, str):
+            data = _parse_features(data, has_header=data_has_header)
         data = _coerce_2d(data)
         if pred_leaf:
             return self.gbdt.predict_leaf_index(data, num_iteration)

@@ -411,23 +411,16 @@ class SerialTreeLearner:
         self.max_bin = int(train_set.max_stored_bin)
         self.use_partitioned = self._partitioned_enabled(cfg)
         self.n_pad = self._pad_rows(self.num_data)
-        bins = train_set.bins
-        if self.n_pad != self.num_data:
-            pad = np.zeros((bins.shape[0], self.n_pad - self.num_data),
-                           dtype=bins.dtype)
-            bins = np.concatenate([bins, pad], axis=1)
         num_bin_pf = train_set.num_bin_array()
         is_cat = train_set.feature_is_categorical()
         self.f_pad = self._pad_feature_count(self.num_features)
         extra = self.f_pad - self.num_features
         if extra:
             # pad features: all rows in bin 0, one bin, never split
-            bins = np.concatenate(
-                [bins, np.zeros((extra, bins.shape[1]), dtype=bins.dtype)])
             num_bin_pf = np.concatenate([num_bin_pf, np.ones(extra, np.int32)])
             is_cat = np.concatenate([is_cat, np.zeros(extra, bool)])
         dev = self.device
-        self.bins = self._place_bins(bins)
+        self.bins = self._place_bins(train_set)
         # the feature_fraction mask of the tree being built: every tree
         # reads this one buffer, so a captured CUDA graph reads it too
         self.fmask = torch.ones(self.f_pad, dtype=torch.bool, device=dev)
@@ -468,13 +461,25 @@ class SerialTreeLearner:
             return ((f + 3) // 4) * 4  # packed words hold 4 features
         return f
 
-    def _place_bins(self, bins):
-        """The matrix the builder streams, moved to the device once: the
-        (F, N_pad) bins at stored width, or their packed (F/4, N_pad)
-        int32 words for the partitioned builder (packed on the host)."""
+    def _place_bins(self, train_set):
+        """The matrix the builder streams, zero-padded to (f_pad, n_pad)
+        rows of bin 0: the dataset's (F, N) device bins at stored width
+        (moved to the device once, or binned there), padded on the
+        device; or, for the partitioned builder, the packed (f_pad/4,
+        n_pad) int32 words, packed on the host and moved once."""
+        f, n = train_set.num_features, train_set.num_data
         if self.use_partitioned:
-            bins = pack_feature_words(bins)
-        return torch.from_numpy(np.ascontiguousarray(bins)).to(self.device)
+            bins = np.zeros((self.f_pad, self.n_pad),
+                            dtype=train_set.bins.dtype)
+            bins[:f, :n] = train_set.bins
+            return torch.from_numpy(pack_feature_words(bins)).to(self.device)
+        dev_bins = train_set.device_bins(self.device)
+        if (self.f_pad, self.n_pad) == (f, n):
+            return dev_bins
+        bins = torch.zeros((self.f_pad, self.n_pad), dtype=dev_bins.dtype,
+                           device=self.device)
+        bins[:f, :n] = dev_bins
+        return bins
 
     def _sample_features(self):
         """feature_fraction per tree (serial_tree_learner.cpp:160-165),

@@ -8,7 +8,8 @@ Port of the three Pallas kernels of the JAX package:
 
 The kernels live in lightgbm_tpu_torch/csrc/hist.cu and csrc/seg_hist.cu,
 on the chunk accumulator they share in csrc/chunk_hist.cuh (design and
-bound are noted there). They are compiled with nvcc for sm_90a at first
+bound are noted there). They are compiled, with the dataset's binning
+kernel csrc/bin.cu (ops/bin_kernels.py), with nvcc for sm_90a at first
 use into csrc/build/ (one shared library with a C interface per source,
 loaded with ctypes; its name hashes the source, the headers it includes
 and the flags) and launched on PyTorch's current stream. Each wrapper
@@ -50,7 +51,7 @@ HIST_CHUNK = 4096
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-SOURCES = ("hist.cu", "seg_hist.cu")
+SOURCES = ("hist.cu", "seg_hist.cu", "bin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # nvcc's output for each source this process built: ptxas's registers
@@ -208,7 +209,17 @@ def _bind_seg_hist(lib):
     lib.seg_status_string.restype = ctypes.c_char_p
 
 
-_BINDERS = {"hist.cu": _bind_hist, "seg_hist.cu": _bind_seg_hist}
+def _bind_bin(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bin_dense.argtypes = [p, ctypes.c_longlong, i, p, i, p, i, p, i, i,
+                              p]
+    lib.bin_dense.restype = i
+    lib.bin_status_string.argtypes = [i]
+    lib.bin_status_string.restype = ctypes.c_char_p
+
+
+_BINDERS = {"hist.cu": _bind_hist, "seg_hist.cu": _bind_seg_hist,
+            "bin.cu": _bind_bin}
 _LOADED = {}
 
 

@@ -10,13 +10,16 @@ standard deviations within 1e-6.
 """
 
 import json
+import os
 import re
+import tempfile
 
 import numpy as np
 import pytest
 
 import lightgbm_tpu as lgj
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.application import Application
 from test_torch_multiclass import _assert_same_model, _loop
 
 CPU = "cpu"
@@ -272,9 +275,24 @@ def test_class_weights_match_jax(extra, atol):
     _assert_same_model(jb, tb, x, atol)
 
 
+def _construct_wide_libsvm():
+    """Dataset(path) on a LibSVM file with feature ids past 1024 (the
+    O(nnz) streaming route) whose sparse columns are bundling
+    candidates."""
+    rng = np.random.RandomState(3)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "wide.svm")
+        with open(path, "w") as f:
+            for i in range(200):
+                cols = np.unique(rng.choice(1100, 5, replace=False))
+                f.write(" ".join([str(i % 2)] + [f"{c}:{rng.rand():.6g}"
+                                                 for c in cols]) + "\n")
+        lgt.Dataset(path, params={"verbose": -1}).construct()
+
+
 @pytest.mark.parametrize("call", [
-    lambda: lgt.Dataset("train.txt"),
-    lambda: lgt.Dataset(np.zeros((4, 2))).save_binary("train.bin"),
+    lambda: Application(["task=train", "snapshot_freq=2"], device=CPU),
+    _construct_wide_libsvm,
     lambda: lgt.train(BASE, lgt.Dataset(*_data(n=300)), 1, device=CPU,
                       resume_from="ckpt"),
     lambda: lgt.train(dict(BASE, boosting_type="dart"),
@@ -285,8 +303,8 @@ def test_class_weights_match_jax(extra, atol):
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
     lambda: lgt.train(dict(BASE, tree_learner="data", num_machines=2),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
-], ids=["text_file", "save_binary", "resume_from", "dart", "compaction",
-        "out_of_core", "parallel"])
+], ids=["cli_snapshots", "wide_libsvm_bundling", "resume_from", "dart",
+        "compaction", "out_of_core", "parallel"])
 def test_remaining_refusals_name_their_roadmap_item(call):
     with pytest.raises(NotImplementedError) as err:
         call()
