@@ -17,7 +17,8 @@ this one (single-row latency, predict's stages, same answers).
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
    kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once
-   (hist.cu, seg_hist.cu, bin.cu and traverse.cu);
+   (hist.cu, seg_hist.cu, compact.cu, compact_hist.cu, bin.cu and
+   traverse.cu);
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
    int16 case with 300 bins; frontier with L = 1 at the root, every row
@@ -38,7 +39,15 @@ Phases (any failure exits non-zero and prints no result line):
    PyTorch index_add_ call for the same function; the host's
    microseconds per call (200 launches, no sync) and the time with the
    host's enqueue included (ms_enqueued, no device sleep ahead of the
-   launch) beside each;
+   launch) beside each; then the gather-compacted engine's kernels at
+   the same shape: compact_rows and compacted_hist over a leaf of about
+   1%, 10% and 50% of the rows (and int16 bins at 300 bins, 10%), each
+   equal to its plain version run on the CPU (compacted_hist bit for
+   bit; against the plain version on the card as above), two launches
+   equal, timed beside its bound, the plain version and one
+   torch.nonzero_static over the leaf's mask / one index_add_ over the
+   leaf's gathered keys; the counts 0, 1, 4095, 4096 and 4097 checked
+   the same way, untimed;
 3. data ingestion: the bench matrix (1,000,000 x 28 float32) binned on
    the card by the bench's own construction, Dataset(X).construct() with
    launch counts read from zero, against device="cpu" (bin_dense's plain
@@ -83,10 +92,22 @@ Phases (any failure exits non-zero and prints no result line):
    of 10 timed, no host sync in a block but its one transfer (sync
    debug "warn"), and one replay profiled;
 8. the fused trainer with bagging (0.7, every 2 rounds) and
-   feature_fraction 0.75 on the masked, partitioned and cache-less
-   builders, 4 rounds each: model text equal to the per-iteration
-   loop's byte for byte, and no host sync in a block but its one
-   transfer;
+   feature_fraction 0.75 on the masked, partitioned, cache-less and
+   compacted builders, 4 rounds each: model text equal to the
+   per-iteration loop's byte for byte, and no host sync in a block but
+   its one transfer;
+8b. the gather-compacted engine, the reference's default off the TPU
+   (hist_compaction=auto; every other phase pins hist_compaction=false
+   and so keeps the masked engine): 5 rounds per-iteration, launch
+   counts read from zero (compact_rows and compacted_hist at every
+   split, no masked_hist), its first tree against the masked phase's
+   (splits exact, leaves within 1e-4) and against the same tree grown
+   with every engine's plain version, no host sync inside a compacted
+   tree build; 2 cache-less rounds (two compacted passes a split); the
+   fused trainer as in 7 (text, launches through the replays, blocks
+   timed, a replay profiled with its histogram kernels' share) beside
+   the fused masked round of this run; 5-class multiclass, 3 rounds
+   per-iteration and fused (text equal, 5 x 62 compactions a replay);
 9. blockwise engine.train: a 100k-row valid set, early stopping after
    5 rounds, evals_result, 10 rounds, against the per-iteration path
    (a no-op callback): the same best iteration, trees and history
@@ -149,9 +170,10 @@ Phases (any failure exits non-zero and prints no result line):
     p50, stages on one row, pairs won, the tree_leaf dispatch's host
     microseconds;
 14. a `kernels` JSON line (launches from the fused phases, binary,
-    multiclass and lambdarank, for the traversal kernels from the
-    serving main path and the multiclass serving, for bin_dense from the
-    bench's construction), the LambdaRank pair
+    multiclass and lambdarank, for compact_rows and compacted_hist from
+    the compacted phase's fused runs, binary and multiclass, for the
+    traversal kernels from the serving main path and the multiclass
+    serving, for bin_dense from the bench's construction), the LambdaRank pair
     gradients' time and bound on a line of their own (a torch program,
     no hand-written kernel yet), the card line, and the result line.
 
@@ -190,8 +212,11 @@ N_CAT = 4
 N_CATEGORIES = 32
 DEVICE = "cuda"
 BASELINE = None  # another checkout's lightgbm_tpu_torch.ops (--baseline)
+# hist_compaction=false pins the full-scan masked engine in every phase
+# built on these (auto resolves to the gather-compacted engine above 4,096
+# rows); the compacted phase asks for auto
 BENCH_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": MAX_BIN,
-                "learning_rate": 0.1, "verbose": 0}
+                "learning_rate": 0.1, "verbose": 0, "hist_compaction": "false"}
 
 
 def log(msg):
@@ -307,6 +332,27 @@ def seg_bound_ms(w, cnt, b):
     rate. Returns (ms, bound_by)."""
     f = 4 * w
     nbytes = (4 * w + 12) * cnt + 8 + 2 * f * b * 3 * 4
+    ops = 3.0 * f * cnt
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compact_bound_ms(n):
+    """Least time for one compact_rows call: row_leaf (4 bytes a row) and
+    the leaf id read once, the (N,) index buffer and the count written
+    once, over HBM bandwidth (one compare a row is far below the float32
+    rate). Returns (ms, bound_by)."""
+    return 1e3 * (8 * n + 8) / PEAK_BYTES_PER_S, "bytes"
+
+
+def compacted_bound_ms(f, cnt, bin_bytes, b):
+    """Least time for one compacted_hist call: src and the statistics
+    of the leaf's `cnt` rows (4 + 12 bytes a row), their bins (F * bin
+    bytes a row), the count read once and the (value, residual) pair
+    written once, over HBM bandwidth; against three float32 adds per
+    (row, feature) over the float32 rate. Returns (ms, bound_by)."""
+    nbytes = (16 + f * bin_bytes) * cnt + 4 + 2 * f * b * 3 * 4
     ops = 3.0 * f * cnt
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
@@ -608,6 +654,170 @@ def seg_kernel_cases(torch, hk, timer, rng):
     cases.append(seg_kernel_case(torch, hk, timer, skewed, ghc, 0, n,
                                  MAX_BIN, cpu_check=True, skew=True))
     return cases
+
+
+def compact_kernel_case(torch, hk, timer, row_leaf, leaf, timed=True):
+    """compact_rows on the card against its plain version on the card
+    and on the CPU (element for element), two launches equal; timed
+    beside its bound and one torch.nonzero_static over the leaf's mask
+    (built outside the timed region)."""
+    dev = DEVICE
+    n = row_leaf.shape[0]
+    rl_d = row_leaf.to(dev)
+    lid = torch.tensor([leaf], dtype=torch.int32)
+    lid_d = lid.to(dev)
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    cnt = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def kern():
+        return hk.compact_rows(rl_d, lid_d, src, cnt)
+
+    def plain():
+        return hk.compact_rows_plain(rl_d, lid_d, torch.empty_like(src),
+                                     torch.empty_like(cnt))
+
+    s1, c1 = (t.clone() for t in kern())
+    s2, c2 = kern()
+    ps, pc = plain()
+    cs, cc = hk.compact_rows_plain(row_leaf, lid, torch.empty(
+        n, dtype=torch.int32), torch.empty(1, dtype=torch.int32))
+    torch.cuda.synchronize()
+    count = int(c1[0])
+    res = {"name": "compact_rows", "shape": {"N": n, "cnt": count},
+           "max_abs_err": float((s1.cpu().long() - cs.long()).abs().max()),
+           "deterministic": bool(torch.equal(s1, s2) and torch.equal(c1, c2)),
+           "equal_plain": bool(torch.equal(s1, ps) and torch.equal(c1, pc)),
+           "equal_cpu_plain": bool(torch.equal(s1.cpu(), cs)
+                                   and torch.equal(c1.cpu(), cc))}
+    check(res["deterministic"], f"compact_rows cnt {count}: two launches "
+          "differ")
+    check(res["equal_plain"] and res["equal_cpu_plain"],
+          f"compact_rows cnt {count}: differs from its plain version")
+    if not timed:
+        log(f"compact_rows {res['shape']}: equal to plain, deterministic")
+        return res
+    mask = rl_d == lid_d
+
+    def library():
+        return torch.nonzero_static(mask, size=n, fill_value=n)
+
+    res["ms"] = timer(kern, 20)
+    res["host_us"] = host_us(torch, kern)
+    res["plain_ms"] = timer(plain, 5)
+    res["library_ms"] = timer(library, 5)
+    res["bound_ms"], res["bound_by"] = compact_bound_ms(n)
+    log(f"compact_rows {res['shape']}: equal to plain, deterministic, ms "
+        f"{res['ms']:.4f} bound {res['bound_ms']:.4f} plain "
+        f"{res['plain_ms']:.3f} library (nonzero_static) "
+        f"{res['library_ms']:.3f} host_us {res['host_us']:.1f}")
+    return res
+
+
+def compacted_kernel_case(torch, hk, timer, bins, ghc, row_leaf, leaf, b,
+                          timed=True):
+    """compacted_hist on the card over compact_rows' buffer, against its
+    plain version run on the CPU (bit for bit) and on the card (count
+    exact, grad/hess within rtol 1e-5, atol 1e-4: index_add_ adds in
+    another order there), two launches equal; timed beside its bound,
+    the plain version on the card and one index_add_ over the leaf's
+    gathered (feature, bin) keys (gathered outside the timed region)."""
+    dev = DEVICE
+    f, n = bins.shape
+    lid = torch.tensor([leaf], dtype=torch.int32)
+    src, cnt = hk.compact_rows_plain(row_leaf, lid,
+                                     torch.empty(n, dtype=torch.int32),
+                                     torch.empty(1, dtype=torch.int32))
+    bins_d, ghc_d, src_d, cnt_d = (t.to(dev) for t in (bins, ghc, src, cnt))
+
+    def kern():
+        return hk.compacted_hist(bins_d, ghc_d, src_d, cnt_d, b)
+
+    def plain():
+        return hk.compacted_hist_plain(bins_d, ghc_d, src_d, cnt_d, b)
+
+    hi1, lo1 = kern()
+    hi2, lo2 = kern()
+    torch.cuda.synchronize()
+    count = int(cnt[0])
+    ch, cl = hk.compacted_hist_plain(bins, ghc, src, cnt, b)
+    err, count_exact, close = compare(torch, (hi1, lo1), plain())
+    res = {"name": "compacted_hist",
+           "shape": {"F": f, "N": n, "B": b, "cnt": count,
+                     "bins": str(bins.dtype).replace("torch.", "")},
+           "max_abs_err": err, "count_exact": count_exact,
+           "grad_hess_close": close,
+           "deterministic": bool(torch.equal(hi1, hi2)
+                                 and torch.equal(lo1, lo2)),
+           "bitwise_vs_cpu_plain": bool(torch.equal(hi1.cpu(), ch)
+                                        and torch.equal(lo1.cpu(), cl))}
+    check_case(res, f"compacted_hist cnt {count}", True, False)
+    if not timed:
+        log(f"compacted_hist {res['shape']}: bitwise the CPU plain "
+            "version, deterministic")
+        return res
+    rows = src_d[:count].long()
+    key = (torch.arange(f, device=dev)[:, None] * b
+           + bins_d.index_select(1, rows).long()).reshape(-1)
+    vals = ghc_d.index_select(1, rows).t()[None].expand(
+        f, count, 3).reshape(-1, 3).contiguous()
+
+    def library():
+        return torch.zeros(f * b, 3, device=dev).index_add_(0, key, vals)
+
+    res["ms"] = timer(kern, 20)
+    res["ms_enqueued"] = timer(kern, 20, sleep=False)
+    res["host_us"] = host_us(torch, kern)
+    res["plain_ms"] = timer(plain, 3)
+    res["library_ms"] = timer(library, 5)
+    res["bound_ms"], res["bound_by"] = compacted_bound_ms(
+        f, count, bins.element_size(), b)
+    log(f"compacted_hist {res['shape']}: err {err:.3g} count_exact "
+        f"{count_exact} close {close} bitwise_vs_cpu_plain "
+        f"{res['bitwise_vs_cpu_plain']} ms {res['ms']:.4f} bound "
+        f"{res['bound_ms']:.4f} plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.3f} host_us {res['host_us']:.1f}")
+    del key, vals, rows
+    return res
+
+
+COMPACT_SHARES = (0.01, 0.10, 0.50)
+
+
+def compact_kernel_cases(torch, hk, timer, rng, n=1 << 20):
+    """Both compaction kernels at the bench shape (1,048,576 x 28, 255
+    bins): a leaf of about 1%, 10% and 50% of the rows scattered over
+    the array (timed), the edge counts 0, 1, 4095, 4096 and 4097
+    (checked), and int16 bins at 300 bins with a 10% leaf (timed)."""
+    bins = torch.from_numpy(rng.randint(0, MAX_BIN, size=(N_FEATURES, n))
+                            .astype(np.uint8))
+    inbag = (rng.rand(n) < 0.8).astype(np.float32)
+    ghc = torch.from_numpy(np.stack([rng.randn(n).astype(np.float32) * inbag,
+                                     rng.rand(n).astype(np.float32) * inbag,
+                                     inbag]))
+    leaf = 7
+    other = torch.from_numpy(rng.randint(0, 7, size=n).astype(np.int32))
+    compact, hist = [], []
+    for share in COMPACT_SHARES:
+        row_leaf = torch.where(torch.from_numpy(rng.rand(n) < share),
+                               leaf, other).to(torch.int32)
+        compact.append(compact_kernel_case(torch, hk, timer, row_leaf, leaf))
+        hist.append(compacted_kernel_case(torch, hk, timer, bins, ghc,
+                                          row_leaf, leaf, MAX_BIN))
+    for cnt in (0, 1, 4095, 4096, 4097):
+        row_leaf = other.clone()
+        row_leaf[torch.from_numpy(rng.choice(n, cnt, replace=False))] = leaf
+        compact.append(compact_kernel_case(torch, hk, timer, row_leaf, leaf,
+                                           timed=False))
+        hist.append(compacted_kernel_case(torch, hk, timer, bins, ghc,
+                                          row_leaf, leaf, MAX_BIN,
+                                          timed=False))
+    bins16 = torch.from_numpy(rng.randint(0, 300, size=(N_FEATURES, n))
+                              .astype(np.int16))
+    row_leaf = torch.where(torch.from_numpy(rng.rand(n) < 0.10), leaf,
+                           other).to(torch.int32)
+    hist.append(compacted_kernel_case(torch, hk, timer, bins16, ghc,
+                                      row_leaf, leaf, 300))
+    return compact, hist
 
 
 # ------------------------------------------------------------------ phases
@@ -998,6 +1208,12 @@ def sync_sites(torch, fn):
                    and "prototype" not in str(w.message)})
 
 
+# device kernels of the histogram engines: the chunk partials and the
+# fold (chunk_hist.cuh) and the compaction's three kernels (compact.cu)
+HIST_KERNEL_NAMES = ("chunk_partials", "kahan_fold", "count_kernel",
+                     "scan_kernel", "scatter_kernel")
+
+
 def profile_replay(torch, runner, reps=5):
     """One replayed iteration under torch.profiler: device busy = the sum
     of its kernels' device times, device span = first kernel start to
@@ -1028,8 +1244,11 @@ def profile_replay(torch, runner, reps=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    hist_ms = sum(e.device_time_total for e in kernels
+                  if any(k in e.name for k in HIST_KERNEL_NAMES)) / 1e3
     return {"device_ops": len(kernels),
             "device_busy_ms": busy if kernels else None,
+            "hist_ms": hist_ms, "hist_share": hist_ms / busy if busy else None,
             "device_span_ms": span if kernels else None,
             "device_idle_share": (1.0 - busy / span) if span else None,
             "replay_event_ms": float(np.median(times)),
@@ -1083,6 +1302,14 @@ def phase_fused(torch, lgt, hk, ds, y, per_iter, per_iter_res, params,
     if params.get("partitioned_build") == "true":
         check(counts["seg_hist"] >= N_ROUNDS * 63,
               f"fused {name}: seg_hist launched {counts['seg_hist']} times")
+    elif booster.gbdt.tree_learner.use_compact:
+        check(counts["compacted_hist"] >= N_ROUNDS * 62
+              and counts["compact_rows"] == counts["compacted_hist"]
+              and counts["masked_hist"] == 0,
+              f"fused {name}: compaction kernels launched {counts}")
+        check(counts["frontier_hist"] >= N_ROUNDS,
+              f"fused {name}: frontier_hist launched "
+              f"{counts['frontier_hist']}")
     else:
         check(counts["masked_hist"] >= N_ROUNDS * 62,
               f"fused {name}: masked_hist launched {counts['masked_hist']}")
@@ -1130,7 +1357,8 @@ def phase_fused(torch, lgt, hk, ds, y, per_iter, per_iter_res, params,
         f"{per_iter_res['round_ms_median']:.2f}); syncs in a block {sites}; "
         f"one replay profiled: device busy {prof['device_busy_ms']} ms over "
         f"{prof['device_ops']} ops in a span of {prof['device_span_ms']} ms, "
-        f"idle share {prof['device_idle_share']}; unprofiled replays "
+        f"idle share {prof['device_idle_share']}, histograms "
+        f"{prof['hist_ms']:.2f} ms; unprofiled replays "
         f"{[round(v, 2) for v in prof['replay_event_ms_all']]} ms (events)")
     check(sites == [allowed],
           f"fused {name}: host syncs inside a block at {sites} (only "
@@ -1156,7 +1384,8 @@ def phase_fused_sampled(torch, lgt, ds):
     res = {}
     for name, extra in (("masked", {}),
                         ("partitioned", {"partitioned_build": "true"}),
-                        ("cacheless", {"histogram_pool_size": 1})):
+                        ("cacheless", {"histogram_pool_size": 1}),
+                        ("compacted", {"hist_compaction": "auto"})):
         params = dict(BENCH_PARAMS, **SAMPLING, **extra)
         loop = lgt.train(params, ds, SAMPLED_ROUNDS, verbose_eval=False,
                          callbacks=[lambda env: None])
@@ -1181,12 +1410,188 @@ def phase_fused_sampled(torch, lgt, ds):
               f"fused sampled {name}: no graph was captured")
         check(booster.gbdt.tree_learner.cache_hists is (name != "cacheless"),
               f"fused sampled {name}: the histogram cache is not as asked")
+        check(booster.gbdt.tree_learner.use_compact is (name == "compacted"),
+              f"fused sampled {name}: the compacted engine is not as asked")
         check(text_equal, f"fused sampled {name}: the model text differs "
               "from the per-iteration loop's")
         check(sites == [allowed],
               f"fused sampled {name}: host syncs inside a block at {sites} "
               f"(only {allowed} may sync)")
         del booster, loop, runner
+    return res
+
+
+COMPACT_PARAMS = dict(BENCH_PARAMS, hist_compaction="auto")
+MC_COMPACT_ROUNDS = 3
+
+
+def compacted_plain_tree(torch, hk, booster):
+    """The compacted booster's first tree grown again with every engine's
+    plain version (compact_rows_plain + compacted_hist_plain on the
+    learner's shapes), and one tree build under sync debugging."""
+    gbdt = booster.gbdt
+    learner = gbdt.tree_learner
+    dev = gbdt.device
+    g, h = gbdt.objective.get_gradients(
+        torch.zeros(1, gbdt.num_data, device=dev))
+    src = torch.empty(learner.n_pad, dtype=torch.int32, device=dev)
+    cnt = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def compacted_plain(bins, ghc_t, row_leaf, leaf_id, b):
+        hk.compact_rows_plain(row_leaf, leaf_id, src, cnt)
+        return hk.compacted_hist_plain(bins, ghc_t, src, cnt, b)
+
+    out = learner.train_device(g[0], h[0], None,
+                               masked_fn=hk.masked_hist_plain,
+                               frontier_fn=hk.frontier_hist_plain,
+                               compacted_fn=compacted_plain)
+    host, _ = learner.fetch(out)
+    plain = learner.host_out_to_tree(host, shrink=gbdt.shrinkage_rate)
+    same_feat, same_thr, rel = same_first_tree(plain, gbdt.models[0])
+    from lightgbm_tpu_torch.models.tree_learner import build_tree_device
+    args, kwargs = builder_args(torch, booster)
+    kwargs.update(compact_hist=True, compacted_fn=learner.compacted_fn)
+    syncs, sites, flagged = builder_syncs(torch, build_tree_device, args,
+                                          kwargs)
+    log(f"compacted plain first tree: same features {same_feat}, same "
+        f"thresholds {same_thr}, max leaf rel diff {rel:.3g}; host syncs "
+        f"inside one compacted tree build (error mode): {syncs} {sites}; "
+        f"warn-mode messages: {flagged}")
+    check(same_feat and same_thr, "compacted: plain histograms grew another "
+          "tree")
+    check(rel <= 1e-5, f"compacted: plain leaf values differ by {rel}")
+    check(syncs == 0, f"the compacted tree builder waits for the device at "
+          f"{sites}")
+    return {"same_features": bool(same_feat),
+            "same_thresholds": bool(same_thr), "leaf_rel_diff": rel,
+            "builder_syncs": syncs, "builder_sync_sites": sites}
+
+
+def compacted_multiclass(torch, lgt, hk, ds_bench, logit):
+    """5 classes, MC_COMPACT_ROUNDS rounds per-iteration and fused on the
+    compacted engine: K builds a replay, text equal, launches through the
+    replays, one replay profiled."""
+    ds = bench_subset(ds_bench, label=multiclass_labels(logit))
+    params = dict(MC_PARAMS, hist_compaction="auto")
+    t0 = time.perf_counter()
+    loop = lgt.train(params, ds, MC_COMPACT_ROUNDS, verbose_eval=False,
+                     callbacks=[lambda env: None])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fused = lgt.train(params, ds, MC_COMPACT_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = hk.launch_counts()
+    runner = fused_runner(fused)
+    check(runner.graph is not None, "compacted multiclass: no graph")
+    per_replay = dict(runner.graph.launches)
+    text_equal, splits_equal, rel = same_trees(fused, loop)
+    setup_s = runner.warm_step_s + runner.capture_s
+    res = {"per_iteration_round_ms": 1e3 * loop_s / MC_COMPACT_ROUNDS,
+           "train_s": train_s, "warm_step_s": runner.warm_step_s,
+           "capture_s": runner.capture_s,
+           "round_ms": 1e3 * (train_s - setup_s) / MC_COMPACT_ROUNDS,
+           "launches": counts, "launches_per_replay": per_replay,
+           "model_text_equal": text_equal, "splits_equal": splits_equal,
+           "leaf_rel_diff": rel, "profile": profile_replay(torch, runner)}
+    prof = res["profile"]
+    log(f"compacted multiclass: per-iteration {res['per_iteration_round_ms']:.1f}"
+        f" ms a round, fused {res['round_ms']:.1f} ms (setup {setup_s:.2f} s), "
+        f"launches {counts} ({per_replay} a replay), text equal "
+        f"{text_equal}; one replay busy {prof['device_busy_ms']} ms over "
+        f"{prof['device_ops']} ops, histograms {prof['hist_ms']:.2f} ms, "
+        f"idle share {prof['device_idle_share']}")
+    check(fused.gbdt.tree_learner.use_compact,
+          "compacted multiclass: auto did not resolve to the compacted engine")
+    check(len(fused.gbdt.models) == MC_COMPACT_ROUNDS * MC_CLASSES,
+          "compacted multiclass: stopped early")
+    check(per_replay.get("compacted_hist", 0) >= MC_CLASSES * 62
+          and per_replay.get("compact_rows") == per_replay["compacted_hist"]
+          and not per_replay.get("masked_hist"),
+          f"compacted multiclass: a replay launches {per_replay}")
+    for kname, c in per_replay.items():
+        check(counts[kname] == (MC_COMPACT_ROUNDS + 1) * c,
+              f"compacted multiclass: {kname} counted {counts[kname]}, not "
+              f"{MC_COMPACT_ROUNDS + 1} x {c}")
+    check(text_equal, "compacted multiclass: the fused model text differs "
+          "from the per-iteration one")
+    return res
+
+
+def phase_compacted(torch, lgt, hk, ds, y, logit, main_booster, main_fused):
+    """The gather-compacted engine (hist_compaction=auto, which resolves
+    to it above 4,096 rows, as in the reference off the TPU): N_ROUNDS
+    rounds per-iteration with counts read from zero, its first tree
+    against the masked phase's (within 1e-4) and against the plain
+    engines', no host sync in a build; 2 cache-less rounds (two compacted
+    passes a split); the fused trainer (phase_fused: text, launches
+    through the replays, blocks timed, a replay profiled) beside the
+    masked phase's fused round; 5-class multiclass fused."""
+    res = {}
+    mem0 = memory_mark(torch)
+    hk.reset_launch_counts()
+    booster, round_ms = train_rounds(torch, lgt, COMPACT_PARAMS, ds, N_ROUNDS)
+    counts = hk.launch_counts()
+    memory = memory_peak(torch, mem0)
+    gbdt = booster.gbdt
+    train_auc = auc(gbdt.get_training_score(), y)
+    same_feat, same_thr, rel = same_first_tree(gbdt.models[0],
+                                               main_booster.gbdt.models[0])
+    res["per_iteration"] = {
+        "round_ms": round_ms, "round_ms_median": float(np.median(round_ms)),
+        "train_auc": train_auc, "launches": counts, "memory": memory,
+        "first_tree_same_features": bool(same_feat),
+        "first_tree_same_thresholds": bool(same_thr),
+        "first_tree_leaf_rel_diff": rel}
+    log(f"compacted path: per-round ms {[round(v, 1) for v in round_ms]}, "
+        f"median {np.median(round_ms):.2f}, train AUC {train_auc:.5f}, "
+        f"launches {counts}; first tree vs masked: same features "
+        f"{same_feat}, same thresholds {same_thr}, max leaf rel diff {rel:.3g}")
+    check(gbdt.tree_learner.use_compact,
+          "compacted: auto did not resolve to the compacted engine")
+    check(len(gbdt.models) == N_ROUNDS, "compacted: training stopped early")
+    check(counts["compacted_hist"] >= N_ROUNDS * 62
+          and counts["compact_rows"] == counts["compacted_hist"]
+          and counts["frontier_hist"] >= N_ROUNDS
+          and counts["masked_hist"] == 0,
+          f"compacted: kernels launched {counts}")
+    check(train_auc > 0.8, f"compacted: train AUC {train_auc} too low")
+    check(same_feat and same_thr and rel <= 1e-4,
+          "compacted: the first tree differs from the masked engine's")
+    res["plain_tree"] = compacted_plain_tree(torch, hk, booster)
+
+    hk.reset_launch_counts()
+    cacheless = lgt.train(dict(COMPACT_PARAMS, histogram_pool_size=1), ds, 2,
+                          verbose_eval=False)
+    torch.cuda.synchronize()
+    counts = hk.launch_counts()
+    res["cacheless"] = {"launches": counts}
+    log(f"compacted cache-less run: launches {counts}")
+    check(not cacheless.gbdt.tree_learner.cache_hists
+          and cacheless.gbdt.tree_learner.use_compact,
+          "compacted cache-less: cache on or compaction off")
+    check(counts["compacted_hist"] >= 2 * 2 * 62
+          and counts["frontier_hist"] >= 2,
+          f"compacted cache-less: kernels launched {counts}")
+    del cacheless
+
+    res["fused"] = phase_fused(torch, lgt, hk, ds, y, booster,
+                               res["per_iteration"], COMPACT_PARAMS,
+                               "compacted")
+    masked_ms = main_fused["round_ms_median"]
+    res["fused_vs_masked_round"] = {
+        "compacted_ms": res["fused"]["round_ms_median"],
+        "masked_ms": masked_ms,
+        "compacted_busy_ms": res["fused"]["profile"]["device_busy_ms"],
+        "masked_busy_ms": main_fused["profile"]["device_busy_ms"],
+        "compacted_hist_ms": res["fused"]["profile"]["hist_ms"],
+        "masked_hist_ms": main_fused["profile"]["hist_ms"]}
+    log(f"fused round, compacted against masked (this run): "
+        f"{res['fused_vs_masked_round']}")
+    del booster
+    res["multiclass"] = compacted_multiclass(torch, lgt, hk, ds, logit)
     return res
 
 
@@ -2653,6 +3058,12 @@ def main():
         report["kernel_cases"] = cases
         seg_cases = seg_kernel_cases(torch, hk, timer, rng)
         report["seg_kernel_cases"] = seg_cases
+        t0 = time.time()
+        compact_cases, compacted_cases = compact_kernel_cases(torch, hk,
+                                                              timer, rng)
+        report["compact_kernel_cases"] = compact_cases
+        report["compacted_kernel_cases"] = compacted_cases
+        report["compact_kernel_cases_s"] = time.time() - t0
 
         x, y, logit = make_data(N_ROWS, args.seed, with_logit=True)
         t0 = time.time()
@@ -2677,6 +3088,10 @@ def main():
             torch, lgt, hk, ds, y, part, report["partitioned"],
             dict(BENCH_PARAMS, partitioned_build="true"), "partitioned")
         report["fused_sampled"] = phase_fused_sampled(torch, lgt, ds)
+        t0 = time.time()
+        report["compacted"] = phase_compacted(torch, lgt, hk, ds, y, logit,
+                                              booster, report["fused"])
+        report["compacted"]["phase_s"] = time.time() - t0
         report["blockwise"] = phase_blockwise(torch, lgt, ds, args.seed)
         del booster, part
         t0 = time.time()
@@ -2722,6 +3137,26 @@ def main():
         kernel_line(seg_cases[0], fused_launches("seg_hist"),
                     "lightgbm_tpu_torch/csrc/seg_hist.cu",
                     "lightgbm_tpu/ops/ordered_hist.py:123")]
+    # the gather-compacted engine's kernels at a 10% leaf, launches from
+    # the compacted phase's fused runs (binary and multiclass)
+    comp = report["compacted"]
+
+    def compacted_launches(name):
+        return (comp["fused"]["launches"].get(name, 0)
+                + comp["multiclass"]["launches"].get(name, 0))
+
+    share = COMPACT_SHARES.index(0.10)
+    kernels += [
+        kernel_line(compact_cases[share], compacted_launches("compact_rows"),
+                    "lightgbm_tpu_torch/csrc/compact.cu",
+                    "lightgbm_tpu/ops/partition.py:44 (XLA "
+                    "compact_gather_indices, no Pallas counterpart)"),
+        kernel_line(compacted_cases[share],
+                    compacted_launches("compacted_hist"),
+                    "lightgbm_tpu_torch/csrc/compact_hist.cu",
+                    "lightgbm_tpu/ops/histogram.py:573 (XLA "
+                    "compacted_histograms; off the TPU the host route "
+                    "_compacted_bincount :527; no Pallas counterpart)")]
     # the serving path's kernels, launches from its requests; the JAX
     # package runs this walk as XLA under the jitted serving kernels
     trav_src = "lightgbm_tpu_torch/csrc/traverse.cu"

@@ -468,8 +468,8 @@ class Config:
     partitioned_build: str = "auto"
     # gather-compacted smaller-child histograms on the dense (masked)
     # builder (ops/histogram.py compacted_histograms): "auto" = on
-    # whenever the masked builder runs; "false" restores the full-scan
-    # O(N)-per-split path
+    # whenever the dense builder runs on more than one 4096-row chunk;
+    # "false" restores the full-scan O(N)-per-split path
     hist_compaction: str = "auto"
     # histogram kernel formulation (ops/histogram.py): "auto" = the
     # Pallas streaming kernels on TPU, the f64 np.bincount host
@@ -680,16 +680,10 @@ class Config:
     def check_slice(self):
         """Reject settings whose code paths the port does not have yet,
         each naming its item of ROADMAP.md queue 1: training runs the
-        serial learner with the full-scan masked histogram engine, which
-        is what "auto" resolves to here, or with the leaf-contiguous
-        builder (partitioned_build=true)."""
+        serial learner with any of its histogram engines (masked,
+        frontier, gather-compacted; models/tree_learner.py) or the
+        leaf-contiguous builder (partitioned_build=true)."""
         later = []
-        if str(self.hist_compaction).lower() in ("true", "1", "on", "+"):
-            later.append("hist_compaction=true (gather-compacted engine, "
-                         "item 2)")
-        if str(self.hist_frontier).lower() in ("false", "0", "off", "-"):
-            later.append("hist_frontier=false (per-leaf root passes, "
-                         "item 3)")
         if self.boosting_type != "gbdt":
             later.append(f"boosting_type={self.boosting_type} (samplers, "
                          "item 3)")

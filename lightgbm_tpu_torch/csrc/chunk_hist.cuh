@@ -1,8 +1,10 @@
-// The chunk accumulator shared by hist.cu (masked_hist, frontier_hist)
-// and seg_hist.cu (seg_hist), for Hopper (sm_90a).
+// The chunk accumulator shared by hist.cu (masked_hist, frontier_hist),
+// seg_hist.cu (seg_hist) and compact_hist.cu (compacted_hist), for
+// Hopper (sm_90a).
 //
-// Every kernel of the two files computes, for each slot s (a leaf of the
-// frontier, or the one segment), feature f and bin b,
+// Every kernel of the three files computes, for each slot s (a leaf of
+// the frontier, the one segment, or the one compacted leaf), feature f
+// and bin b,
 //   hist[s, f, b, :] = sum over rows c of slot s with bin(f, c) == b
 //                      of (g[c], h[c], w[c])
 // as a (value, residual) pair, in two passes:
@@ -17,10 +19,16 @@
 //      over the chunks [c_first, c_last], and returns the (value,
 //      residual) pair, residual = -comp with a +0.0 for a zero
 //      compensation.
-// The two files differ only in a `Rows` policy: where a row's bins come
-// from (uint8/int16 feature rows, or int32 words of four uint8
-// features) and what its slot is (its row_leaf among the frontier's
-// leaf ids, or its position inside [begin, begin + cnt)).
+// The files differ only in a `Rows` policy: where a row's bins come
+// from (uint8/int16 feature rows, int32 words of four uint8 features,
+// or uint8/int16 feature rows gathered through a compacted index
+// buffer) and what its slot is (its row_leaf among the frontier's leaf
+// ids, its position inside [begin, begin + cnt), or its position below
+// the compacted count). A policy with kGather stages its sub-chunks
+// itself (Rows::gather: 4-byte cp.async copies through the chunk's
+// index buffer, which Rows::load_index brings into shared memory once a
+// block; a gathered row has no 16-byte run); the others are staged by
+// `stage` below.
 //
 // Design against what bounds a 32-row step of one feature:
 // - Staging. A block walks its chunk in sub-chunks of kSub rows. For
@@ -92,6 +100,12 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// A 4-byte copy (the size a gathered value or bin word takes).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
@@ -122,6 +136,21 @@ __device__ __forceinline__ Cover read_cover(const int* bounds, int chunks) {
   return c;
 }
 
+// The cover of the first `*count` rows of a compacted buffer: chunks
+// 0 .. max(ceil(count / kChunk), 1) - 1 (an empty buffer covers one
+// chunk, whose partial is zero), clamped into the array.
+__device__ __forceinline__ Cover read_count_cover(const int* count,
+                                                  int chunks) {
+  const long cnt = count[0] > 0 ? count[0] : 0;
+  Cover c;
+  c.lo = 0;
+  c.hi = cnt;
+  const long last = ((cnt > 0 ? cnt : 1) - 1) / kChunk;
+  c.c_first = 0;
+  c.c_last = (int)(last > chunks - 1 ? chunks - 1 : last);
+  return c;
+}
+
 // ------------------------------------------------------------- staging
 
 // Bytes of one staged sub-chunk: g, h, w (f32), the slot source (int32,
@@ -137,6 +166,10 @@ template <class Rows>
 __device__ __forceinline__ void stage(const Rows& rows, const float* ghc_t,
                                       long n, long base, int unit0, int units,
                                       unsigned char* dst) {
+  if constexpr (Rows::kGather) {
+    rows.gather(ghc_t, n, base, unit0, units, dst);
+    return;
+  }
   constexpr int kPerRow = kSub * 4 / 16;                   // pieces of an f32 row
   constexpr int kPerUnit = kSub * Rows::kUnitBytes / 16;   // pieces of a bin row
   constexpr int kArrays = Rows::kAux ? 4 : 3;
@@ -203,9 +236,10 @@ __device__ __forceinline__ void leader_add(float* hist, bool valid,
 // ------------------------------------------------------------- kernels
 
 // Block (tile, chunk) = (blockIdx.x % tiles, blockIdx.x / tiles); blockDim
-// = 32 * f_tile. Shared memory: the (slots, f_tile, B, 3) partial, two
-// staging buffers, each warp's (slots, B) tag words (with use_tags), then
-// the sub-chunk's kSub / 32 step masks.
+// = 32 * f_tile. Shared memory: the (slots, f_tile, B, 3) partial, the
+// chunk's kChunk-entry index buffer (kGather only), two staging
+// buffers, each warp's (slots, B) tag words (with use_tags), then the
+// sub-chunk's kSub / 32 step masks.
 template <class Rows>
 __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
                                int n, int num_bins, int num_slots,
@@ -225,8 +259,9 @@ __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
   const int slot_len = f_tile * row_len;
   const int cells = num_slots * slot_len;
   float* hist_s = reinterpret_cast<float*>(smem);
+  unsigned char* index_s = smem + ((cells * 4 + 15) & ~15);
   unsigned char* buf[2];
-  buf[0] = smem + ((cells * 4 + 15) & ~15);
+  buf[0] = index_s + (Rows::kGather ? kChunk * 4 : 0);
   buf[1] = buf[0] + stage_bytes<Rows>(tile_units);
   const int keys = num_slots * num_bins;
 
@@ -243,6 +278,7 @@ __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
   for (int i = tid; i < cells; i += blockDim.x) hist_s[i] = 0.0f;
   if (use_tags)
     for (int i = tid; i < num_warps * keys; i += blockDim.x) tags[i] = 0u;
+  if constexpr (Rows::kGather) rows.load_index(chunk, index_s);
   if (s_first <= s_last) {
     stage(rows, ghc_t, n, chunk_base + (long)s_first * kSub, unit0, units,
           buf[0]);
@@ -280,7 +316,7 @@ __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
         if (Rows::kSkipEmptySteps && step_any[it] == 0u) continue;
         const int r = it * 32 + lane;
         int slot = rows.slot(aux_s, r, base + r);
-        const int bin = rows.bin(units_s, f, r);
+        const int bin = rows.bin(units_s, aux_s, f, r);
         if ((unsigned)bin >= (unsigned)num_bins) slot = -1;  // dropped row
         const bool valid = slot >= 0;
         const unsigned any = __ballot_sync(kFull, valid);
@@ -316,18 +352,20 @@ __global__ void chunk_partials(Rows rows, const float* __restrict__ ghc_t,
 }
 
 // One thread per output cell; chunks c_first..c_last (all chunks when
-// `bounds` is null), kAhead chunk partials loaded before they are added
-// so that many loads are in flight.
+// `bounds` is null; the cover of [begin, cnt] bounds, or with
+// count_bounds of a compacted count), kAhead chunk partials loaded
+// before they are added so that many loads are in flight.
 template <int kAhead>
 __global__ void kahan_fold(const float* __restrict__ partials,
-                           const int* __restrict__ bounds, int chunks,
-                           long cells, float* __restrict__ hi,
+                           const int* __restrict__ bounds, bool count_bounds,
+                           int chunks, long cells, float* __restrict__ hi,
                            float* __restrict__ lo) {
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= cells) return;
   int c = 0, c_last = chunks - 1;
   if (bounds != nullptr) {
-    const Cover cov = read_cover(bounds, chunks);
+    const Cover cov = count_bounds ? read_count_cover(bounds, chunks)
+                                   : read_cover(bounds, chunks);
     c = cov.c_first;
     c_last = cov.c_last;
   }
@@ -385,12 +423,14 @@ cudaError_t allow_shared(int bytes) {
 // Launch both passes. A block takes Rows::kFeatureTile features (fewer
 // when there are fewer, shrunk by whole units until the block fits in
 // shared memory, then balanced over the tiles); `bounds` (device [begin,
-// cnt], or null) picks the chunks the fold reads. The staged inputs must
-// be 16-byte aligned.
+// cnt], with count_bounds a device count of compacted rows, or null)
+// picks the chunks the fold reads. The staged inputs must be 16-byte
+// aligned.
 template <class Rows>
 int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
            int num_bins, int num_slots, int num_feat, float* partials,
-           float* hi, float* lo, cudaStream_t stream) {
+           float* hi, float* lo, cudaStream_t stream,
+           bool count_bounds = false) {
   constexpr int kU = Rows::kFeatPerUnit;
   static_assert(Rows::kFeatureTile % kU == 0 &&
                     Rows::kFeatureTile <= kMaxWarps,
@@ -402,9 +442,10 @@ int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
         reinterpret_cast<uintptr_t>(ghc_t)) & 15) != 0)
     return kBadShape;
   const int keys = num_slots * num_bins;
-  // partial, staging, tag words (one per key and warp), step masks
+  // partial, index buffer, staging, tag words (one per key and warp),
+  // step masks
   auto need = [&](int ft, bool tags) {
-    return ((ft * keys * 12 + 15) & ~15) +
+    return ((ft * keys * 12 + 15) & ~15) + (Rows::kGather ? kChunk * 4 : 0) +
            2 * stage_bytes<Rows>((ft + kU - 1) / kU) +
            (tags ? ft * keys * 4 : 0) + kSub / 32 * 4;
   };
@@ -428,7 +469,8 @@ int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
   const long cells = (long)num_slots * num_feat * num_bins * 3;
   const int threads = 128;
   kahan_fold<32><<<(unsigned)((cells + threads - 1) / threads), threads, 0,
-                  stream>>>(partials, bounds, chunks, cells, hi, lo);
+                  stream>>>(partials, bounds, count_bounds, chunks, cells,
+                            hi, lo);
   return (int)cudaGetLastError();
 }
 

@@ -54,6 +54,7 @@ struct LeafRows {
   static constexpr int kFeatureTile = kMaxWarps;
   static constexpr bool kAux = true;  // row_leaf is staged
   static constexpr bool kSkipEmptySteps = true;
+  static constexpr bool kGather = false;
   const BinT* units;
   const int* aux;
   const int* leaf_ids;
@@ -77,7 +78,8 @@ struct LeafRows {
     return slot;
   }
 
-  __device__ int bin(const unsigned char* units_s, int f, int r) const {
+  __device__ int bin(const unsigned char* units_s, const int*, int f,
+                     int r) const {
     return (int)reinterpret_cast<const BinT*>(units_s)[f * kSub + r];
   }
 };

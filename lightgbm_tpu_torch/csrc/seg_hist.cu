@@ -56,6 +56,7 @@ struct SegRows {
   static constexpr int kFeatureTile = 4;
   static constexpr bool kAux = false;
   static constexpr bool kSkipEmptySteps = false;
+  static constexpr bool kGather = false;
   const int* units;
   const int* aux;  // unused: membership is by position
   const int* bounds;
@@ -78,7 +79,8 @@ struct SegRows {
     return pos >= lo && pos < hi ? 0 : -1;
   }
 
-  __device__ int bin(const unsigned char* units_s, int f, int r) const {
+  __device__ int bin(const unsigned char* units_s, const int*, int f,
+                     int r) const {
     const unsigned word =
         (unsigned)reinterpret_cast<const int*>(units_s)[(f >> 2) * kSub + r];
     return (int)((word >> (8u * (unsigned)(f & 3))) & 0xFFu);

@@ -1,7 +1,8 @@
 """Serial tree learner: leaf-wise growth of one tree on the device.
 
 Port of lightgbm_tpu/models/tree_learner.py (build_tree_device :187-434
-in its masked configuration, cache_hists_fits :437, SerialTreeLearner).
+in its serial configurations, cache_hists_fits :437, SerialTreeLearner
+with its engine selection :500-629).
 Reference: src/treelearner/serial_tree_learner.cpp:19-442.
 
 The JAX builder is one jitted `lax.fori_loop` with a `lax.cond` per
@@ -16,29 +17,44 @@ device inside a tree:
 - the one sync per tree is the fetch of the finished tree arrays
   (SerialTreeLearner.fetch, the counterpart of _to_host_tree :884-897).
 
-Histograms: the root (the bagging re-init) comes from the frontier
-engine with L = 1. With the per-leaf (L, F, B, 3) cache on (the
-reference's HistogramPool), each split builds only the smaller child
-(masked engine) and gets the larger by subtraction from the parent;
-over histogram_pool_size it runs cache-less and builds both children in
-one frontier pass with L = 2. The builder takes the two histogram
-engines as arguments, as the JAX builder takes its hooks, so a caller
-can hand it the plain versions for comparison.
+Histograms, the JAX builder's three branches (:301-323, :364-395):
+- the root (the bagging re-init) comes from the frontier engine with
+  L = 1 (use_frontier, hist_frontier != false), else from the masked
+  engine on leaf 0;
+- with the per-leaf (L, F, B, 3) cache on (the reference's
+  HistogramPool), each split builds only the smaller child and gets the
+  larger by subtraction from the parent; the child comes from the
+  gather-compacted engine (compact_hist, hist_compaction) or the masked
+  one;
+- over histogram_pool_size it runs cache-less: both children from one
+  frontier pass with L = 2 when use_frontier and not compact_hist, else
+  from two leaf passes, compacted or masked.
+The builder takes the histogram engines as arguments, as the JAX
+builder takes its hooks, so a caller can hand it the plain versions for
+comparison.
 
 Split semantics (gain formulas, epsilons, tie-breaks, max_depth guard,
 min_data/min_sum_hessian constraints) follow ops/split.py.
 
-SerialTreeLearner runs this masked builder, or with
-partitioned_build=true the leaf-contiguous one (models/partitioned.py,
-over packed words); the two share the split bookkeeping (LeafState).
+SerialTreeLearner runs this builder, or with partitioned_build=true the
+leaf-contiguous one (models/partitioned.py, over packed words); the two
+share the split bookkeeping (LeafState). Engines are selected as the
+JAX learner selects them off the TPU (the port never runs on one):
+hist_compaction=true, or auto above one HIST_CHUNK of rows, builds the
+children with the gather-compacted engine (_compaction_enabled);
+hist_frontier=false builds the root with the masked engine; with
+partitioned_build=true (bins <= 256) neither applies. The same on the
+card and on the CPU: only the kernels behind the engines differ.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops.histogram import frontier_histograms, masked_histograms
+from ..ops.histogram import (compacted_histograms, frontier_histograms,
+                             masked_histograms)
 from ..ops.hist_kernels import HIST_CHUNK
 from ..ops.ordered_hist import pack_feature_words
 from ..ops.split import K_MIN_SCORE, SplitParams, find_best_split
@@ -301,8 +317,10 @@ def root_sums(hist_root):
 def build_tree_device(bins, grad, hess, inbag, feature_mask,
                       num_bin_pf, is_cat, *, num_leaves, max_bin,
                       params: SplitParams, max_depth, cache_hists=True,
+                      compact_hist=False, use_frontier=True,
                       masked_fn=masked_histograms,
-                      frontier_fn=frontier_histograms):
+                      frontier_fn=frontier_histograms,
+                      compacted_fn=compacted_histograms):
     """Grow one leaf-wise tree on `bins.device`. No host synchronization.
 
     Args:
@@ -313,10 +331,16 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
       num_bin_pf: (F,) int32 bins per feature; is_cat: (F,) bool.
       num_leaves/max_bin/params/max_depth: static config.
       cache_hists: keep the (L, F, B, 3) per-leaf cache and subtract
-        (False = memory-bounded mode: both children from one frontier
-        pass with L = 2).
-      masked_fn, frontier_fn: the histogram engines, (bins, ghc_t,
-        row_leaf, leaf id(s), B) -> (value, residual) pair.
+        (False = memory-bounded mode: both children recomputed).
+      compact_hist: a split's child histograms come from the gather-
+        compacted engine (cost follows the child's rows); the root stays
+        a full pass.
+      use_frontier: the root from the frontier engine with L = 1 (else
+        the masked engine on leaf 0), and, cache-less and not
+        compact_hist, both children from one frontier pass with L = 2.
+      masked_fn, frontier_fn, compacted_fn: the histogram engines,
+        (bins, ghc_t, row_leaf, leaf id(s), B) -> (value, residual)
+        pair.
 
     Returns a dict of device tensors: the tree arrays, n_splits and the
     final (N_pad,) row -> leaf partition.
@@ -332,10 +356,16 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
 
     ghc_t = torch.stack([grad * inbag, hess * inbag, inbag])  # (3, N_pad)
 
-    # ---- root: the frontier pass with L = 1 is the bagging re-init
+    leaf_fn = compacted_fn if compact_hist else masked_fn
+
+    # ---- root: the full pass over leaf 0 is the bagging re-init
     row_leaf = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     root_id = torch.zeros(1, dtype=torch.int32, device=dev)
-    hist_root = _collapse(frontier_fn(bins, ghc_t, row_leaf, root_id, b))[0]
+    if use_frontier:
+        hist_root = _collapse(frontier_fn(bins, ghc_t, row_leaf, root_id,
+                                          b))[0]
+    else:
+        hist_root = _collapse(masked_fn(bins, ghc_t, row_leaf, root_id, b))
     root_g, root_h, root_c = root_sums(hist_root)
     st = LeafState(l, scan(hist_root, root_g, root_h, root_c), root_c, dev)
     if cache_hists:
@@ -356,14 +386,20 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
         if cache_hists:
             # smaller child by in-bag count, larger by parent subtraction
             left_is_small, small_leaf = st.small_child(sp)
-            hist_small = _collapse(masked_fn(bins, ghc_t, row_leaf,
-                                             small_leaf.reshape(1), b))
+            hist_small = _collapse(leaf_fn(bins, ghc_t, row_leaf,
+                                           small_leaf.reshape(1), b))
             both = st.cache_children(hist_cache, sp, left_is_small,
                                      hist_small)
-        else:
+        elif use_frontier and not compact_hist:
             # memory-bounded: both children from ONE frontier pass
             both = _collapse(frontier_fn(bins, ghc_t, row_leaf,
                                          sp.pair.to(torch.int32), b))
+        else:
+            # memory-bounded: both children recomputed, one pass each
+            pair32 = sp.pair.to(torch.int32)
+            both = torch.stack([_collapse(leaf_fn(bins, ghc_t, row_leaf,
+                                                  pair32[j:j + 1], b))
+                                for j in range(2)])
         st.set_children(sp, both, scan, max_depth)
 
     return st.outputs(row_leaf)
@@ -410,6 +446,9 @@ class SerialTreeLearner:
         self.num_data = train_set.num_data
         self.max_bin = int(train_set.max_stored_bin)
         self.use_partitioned = self._partitioned_enabled(cfg)
+        self.use_compact = self._compaction_enabled(cfg)
+        self.use_frontier = _tristate(cfg.hist_frontier,
+                                      "hist_frontier") != "false"
         self.n_pad = self._pad_rows(self.num_data)
         num_bin_pf = train_set.num_bin_array()
         is_cat = train_set.feature_is_categorical()
@@ -435,6 +474,14 @@ class SerialTreeLearner:
             lambda_l2=float(cfg.lambda_l2),
             min_gain_to_split=float(cfg.min_gain_to_split))
         self.cache_hists = cache_hists_fits(cfg, self.f_pad, self.max_bin)
+        # the compaction's index buffer and count, once per learner: a
+        # captured graph reads the same addresses on every replay
+        self.compacted_fn = None
+        if self.use_compact:
+            self.compacted_fn = functools.partial(
+                compacted_histograms,
+                src=torch.empty(self.n_pad, dtype=torch.int32, device=dev),
+                cnt=torch.zeros(1, dtype=torch.int32, device=dev))
         Log.info("Number of data: %d, number of features: %d",
                  self.num_data, self.num_features)
 
@@ -449,6 +496,19 @@ class SerialTreeLearner:
             Log.warning("partitioned_build=true ignored: needs max_bin <= 256")
             return False
         return True
+
+    def _compaction_enabled(self, cfg):
+        """Gather-compacted child histograms (ops/histogram.py
+        compacted_histograms) on the dense builder, as the JAX learner
+        decides off the TPU: "true" turns them on, "false" off, "auto"
+        on above one HIST_CHUNK of rows (a single-chunk dataset gains
+        nothing). Moot with the leaf-contiguous builder, whose passes
+        already follow the leaf's rows. (The JAX package's "auto" keeps
+        the masked engine on the TPU; the port never runs on one.)"""
+        mode = _tristate(cfg.hist_compaction, "hist_compaction")
+        if self.use_partitioned or mode == "false":
+            return False
+        return mode == "true" or self.num_data > HIST_CHUNK
 
     @staticmethod
     def _pad_rows(n):
@@ -513,8 +573,9 @@ class SerialTreeLearner:
         returns its output dict without waiting for the device.
         `fmask` is the tree's (f_pad,) device feature mask; by default
         one is drawn (feature_fraction) into the learner's mask buffer.
-        `engines` override the masked builder's histogram engines
-        (masked_fn, frontier_fn; by default the dispatchers)."""
+        `engines` override the dense builder's histogram engines
+        (masked_fn, frontier_fn, compacted_fn; by default the
+        dispatchers, the compacted one on the learner's buffers)."""
         if inbag is None:
             inbag = torch.ones(self.num_data, dtype=torch.float32,
                                device=self.device)
@@ -524,7 +585,11 @@ class SerialTreeLearner:
         if self.use_partitioned:
             from .partitioned import build_tree_partitioned as build
         else:
-            build = build_tree_device
+            build = functools.partial(
+                build_tree_device, compact_hist=self.use_compact,
+                use_frontier=self.use_frontier)
+            if self.compacted_fn is not None:
+                engines.setdefault("compacted_fn", self.compacted_fn)
         return build(
             self.bins, self._pad(grad), self._pad(hess), self._pad(inbag),
             fmask, self.num_bin_pf, self.is_cat,

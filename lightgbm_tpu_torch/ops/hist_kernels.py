@@ -6,9 +6,16 @@ Port of the three Pallas kernels of the JAX package:
   frontier_hist  <- _frontier_kernel (lightgbm_tpu/ops/pallas_hist.py:81, :177)
   seg_hist       <- _seg_hist_kernel (lightgbm_tpu/ops/ordered_hist.py:123, :156)
 
-The kernels live in lightgbm_tpu_torch/csrc/hist.cu and csrc/seg_hist.cu,
-on the chunk accumulator they share in csrc/chunk_hist.cuh (design and
-bound are noted there). They are compiled, with the dataset's binning
+and of the gather-compacted engine, an XLA program there:
+
+  compact_rows   <- compact_gather_indices (lightgbm_tpu/ops/partition.py:44)
+  compacted_hist <- compacted_histograms   (lightgbm_tpu/ops/histogram.py:573;
+                    off the TPU its host route _compacted_bincount, :527)
+
+The kernels live in lightgbm_tpu_torch/csrc/hist.cu, csrc/seg_hist.cu and
+csrc/compact_hist.cu, on the chunk accumulator they share in
+csrc/chunk_hist.cuh, and csrc/compact.cu (design and bound are noted
+there). They are compiled, with the dataset's binning
 kernel csrc/bin.cu (ops/bin_kernels.py), with nvcc for sm_90a at first
 use into csrc/build/ (one shared library with a C interface per source,
 loaded with ctypes; its name hashes the source, the headers it includes
@@ -29,7 +36,8 @@ HIST_CHUNK-row chunk, a float32 partial accumulated in row order
 (index_add_, sequential on the CPU), then the chunk-order Kahan fold of
 lightgbm_tpu/ops/histogram.py build_histograms_pair, returning the
 (value, residual) pair; seg_hist folds only the chunks that cover its
-segment. On the CPU they equal the kernels bit for bit;
+segment, compacted_hist the max(ceil(count / HIST_CHUNK), 1) chunks of
+the compacted buffer. On the CPU they equal the kernels bit for bit;
 on a CUDA tensor index_add_ adds in an arbitrary order, so there they
 agree to float32 rounding. The CPU tests use them; chip_smoke.py holds
 each kernel against them. Nothing on the training path calls them when
@@ -51,7 +59,8 @@ HIST_CHUNK = 4096
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-SOURCES = ("hist.cu", "seg_hist.cu", "bin.cu")
+SOURCES = ("hist.cu", "seg_hist.cu", "compact.cu", "compact_hist.cu",
+           "bin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # nvcc's output for each source this process built: ptxas's registers
@@ -72,7 +81,8 @@ class KernelStats:
 
 
 KERNELS = {name: KernelStats(name)
-           for name in ("masked_hist", "frontier_hist", "seg_hist")}
+           for name in ("masked_hist", "frontier_hist", "seg_hist",
+                        "compact_rows", "compacted_hist")}
 # the launches recorded into the graph being captured (CapturedGraph)
 _CAPTURED = None
 
@@ -209,6 +219,24 @@ def _bind_seg_hist(lib):
     lib.seg_status_string.restype = ctypes.c_char_p
 
 
+def _bind_compact(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.compact_rows.argtypes = [p, p, i, p, i, p, p, p]
+    lib.compact_rows.restype = i
+    lib.compact_tiles.argtypes = [i]
+    lib.compact_tiles.restype = i
+    lib.compact_status_string.argtypes = [i]
+    lib.compact_status_string.restype = ctypes.c_char_p
+
+
+def _bind_compact_hist(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.compacted_hist.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
+    lib.compacted_hist.restype = i
+    lib.compact_hist_status_string.argtypes = [i]
+    lib.compact_hist_status_string.restype = ctypes.c_char_p
+
+
 def _bind_bin(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bin_dense.argtypes = [p, ctypes.c_longlong, i, p, i, p, i, p, i, i,
@@ -219,7 +247,8 @@ def _bind_bin(lib):
 
 
 _BINDERS = {"hist.cu": _bind_hist, "seg_hist.cu": _bind_seg_hist,
-            "bin.cu": _bind_bin}
+            "compact.cu": _bind_compact,
+            "compact_hist.cu": _bind_compact_hist, "bin.cu": _bind_bin}
 _LOADED = {}
 
 
@@ -297,9 +326,9 @@ def _check_shapes(bins, ghc_t, row_leaf, leaf_ids, num_bins):
     if ghc_t.shape != (3, n) or ghc_t.dtype != torch.float32:
         raise ValueError("ghc_t must be (3, N) float32")
     if row_leaf.shape != (n,) or row_leaf.dtype != torch.int32:
-        raise ValueError("row_leaf must be (N,) int32")
+        raise ValueError("row_leaf (src) must be (N,) int32")
     if leaf_ids.dim() != 1 or leaf_ids.dtype != torch.int32:
-        raise ValueError("leaf ids must be a 1-D int32 tensor")
+        raise ValueError("leaf ids (cnt) must be a 1-D int32 tensor")
     if int(num_bins) < 1:
         raise ValueError("num_bins must be positive")
     for t in (ghc_t, row_leaf, leaf_ids):
@@ -381,6 +410,65 @@ def seg_hist_plain(words, ghc_t, bounds, num_bins):
     return kahan_fold(parts, *segment_cover(bounds, n // HIST_CHUNK))
 
 
+def _check_compact_shapes(row_leaf, leaf_id, out_src, out_cnt):
+    if row_leaf.dim() != 1 or row_leaf.dtype != torch.int32:
+        raise ValueError("row_leaf must be an (N,) int32 tensor")
+    if leaf_id.shape != (1,) or leaf_id.dtype != torch.int32:
+        raise ValueError("leaf_id must be a (1,) int32 tensor")
+    if out_src.dim() != 1 or out_src.dtype != torch.int32:
+        raise ValueError("out_src must be a 1-D int32 tensor")
+    if out_cnt.shape != (1,) or out_cnt.dtype != torch.int32:
+        raise ValueError("out_cnt must be a (1,) int32 tensor")
+    for t in (leaf_id, out_src, out_cnt):
+        if t.device != row_leaf.device:
+            raise ValueError("all compaction tensors must be on one device")
+
+
+def compact_rows_plain(row_leaf, leaf_id, out_src, out_cnt):
+    """Plain version of compact_rows: each row with row_leaf == leaf_id
+    goes to its rank among them (a cumsum), by a scatter that drops the
+    rest; positions past the count hold the sentinel N. Writes into
+    out_src and out_cnt and returns them."""
+    _check_compact_shapes(row_leaf, leaf_id, out_src, out_cnt)
+    n, size = row_leaf.shape[0], out_src.shape[0]
+    mask = row_leaf == leaf_id
+    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    dest = torch.where(mask & (rank < size), rank, size).long()
+    buf = torch.full((size + 1,), n, dtype=torch.int32,
+                     device=row_leaf.device)
+    buf.scatter_(0, dest, torch.arange(n, dtype=torch.int32,
+                                       device=row_leaf.device))
+    out_src.copy_(buf[:size])
+    out_cnt.copy_(mask.sum(dtype=torch.int32).reshape(1))
+    return out_src, out_cnt
+
+
+def _check_compacted_shapes(bins, ghc_t, src, cnt, num_bins):
+    _check_shapes(bins, ghc_t, src, cnt, num_bins)
+    if cnt.shape != (1,):
+        raise ValueError("cnt must be a (1,) int32 tensor")
+
+
+def compacted_hist_plain(bins, ghc_t, src, cnt, num_bins):
+    """Plain version of compacted_hist: the rows src[:cnt] gathered in
+    order, row-order partials of each HIST_CHUNK piece of the compacted
+    buffer (rows past the count skipped), the max(ceil(cnt /
+    HIST_CHUNK), 1) covered chunks Kahan-folded in order (chunk bounds
+    from the device count, no host read) -> ((F, B, 3) value,
+    residual)."""
+    _check_compacted_shapes(bins, ghc_t, src, cnt, num_bins)
+    n = bins.shape[1]
+    pos = torch.arange(n, device=bins.device)
+    count = cnt[0].long().clamp(min=0)
+    idx = src.long().clamp(0, n - 1)          # the sentinel N -> any row
+    slot = torch.where(pos < count, 0, -1)
+    parts = chunk_partials_plain(bins.index_select(1, idx),
+                                 ghc_t.index_select(1, idx), slot, 1,
+                                 int(num_bins))[:, 0]
+    first, last = chunk_cover(torch.zeros_like(count), count)
+    return kahan_fold(parts, first, last.clamp(max=n // HIST_CHUNK - 1))
+
+
 # ----------------------------------------------------------- CUDA wrappers
 
 def _stream(dev):
@@ -449,6 +537,69 @@ def frontier_hist(bins, ghc_t, row_leaf, leaf_ids, num_bins):
         raise ValueError(f"frontier_hist: unsupported device {bins.device}")
     return _launch("frontier_hist", bins, ghc_t, row_leaf, leaf_ids,
                    num_bins)
+
+
+def compact_rows(row_leaf, leaf_id, out_src, out_cnt):
+    """Stable compaction of the rows with row_leaf == leaf_id: out_src
+    (size,) int32 receives their positions in original order, then the
+    sentinel N; out_cnt (1,) int32 their number. leaf_id is a (1,) int32
+    tensor; all four on one device, and on the card nothing is read by
+    the host (the count stays in device memory). Returns (out_src,
+    out_cnt)."""
+    if row_leaf.device.type == "cpu":
+        return compact_rows_plain(row_leaf, leaf_id, out_src, out_cnt)
+    if row_leaf.device.type != "cuda":
+        raise ValueError(f"compact_rows: unsupported device {row_leaf.device}")
+    _check_compact_shapes(row_leaf, leaf_id, out_src, out_cnt)
+    for t in (row_leaf, out_src):
+        if not t.is_contiguous():
+            raise ValueError("compact_rows: inputs must be contiguous")
+    lib = _library("compact.cu")
+    n = row_leaf.shape[0]
+    tiles = torch.empty(lib.compact_tiles(n), dtype=torch.int32,
+                        device=row_leaf.device)
+    status = lib.compact_rows(row_leaf.data_ptr(), leaf_id.data_ptr(), n,
+                              out_src.data_ptr(), out_src.shape[0],
+                              out_cnt.data_ptr(), tiles.data_ptr(),
+                              _stream(row_leaf.device))
+    if status != 0:
+        raise RuntimeError("compact_rows launch failed: "
+                           f"{lib.compact_status_string(status).decode()}")
+    _count("compact_rows")
+    return out_src, out_cnt
+
+
+def compacted_hist(bins, ghc_t, src, cnt, num_bins):
+    """((F, B, 3) value, residual) over the rows src[:cnt] (compact_rows'
+    output): bins (F, N) uint8/int16, N % HIST_CHUNK == 0; ghc_t (3, N)
+    float32; src (N,) int32; cnt a (1,) int32 tensor on the same device
+    (read by the kernel from device memory, no host sync)."""
+    if bins.device.type == "cpu":
+        return compacted_hist_plain(bins, ghc_t, src, cnt, num_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(f"compacted_hist: unsupported device {bins.device}")
+    _check_compacted_shapes(bins, ghc_t, src, cnt, num_bins)
+    for t in (bins, ghc_t, src):
+        if not t.is_contiguous():
+            raise ValueError("compacted_hist: inputs must be contiguous")
+    lib = _library("compact_hist.cu")
+    f, n = bins.shape
+    b = int(num_bins)
+    dev = bins.device
+    partials = torch.empty((n // HIST_CHUNK) * f * b * 3,
+                           dtype=torch.float32, device=dev)
+    hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
+    lo = torch.empty_like(hi)
+    status = lib.compacted_hist(bins.data_ptr(), _BIN_BYTES[bins.dtype],
+                                ghc_t.data_ptr(), src.data_ptr(),
+                                cnt.data_ptr(), f, n, b, partials.data_ptr(),
+                                hi.data_ptr(), lo.data_ptr(), _stream(dev))
+    if status != 0:
+        raise RuntimeError(
+            "compacted_hist launch failed: "
+            f"{lib.compact_hist_status_string(status).decode()}")
+    _count("compacted_hist")
+    return hi, lo
 
 
 def seg_hist(words, ghc_t, bounds, num_bins):

@@ -1,8 +1,8 @@
 """Histogram construction: the pair contract and the engine dispatch.
 
-Port of lightgbm_tpu/ops/histogram.py: build_histograms_pair (:232-274)
-and frontier_histograms (:428-476), plus lightgbm_tpu/ops/pallas_hist.py
-masked_histograms (:211).
+Port of lightgbm_tpu/ops/histogram.py: build_histograms_pair (:232-274),
+frontier_histograms (:428-476) and compacted_histograms (:573-640), plus
+lightgbm_tpu/ops/pallas_hist.py masked_histograms (:211).
 
     hist[f, b, k] = sum_n [bins[f, n] == b] * ghc[n, k]
 
@@ -12,10 +12,24 @@ with a Kahan pair (value, residual) — the property the serial ==
 data-parallel and in-RAM == out-of-core contracts rest on. Collapse a
 pair with `hi + lo`.
 
-The masked and frontier engines dispatch on the tensors' device: a
-CUDA tensor runs the hand-written kernels (ops/hist_kernels.py,
-csrc/hist.cu), a CPU tensor their plain PyTorch versions, any other
-device raises.
+The gather-compacted engine (compacted_histograms) reads only one
+leaf's rows: a stable compaction of row_leaf == leaf into an (N,) index
+buffer and a device count, then the histogram of the compacted rows. Its
+chunking mirrors the JAX package's route off the TPU, _compacted_bincount
+(:527-570), which is also what its tests run: the leaf's rows in
+original order cut into HIST_CHUNK-row pieces, the last one ragged, and
+max(ceil(count / HIST_CHUNK), 1) chunk partials folded, with no trailing
+bucket-padding chunk (a trailing zero chunk changes the Kahan bits; the
+JAX XLA route, :619-640, folds the padded chunks of its geometric
+bucket). The JAX route sums each chunk in float64 and casts it to
+float32; here each chunk is a float32 row-order sum, as in the masked
+engine, so the two packages' compacted histograms agree within the
+reference's 1e-6 relative cross-engine contract, not in bits.
+
+The engines dispatch on the tensors' device: a CUDA tensor runs the
+hand-written kernels (ops/hist_kernels.py, csrc/hist.cu, csrc/compact.cu,
+csrc/compact_hist.cu), a CPU tensor their plain PyTorch versions, any
+other device raises.
 """
 
 import torch
@@ -62,3 +76,21 @@ def frontier_histograms(bins, ghc_t, row_leaf, leaf_ids, num_bins_total):
     bitwise what the single-leaf engine gives for the same rows."""
     return hist_kernels.frontier_hist(bins, ghc_t, row_leaf, leaf_ids,
                                       num_bins_total)
+
+
+def compacted_histograms(bins, ghc_t, row_leaf, leaf_id, num_bins_total,
+                         src=None, cnt=None):
+    """Gather-compacted leaf histogram: ((F, B, 3) value, residual) over
+    the rows with row_leaf == leaf_id, whose cost follows the leaf's row
+    count. `leaf_id` is a (1,) int32 device tensor; `src` ((N,) int32)
+    and `cnt` ((1,) int32) are the compaction's buffers, allocated here
+    when not given (a learner passes its own, so that a captured graph
+    reads the same addresses on every replay). No host sync."""
+    n = bins.shape[1]
+    if src is None:
+        src = torch.empty(n, dtype=torch.int32, device=bins.device)
+    if cnt is None:
+        cnt = torch.empty(1, dtype=torch.int32, device=bins.device)
+    hist_kernels.compact_rows(row_leaf, leaf_id, src, cnt)
+    return hist_kernels.compacted_hist(bins, ghc_t, src, cnt,
+                                       num_bins_total)

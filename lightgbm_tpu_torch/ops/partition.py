@@ -1,7 +1,8 @@
-"""Device stable partition of a leaf-contiguous row layout.
+"""Device stable partition of a leaf-contiguous row layout, and the
+stable compaction of a row mask.
 
 Port of lightgbm_tpu/ops/partition.py (split_destinations,
-invert_permutation, apply_partition). Reference: DataPartition::Split
+compact_gather_indices, invert_permutation, apply_partition). Reference: DataPartition::Split
 (data_partition.hpp:100-140): per-thread left/right buffers merged by
 prefix sum keep each leaf's rows contiguous and in stable order. Here
 one vectorized pass computes every row's destination with two prefix
@@ -20,6 +21,8 @@ kernel that reads the bounds on the device is later work (ROADMAP.md).
 """
 
 import torch
+
+from . import hist_kernels
 
 
 def split_destinations(go_left, begin, cnt):
@@ -46,6 +49,30 @@ def split_destinations(go_left, begin, cnt):
     dest = torch.where(lm, begin + rank_l,
                        torch.where(rm, begin + n_left + rank_r, pos))
     return dest.to(torch.int32), n_left
+
+
+def compact_gather_indices(mask, size):
+    """Stable compaction of a row mask into gather indices (the gather-
+    compacted engine's first step, ops/histogram.py compacted_histograms).
+
+    Args:
+      mask: (N,) bool row selector.
+      size: buffer length; the caller guarantees sum(mask) <= size
+        (selected rows past it are dropped).
+
+    Returns (src, cnt): src (size,) int32 with the selected rows'
+    positions in original order, padded with the sentinel N; cnt the
+    selected count as a (1,) int32 tensor on mask's device. On the CPU
+    this is the cumsum rank and a scatter that drops the rest
+    (hist_kernels.compact_rows_plain); on the card the compact_rows
+    kernel, whose count is never read by the host.
+    """
+    dev = mask.device
+    src = torch.empty(int(size), dtype=torch.int32, device=dev)
+    cnt = torch.empty(1, dtype=torch.int32, device=dev)
+    return hist_kernels.compact_rows(mask.to(torch.int32),
+                                     torch.ones(1, dtype=torch.int32,
+                                                device=dev), src, cnt)
 
 
 def invert_permutation(dest):

@@ -297,14 +297,12 @@ def _construct_wide_libsvm():
                       resume_from="ckpt"),
     lambda: lgt.train(dict(BASE, boosting_type="dart"),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
-    lambda: lgt.train(dict(BASE, hist_compaction="true"),
-                      lgt.Dataset(*_data(n=300)), 1, device=CPU),
     lambda: lgt.train(dict(BASE, out_of_core=True),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
     lambda: lgt.train(dict(BASE, tree_learner="data", num_machines=2),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
 ], ids=["cli_snapshots", "wide_libsvm_bundling", "resume_from", "dart",
-        "compaction", "out_of_core", "parallel"])
+        "out_of_core", "parallel"])
 def test_remaining_refusals_name_their_roadmap_item(call):
     with pytest.raises(NotImplementedError) as err:
         call()
