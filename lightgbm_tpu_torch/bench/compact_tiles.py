@@ -13,7 +13,11 @@ round over three blocks of R, and the model text's equality across
 builds. Run from the root of a checkout:
 
     python3 -m lightgbm_tpu_torch.bench.compact_tiles [--tiles 1,2,4,8,32]
-        [--rounds 5]
+        [--rounds 5] [--peers tags,match]
+
+--peers match builds each tile width a second time with the peer search
+forced to __match_any_sync (the accumulator's fallback where the tag
+words do not fit), named "<tile>m".
 """
 
 import argparse
@@ -33,9 +37,10 @@ from lightgbm_tpu_torch.ops import hist_kernels as hk
 SHARES = (0.01, 0.10, 0.50)
 
 
-def build_variant(tile, work):
-    """compact_hist.cu with kFeatureTile = tile, compiled into `work`."""
-    out = os.path.join(work, f"t{tile}")
+def build_variant(tile, work, match=False):
+    """compact_hist.cu with kFeatureTile = tile (and with match, the
+    peer search by __match_any_sync), compiled into `work`."""
+    out = os.path.join(work, f"t{tile}{'m' if match else ''}")
     os.makedirs(out, exist_ok=True)
     for name in ("chunk_hist.cuh", "compact_hist.cu"):
         with open(os.path.join(hk._CSRC, name)) as f:
@@ -44,6 +49,10 @@ def build_variant(tile, work):
             text, n = re.subn(r"kFeatureTile = [^;]+;",
                               f"kFeatureTile = {tile};", text)
             assert n == 1, "compact_hist.cu: one kFeatureTile expected"
+        elif match:
+            text, n = re.subn(r"const bool use_tags = [^;]+;",
+                              "const bool use_tags = false;", text)
+            assert n == 1, "chunk_hist.cuh: one use_tags expected"
         with open(os.path.join(out, name), "w") as f:
             f.write(text)
     lib = os.path.join(out, "libcompact_hist.so")
@@ -73,12 +82,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tiles", default="1,2,4,8,32")
     ap.add_argument("--rounds", type=int, default=0)
+    ap.add_argument("--peers", default="tags")
     args = ap.parse_args()
     import chip_smoke as cs   # the checkout's root, the working directory
     tiles = [int(t) for t in args.tiles.split(",")]
     hk.build()
     with tempfile.TemporaryDirectory() as work:
-        procs = {t: build_variant(t, work) for t in tiles}
+        peers = args.peers.split(",")
+        procs = {f"{t}{'m' if p == 'match' else ''}":
+                 build_variant(t, work, p == "match")
+                 for t in tiles for p in peers}
         libs = {}
         for t, (path, proc) in procs.items():
             out, _ = proc.communicate()
