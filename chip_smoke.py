@@ -41,13 +41,16 @@ Phases (any failure exits non-zero and prints no result line):
    host's enqueue included (ms_enqueued, no device sleep ahead of the
    launch) beside each; then the gather-compacted engine's kernels at
    the same shape: compact_rows and compacted_hist over a leaf of about
-   1%, 10% and 50% of the rows (and int16 bins at 300 bins, 10%), each
-   equal to its plain version run on the CPU (compacted_hist bit for
-   bit; against the plain version on the card as above), two launches
-   equal, timed beside its bound, the plain version and one
-   torch.nonzero_static over the leaf's mask / one index_add_ over the
-   leaf's gathered keys; the counts 0, 1, 4095, 4096 and 4097 checked
-   the same way, untimed;
+   1%, 10% and 50% of the rows, a 10% leaf with one skewed feature (90%
+   of its rows in bin 0), int16 bins at 300 bins (10%, the sorted
+   route) and at 3000 (10%, the accumulator route), each equal to its
+   plain version run on the CPU (compacted_hist bit for bit; against
+   the plain version on the card as above), two launches equal, timed
+   beside its bound, the plain version and one torch.nonzero_static
+   over the leaf's mask / one index_add_ over the leaf's gathered keys;
+   the counts 0, 1, 4095, 4096, 4097 and N checked the same way,
+   untimed (with --baseline every case also bit-equal to the other
+   checkout's kernels, and the timed ones timed beside them);
 3. data ingestion: the bench matrix (1,000,000 x 28 float32) binned on
    the card by the bench's own construction, Dataset(X).construct() with
    launch counts read from zero, against device="cpu" (bin_dense's plain
@@ -103,11 +106,17 @@ Phases (any failure exits non-zero and prints no result line):
    split, no masked_hist), its first tree against the masked phase's
    (splits exact, leaves within 1e-4) and against the same tree grown
    with every engine's plain version, no host sync inside a compacted
-   tree build; 2 cache-less rounds (two compacted passes a split); the
-   fused trainer as in 7 (text, launches through the replays, blocks
-   timed, a replay profiled with its histogram kernels' share) beside
-   the fused masked round of this run; 5-class multiclass, 3 rounds
-   per-iteration and fused (text equal, 5 x 62 compactions a replay);
+   tree build; the first tree's 62 smaller-child counts: both kernels
+   at each count on the learner's bins, bit for bit their plain
+   versions on the CPU, timed, summed beside their bounds (and with
+   --baseline the other checkout's kernels); 2 cache-less rounds (two
+   compacted passes a split); the fused trainer as in 7 (text,
+   launches through the replays, blocks timed, a replay profiled with
+   its histogram kernels' share and its device launches by name: one
+   compact_lookback a compact_rows, one gather_sort_hist a
+   compacted_hist) beside the fused masked round of this run; 5-class
+   multiclass, 3 rounds per-iteration and fused (text equal, 5 x 62
+   compactions a replay);
 9. blockwise engine.train: a 100k-row valid set, early stopping after
    5 rounds, evals_result, 10 rounds, against the per-iteration path
    (a no-op callback): the same best iteration, trees and history
@@ -442,15 +451,24 @@ def baseline_forest(forest):
     return _BASELINE_FORESTS[key][1]
 
 
-def time_baseline(torch, timer, res, call, got):
+def baseline_bits(torch, res, call, got):
     """With --baseline: the other checkout's wrapper on the same inputs
-    must give the same bits; both of its times go beside this one's."""
+    must give the same bits. Returns whether it ran."""
     if BASELINE is None:
-        return
+        return False
     hi, lo = call(BASELINE.hist_kernels)
     torch.cuda.synchronize()
     res["baseline_same_bits"] = bool(torch.equal(hi, got[0])
                                      and torch.equal(lo, got[1]))
+    check(res["baseline_same_bits"], "the baseline gave other bits")
+    return True
+
+
+def time_baseline(torch, timer, res, call, got):
+    """With --baseline: the other checkout's wrapper on the same inputs
+    must give the same bits; both of its times go beside this one's."""
+    if not baseline_bits(torch, res, call, got):
+        return
     base = BASELINE.hist_kernels
     res["baseline_ms"] = timer(lambda: call(base), 20)
     res["baseline_ms_enqueued"] = timer(lambda: call(base), 20, sleep=False)
@@ -459,7 +477,6 @@ def time_baseline(torch, timer, res, call, got):
         f"{res['baseline_ms']:.4f} (this {res['ms']:.4f}), enqueued "
         f"{res['baseline_ms_enqueued']:.4f} (this {res['ms_enqueued']:.4f}), "
         f"host_us {res['baseline_host_us']:.1f} (this {res['host_us']:.1f})")
-    check(res["baseline_same_bits"], "the baseline gave other bits")
 
 
 def compare(torch, got_pair, want_pair):
@@ -693,7 +710,13 @@ def compact_kernel_case(torch, hk, timer, row_leaf, leaf, timed=True):
           "differ")
     check(res["equal_plain"] and res["equal_cpu_plain"],
           f"compact_rows cnt {count}: differs from its plain version")
+    base_src, base_cnt = torch.empty_like(src), torch.empty_like(cnt)
+
+    def baseline(m):
+        return m.compact_rows(rl_d, lid_d, base_src, base_cnt)
+
     if not timed:
+        baseline_bits(torch, res, baseline, (s1, c1))
         log(f"compact_rows {res['shape']}: equal to plain, deterministic")
         return res
     mask = rl_d == lid_d
@@ -702,6 +725,7 @@ def compact_kernel_case(torch, hk, timer, row_leaf, leaf, timed=True):
         return torch.nonzero_static(mask, size=n, fill_value=n)
 
     res["ms"] = timer(kern, 20)
+    res["ms_enqueued"] = timer(kern, 20, sleep=False)
     res["host_us"] = host_us(torch, kern)
     res["plain_ms"] = timer(plain, 5)
     res["library_ms"] = timer(library, 5)
@@ -710,17 +734,20 @@ def compact_kernel_case(torch, hk, timer, row_leaf, leaf, timed=True):
         f"{res['ms']:.4f} bound {res['bound_ms']:.4f} plain "
         f"{res['plain_ms']:.3f} library (nonzero_static) "
         f"{res['library_ms']:.3f} host_us {res['host_us']:.1f}")
+    time_baseline(torch, timer, res, baseline, (s1, c1))
     return res
 
 
 def compacted_kernel_case(torch, hk, timer, bins, ghc, row_leaf, leaf, b,
-                          timed=True):
+                          timed=True, skew=False):
     """compacted_hist on the card over compact_rows' buffer, against its
     plain version run on the CPU (bit for bit) and on the card (count
     exact, grad/hess within rtol 1e-5, atol 1e-4: index_add_ adds in
-    another order there), two launches equal; timed beside its bound,
-    the plain version on the card and one index_add_ over the leaf's
-    gathered (feature, bin) keys (gathered outside the timed region)."""
+    another order there; not for `skew`, see the module docstring), two
+    launches equal; timed beside its bound, the plain version on the
+    card and one index_add_ over the leaf's gathered (feature, bin) keys
+    (gathered outside the timed region); with --baseline the other
+    checkout's kernel on the same inputs (same bits, both times)."""
     dev = DEVICE
     f, n = bins.shape
     lid = torch.tensor([leaf], dtype=torch.int32)
@@ -728,9 +755,11 @@ def compacted_kernel_case(torch, hk, timer, bins, ghc, row_leaf, leaf, b,
                                      torch.empty(n, dtype=torch.int32),
                                      torch.empty(1, dtype=torch.int32))
     bins_d, ghc_d, src_d, cnt_d = (t.to(dev) for t in (bins, ghc, src, cnt))
+    scratch = hk.CompactScratch(bins_d, b)   # as a learner holds it
 
     def kern():
-        return hk.compacted_hist(bins_d, ghc_d, src_d, cnt_d, b)
+        return hk.compacted_hist(bins_d, ghc_d, src_d, cnt_d, b,
+                                 **scratch.hist_kwargs())
 
     def plain():
         return hk.compacted_hist_plain(bins_d, ghc_d, src_d, cnt_d, b)
@@ -743,15 +772,22 @@ def compacted_kernel_case(torch, hk, timer, bins, ghc, row_leaf, leaf, b,
     err, count_exact, close = compare(torch, (hi1, lo1), plain())
     res = {"name": "compacted_hist",
            "shape": {"F": f, "N": n, "B": b, "cnt": count,
-                     "bins": str(bins.dtype).replace("torch.", "")},
+                     "bins": str(bins.dtype).replace("torch.", ""),
+                     "skew": skew},
+           "route": hk.compacted_hist_route(b),
            "max_abs_err": err, "count_exact": count_exact,
            "grad_hess_close": close,
            "deterministic": bool(torch.equal(hi1, hi2)
                                  and torch.equal(lo1, lo2)),
            "bitwise_vs_cpu_plain": bool(torch.equal(hi1.cpu(), ch)
                                         and torch.equal(lo1.cpu(), cl))}
-    check_case(res, f"compacted_hist cnt {count}", True, False)
+    check_case(res, f"compacted_hist cnt {count} B {b}", True, skew)
+
+    def baseline(m):
+        return m.compacted_hist(bins_d, ghc_d, src_d, cnt_d, b)
+
     if not timed:
+        baseline_bits(torch, res, baseline, (hi1, lo1))
         log(f"compacted_hist {res['shape']}: bitwise the CPU plain "
             "version, deterministic")
         return res
@@ -771,23 +807,31 @@ def compacted_kernel_case(torch, hk, timer, bins, ghc, row_leaf, leaf, b,
     res["library_ms"] = timer(library, 5)
     res["bound_ms"], res["bound_by"] = compacted_bound_ms(
         f, count, bins.element_size(), b)
-    log(f"compacted_hist {res['shape']}: err {err:.3g} count_exact "
-        f"{count_exact} close {close} bitwise_vs_cpu_plain "
-        f"{res['bitwise_vs_cpu_plain']} ms {res['ms']:.4f} bound "
-        f"{res['bound_ms']:.4f} plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.3f} host_us {res['host_us']:.1f}")
+    log(f"compacted_hist {res['shape']} ({res['route']} route): err "
+        f"{err:.3g} count_exact {count_exact} close {close} "
+        f"bitwise_vs_cpu_plain {res['bitwise_vs_cpu_plain']} ms "
+        f"{res['ms']:.4f} bound {res['bound_ms']:.4f} plain "
+        f"{res['plain_ms']:.3f} library {res['library_ms']:.3f} host_us "
+        f"{res['host_us']:.1f}")
     del key, vals, rows
+    time_baseline(torch, timer, res, baseline, (hi1, lo1))
+    del scratch
     return res
 
 
 COMPACT_SHARES = (0.01, 0.10, 0.50)
+# int16 bins past compacted_hist's sorted route (the accumulator route)
+WIDE_BINS = 3000
 
 
 def compact_kernel_cases(torch, hk, timer, rng, n=1 << 20):
     """Both compaction kernels at the bench shape (1,048,576 x 28, 255
     bins): a leaf of about 1%, 10% and 50% of the rows scattered over
-    the array (timed), the edge counts 0, 1, 4095, 4096 and 4097
-    (checked), and int16 bins at 300 bins with a 10% leaf (timed)."""
+    the array (timed), the edge counts 0, 1, 4095, 4096, 4097 and N
+    (checked), a 10% leaf whose feature 3 has 90% of its rows in bin 0,
+    as a sparse column gives (timed), and int16 bins with a 10% leaf at
+    300 bins (the sorted route) and at WIDE_BINS (the accumulator
+    route), timed."""
     bins = torch.from_numpy(rng.randint(0, MAX_BIN, size=(N_FEATURES, n))
                             .astype(np.uint8))
     inbag = (rng.rand(n) < 0.8).astype(np.float32)
@@ -803,7 +847,7 @@ def compact_kernel_cases(torch, hk, timer, rng, n=1 << 20):
         compact.append(compact_kernel_case(torch, hk, timer, row_leaf, leaf))
         hist.append(compacted_kernel_case(torch, hk, timer, bins, ghc,
                                           row_leaf, leaf, MAX_BIN))
-    for cnt in (0, 1, 4095, 4096, 4097):
+    for cnt in (0, 1, 4095, 4096, 4097, n):
         row_leaf = other.clone()
         row_leaf[torch.from_numpy(rng.choice(n, cnt, replace=False))] = leaf
         compact.append(compact_kernel_case(torch, hk, timer, row_leaf, leaf,
@@ -811,12 +855,26 @@ def compact_kernel_cases(torch, hk, timer, rng, n=1 << 20):
         hist.append(compacted_kernel_case(torch, hk, timer, bins, ghc,
                                           row_leaf, leaf, MAX_BIN,
                                           timed=False))
-    bins16 = torch.from_numpy(rng.randint(0, 300, size=(N_FEATURES, n))
-                              .astype(np.int16))
     row_leaf = torch.where(torch.from_numpy(rng.rand(n) < 0.10), leaf,
                            other).to(torch.int32)
-    hist.append(compacted_kernel_case(torch, hk, timer, bins16, ghc,
-                                      row_leaf, leaf, 300))
+    skewed = bins.clone()
+    in_leaf = torch.from_numpy(np.flatnonzero(row_leaf.numpy() == leaf))
+    skewed[3, in_leaf[torch.from_numpy(rng.rand(len(in_leaf)) < 0.9)]] = 0
+    hist.append(compacted_kernel_case(torch, hk, timer, skewed, ghc,
+                                      row_leaf, leaf, MAX_BIN, skew=True))
+    del skewed
+    for b in (300, WIDE_BINS):
+        bins16 = torch.from_numpy(rng.randint(0, b, size=(N_FEATURES, n))
+                                  .astype(np.int16))
+        hist.append(compacted_kernel_case(torch, hk, timer, bins16, ghc,
+                                          row_leaf, leaf, b))
+    check(hist[-2]["route"] == "sorted" and hist[-1]["route"] == "accumulator"
+          and all(h["route"] == "sorted" for h in hist[:-1]),
+          "compacted_hist took another route than its shape names")
+    lib = hk._library("compact_hist.cu")
+    check(all(lib.compacted_hist_route(b) == (b > hk.COMPACT_SORT_MAX_BINS)
+              for b in (1, 255, 300, hk.COMPACT_SORT_MAX_BINS, WIDE_BINS)),
+          "the wrapper's route disagrees with the kernel's")
     return compact, hist
 
 
@@ -1209,9 +1267,10 @@ def sync_sites(torch, fn):
 
 
 # device kernels of the histogram engines: the chunk partials and the
-# fold (chunk_hist.cuh) and the compaction's three kernels (compact.cu)
-HIST_KERNEL_NAMES = ("chunk_partials", "kahan_fold", "count_kernel",
-                     "scan_kernel", "scatter_kernel")
+# fold (chunk_hist.cuh), the compaction (compact.cu) and the compacted
+# histogram's sorted route (compact_hist.cu)
+HIST_KERNEL_NAMES = ("chunk_partials", "kahan_fold", "compact_lookback",
+                     "gather_sort_hist")
 
 
 def profile_replay(torch, runner, reps=5):
@@ -1247,6 +1306,8 @@ def profile_replay(torch, runner, reps=5):
     hist_ms = sum(e.device_time_total for e in kernels
                   if any(k in e.name for k in HIST_KERNEL_NAMES)) / 1e3
     return {"device_ops": len(kernels),
+            "hist_kernel_launches": {k: sum(k in e.name for e in kernels)
+                                     for k in HIST_KERNEL_NAMES},
             "device_busy_ms": busy if kernels else None,
             "hist_ms": hist_ms, "hist_share": hist_ms / busy if busy else None,
             "device_span_ms": span if kernels else None,
@@ -1520,6 +1581,114 @@ def compacted_multiclass(torch, lgt, hk, ds_bench, logit):
     return res
 
 
+def smaller_child_counts(tree):
+    """Rows of the smaller child of each split of `tree` (its internal and
+    leaf counts): what the compacted engine histograms at that split."""
+    def rows(child):
+        return int(tree.internal_count[child] if child >= 0
+                   else tree.leaf_count[~child])
+    return [min(rows(tree.left_child[i]), rows(tree.right_child[i]))
+            for i in range(tree.num_leaves - 1)]
+
+
+def real_tree_cases(torch, hk, booster, leaf=7, reps=10):
+    """compact_rows and compacted_hist at the smaller-child counts of the
+    booster's first tree, on its own bins (the learner's (F, N_pad)
+    matrix) and first-round statistics, each count's rows at random
+    positions: each call against its plain version on the CPU (the
+    compaction over the whole array; the histogram over the count's
+    gathered rows, which is the same function), timed (median of `reps`
+    with CUDA events, L2 flushed) beside its bound, and with --baseline
+    the other checkout's kernels on the same inputs (same bits, both
+    times). Prints the sums over the tree."""
+    timer = Timer(torch)
+    gbdt = booster.gbdt
+    learner = gbdt.tree_learner
+    bins = learner.bins
+    f, n = bins.shape
+    b = learner.max_bin
+    g, h = gbdt.objective.get_gradients(
+        torch.zeros(1, gbdt.num_data, device=DEVICE))
+    ghc = torch.zeros(3, n, device=DEVICE)
+    ghc[0, :gbdt.num_data], ghc[1, :gbdt.num_data] = g[0], h[0]
+    ghc[2, :gbdt.num_data] = 1.0
+    bins_cpu, ghc_cpu = bins.cpu(), ghc.cpu()
+    counts = smaller_child_counts(gbdt.models[0])
+    scratch = hk.CompactScratch(bins, b)
+    lid = torch.tensor([leaf], dtype=torch.int32, device=DEVICE)
+    src = torch.empty(n, dtype=torch.int32, device=DEVICE)
+    cnt = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    sums = {"compact_rows_ms": 0.0, "compacted_hist_ms": 0.0,
+            "compact_rows_bound_ms": 0.0, "compacted_hist_bound_ms": 0.0}
+    if BASELINE is not None:
+        sums.update(baseline_compact_rows_ms=0.0,
+                    baseline_compacted_hist_ms=0.0)
+    t0 = time.time()
+    for c in counts:
+        row_leaf = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+        row_leaf[torch.randperm(gbdt.num_data, device=DEVICE,
+                                generator=gen)[:c]] = leaf
+
+        def compact(m=hk):
+            return m.compact_rows(row_leaf, lid, src, cnt,
+                                  **({"flags": scratch.flags} if m is hk
+                                     else {}))
+
+        def hist(m=hk):
+            return m.compacted_hist(bins, ghc, src, cnt, b,
+                                    **(scratch.hist_kwargs() if m is hk
+                                       else {}))
+
+        compact()
+        hi, lo = hist()
+        torch.cuda.synchronize()
+        want_src, want_cnt = hk.compact_rows_plain(
+            row_leaf.cpu(), lid.cpu(), torch.empty(n, dtype=torch.int32),
+            torch.empty(1, dtype=torch.int32))
+        check(torch.equal(src.cpu(), want_src)
+              and torch.equal(cnt.cpu(), want_cnt),
+              f"real tree count {c}: compact_rows differs from its plain "
+              "version")
+        # the histogram's plain version over the gathered rows only
+        pad = max(-(-c // hk.HIST_CHUNK), 1) * hk.HIST_CHUNK
+        rows = want_src[:c].long()
+        small_src = torch.full((pad,), pad, dtype=torch.int32)
+        small_src[:c] = torch.arange(c, dtype=torch.int32)
+        small_bins = torch.zeros((f, pad), dtype=bins.dtype)
+        small_bins[:, :c] = bins_cpu[:, rows]
+        small_ghc = torch.zeros((3, pad))
+        small_ghc[:, :c] = ghc_cpu[:, rows]
+        ch, cl = hk.compacted_hist_plain(small_bins, small_ghc, small_src,
+                                         want_cnt, b)
+        check(torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl),
+              f"real tree count {c}: compacted_hist differs in bits from "
+              "its plain version")
+        sums["compact_rows_ms"] += timer(compact, reps)
+        sums["compacted_hist_ms"] += timer(hist, reps)
+        sums["compact_rows_bound_ms"] += compact_bound_ms(n)[0]
+        sums["compacted_hist_bound_ms"] += compacted_bound_ms(
+            f, c, bins.element_size(), b)[0]
+        if BASELINE is not None:
+            base = BASELINE.hist_kernels
+            compact(base)
+            bhi, blo = hist(base)
+            torch.cuda.synchronize()
+            check(torch.equal(bhi, hi) and torch.equal(blo, lo),
+                  f"real tree count {c}: the baseline gave other bits")
+            sums["baseline_compact_rows_ms"] += timer(lambda: compact(base),
+                                                      reps)
+            sums["baseline_compacted_hist_ms"] += timer(lambda: hist(base),
+                                                        reps)
+    res = {"counts": counts, "rows": int(sum(counts)), **sums,
+           "seconds": time.time() - t0}
+    log(f"real tree (first compacted tree, {len(counts)} smaller children, "
+        f"{res['rows']} rows, median {int(np.median(counts))}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
+        + f"; {res['seconds']:.1f} s")
+    return res
+
+
 def phase_compacted(torch, lgt, hk, ds, y, logit, main_booster, main_fused):
     """The gather-compacted engine (hist_compaction=auto, which resolves
     to it above 4,096 rows, as in the reference off the TPU): N_ROUNDS
@@ -1577,9 +1746,21 @@ def phase_compacted(torch, lgt, hk, ds, y, logit, main_booster, main_fused):
           f"compacted cache-less: kernels launched {counts}")
     del cacheless
 
+    res["real_tree"] = real_tree_cases(torch, hk, booster)
     res["fused"] = phase_fused(torch, lgt, hk, ds, y, booster,
                                res["per_iteration"], COMPACT_PARAMS,
                                "compacted")
+    # one device launch a call: compact_lookback a compact_rows,
+    # gather_sort_hist a compacted_hist (partials and fold), and the
+    # chunk accumulator and its fold only for the root's frontier pass
+    per_replay = res["fused"]["launches_per_replay"]
+    seen = res["fused"]["profile"]["hist_kernel_launches"]
+    log(f"compacted replay, device launches by name: {seen}")
+    check(seen == {"compact_lookback": per_replay["compact_rows"],
+                   "gather_sort_hist": per_replay["compacted_hist"],
+                   "chunk_partials": per_replay["frontier_hist"],
+                   "kahan_fold": per_replay["frontier_hist"]},
+          f"compacted: a replay launched {seen} for {per_replay}")
     masked_ms = main_fused["round_ms_median"]
     res["fused_vs_masked_round"] = {
         "compacted_ms": res["fused"]["round_ms_median"],

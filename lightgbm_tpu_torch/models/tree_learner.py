@@ -55,7 +55,7 @@ import torch
 
 from ..ops.histogram import (compacted_histograms, frontier_histograms,
                              masked_histograms)
-from ..ops.hist_kernels import HIST_CHUNK
+from ..ops.hist_kernels import HIST_CHUNK, CompactScratch
 from ..ops.ordered_hist import pack_feature_words
 from ..ops.split import K_MIN_SCORE, SplitParams, find_best_split
 from ..utils.device import resolve_device
@@ -474,14 +474,18 @@ class SerialTreeLearner:
             lambda_l2=float(cfg.lambda_l2),
             min_gain_to_split=float(cfg.min_gain_to_split))
         self.cache_hists = cache_hists_fits(cfg, self.f_pad, self.max_bin)
-        # the compaction's index buffer and count, once per learner: a
-        # captured graph reads the same addresses on every replay
+        # the compaction's index buffer and count, and on the card the
+        # kernels' scratch (look-back flags, chunk partials, fold
+        # counters), once per learner: a captured graph reads the same
+        # addresses on every replay, and no two learners share a counter
         self.compacted_fn = None
         if self.use_compact:
             self.compacted_fn = functools.partial(
                 compacted_histograms,
                 src=torch.empty(self.n_pad, dtype=torch.int32, device=dev),
-                cnt=torch.zeros(1, dtype=torch.int32, device=dev))
+                cnt=torch.zeros(1, dtype=torch.int32, device=dev),
+                scratch=(CompactScratch(self.bins, self.max_bin)
+                         if dev.type == "cuda" else None))
         Log.info("Number of data: %d, number of features: %d",
                  self.num_data, self.num_features)
 

@@ -21,11 +21,12 @@ use into csrc/build/ (one shared library with a C interface per source,
 loaded with ctypes; its name hashes the source, the headers it includes
 and the flags) and launched on PyTorch's current stream. Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs and
-scratch with torch.empty, raises when the launch reports an error, and
-counts its launches in `KERNELS[name].launches`. A launch made while
-the current stream captures a CUDA graph (CapturedGraph) runs nothing
-yet: it is counted into the graph, and each replay adds the graph's
-count.
+scratch with torch.empty (the compaction kernels take their scratch from
+the caller where it has one, CompactScratch), raises when the launch
+reports an error, and counts its launches in `KERNELS[name].launches`.
+A launch made while the current stream captures a CUDA graph
+(CapturedGraph) runs nothing yet: it is counted into the graph, and
+each replay adds the graph's count.
 
 Dispatch is by the tensors' device only: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (or an exception), anything else
@@ -223,16 +224,25 @@ def _bind_compact(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.compact_rows.argtypes = [p, p, i, p, i, p, p, p]
     lib.compact_rows.restype = i
-    lib.compact_tiles.argtypes = [i]
-    lib.compact_tiles.restype = i
+    lib.compact_scratch_ints.argtypes = [i]
+    lib.compact_scratch_ints.restype = i
     lib.compact_status_string.argtypes = [i]
     lib.compact_status_string.restype = ctypes.c_char_p
 
 
 def _bind_compact_hist(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.compacted_hist.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
+    lib.compacted_hist.argtypes = [p, p, i, i, p, p, p, i, i, i, p, p, p, p,
+                                   p, p]
     lib.compacted_hist.restype = i
+    lib.compacted_hist_route.argtypes = [i]
+    lib.compacted_hist_route.restype = i
+    lib.compacted_hist_partials.argtypes = [i, i, i]
+    lib.compacted_hist_partials.restype = ctypes.c_long
+    lib.compacted_hist_words.argtypes = [i, i]
+    lib.compacted_hist_words.restype = i
+    lib.compacted_hist_gathered.argtypes = [i, i, i]
+    lib.compacted_hist_gathered.restype = ctypes.c_long
     lib.compact_hist_status_string.argtypes = [i]
     lib.compact_hist_status_string.restype = ctypes.c_char_p
 
@@ -275,7 +285,8 @@ def leaf_slots(row_leaf, leaf_ids):
 def chunk_partials_plain(bins, ghc_t, slot, num_leaf, num_bins):
     """(chunks, L, F, B, K) float32 per-chunk partials of the (K, N)
     statistics: every (chunk, leaf, feature, bin) cell sums its rows'
-    values in row order."""
+    values in row order. A bin outside [0, num_bins) is dropped, as the
+    kernels drop it."""
     f, n = bins.shape
     k_stats = ghc_t.shape[0]
     chunks = n // HIST_CHUNK
@@ -283,10 +294,11 @@ def chunk_partials_plain(bins, ghc_t, slot, num_leaf, num_bins):
     cells = chunks * num_leaf * f * num_bins
     chunk = torch.arange(n, device=dev) // HIST_CHUNK
     row_base = (chunk * num_leaf + slot) * f                   # (N,)
+    b64 = bins.to(torch.int64)
     key = ((row_base[None, :] + torch.arange(f, device=dev)[:, None])
-           * num_bins + bins.to(torch.int64))                  # (F, N)
-    key = torch.where(slot[None, :] >= 0, key,
-                      torch.full_like(key, cells)).reshape(-1)
+           * num_bins + b64)                                   # (F, N)
+    keep = (slot[None, :] >= 0) & (b64 >= 0) & (b64 < num_bins)
+    key = torch.where(keep, key, torch.full_like(key, cells)).reshape(-1)
     out = torch.zeros(k_stats, cells + 1, dtype=torch.float32, device=dev)
     for k in range(k_stats):
         out[k].index_add_(0, key, ghc_t[k].expand(f, n).reshape(-1))
@@ -539,13 +551,100 @@ def frontier_hist(bins, ghc_t, row_leaf, leaf_ids, num_bins):
                    num_bins)
 
 
-def compact_rows(row_leaf, leaf_id, out_src, out_cnt):
+def compact_scratch_ints(n):
+    """int32 words of compact_rows' scratch for n rows (csrc/compact.cu
+    compact_scratch_ints): a ticket, an epoch, two spare, and a 64-bit
+    look-back flag per 4096-row tile."""
+    return 4 + 2 * max(-(-int(n) // HIST_CHUNK), 1)
+
+
+# the two routes of compacted_hist (csrc/compact_hist.cu
+# compacted_hist_route): one launch up to this many bins, else the chunk
+# accumulator and its fold (two launches)
+COMPACT_SORT_MAX_BINS = 2048
+
+
+def compacted_hist_route(num_bins):
+    """"sorted" (one launch: rows sorted by bin, a thread a bin, the
+    fold in the same launch) up to COMPACT_SORT_MAX_BINS bins, else
+    "accumulator" (the chunk accumulator of chunk_hist.cuh, then its
+    fold)."""
+    return "sorted" if int(num_bins) <= COMPACT_SORT_MAX_BINS else "accumulator"
+
+
+def compacted_hist_scratch_sizes(n, num_feat, num_bins, bin_bytes):
+    """(partials floats, words int32, gathered bytes) of compacted_hist's
+    scratch (csrc/compact_hist.cu compacted_hist_partials, _words,
+    _gathered): a (chunk, feature) partial row padded to whole float4s;
+    the job ticket and the per-chunk and per-tile counters; the leaf's
+    statistics and bins gathered in compacted order."""
+    chunks = n // HIST_CHUNK
+    pad = (3 * int(num_bins) + 3) // 4 * 4
+    return (chunks * num_feat * pad, 1 + 2 * chunks + 2 * num_feat,
+            12 * n + num_feat * n * int(bin_bytes))
+
+
+def bin_rows(bins):
+    """(N, R) row-major copy of (F, N) bins, each row padded with zeros to
+    whole 16-byte pieces (R = 32 at 28 uint8 features): what
+    compacted_hist's sorted route gathers a leaf's rows from, one sector
+    a row where the feature-major matrix costs one a feature."""
+    f, n = bins.shape
+    per = 16 // bins.element_size()
+    rows = torch.zeros((n, -(-f // per) * per), dtype=bins.dtype,
+                       device=bins.device)
+    rows[:, :f] = bins.t()
+    return rows
+
+
+class CompactScratch:
+    """Device buffers of the compaction kernels for one caller over one
+    (F, N) bin matrix, made once: compact_rows' look-back flags
+    (`flags`, zeroed here; each call leaves them valid for the next,
+    with no memset), the bins' row-major copy (`rows`, bin_rows) and
+    compacted_hist's chunk partials (`partials`), counters (`words`,
+    zeroed here and left zero by every call) and gathered rows
+    (`gathered`), sized by compacted_hist_scratch_sizes. A learner keeps
+    one so that a captured graph replays the same addresses and two
+    learners never share a counter; two calls that share one must not
+    run concurrently."""
+
+    def __init__(self, bins, num_bins):
+        f, n = bins.shape
+        dev = bins.device
+        partials, words, gathered = compacted_hist_scratch_sizes(
+            n, f, num_bins, bins.element_size())
+        self.flags = torch.zeros(compact_scratch_ints(n), dtype=torch.int32,
+                                 device=dev)
+        self.rows = bin_rows(bins)
+        self.partials = torch.empty(partials, dtype=torch.float32,
+                                    device=dev)
+        self.words = torch.zeros(words, dtype=torch.int32, device=dev)
+        self.gathered = torch.empty(gathered, dtype=torch.uint8, device=dev)
+
+    def hist_kwargs(self):
+        """compacted_hist's scratch arguments."""
+        return {"rows": self.rows, "partials": self.partials,
+                "words": self.words, "gathered": self.gathered}
+
+
+def _scratch_tensor(name, t, dtype, numel, dev):
+    if (t.dtype != dtype or t.device != dev or not t.is_contiguous()
+            or t.numel() < numel):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"at least {numel} elements on {dev}")
+    return t
+
+
+def compact_rows(row_leaf, leaf_id, out_src, out_cnt, flags=None):
     """Stable compaction of the rows with row_leaf == leaf_id: out_src
     (size,) int32 receives their positions in original order, then the
     sentinel N; out_cnt (1,) int32 their number. leaf_id is a (1,) int32
     tensor; all four on one device, and on the card nothing is read by
-    the host (the count stays in device memory). Returns (out_src,
-    out_cnt)."""
+    the host (the count stays in device memory). `flags`
+    (CompactScratch.flags) is the kernel's look-back scratch, zeroed
+    once by its owner; without it a zeroed one is made for the call.
+    Returns (out_src, out_cnt)."""
     if row_leaf.device.type == "cpu":
         return compact_rows_plain(row_leaf, leaf_id, out_src, out_cnt)
     if row_leaf.device.type != "cuda":
@@ -556,12 +655,15 @@ def compact_rows(row_leaf, leaf_id, out_src, out_cnt):
             raise ValueError("compact_rows: inputs must be contiguous")
     lib = _library("compact.cu")
     n = row_leaf.shape[0]
-    tiles = torch.empty(lib.compact_tiles(n), dtype=torch.int32,
-                        device=row_leaf.device)
+    dev = row_leaf.device
+    need = lib.compact_scratch_ints(n)
+    if flags is None:
+        flags = torch.zeros(need, dtype=torch.int32, device=dev)
+    _scratch_tensor("compact_rows flags", flags, torch.int32, need, dev)
     status = lib.compact_rows(row_leaf.data_ptr(), leaf_id.data_ptr(), n,
                               out_src.data_ptr(), out_src.shape[0],
-                              out_cnt.data_ptr(), tiles.data_ptr(),
-                              _stream(row_leaf.device))
+                              out_cnt.data_ptr(), flags.data_ptr(),
+                              _stream(dev))
     if status != 0:
         raise RuntimeError("compact_rows launch failed: "
                            f"{lib.compact_status_string(status).decode()}")
@@ -569,11 +671,16 @@ def compact_rows(row_leaf, leaf_id, out_src, out_cnt):
     return out_src, out_cnt
 
 
-def compacted_hist(bins, ghc_t, src, cnt, num_bins):
+def compacted_hist(bins, ghc_t, src, cnt, num_bins, rows=None,
+                   partials=None, words=None, gathered=None):
     """((F, B, 3) value, residual) over the rows src[:cnt] (compact_rows'
     output): bins (F, N) uint8/int16, N % HIST_CHUNK == 0; ghc_t (3, N)
     float32; src (N,) int32; cnt a (1,) int32 tensor on the same device
-    (read by the kernel from device memory, no host sync)."""
+    (read by the kernel from device memory, no host sync). `rows` (the
+    bins' bin_rows copy), `partials`, `words` and `gathered`
+    (CompactScratch.hist_kwargs()) are the kernel's inputs and scratch;
+    without them the call makes its own (words zeroed, rows copied from
+    bins). The route (compacted_hist_route) follows num_bins."""
     if bins.device.type == "cpu":
         return compacted_hist_plain(bins, ghc_t, src, cnt, num_bins)
     if bins.device.type != "cuda":
@@ -586,14 +693,41 @@ def compacted_hist(bins, ghc_t, src, cnt, num_bins):
     f, n = bins.shape
     b = int(num_bins)
     dev = bins.device
-    partials = torch.empty((n // HIST_CHUNK) * f * b * 3,
-                           dtype=torch.float32, device=dev)
+    bin_bytes = _BIN_BYTES[bins.dtype]
+    sorted_route = compacted_hist_route(b) == "sorted"
+    if sorted_route:
+        if rows is None:
+            rows = bin_rows(bins)
+        per = 16 // bin_bytes
+        if (rows.dtype != bins.dtype or rows.device != dev
+                or not rows.is_contiguous()
+                or rows.shape != (n, -(-f // per) * per)):
+            raise ValueError("compacted_hist rows must be bin_rows(bins)")
+    sizes = (lib.compacted_hist_partials(n, f, b),
+             lib.compacted_hist_words(n, f),
+             lib.compacted_hist_gathered(n, f, bin_bytes))
+    if partials is None:
+        partials = torch.empty(sizes[0], dtype=torch.float32, device=dev)
+    if words is None:
+        words = torch.zeros(sizes[1], dtype=torch.int32, device=dev)
+    if gathered is None:
+        gathered = torch.empty(sizes[2], dtype=torch.uint8, device=dev)
+    for name, t, dtype, size in (("partials", partials, torch.float32,
+                                  sizes[0]),
+                                 ("words", words, torch.int32, sizes[1]),
+                                 ("gathered", gathered, torch.uint8,
+                                  sizes[2])):
+        _scratch_tensor(f"compacted_hist {name}", t, dtype, size, dev)
     hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    status = lib.compacted_hist(bins.data_ptr(), _BIN_BYTES[bins.dtype],
-                                ghc_t.data_ptr(), src.data_ptr(),
-                                cnt.data_ptr(), f, n, b, partials.data_ptr(),
-                                hi.data_ptr(), lo.data_ptr(), _stream(dev))
+    status = lib.compacted_hist(bins.data_ptr(),
+                                rows.data_ptr() if sorted_route else None,
+                                rows.shape[1] if sorted_route else 0,
+                                bin_bytes, ghc_t.data_ptr(),
+                                src.data_ptr(), cnt.data_ptr(), f, n, b,
+                                partials.data_ptr(), words.data_ptr(),
+                                gathered.data_ptr(), hi.data_ptr(),
+                                lo.data_ptr(), _stream(dev))
     if status != 0:
         raise RuntimeError(
             "compacted_hist launch failed: "

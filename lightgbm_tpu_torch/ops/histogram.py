@@ -79,18 +79,23 @@ def frontier_histograms(bins, ghc_t, row_leaf, leaf_ids, num_bins_total):
 
 
 def compacted_histograms(bins, ghc_t, row_leaf, leaf_id, num_bins_total,
-                         src=None, cnt=None):
+                         src=None, cnt=None, scratch=None):
     """Gather-compacted leaf histogram: ((F, B, 3) value, residual) over
     the rows with row_leaf == leaf_id, whose cost follows the leaf's row
     count. `leaf_id` is a (1,) int32 device tensor; `src` ((N,) int32)
-    and `cnt` ((1,) int32) are the compaction's buffers, allocated here
-    when not given (a learner passes its own, so that a captured graph
-    reads the same addresses on every replay). No host sync."""
+    and `cnt` ((1,) int32) are the compaction's buffers and `scratch` a
+    hist_kernels.CompactScratch (the kernels' look-back flags, chunk
+    partials and fold counters), allocated here when not given (a
+    learner passes its own, so that a captured graph reads the same
+    addresses on every replay). No host sync."""
     n = bins.shape[1]
     if src is None:
         src = torch.empty(n, dtype=torch.int32, device=bins.device)
     if cnt is None:
         cnt = torch.empty(1, dtype=torch.int32, device=bins.device)
-    hist_kernels.compact_rows(row_leaf, leaf_id, src, cnt)
+    kw = {} if scratch is None else scratch.hist_kwargs()
+    hist_kernels.compact_rows(row_leaf, leaf_id, src, cnt,
+                              flags=None if scratch is None
+                              else scratch.flags)
     return hist_kernels.compacted_hist(bins, ghc_t, src, cnt,
-                                       num_bins_total)
+                                       num_bins_total, **kw)

@@ -140,6 +140,101 @@ def test_compacted_hist_plain_folds_only_the_covered_chunks(cnt):
     np.testing.assert_array_equal(lo.numpy()[:, :want_lo.shape[1]], want_lo)
 
 
+def _sorted_bin_sums(bins, ghc, count, num_bins):
+    """(chunks, F, B, 3) float32: each HIST_CHUNK chunk's rows below
+    `count` sorted stably by bin, then each bin's rows summed in row
+    order from +0.0 (np.add.accumulate is sequential); rows whose bin is
+    outside [0, num_bins) left out. The arithmetic of compacted_hist's
+    sorted route (csrc/compact_hist.cu)."""
+    f, n = bins.shape
+    out = np.zeros((n // CHUNK, f, num_bins, 3), np.float32)
+    for c in range(n // CHUNK):
+        lo, hi = c * CHUNK, min((c + 1) * CHUNK, count)
+        for j in range(f if hi > lo else 0):
+            b = bins[j, lo:hi].astype(np.int64)
+            order = np.argsort(b, kind="stable")
+            sb, vals = b[order], ghc[:, lo:hi][:, order]
+            starts = np.flatnonzero(np.r_[True, sb[1:] != sb[:-1]])
+            for s, e in zip(starts, np.r_[starts[1:], len(sb)]):
+                if 0 <= sb[s] < num_bins:
+                    for k in range(3):
+                        out[c, j, sb[s], k] = np.add.accumulate(
+                            np.r_[np.float32(0.0), vals[k, s:e]])[-1]
+    return out
+
+
+@pytest.mark.parametrize("count", [CHUNK - 300, CHUNK, 2 * CHUNK + 777],
+                         ids=["one-ragged-chunk", "one-chunk", "ragged-last"])
+@pytest.mark.parametrize("dtype,b", [(np.uint8, 255), (np.int16, 300)],
+                         ids=["uint8", "int16"])
+def test_sorted_bin_sums_are_the_row_order_chunk_partials(count, dtype, b):
+    """The premise of compacted_hist's sorted route: summing a chunk's
+    rows bin by bin after a stable sort by bin performs the same float32
+    adds, in the same order, as the row-order partials of
+    chunk_partials_plain, so the bits are equal, and so is the fold of
+    the covered chunks (compacted_hist_plain). Values of both signs over
+    1e-30 .. 1e30 (sums that cancel and round), -0.0 values, bins past
+    num_bins and negative int16 bins (dropped), one chunk and a ragged
+    last chunk."""
+    rng = np.random.RandomState(count + b)
+    n, f = 3 * CHUNK, 3
+    bins = rng.randint(0, b + 20 if dtype == np.int16 else 256,
+                       size=(f, n)).astype(dtype)
+    if dtype == np.int16:
+        bins[rng.rand(f, n) < 0.01] = -3
+    ghc = (rng.choice([-1.0, 1.0], size=(3, n))
+           * 10.0 ** rng.uniform(-30, 30, size=(3, n))).astype(np.float32)
+    ghc[rng.rand(3, n) < 0.05] = np.float32(-0.0)
+    want = _sorted_bin_sums(bins, ghc, count, b)
+    slot = torch.where(torch.arange(n) < count, 0, -1)
+    got = hk.chunk_partials_plain(torch.from_numpy(bins),
+                                  torch.from_numpy(ghc), slot, 1, b)[:, 0]
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    covered = max(-(-count // CHUNK), 1)
+    hi, lo = hk.kahan_fold(torch.from_numpy(want[:covered]))
+    src = torch.arange(n, dtype=torch.int32)
+    chi, clo = hk.compacted_hist_plain(torch.from_numpy(bins),
+                                       torch.from_numpy(ghc), src,
+                                       torch.tensor([count],
+                                                    dtype=torch.int32), b)
+    np.testing.assert_array_equal(chi.numpy().view(np.uint32),
+                                  hi.numpy().view(np.uint32))
+    np.testing.assert_array_equal(clo.numpy().view(np.uint32),
+                                  lo.numpy().view(np.uint32))
+
+
+def test_compaction_scratch_is_sized_for_the_kernels():
+    """CompactScratch holds compact_rows' look-back words (a header of 4
+    and two a 4096-row tile) and compacted_hist's chunk partials (a
+    feature's row padded to whole float4s), zeroed counters (the job
+    ticket, two a chunk, two a feature) and gathered rows (g, h, w and
+    the bins); the route follows the bin count; a learner on the CPU
+    (plain versions) makes none. The row-major copy pads each row of
+    bins to whole 16-byte pieces."""
+    bins = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 255, size=(5, 3 * CHUNK)).astype(np.int16))
+    sc = hk.CompactScratch(bins, 255)
+    assert sc.flags.shape == (4 + 2 * 3,) and not sc.flags.any()
+    assert sc.partials.shape == (3 * 5 * 768,)
+    assert sc.words.shape == (1 + 2 * 3 + 2 * 5,) and not sc.words.any()
+    assert sc.gathered.shape == (3 * CHUNK * (12 + 5 * 2),)
+    assert sc.rows.shape == (3 * CHUNK, 8) and sc.rows.dtype == torch.int16
+    assert torch.equal(sc.rows[:, :5], bins.t()) and not sc.rows[:, 5:].any()
+    assert hk.bin_rows(bins[:, :4096].to(torch.uint8)).shape == (4096, 16)
+    assert set(sc.hist_kwargs()) == {"rows", "partials", "words",
+                                     "gathered"}
+    assert hk.compact_scratch_ints(0) == 6
+    assert hk.compact_scratch_ints(CHUNK + 1) == 8
+    assert hk.compacted_hist_route(hk.COMPACT_SORT_MAX_BINS) == "sorted"
+    assert (hk.compacted_hist_route(hk.COMPACT_SORT_MAX_BINS + 1)
+            == "accumulator")
+    x, y, _ = _binary(seed=6)
+    learner = lgt.Booster(dict(BASE, objective="binary"), lgt.Dataset(x, y),
+                          device=CPU).gbdt.tree_learner
+    assert learner.compacted_fn.keywords["scratch"] is None
+
+
 def _binary(seed=0, n=N, f=6):
     x, y, logit = _data(seed=seed, n=n, f=f)
     return x, y, logit

@@ -8,8 +8,16 @@ compact_rows (csrc/compact.cu) and compacted_hist (csrc/compact_hist.cu).
   kernel sums each chunk of the compacted rows in row order, as the
   CPU's index_add_ does), uint8 at 255 bins and int16 at 300, at the
   same counts; two launches agree.
+- compacted_hist's sorted route (one launch: rows sorted by bin, the
+  fold in the same launch) is bitwise the CPU plain version on a skewed
+  feature (90% of a 10% leaf's rows in bin 0) and on a leaf whose rows
+  all share one bin; the accumulator route (wide int16 bins) too.
 - A CUDA graph captured around both (CapturedGraph) replays the eager
-  bits and counts its launches; a fused run (the boosting iteration
+  bits and counts its launches; with one caller's scratch, three
+  replays at three counts with an eager call between them each give
+  the CPU plain version's bits (the fold counters and look-back flags
+  are left valid by every call); two learners whose builds interleave
+  give the models each gives alone; a fused run (the boosting iteration
   replayed as a graph) writes the per-iteration model text byte for
   byte, with both kernels' launches counted through the replays and no
   host sync in a tree build.
@@ -126,6 +134,143 @@ def test_compacted_hist_bitwise_equals_cpu_plain_on_card(cnt, b, dtype):
     assert torch.equal(hi, hi2) and torch.equal(lo, lo2)
     ch, cl = hk.compacted_hist(*cpu, b)
     assert torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl)
+
+
+def _bitwise_on_card(bins, ghc, src, count, b, scratch=None):
+    """compacted_hist on the card (twice) against the CPU plain version
+    on the same CPU inputs: equal in bits, both launches equal."""
+    dev = [t.cuda() for t in (bins, ghc, src, count)]
+    kw = {} if scratch is None else scratch.hist_kwargs()
+    hi, lo = hk.compacted_hist(*dev, b, **kw)
+    hi2, lo2 = hk.compacted_hist(*dev, b, **kw)
+    ch, cl = hk.compacted_hist_plain(bins, ghc, src, count, b)
+    assert torch.equal(hi, hi2) and torch.equal(lo, lo2)
+    assert torch.equal(hi.cpu(), ch) and torch.equal(lo.cpu(), cl)
+
+
+def test_compacted_hist_skewed_feature_bitwise_on_card():
+    """A 10% leaf whose feature 2 has 90% of its rows in bin 0, as a
+    sparse column gives: one bin's run is most of each chunk."""
+    n = 16 * CHUNK
+    bins, ghc = _hist_inputs(255, np.uint8, 31, n=n)
+    src, count = _compact(_row_leaf(n // 10, 32, n=n))
+    rows = src[:int(count[0])].long()
+    zero = torch.from_numpy(np.random.RandomState(33).rand(rows.numel())
+                            < 0.9)
+    bins[2, rows[zero]] = 0
+    assert hk.compacted_hist_route(255) == "sorted"
+    _bitwise_on_card(bins, ghc, src, count, 255)
+
+
+@pytest.mark.parametrize("chunks", [10, 12, 14, 17, 22, 33, 70])
+def test_compacted_hist_every_job_plan_bitwise_on_card(chunks):
+    """28 features over 80 chunks, leaves of 10-70 covered chunks: the
+    sorted route's plan (gather pieces a chunk, features a sum job)
+    follows the count, and every plan gives the CPU plain version's
+    bits (pieces that do not divide a chunk evenly included)."""
+    n = 80 * CHUNK
+    bins, ghc = _hist_inputs(255, np.uint8, 50 + chunks, f=28, n=n)
+    src, count = _compact(_row_leaf((chunks - 1) * CHUNK + 333, 51, n=n))
+    _bitwise_on_card(bins, ghc, src, count, 255)
+
+
+@pytest.mark.parametrize("b,dtype", [(255, np.uint8), (300, np.int16)],
+                         ids=["uint8", "int16"])
+def test_compacted_hist_leaf_in_one_bin_bitwise_on_card(b, dtype):
+    """Every row of the leaf in one bin of every feature (a chunk's
+    whole 4096 rows one serial run), bins of other rows random."""
+    bins, ghc = _hist_inputs(b, dtype, 34)
+    src, count = _compact(_row_leaf(CHUNK + 900, 35))
+    rows = src[:int(count[0])].long()
+    bins[:, rows] = torch.tensor([[b - 1], [0], [7], [b // 2], [1]],
+                                 dtype=bins.dtype)
+    _bitwise_on_card(bins, ghc, src, count, b)
+
+
+@pytest.mark.parametrize("cnt", [0, CHUNK + 1, N])
+def test_compacted_hist_wide_bins_take_the_accumulator_route_on_card(cnt):
+    """int16 bins past COMPACT_SORT_MAX_BINS take the accumulator route
+    (chosen by shape): the same function, the same bits."""
+    b = hk.COMPACT_SORT_MAX_BINS + 952
+    assert hk.compacted_hist_route(b) == "accumulator"
+    assert hk._library("compact_hist.cu").compacted_hist_route(b) == 1
+    assert hk._library("compact_hist.cu").compacted_hist_route(255) == 0
+    bins, ghc = _hist_inputs(b, np.int16, 36 + cnt)
+    src, count = _compact(_row_leaf(cnt, 37 + cnt))
+    _bitwise_on_card(bins, ghc, src, count, b)
+
+
+def test_replays_at_three_counts_and_an_eager_call_on_card():
+    """One caller's scratch (CompactScratch) behind a captured
+    compact_rows + compacted_hist: three replays at three leaf sizes,
+    with an eager call on the same scratch between them, each bitwise
+    the CPU plain version; so the fold counters and the look-back flags
+    are valid after every call, with no memset in the graph."""
+    n = 8 * CHUNK
+    bins, ghc = _hist_inputs(255, np.uint8, 40, n=n)
+    rng = np.random.RandomState(41)
+    row_leaf = rng.randint(0, 3, size=n).astype(np.int32)
+    for leaf, cnt in ((3, 5), (4, CHUNK + 17), (5, 5 * CHUNK)):
+        row_leaf[rng.choice(np.flatnonzero(row_leaf < 3), cnt,
+                            replace=False)] = leaf
+    row_leaf = torch.from_numpy(row_leaf)
+    d_bins, d_ghc, d_rl = bins.cuda(), ghc.cuda(), row_leaf.cuda()
+    scratch = hk.CompactScratch(d_bins, 255)
+    leaf = torch.tensor([3], dtype=torch.int32, device="cuda")
+    src = torch.empty(n, dtype=torch.int32, device="cuda")
+    cnt = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def step(lid=leaf):
+        hk.compact_rows(d_rl, lid, src, cnt, flags=scratch.flags)
+        return hk.compacted_hist(d_bins, d_ghc, src, cnt, 255,
+                                 **scratch.hist_kwargs())
+
+    def want(lid):
+        s, c = _compact(row_leaf, leaf=lid)
+        return s, c, hk.compacted_hist_plain(bins, ghc, s, c, 255)
+
+    step()
+    torch.cuda.synchronize()
+    graph = hk.CapturedGraph()
+    with graph.capture():
+        static = step()
+    for k, lid in enumerate((3, 4, 5)):
+        leaf.fill_(lid)
+        graph.replay()
+        torch.cuda.synchronize()
+        ws, wc, (wh, wl) = want(lid)
+        assert torch.equal(src.cpu(), ws) and torch.equal(cnt.cpu(), wc)
+        assert torch.equal(static[0].cpu(), wh)
+        assert torch.equal(static[1].cpu(), wl)
+        other = (4, 5, 3)[k]
+        hi, lo = step(torch.tensor([other], dtype=torch.int32,
+                                   device="cuda"))
+        _, _, (oh, ol) = want(other)
+        assert torch.equal(hi.cpu(), oh) and torch.equal(lo.cpu(), ol)
+    torch.cuda.synchronize()
+    assert int(scratch.words.abs().sum()) == 0
+
+
+def test_two_learners_interleaved_give_their_own_models_on_card():
+    """Two Boosters on one card, their trees built in turns (each with
+    its own compaction scratch), give the model texts each gives
+    trained alone."""
+    data = [_data(seed=s) for s in (11, 12)]
+    params = dict(BASE, objective="binary")
+    alone = []
+    for x, y in data:
+        booster = lgt.Booster(params, lgt.Dataset(x, y))
+        for _ in range(3):
+            booster.update()
+        alone.append(booster.model_to_string())
+    boosters = [lgt.Booster(params, lgt.Dataset(x, y)) for x, y in data]
+    scratch = [b.gbdt.tree_learner.compacted_fn.keywords["scratch"]
+               for b in boosters]
+    assert scratch[0].words.data_ptr() != scratch[1].words.data_ptr()
+    for _ in range(3):
+        for b in boosters:
+            b.update()
+    assert [b.model_to_string() for b in boosters] == alone
 
 
 def test_graph_replay_gives_eager_bits_and_counts_on_card():
