@@ -10,15 +10,19 @@ checkout of the repo (DIR's lightgbm_tpu_torch, imported under another
 name, its kernels built from DIR's csrc) on the same inputs: the
 histogram kernels and the traversal kernels (every traversal case and
 check) must give these kernels' bits, and both are timed in the same
-way, for a before-and-after comparison in one run; the serving phase
-also runs DIR's CompiledPredictor on the same model file in turns with
-this one (single-row latency, predict's stages, same answers).
+way, for a before-and-after comparison in one run; so do bin_dense
+(DIR's kernel on the same matrices, same bits, timed in turns) and the
+LambdaRank pair gradients (DIR's function on the same score, within
+1e-5, timed; DIR's package trains the fused lambdarank workload beside
+this one's); the serving phase also runs DIR's CompiledPredictor on the
+same model file in turns with this one (single-row latency, predict's
+stages, same answers).
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
    kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once
-   (hist.cu, seg_hist.cu, compact.cu, compact_hist.cu, bin.cu and
-   traverse.cu);
+   (hist.cu, seg_hist.cu, compact.cu, compact_hist.cu, bin.cu, rank.cu
+   and traverse.cu);
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
    int16 case with 300 bins; frontier with L = 1 at the root, every row
@@ -137,13 +141,16 @@ Phases (any failure exits non-zero and prints no result line):
    f64 association bound of the host path), tree_raw K = 5 timed;
 11. lambdarank: the bench matrix in queries of 50-200 documents (about
    8,000, M = 200), relevance 0-4 from the logit's quantiles within each
-   query, max_position 20, the default label_gain: the pair-gradient
-   program against its host float64 path (2e-4 of the largest |value|),
-   two calls bitwise equal, one call timed with CUDA events beside its
-   bound (the (Q, M, M) pair arithmetic and bytes) and profiled; 10
-   rounds per-iteration and fused (NDCG@1,3,5 after 10 rounds above the
-   first round's, model text), and query-unit bagging (0.7, every 2
-   rounds) fused against its per-iteration loop;
+   query, max_position 20, the default label_gain: the lambdarank_pairs
+   kernel (csrc/rank.cu) bit for bit its plain version on the card and
+   within 2e-4 of the largest |value| of its host float64 path, two
+   calls bitwise equal, one call profiled (one device kernel) and timed
+   with CUDA events beside its bound (the function's own bytes and the
+   pair arithmetic its labels need) and its plain version; 10 rounds
+   per-iteration and fused (one launch a round, counted through the
+   replays; NDCG@1,3,5 after 10 rounds above the first round's, model
+   text), and query-unit bagging (0.7, every 2 rounds) fused against
+   its per-iteration loop;
 12. categorical features: the bench matrix plus 4 integer columns of 32
    categories that enter the label's logit, declared categorical, 2
    rounds with each builder: categorical splits, the same first tree,
@@ -182,9 +189,9 @@ Phases (any failure exits non-zero and prints no result line):
     multiclass and lambdarank, for compact_rows and compacted_hist from
     the compacted phase's fused runs, binary and multiclass, for the
     traversal kernels from the serving main path and the multiclass
-    serving, for bin_dense from the bench's construction), the LambdaRank pair
-    gradients' time and bound on a line of their own (a torch program,
-    no hand-written kernel yet), the card line, and the result line.
+    serving, for bin_dense from the bench's construction, for
+    lambdarank_pairs from the fused lambdarank run), the card line, and
+    the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -2091,80 +2098,182 @@ def phase_multiclass(torch, lgt, hk, ds_bench, x, logit, timer):
     return res
 
 
-def rank_grad_bound_ms(layout, n):
-    """Least time for one pair-gradient call: the score read and the two
-    (N,) outputs written, the padded layout (int64 rows, bool mask,
-    float32 gains, int64 row -> slot map, one float32 per query) read
-    once, over HBM bandwidth; against 27 float32 operations for each
-    pair this run's queries hold (sum of n_q^2: differences, gaps, the
-    discount and score terms, the clamped sigmoid with its exp, the
-    lambda and hessian products and their row and column sums) over the
-    float32 rate. Returns (ms, bound_by, pairs)."""
-    pairs = int(np.sum(layout.counts.astype(np.int64) ** 2))
-    slots = layout.idx.size
-    nbytes = 3 * n * 4 + slots * (8 + 1 + 4) + n * 8 \
-        + layout.padded_queries * 4
-    ops = 27.0 * pairs
+# the PyTorch operators a pair-gradient call may run besides the kernel
+RANK_CALL_OPS = {"aten::empty", "aten::empty_strided", "aten::reshape",
+                 "aten::view", "aten::_reshape_alias"}
+
+
+def rank_pairs_needed(qb, gain):
+    """Ordered pairs (h, l) of a query with gain_h > gain_l, over every
+    query: the pair terms this run's labels need (host numpy)."""
+    total = 0
+    for q in range(len(qb) - 1):
+        g = np.sort(gain[qb[q]:qb[q + 1]])
+        total += int(np.searchsorted(g, g, side="left").sum())
+    return total
+
+
+def rank_grad_bound_ms(qb, gain, weighted, disc_len):
+    """Least time for one pair-gradient call, whatever implements it: the
+    function's own inputs read once (score, each row's gain and weight,
+    the query bounds, each query's inverse max DCG, the discount table)
+    and the two (N,) outputs written once, over HBM bandwidth; against
+    27 float32 operations for each pair term this run's labels need
+    (rank_pairs_needed: differences, gaps, the discount and score terms,
+    the clamped sigmoid with its exp, the lambda and hessian products,
+    their two adds) and a compare and an add for each ordered pair of a
+    query (the ranks), over the float32 rate. Returns (ms, bound_by,
+    pairs needed, sum of n_q^2)."""
+    n = int(qb[-1] - qb[0])
+    nq = len(qb) - 1
+    nbytes = (4 * n * (4 + (1 if weighted else 0)) + 4 * (nq + 1) + 4 * nq
+              + 4 * disc_len)
+    needed = rank_pairs_needed(qb, gain)
+    squares = int(np.sum(np.diff(qb).astype(np.int64) ** 2))
+    ops = 27.0 * needed + 2.0 * squares
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", pairs)
+            "bytes" if t_bytes >= t_ops else "operations", needed, squares)
+
+
+def rank_baseline_fn(torch, obj):
+    """With --baseline: the other checkout's pair-gradient function for
+    the objective's queries (its own layout and program)."""
+    rd = baseline_module("objectives.rank_device")
+    layout = rd.PaddedQueryLayout(obj.layout.boundaries, obj.num_data)
+    return rd.make_lambdarank_gradfn(layout, obj.label, obj.label_gain,
+                                     obj.sigmoid, obj.optimize_pos_at,
+                                     obj.weights, torch.device(DEVICE))
 
 
 def rank_gradients_case(torch, booster, timer):
-    """The pair-gradient program at the phase's shape: against the
-    objective's host float64 path (2e-4 of the largest |value|,
-    tests/test_rank_device.py's bound), two calls bitwise equal, timed
-    with CUDA events (L2 flushed, the device sleep ahead) beside its
-    bound and the host path's time, and one call profiled."""
+    """lambdarank_pairs (csrc/rank.cu) at the phase's shape: bit for bit
+    its plain version on the card (same inputs), within 2e-4 of the
+    largest |value| of the objective's host float64 path
+    (tests/test_rank_device.py's bound), two calls bitwise equal, one
+    call profiled (one device kernel, the pair kernel: no torch pair
+    program), timed with CUDA events (L2 flushed, the device sleep
+    ahead) beside its bound, its plain version and the host path; with
+    --baseline the other checkout's function on the same score (within
+    1e-5 of the largest |value|: its sums run in another order), timed."""
     from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import rank_kernels as rk
     obj = booster.objective
     n = booster.gbdt.num_data
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     score = torch.randn(1, n, device=DEVICE, generator=gen)
+    before = rk.KERNELS["lambdarank_pairs"].launches
     g, h = obj.get_gradients(score)
     g2, h2 = obj.get_gradients(score)
     torch.cuda.synchronize()
+    launches = rk.KERNELS["lambdarank_pairs"].launches - before
+    lay = obj.layout
+    args = obj._grad.inputs
+    qb = args["qb"].cpu().numpy()
+    gain = args["gain"].cpu().numpy()
+    t0 = time.perf_counter()
+    pg, ph = rk.lambdarank_grad_plain(score, **args)
+    torch.cuda.synchronize()
+    plain_once_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
     gh, hh = obj.get_gradients_host(score.cpu().numpy())
     host_ms = 1e3 * (time.perf_counter() - t0)
     err_g = float(np.abs(g.cpu().numpy() - gh).max() / np.abs(gh).max())
     err_h = float(np.abs(h.cpu().numpy() - hh).max() / np.abs(hh).max())
-    lay = obj.layout
-    bound, bound_by, pairs = rank_grad_bound_ms(lay, n)
-    res = {"queries": lay.num_queries, "max_docs": lay.max_docs,
-           "blocks": lay.num_blocks, "block_queries": lay.block_queries,
-           "pairs": pairs, "grad_rel_err": err_g, "hess_rel_err": err_h,
+    bound, bound_by, needed, squares = rank_grad_bound_ms(
+        qb, gain, args["weight"] is not None, args["disc"].shape[0])
+    res = {"name": "lambdarank_pairs", "queries": lay.num_queries,
+           "max_docs": lay.max_docs, "pairs_needed": needed,
+           "pairs_squared": squares, "grad_rel_err": err_g,
+           "hess_rel_err": err_h, "launches_two_calls": launches,
+           "bitwise_vs_plain": bool(torch.equal(g, pg)
+                                    and torch.equal(h, ph)),
+           "max_abs_err": float(max((g - pg).abs().max(),
+                                    (h - ph).abs().max())),
            "deterministic": bool(torch.equal(g, g2) and torch.equal(h, h2)),
            "ms": timer(lambda: obj.get_gradients(score), 10),
+           "plain_ms": timer(lambda: rk.lambdarank_grad_plain(score, **args),
+                             2),
+           "plain_once_ms": plain_once_ms, "library_ms": None,
            "host_f64_ms": host_ms, "bound_ms": bound, "bound_by": bound_by}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         obj.get_gradients(score)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if getattr(e, "device_type", None)
                == torch.autograd.DeviceType.CUDA]
-    check(kernels, "the profiler recorded no device kernel in a call")
     res["device_ops"] = len(kernels)
+    res["device_op_names"] = sorted({e.name for e in kernels})
     res["device_busy_ms"] = sum(e.device_time_total for e in kernels) / 1e3
-    log(f"lambdarank gradients: {lay.num_queries} queries padded to "
-        f"({lay.padded_queries}, {lay.max_docs}) in {lay.num_blocks} blocks "
-        f"of {lay.block_queries}, {pairs} pairs; ms {res['ms']:.3f} "
-        f"(device busy {res['device_busy_ms']:.3f} over "
-        f"{res['device_ops']} ops) bound {bound:.4f} ({bound_by}); host "
-        f"f64 {host_ms:.0f} ms; rel err grad {err_g:.3g} hess {err_h:.3g}; "
-        f"two calls equal {res['deterministic']}")
+    # the call's PyTorch operators: the outputs' allocations and the
+    # score's reshape, no torch pair program
+    res["torch_ops"] = sorted({e.name for e in prof.events()
+                               if e.name.startswith("aten::")})
+    if BASELINE is not None:
+        base = rank_baseline_fn(torch, obj)
+        bg, bh = base(score)
+        torch.cuda.synchronize()
+        scale = max(float(bg.abs().max()), float(bh.abs().max()))
+        res["baseline_max_abs_diff"] = float(max(
+            (bg - g).abs().max(), (bh - h).abs().max()))
+        res["baseline_ms"] = timer(lambda: base(score), 10)
+        check(res["baseline_max_abs_diff"] <= 1e-5 * scale,
+              "lambdarank gradients: the baseline's program differs by "
+              f"{res['baseline_max_abs_diff']}")
+    log(f"lambdarank_pairs: {lay.num_queries} queries of up to "
+        f"{lay.max_docs} rows, {needed} pair terms ({squares} ordered "
+        f"pairs); ms {res['ms']:.4f} (device busy "
+        f"{res['device_busy_ms']:.4f} over {res['device_ops']} ops "
+        f"{res['device_op_names']}, torch ops {res['torch_ops']}) bound "
+        f"{bound:.4f} ({bound_by}); plain "
+        f"{res['plain_ms']:.1f} ms; host f64 {host_ms:.0f} ms; bits = plain "
+        f"{res['bitwise_vs_plain']} (max |diff| {res['max_abs_err']:.3g}); "
+        f"rel err vs f64 grad {err_g:.3g} hess {err_h:.3g}; two calls equal "
+        f"{res['deterministic']}"
+        + (f"; baseline program {res['baseline_ms']:.3f} ms, max |diff| "
+           f"{res['baseline_max_abs_diff']:.3g}" if BASELINE else ""))
+    check(launches == 2, f"lambdarank gradients: {launches} kernel launches "
+          "in two calls")
+    check(set(res["torch_ops"]) <= RANK_CALL_OPS
+          and all("lambdarank" in k for k in res["device_op_names"]),
+          f"lambdarank gradients: a call ran {res['torch_ops']} and "
+          f"{res['device_op_names']} on the device, not the pair kernel "
+          "alone")
+    check(res["bitwise_vs_plain"],
+          "lambdarank gradients: the kernel differs from its plain version")
     check(err_g < 2e-4 and err_h < 2e-4,
           f"lambdarank gradients: {err_g}, {err_h} from the host f64 path")
     check(res["deterministic"], "lambdarank gradients: two calls differ")
     return res
 
 
-def phase_lambdarank(torch, lgt, hk, ds_bench, logit, timer, seed):
+def baseline_fused_rank(torch, x, label, counts):
+    """With --baseline: the other checkout's package trains the same
+    lambdarank workload fused (its own Dataset built on the card): its
+    round time without the runner's setup, and its model text."""
+    import sys as _sys
+    base = _sys.modules[BASELINE.__name__.rsplit(".", 1)[0]]
+    ds = base.Dataset(x, label, group=counts).construct(device=DEVICE)
+    t0 = time.perf_counter()
+    booster = base.train(RANK_PARAMS, ds, NEW_ROUNDS, verbose_eval=False,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runner = fused_runner(booster)
+    setup_s = runner.warm_step_s + runner.capture_s
+    return {"round_ms": 1e3 * (train_s - setup_s) / NEW_ROUNDS,
+            "train_s": train_s, "text": booster.model_to_string()}
+
+
+def phase_lambdarank(torch, lgt, hk, ds_bench, x, logit, timer, seed):
     """LambdaRank at full width: the bench matrix in queries of 50-200
     documents with relevance 0-4, max_position 20, default label_gain;
     the pair gradients checked and timed; 10 rounds per-iteration and
-    fused (model text), NDCG@1,3,5 rises; query-unit bagging (0.7,
-    every 2 rounds) fused against its per-iteration loop."""
+    fused (model text; one lambdarank_pairs launch a round, counted
+    through the replays), NDCG@1,3,5 rises; query-unit bagging (0.7,
+    every 2 rounds) fused against its per-iteration loop; with
+    --baseline the other checkout's fused round on the same workload."""
     from lightgbm_tpu_torch.metrics import create_metric
 
     label, counts = rank_queries(logit, seed)
@@ -2192,10 +2301,24 @@ def phase_lambdarank(torch, lgt, hk, ds_bench, logit, timer, seed):
         f" ms, launches {counts_pi}, ndcg@{RANK_EVAL_AT} {ndcg0} -> {ndcg}")
     check(len(per_iter.gbdt.models) == NEW_ROUNDS,
           "lambdarank: training stopped early")
+    check(counts_pi["lambdarank_pairs"] == NEW_ROUNDS,
+          f"lambdarank: {counts_pi['lambdarank_pairs']} pair-gradient "
+          f"launches in {NEW_ROUNDS} rounds")
     check(all(b > a for a, b in zip(ndcg0, ndcg)),
           f"lambdarank: NDCG did not rise: {ndcg0} -> {ndcg}")
     res["fused"] = fused_case(torch, lgt, hk, ds, RANK_PARAMS, per_iter,
                               "lambdarank fused", 0)
+    per_replay = res["fused"]["launches_per_replay"]
+    check(per_replay.get("lambdarank_pairs") == 1,
+          f"lambdarank fused: a replay launches {per_replay}")
+    if BASELINE is not None:
+        base = baseline_fused_rank(torch, x, label, counts)
+        res["baseline_fused"] = {
+            "round_ms": base["round_ms"], "train_s": base["train_s"],
+            "model_text_equal": base["text"] == per_iter.model_to_string()}
+        log(f"lambdarank fused, baseline: round {base['round_ms']:.1f} ms "
+            f"(this {res['fused']['round_ms']:.1f}); "
+            f"{res['baseline_fused']}")
     del per_iter
     params = dict(RANK_PARAMS, **RANK_BAGGING)
     loop = lgt.train(params, ds, NEW_ROUNDS, verbose_eval=False,
@@ -2956,6 +3079,19 @@ def bin_kernel_case(torch, bk, timer, x, core, label):
         lambda: bk.bin_dense_plain(xd, cols, bounds, tdt), 3)
     res["library_ms"] = timer(lambda: torch.searchsorted(bounds, xt), 20)
     res["host_us"] = host_us(torch, call, reps=50)
+    if BASELINE is not None:        # the other checkout's kernel, in turns
+        base_bk = baseline_module("ops.bin_kernels")
+        res["baseline_same_bits"] = bool(torch.equal(
+            base_bk.bin_dense(xd, cols, bounds, tdt), one))
+        pair = [timer(lambda: base_bk.bin_dense(xd, cols, bounds, tdt), 20),
+                timer(call, 20), timer(call, 20),
+                timer(lambda: base_bk.bin_dense(xd, cols, bounds, tdt), 20)]
+        res["baseline_ms"] = float(np.median([pair[0], pair[3]]))
+        res["turns_ms"] = pair
+        log(f"  baseline: same bits {res['baseline_same_bits']}, ms "
+            f"{res['baseline_ms']:.4f} (turns {[round(v, 4) for v in pair]})")
+        check(res["baseline_same_bits"], f"bin_dense {label}: the baseline "
+              "gave other bits")
     log(f"bin_dense {label}: {res['ms']:.4f} ms (bound {res['bound_ms']:.4f}"
         f" {res['bound_by']}, plain {res['plain_ms']:.3f}, searchsorted "
         f"{res['library_ms']:.4f}), bits = plain {res['bitwise_vs_plain']},"
@@ -3280,8 +3416,8 @@ def main():
                                                 logit, timer)
         report["multiclass"]["phase_s"] = time.time() - t0
         t0 = time.time()
-        report["lambdarank"] = phase_lambdarank(torch, lgt, hk, ds, logit,
-                                                timer, args.seed)
+        report["lambdarank"] = phase_lambdarank(torch, lgt, hk, ds, x,
+                                                logit, timer, args.seed)
         report["lambdarank"]["phase_s"] = time.time() - t0
         report["categorical"], cat_booster, cat_x = phase_categorical(
             torch, lgt, args.seed)
@@ -3358,10 +3494,13 @@ def main():
         "lightgbm_tpu_torch/csrc/bin.cu",
         "lightgbm_tpu/io/dataset.py:156 (XLA _bin_dense_on_device, no "
         "Pallas counterpart)"))
-    grad = report["lambdarank"]["gradients"]
-    log(f"lambdarank pair gradients (torch formulation, no hand-written "
-        f"kernel): {grad['ms']:.4f} ms a call, bound {grad['bound_ms']:.4f} "
-        f"ms ({grad['bound_by']}), one call an iteration")
+    # the LambdaRank pair gradients, launches from the fused lambdarank
+    # run; the JAX package computes them as XLA
+    kernels.append(kernel_line(
+        report["lambdarank"]["gradients"], fused_launches("lambdarank_pairs"),
+        "lightgbm_tpu_torch/csrc/rank.cu",
+        "lightgbm_tpu/objectives/rank_device.py:54 (XLA "
+        "make_lambdarank_gradfn, no Pallas counterpart)"))
     report["kernels"] = kernels
     _write(args.out, report)
     print(json.dumps({"kernels": kernels}))

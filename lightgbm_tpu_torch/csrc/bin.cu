@@ -24,27 +24,51 @@
 //
 // Bound on this card. The bench matrix, 1,000,000 x 28 float32, reads
 // 112 MB and writes 28 MB of uint8 bins: 0.042 ms at 3.35 TB/s. The
-// searches are shared-memory loads (9 a value, 252 M at the bench
-// shape), under the bytes' time when they overlap. Design:
-// 1. A block owns a tile of features (all of them when their bounds fit
-//    in 48 KB with the output tile) and loads their bounds into shared
-//    memory once, each row padded with +inf to a power of two P; it
-//    then walks row tiles of 256 rows, grid-stride, so the bounds are
-//    read from device memory once a block. The grid is as many blocks
-//    as fit on the card at once (the occupancy calculator's count).
-// 2. Reads: thread t keeps feature t % ft and takes rows t / ft, t / ft
-//    + 256 / ft, ... of a row tile, so a warp reads consecutive floats
-//    of consecutive rows (coalesced where cols is the identity), and no
-//    index is divided in the loop. A thread loads kIlp rows before it
-//    searches, and runs their searches in lockstep: a fixed log2(P) + 1
-//    steps with no branch, so kIlp shared-memory loads (and the global
-//    loads before them) are in flight at once instead of one chain.
-// 3. Writes: the bins go to a shared (features, 256 rows) tile, then out
-//    with the row fastest, so each feature's 256 bins are one contiguous
-//    store (the shared-memory transpose of the (N, F) input to the
-//    features-major output).
-// Rows of bounds too wide for shared memory (B > 8,192) are searched in
-// device memory (through L1/L2) with a plain lower bound instead.
+// searches are shared-memory loads, 9 a value at 255 bins (252 M at the
+// bench shape): about 0.04 ms of the SMs' shared-memory pipes when no two
+// lanes of a warp meet in a bank, so loads, searches and stores must all
+// overlap. Two routes.
+//
+// The lane route (bin_lane_kernel; up to 1,024 padded bounds a feature)
+// replaced the first design (the direct route below) as the one the
+// bench takes. Splitting the first design's 0.145 ms at the bench shape
+// (bench/bin_split.py, H100) gave its loads and stores alone 0.083 ms and
+// its searches and stores alone 0.126: too few loads in flight, and
+// searches whose random positions met in banks. A first redesign that
+// staged row tiles in a shared-memory ring with cp.async (8 warps an SM,
+// its shared-memory limit raised on every launch) took 0.176 ms. So:
+// 1. Bank-free searches. A group of up to 32 features (blockIdx.y) has a
+//    (P, 32) table, laid out from the bounds by a small kernel ahead of
+//    the pass (lane_table_kernel, into the wrapper's scratch): column l
+//    holds feature l % fg of the group's fg, padded with +inf to a power
+//    of two P; bound k of column l at k * 32 + l. Lane l searches only
+//    column l, so its loads always hit bank l, whatever the positions; a
+//    group of fewer than 32 features is searched 32 / fg rows at once.
+//    A block copies its group's table into shared memory once
+//    (coalesced).
+// 2. Loads in flight. Lane (sub, j) bins feature j for 32 bytes of
+//    output rows (32 uint8, 16 int16 or 8 int32 bins): kLaneIlp values
+//    at a time loaded straight into registers (a warp reads whole rows
+//    of x, 112 bytes at 28 features), then searched in lockstep; 512
+//    threads a block, a persistent grid, so many warps' loads are in
+//    flight while others search. A step is one shared load at an
+//    immediate offset, a compare, a select and an add (P = 256 and
+//    1,024 unrolled). Prefetching the next values during a search (in
+//    registers, or with cp.async into a per-warp buffer), ILP 4 or 16
+//    and 256-thread blocks measured no faster (bench/bin_split.py).
+// 3. Whole-sector stores. The lane packs its bins into eight words and
+//    stores them with two 16-byte stores (scalar stores where the output
+//    row is not 16-byte aligned or the matrix ends): no shared-memory
+//    transpose.
+// Any x works: a misaligned view, a column subset, a ragged end.
+//
+// The direct route (bin_dense_kernel; more than 1,024 bounds, the first
+// design): a block keeps its feature tile's bounds in at most 48 KB of
+// static shared memory (rows of bounds of more than 8,192 are searched
+// in device memory through L1/L2 with a plain lower bound instead),
+// walks 256-row tiles grid-stride, each thread loading kIlp values and
+// running their searches in lockstep, and stores through a shared
+// (features, 256 rows) transpose tile.
 // No atomics, no data-dependent order: two launches give the same bits.
 
 #include <cuda_runtime.h>
@@ -210,10 +234,235 @@ int launch_tiles(const float* x, int64_t n, int c, const int* cols, int f,
   return cudaGetLastError() == cudaSuccess ? kOk : kLaunch;
 }
 
+// --------------------------------------------------------- lane route
+
+constexpr int kLaneThreads = 512;
+constexpr int kLaneMaxP = 1024;             // padded bounds a feature
+// values a lane loads, then searches in lockstep (with the block size,
+// the plan bench/bin_split.py --sweep chose)
+constexpr int kLaneIlp = 8;
+
+// Rows one lane bins: 32 bytes of its feature's output row.
+template <typename OutT>
+__host__ __device__ constexpr int rows_lane() {
+  return 32 / (int)sizeof(OutT);
+}
+
+// kIlp values of a lane's rows r, r + 1, ... (feature column `col`):
+// -inf past the matrix, NaN read as 0.0.
+template <int kIlp>
+__device__ __forceinline__ void load_unit(float (&v)[kIlp],
+                                          const float* __restrict__ x,
+                                          int64_t r, int64_t n, int c,
+                                          int col) {
+  const float* xp = x + r * c + col;
+  const int64_t left = n - r;
+  if (left >= kIlp) {                          // a whole unit: no checks
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) v[k] = xp[k * c];
+  } else {
+    const int lim = left > 0 ? (int)left : 0;
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) v[k] = k < lim ? xp[k * c] : -CUDART_INF_F;
+  }
+#pragma unroll
+  for (int k = 0; k < kIlp; ++k) {
+    if (v[k] != v[k]) v[k] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store_v4(void* p, unsigned a, unsigned b,
+                                         unsigned c, unsigned d) {
+  asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// kLogP > 0: P = 1 << kLogP known at compile time (each step's offset an
+// immediate); 0: P at run time.
+template <typename OutT, int kLogP>
+__global__ void __launch_bounds__(kLaneThreads)
+bin_lane_kernel(const float* __restrict__ x, int64_t n, int c,
+                const int* __restrict__ cols, int f,
+                const float4* __restrict__ table, int p_run,
+                OutT* __restrict__ out) {
+  extern __shared__ __align__(16) float4 tab4[];
+  constexpr int kRL = rows_lane<OutT>();
+  constexpr int kIlp = kRL < kLaneIlp ? kRL : kLaneIlp;
+  constexpr int kUnits = kRL / kIlp;                 // load units a pass
+  constexpr int kPer = 4 / (int)sizeof(OutT);       // bins a 32-bit word
+  constexpr unsigned kMask = (unsigned)((1ull << (8 * sizeof(OutT))) - 1ull);
+  const int p = kLogP > 0 ? (1 << kLogP) : p_run;
+  const int f0 = blockIdx.y * 32;
+  const int fg = min(32, f - f0);
+  const int rpw = 32 / fg;                           // row blocks a warp
+  // the group's (P, 32) table (lane_table_kernel): bound k of column l
+  // (feature l % fg) at k * 32 + l; one coalesced copy a block
+  const float4* src = table + (size_t)blockIdx.y * p * 8;
+  for (int e = threadIdx.x; e < p * 8; e += blockDim.x) tab4[e] = src[e];
+  __syncthreads();
+  const float* tab = reinterpret_cast<const float*>(tab4);
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / fg;
+  const int j = lane - sub * fg;
+  const int rows_warp = rpw * kRL;
+  const int64_t passes = (n + rows_warp - 1) / rows_warp;
+  const int64_t step = (int64_t)gridDim.x * (blockDim.x >> 5);
+  int64_t ps = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (sub >= rpw || ps >= passes) return;      // no barrier below
+  const int col = cols[f0 + j];
+  const float* tcol = tab + lane;
+  OutT* orow = out + (size_t)(f0 + j) * n;
+  // the lane's pass ps covers rows ps * rows_warp + sub * kRL, + kRL
+  for (; ps < passes; ps += step) {
+    const int64_t rb = ps * rows_warp + (int64_t)sub * kRL;
+    unsigned w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = 0u;
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      float v[kIlp];
+      load_unit<kIlp>(v, x, rb + u * kIlp, n, c, col);
+      // branch-free search over the P-padded column: P/2, ..., 1; q[k]
+      // walks the column (bound i at q[32 i]), so a step is one load at
+      // an immediate offset, a compare, a select and an add
+      const float* q[kIlp];
+#pragma unroll
+      for (int k = 0; k < kIlp; ++k) q[k] = tcol;
+#pragma unroll
+      for (int st = p >> 1; st > 0; st >>= 1) {
+#pragma unroll
+        for (int k = 0; k < kIlp; ++k) {
+          q[k] += q[k][(st - 1) * 32] < v[k] ? st * 32 : 0;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kIlp; ++k) {
+        const int pos = (int)((q[k] - tcol) >> 5) + (*q[k] < v[k] ? 1 : 0);
+        const int kk = u * kIlp + k;
+        w[kk / kPer] |= ((unsigned)pos & kMask)
+                        << (8 * (int)sizeof(OutT) * (kk % kPer));
+      }
+    }
+    if (rb >= n) continue;
+    OutT* dst = orow + rb;
+    if (rb + kRL <= n && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      store_v4(dst, w[0], w[1], w[2], w[3]);   // one whole 32-byte sector
+      store_v4(reinterpret_cast<char*>(dst) + 16, w[4], w[5], w[6], w[7]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRL; ++k) {
+        if (rb + k < n) {
+          dst[k] = (OutT)((w[k / kPer] >> (8 * (int)sizeof(OutT) *
+                                          (k % kPer))) & kMask);
+        }
+      }
+    }
+  }
+}
+
+// The lane route's table of every group from the (f, b) bounds: group g's
+// (p, 32) block, column l holding feature 32 g + l % fg, +inf past b.
+// One thread an entry; the bounds are read once.
+__global__ void lane_table_kernel(const float* __restrict__ bounds, int f,
+                                  int b, int p, float* __restrict__ table) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;   // in the group
+  if (e >= p * 32) return;
+  const int f0 = blockIdx.y * 32;
+  const int fg = min(32, f - f0);
+  const int k = e >> 5;
+  const int feat = f0 + (e & 31) % fg;
+  table[(size_t)blockIdx.y * p * 32 + e] =
+      k < b ? bounds[(size_t)feat * b + k] : CUDART_INF_F;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raise a lane kernel's shared-memory limit once per (device, size) and
+// return the blocks an SM holds (cached: the attribute call is not made
+// on every launch).
+template <typename OutT, int kLogP>
+int lane_blocks_per_sm(size_t smem, int* per_sm) {
+  static size_t allowed[kMaxDevices] = {};
+  static int resident[kMaxDevices] = {};
+  static size_t sized[kMaxDevices] = {};
+  auto kernel = bin_lane_kernel<OutT, kLogP>;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) {
+    return kLaunch;
+  }
+  if (smem > 48 * 1024 && smem > allowed[dev]) {
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess) {
+      return kLaunch;
+    }
+    allowed[dev] = smem;
+  }
+  if (sized[dev] != smem) {
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, kLaneThreads, smem) != cudaSuccess ||
+        blocks < 1) {
+      return kLaunch;
+    }
+    resident[dev] = blocks;
+    sized[dev] = smem;
+  }
+  *per_sm = resident[dev];
+  return kOk;
+}
+
+template <typename OutT, int kLogP>
+int launch_lane_p(const float* x, int64_t n, int c, const int* cols, int f,
+                  const float* bounds, int b, float* table, int p, void* out,
+                  int sms, cudaStream_t stream) {
+  auto kernel = bin_lane_kernel<OutT, kLogP>;
+  const size_t smem = (size_t)p * 32 * sizeof(float);
+  int per_sm = 0;
+  if (lane_blocks_per_sm<OutT, kLogP>(smem, &per_sm) != kOk) return kLaunch;
+  const int groups = (f + 31) / 32;
+  lane_table_kernel<<<dim3((p * 32 + 255) / 256, groups), 256, 0, stream>>>(
+      bounds, f, b, p, table);
+  const int rows_block = (kLaneThreads / 32) * rows_lane<OutT>() *
+                         (32 / (f < 32 ? f : 32));
+  const int64_t row_blocks = (n + rows_block - 1) / rows_block;
+  int64_t gx = ((int64_t)sms * per_sm + groups - 1) / groups;
+  if (gx > row_blocks) gx = row_blocks;
+  if (gx < 1) gx = 1;
+  dim3 grid((unsigned)gx, (unsigned)groups);
+  kernel<<<grid, kLaneThreads, smem, stream>>>(
+      x, n, c, cols, f, reinterpret_cast<const float4*>(table), p,
+      static_cast<OutT*>(out));
+  return cudaGetLastError() == cudaSuccess ? kOk : kLaunch;
+}
+
+template <typename OutT>
+int launch_lane(const float* x, int64_t n, int c, const int* cols, int f,
+                const float* bounds, int b, float* table, void* out, int sms,
+                cudaStream_t stream) {
+  const int p = pow2_at_least(b);
+  switch (p) {   // the bench's 255 and 1,023 bins, unrolled
+    case 256:
+      return launch_lane_p<OutT, 8>(x, n, c, cols, f, bounds, b, table, p,
+                                    out, sms, stream);
+    case 1024:
+      return launch_lane_p<OutT, 10>(x, n, c, cols, f, bounds, b, table, p,
+                                     out, sms, stream);
+    default:
+      return launch_lane_p<OutT, 0>(x, n, c, cols, f, bounds, b, table, p,
+                                    out, sms, stream);
+  }
+}
+
 template <typename OutT>
 int launch(const float* x, int64_t n, int c, const int* cols, int f,
-           const float* bounds, int b, void* out, int sms,
+           const float* bounds, int b, float* table, void* out, int sms,
            cudaStream_t stream) {
+  if (table != nullptr) {
+    return launch_lane<OutT>(x, n, c, cols, f, bounds, b, table, out, sms,
+                             stream);
+  }
   const size_t per_feat_tile = (size_t)tile_stride<OutT>() * sizeof(OutT);
   const size_t per_feat_bounds = (size_t)smem_bound_stride(b) * sizeof(float);
   int feat_tile = (int)(kSmemBudget / (per_feat_tile + per_feat_bounds));
@@ -239,27 +488,36 @@ int launch(const float* x, int64_t n, int c, const int* cols, int f,
 extern "C" {
 
 // x (n, c) float32 row-major; cols (f,) int32 column of each feature;
-// bounds (f, b) float32 row-major; out (f, n) of out_bytes (1: uint8,
-// 2: int16, 4: int32). Launches on `stream`; returns a Status.
+// bounds (f, b) float32 row-major; table: null (the direct route) or
+// scratch of ceil(f / 32) * p * 32 float32 (p the power of two >= b, at
+// most bin_lane_max_p()), which the lane route fills with its search
+// table first; out (f, n) of out_bytes (1: uint8, 2: int16, 4: int32).
+// Launches on `stream`; returns a Status.
 int bin_dense(const float* x, long long n, int c, const int* cols, int f,
-              const float* bounds, int b, void* out, int out_bytes, int sms,
-              cudaStream_t stream) {
+              const float* bounds, int b, float* table, void* out,
+              int out_bytes, int sms, cudaStream_t stream) {
   if (x == nullptr || cols == nullptr || bounds == nullptr ||
       out == nullptr || n <= 0 || c <= 0 || f <= 0 || b <= 0 || sms <= 0 ||
-      b > (1 << 30)) {
+      b > (1 << 30) || (table != nullptr && b > kLaneMaxP)) {
     return kBadArgs;
   }
   switch (out_bytes) {
     case 1:
-      return launch<uint8_t>(x, n, c, cols, f, bounds, b, out, sms, stream);
+      return launch<uint8_t>(x, n, c, cols, f, bounds, b, table, out, sms,
+                             stream);
     case 2:
-      return launch<int16_t>(x, n, c, cols, f, bounds, b, out, sms, stream);
+      return launch<int16_t>(x, n, c, cols, f, bounds, b, table, out, sms,
+                             stream);
     case 4:
-      return launch<int32_t>(x, n, c, cols, f, bounds, b, out, sms, stream);
+      return launch<int32_t>(x, n, c, cols, f, bounds, b, table, out, sms,
+                             stream);
     default:
       return kBadWidth;
   }
 }
+
+// The largest padded row of bounds the lane route takes.
+int bin_lane_max_p() { return kLaneMaxP; }
 
 const char* bin_status_string(int status) {
   switch (status) {

@@ -1,26 +1,23 @@
-"""Device LambdaRank: padded-query pair gradients as a torch program
+"""Device LambdaRank: the pair gradients of every query on the device
 (port of lightgbm_tpu/objectives/rank_device.py).
 
 Reference: src/objective/rank_objective.hpp:19-227 (GetGradientsForOneQuery)
-sweeps each query's O(n_q^2) pairs on the CPU. Here the queries are
-padded to a rectangle (Qp, M) (M = the largest query) and the pairs of
-a block of queries are one (block, M, M) float32 tensor on the device:
-the ranks of a stable argsort of -score, the NDCG deltas and the sigmoid
-responses, summed over each row's pairs. Blocks hold at most
-_PAIR_BUDGET pair elements, so peak memory is O(block * M^2) whatever
-the query count.
-
-Three properties the trainer relies on:
-- ranks: the JAX package's second argsort is the inverse permutation;
-  here it is a scatter of an arange through the order, the same
-  integers;
-- determinism: every real row owns exactly one padded slot, so the
-  gradients come back by a gather through the row -> slot map (no
-  float scatter-add, whose atomics would make the bits run-dependent);
-  adding 0.0 turns a -0.0 into the +0.0 the JAX package's add into
-  zeros gives;
-- capture: no host sync, no data-dependent shape, a fixed loop over the
-  blocks, so the fused trainer captures it in its CUDA graph.
+sweeps each query's O(n_q^2) pairs on the CPU. On a card the sweep is
+one CUDA kernel, csrc/rank.cu (ops/rank_kernels.lambdarank_pairs: a
+block a query, ranks by counting, a thread a row summing its pairs in
+row order); on the CPU its plain version pads the queries to a rectangle
+(Qp, M) as the JAX package does and computes a block of queries' pairs
+as one (block, M, M) float32 tensor, PaddedQueryLayout's blocks of at
+most _PAIR_BUDGET pair elements, with the kernel's operations and sum
+order. Three properties the trainer relies on:
+- ranks: the stable argsort of -score over a query's rows, as the JAX
+  package's (its padded slots rank after them, so the ranks agree for
+  every score but NaN, which here ranks after every number of its own
+  query);
+- determinism: no float scatter-add, no atomics; adding 0.0 turns a
+  -0.0 into the +0.0 the JAX package's add into zeros gives;
+- capture: no host sync and fixed shapes, so the fused trainer captures
+  the kernel in its CUDA graph.
 
 The reference's 1M-entry sigmoid lookup table is replaced by the exact
 expression with the same clamp (as in the JAX package); the pair math is
@@ -31,6 +28,7 @@ import numpy as np
 import torch
 
 from ..metrics.dcg_calculator import DCGCalculator, K_MAX_POSITION
+from ..ops import rank_kernels
 
 # max f32 elements in one (block, M, M) pair tensor (~64 MB)
 _PAIR_BUDGET = 16 * 1024 * 1024
@@ -60,101 +58,41 @@ class PaddedQueryLayout:
             idx[q, : hi - lo] = np.arange(lo, hi, dtype=np.int32)
         self.idx = idx
         self.mask = idx < self.num_data
-        # row -> its flat slot in (Qp * M); a row in no query reads the
-        # zero slot appended after the last one
-        slot = np.full(self.num_data, idx.size, dtype=np.int64)
-        flat = idx.reshape(-1)
-        real = np.nonzero(flat < self.num_data)[0]
-        slot[flat[real]] = real
-        self.row_slot = slot
+        self.boundaries = qb
 
 
 def make_lambdarank_gradfn(layout: PaddedQueryLayout, label, label_gain,
                            sigmoid, max_position, weights, device):
     """The (score (1, N) float32 tensor) -> (grad, hess), each (1, N)
-    float32, on `device` (rank_device.py:54-140)."""
+    float32, on `device` (rank_device.py:54-140): the lambdarank_pairs
+    kernel for a CUDA score, its plain version (in the layout's blocks)
+    for a CPU one."""
     dcg = DCGCalculator(label_gain)
     lab = np.asarray(label, dtype=np.int64)
-    qp, m = layout.idx.shape
-    n = layout.num_data
-    safe = np.minimum(layout.idx, n - 1)
-    lab_p = np.where(layout.mask, lab[safe], 0)
-    lg_p = dcg.label_gain[lab_p] * layout.mask                     # (Qp, M)
-    inv = np.zeros(qp)
+    inv = np.zeros(layout.num_queries)
     for q in range(layout.num_queries):
         maxdcg = dcg.cal_maxdcg_at_k(
             max_position, lab[layout.idx[q][layout.mask[q]]])
         inv[q] = 1.0 / maxdcg if maxdcg > 0 else 0.0
-    w_p = None
-    if weights is not None:
-        w = np.asarray(weights, dtype=np.float32)
-        w_p = np.where(layout.mask, w[safe], 0.0)
-
-    nb, qb = layout.num_blocks, layout.block_queries
 
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype)
 
-    idx_d = dev(layout.idx.reshape(nb, qb, m), torch.int64)
-    mask_d = dev(layout.mask.reshape(nb, qb, m), torch.bool)
-    lg_d = dev(lg_p.reshape(nb, qb, m), torch.float32)
-    inv_d = dev(inv.reshape(nb, qb), torch.float32)
-    w_d = None if w_p is None else dev(w_p.reshape(nb, qb, m), torch.float32)
-    disc_lut = dev(dcg.discount, torch.float32)
-    row_slot = dev(layout.row_slot, torch.int64)
-    arange_m = torch.arange(m, device=device).expand(qb, m)
-    sig = float(sigmoid)
-    min_in = -50.0 / sig / 2.0
-    max_in = -min_in
-
-    def one_block(b, s_flat):
-        mask_b, lg_b, inv_b = mask_d[b], lg_d[b], inv_d[b]
-        s = torch.where(mask_b, s_flat[idx_d[b]], -np.inf)   # (qb, M)
-        order = torch.argsort(-s, dim=1, stable=True)
-        ranks = torch.empty_like(order).scatter_(1, order, arange_m)
-        disc = disc_lut[ranks.clamp(max=K_MAX_POSITION - 1)]
-        cnt = mask_b.sum(dim=1)
-        best = torch.gather(s, 1, order[:, :1])[:, 0]
-        wpos = (cnt - 1).clamp(min=0)[:, None]
-        worst = torch.gather(s, 1, torch.gather(order, 1, wpos))[:, 0]
-        # rank_objective.hpp: skip a kMinScore sentinel at the bottom
-        worst2 = torch.gather(s, 1, torch.gather(
-            order, 1, (wpos - 1).clamp(min=0)))[:, 0]
-        worst = torch.where(torch.isneginf(worst) & (cnt > 1), worst2, worst)
-        norm = best != worst
-
-        sm = torch.where(mask_b, s, 0.0)
-        ds = sm[:, :, None] - sm[:, None, :]                       # (qb, M, M)
-        dcg_gap = lg_b[:, :, None] - lg_b[:, None, :]
-        pmask = (dcg_gap > 0) & mask_b[:, :, None] & mask_b[:, None, :]
-        pd = torch.abs(disc[:, :, None] - disc[:, None, :])
-        delta = dcg_gap * pd * inv_b[:, None, None]
-        delta = torch.where(norm[:, None, None],
-                            delta / (0.01 + torch.abs(ds)), delta)
-        x = torch.clamp(ds, min_in, max_in)
-        p = 2.0 / (1.0 + torch.exp(2.0 * x * sig))
-        ph = p * (2.0 - p)
-        lam = torch.where(pmask, -p * delta, 0.0)
-        hes = torch.where(pmask, 2.0 * ph * delta, 0.0)
-        g = lam.sum(dim=2) - lam.sum(dim=1)
-        h = hes.sum(dim=2) + hes.sum(dim=1)
-        if w_d is not None:
-            g = g * w_d[b]
-            h = h * w_d[b]
-        return g * mask_b, h * mask_b
-
-    zero = torch.zeros(1, dtype=torch.float32, device=device)
+    qb = dev(layout.boundaries, torch.int32)
+    gain = dev(dcg.label_gain[lab], torch.float32)
+    inv_d = dev(inv, torch.float32)
+    w = None if weights is None else dev(np.asarray(weights, np.float32),
+                                         torch.float32)
+    disc = dev(dcg.discount, torch.float32)
+    inputs = dict(qb=qb, gain=gain, inv=inv_d, weight=w, disc=disc,
+                  sigmoid=float(sigmoid), max_docs=layout.max_docs)
 
     def grad_fn(score):
-        s_flat = torch.cat([score[0].to(torch.float32), zero])
-        parts = [one_block(b, s_flat) for b in range(nb)]
-        g_flat = torch.cat([p[0].reshape(-1) for p in parts] + [zero])
-        h_flat = torch.cat([p[1].reshape(-1) for p in parts] + [zero])
-        grad = g_flat[row_slot] + 0.0
-        hess = h_flat[row_slot] + 0.0
-        return grad[None, :], hess[None, :]
+        return rank_kernels.lambdarank_pairs(
+            score, **inputs, block_queries=layout.block_queries)
 
+    grad_fn.inputs = inputs    # the wrapper's arguments but the score
     return grad_fn
 
 

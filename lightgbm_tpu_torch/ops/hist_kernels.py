@@ -16,7 +16,8 @@ The kernels live in lightgbm_tpu_torch/csrc/hist.cu, csrc/seg_hist.cu and
 csrc/compact_hist.cu, on the chunk accumulator they share in
 csrc/chunk_hist.cuh, and csrc/compact.cu (design and bound are noted
 there). They are compiled, with the dataset's binning
-kernel csrc/bin.cu (ops/bin_kernels.py), with nvcc for sm_90a at first
+kernel csrc/bin.cu (ops/bin_kernels.py) and the LambdaRank pair
+gradients csrc/rank.cu (ops/rank_kernels.py), with nvcc for sm_90a at first
 use into csrc/build/ (one shared library with a C interface per source,
 loaded with ctypes; its name hashes the source, the headers it includes
 and the flags) and launched on PyTorch's current stream. Each wrapper
@@ -61,7 +62,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 SOURCES = ("hist.cu", "seg_hist.cu", "compact.cu", "compact_hist.cu",
-           "bin.cu")
+           "bin.cu", "rank.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # nvcc's output for each source this process built: ptxas's registers
@@ -81,9 +82,12 @@ class KernelStats:
         self.launches = 0
 
 
+# every kernel a CUDA graph of the trainer may capture: the histogram
+# kernels and the LambdaRank pair gradients (ops/rank_kernels.py)
 KERNELS = {name: KernelStats(name)
            for name in ("masked_hist", "frontier_hist", "seg_hist",
-                        "compact_rows", "compacted_hist")}
+                        "compact_rows", "compacted_hist",
+                        "lambdarank_pairs")}
 # the launches recorded into the graph being captured (CapturedGraph)
 _CAPTURED = None
 
@@ -249,16 +253,30 @@ def _bind_compact_hist(lib):
 
 def _bind_bin(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bin_dense.argtypes = [p, ctypes.c_longlong, i, p, i, p, i, p, i, i,
-                              p]
+    lib.bin_dense.argtypes = [p, ctypes.c_longlong, i, p, i, p, i, p, p, i,
+                              i, p]
     lib.bin_dense.restype = i
+    lib.bin_lane_max_p.argtypes = []
+    lib.bin_lane_max_p.restype = i
     lib.bin_status_string.argtypes = [i]
     lib.bin_status_string.restype = ctypes.c_char_p
 
 
+def _bind_rank(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lambdarank_pairs.argtypes = [p, p, i, p, p, p, p, i, f, f, f, i, p,
+                                     i, p, p, p]
+    lib.lambdarank_pairs.restype = i
+    lib.rank_smem_docs.argtypes = []
+    lib.rank_smem_docs.restype = i
+    lib.rank_status_string.argtypes = [i]
+    lib.rank_status_string.restype = ctypes.c_char_p
+
+
 _BINDERS = {"hist.cu": _bind_hist, "seg_hist.cu": _bind_seg_hist,
             "compact.cu": _bind_compact,
-            "compact_hist.cu": _bind_compact_hist, "bin.cu": _bind_bin}
+            "compact_hist.cu": _bind_compact_hist, "bin.cu": _bind_bin,
+            "rank.cu": _bind_rank}
 _LOADED = {}
 
 

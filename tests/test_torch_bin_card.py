@@ -3,10 +3,13 @@
 bin_dense (csrc/bin.cu) against its plain PyTorch version on the card
 and against the host pass (BinMapper.value_to_bin), bit for bit, on row
 counts no tile divides, with NaN, +-inf and values on the bounds, at
-uint8, int16 (feature tiles: not every feature's bounds fit in shared
-memory at once) and int32 widths (40,000 bins: the bounds stay in
-device memory); two launches bitwise equal; and a dataset built for the
-card binned by it, its bins seeding the device cache the learner reads.
+uint8, int16 and int32 widths (40,000 bins: the direct route, bounds in
+device memory); the staged route on a ragged last tile, an x that is a
+misaligned view (4-byte copies), a column subset, int16 and int32
+output, more than 32 features (several groups), and rows too wide to
+stage (the direct route); two launches bitwise equal; and a dataset
+built for the card binned by it, its bins seeding the device cache the
+learner reads.
 
 They need a CUDA device and skip without one (`cuda` marker). They
 import neither JAX nor the JAX package:
@@ -79,6 +82,56 @@ def test_kernel_equals_plain_and_host(n, f, max_bin):
     assert torch.equal(one, two)
     assert torch.equal(one, bk.bin_dense_plain(xd, cols, bounds, tdt))
     np.testing.assert_array_equal(one.cpu().numpy(), _host(x, ds, dtype))
+
+
+@pytest.mark.parametrize("case", [
+    "ragged", "misaligned-view", "column-subset", "int16", "int32",
+    "groups", "wide-rows-direct"])
+def test_staged_route_cases(case):
+    rng = np.random.RandomState(11)
+    # n = 12,345 leaves a ragged last tile and unaligned output rows
+    # (scalar stores); the multiples of 64 take the 32-byte stores
+    n, c, bins, tdt = 12_345, 28, 255, torch.uint8
+    if case == "groups":
+        n, c = 12_800, 70
+    if case == "wide-rows-direct":   # 128 rows x 400 floats > a stage
+        c = 400
+    if case == "int16":
+        n, bins, tdt = 12_288, 1023, torch.int16
+    if case == "int32":
+        n, tdt = 12_352, torch.int32
+    x = rng.randn(n, c).astype(np.float32)
+    x[rng.rand(n, c) < 0.02] = np.nan
+    x[rng.rand(n, c) < 0.01] = np.inf
+    x[rng.rand(n, c) < 0.01] = -np.inf
+    cols = np.arange(c, dtype=np.int32)
+    if case == "column-subset":
+        cols = np.array([27, 3, 3, 11, 0, 19], np.int32)
+    qs = np.linspace(0, 1, bins + 1)[1:-1]
+    ub = [np.append(np.quantile(np.nan_to_num(x[:, j], posinf=0, neginf=0),
+                                qs), np.inf) for j in cols]
+    for u in ub:                     # values on the bounds
+        x[rng.choice(n, 50), cols[0]] = np.float32(u[rng.randint(len(u) - 1)])
+    bounds = torch.from_numpy(bk.dense_bounds(ub)).to(DEV)
+    xd = torch.from_numpy(x).to(DEV)
+    if case == "misaligned-view":    # 4 bytes past a 16-byte boundary
+        flat = torch.empty(n * c + 1, device=DEV)
+        xd = flat[1:].view(n, c)
+        xd.copy_(torch.from_numpy(x))
+        assert xd.data_ptr() % 16 == 4 and xd.is_contiguous()
+    cd = torch.from_numpy(cols).to(DEV)
+    one = bk.bin_dense(xd, cd, bounds, tdt)
+    two = bk.bin_dense(xd, cd, bounds, tdt)
+    torch.cuda.synchronize()
+    assert one.shape == (len(cols), n) and one.dtype == tdt
+    assert torch.equal(one, two)
+    assert torch.equal(one, bk.bin_dense_plain(xd, cd, bounds, tdt))
+    # against searchsorted on the host: #{b : bound_b < v}, NaN as 0.0
+    b_np = bounds.cpu().numpy()
+    for k, j in enumerate(cols[:6]):
+        v = np.nan_to_num(x[:, j], nan=0.0, posinf=np.inf, neginf=-np.inf)
+        want = np.searchsorted(b_np[k], v, side="left")
+        np.testing.assert_array_equal(one[k].cpu().numpy(), want)
 
 
 def test_dataset_on_the_card_seeds_the_device_bins():
