@@ -61,10 +61,11 @@ Phases (any failure exits non-zero and prints no result line):
    version on the CPU) and the host pass: the same bins, each timed;
    bin_dense on the matrix with NaN, +-inf and every bound (and one
    float32 step either side) planted, in uint8 and in int16 (max_bin
-   1023), bit for bit its plain version on the card and the host pass,
-   two launches bitwise equal, timed with CUDA events beside its byte
-   bound, the plain version and one torch.searchsorted over the same
-   (F, N) values and (F, B) bounds; the matrix written as a TSV file with
+   1023: the lane route; 3000: the direct route), bit for bit its plain
+   version on the card and the host pass, two launches bitwise equal,
+   timed with CUDA events beside its byte bound, the plain version and
+   one torch.searchsorted over the same (F, N) values and (F, B)
+   bounds; the matrix written as a TSV file with
    a header (%.9g), Dataset(path) against the host pass of the parsed
    matrix, save_binary and the reloaded cache (equal bins), 5 rounds
    trained from the text and from the cache (model text byte-equal),
@@ -144,9 +145,10 @@ Phases (any failure exits non-zero and prints no result line):
    query, max_position 20, the default label_gain: the lambdarank_pairs
    kernel (csrc/rank.cu) bit for bit its plain version on the card and
    within 2e-4 of the largest |value| of its host float64 path, two
-   calls bitwise equal, one call profiled (one device kernel) and timed
-   with CUDA events beside its bound (the function's own bytes and the
-   pair arithmetic its labels need) and its plain version; 10 rounds
+   calls bitwise equal, three calls profiled in a fresh process (one
+   device kernel each) and one call's PyTorch operators, timed with
+   CUDA events beside its bound (the function's own bytes and the pair
+   arithmetic its labels need) and its plain version; 10 rounds
    per-iteration and fused (one launch a round, counted through the
    replays; NDCG@1,3,5 after 10 rounds above the first round's, model
    text), and query-unit bagging (0.7, every 2 rounds) fused against
@@ -2101,6 +2103,48 @@ def phase_multiclass(torch, lgt, hk, ds_bench, x, logit, timer):
 # the PyTorch operators a pair-gradient call may run besides the kernel
 RANK_CALL_OPS = {"aten::empty", "aten::empty_strided", "aten::reshape",
                  "aten::view", "aten::_reshape_alias"}
+RANK_PROFILED_CALLS = 3
+# Profiles RANK_PROFILED_CALLS pair-gradient calls on the inputs saved at
+# argv[1] and prints their device events as JSON. It runs in a process
+# of its own: late in chip_smoke's run the profiler records no device
+# event of an eager call (not even a device sleep) and no pair kernel
+# in a replay, though it records the histogram kernels there.
+RANK_PROFILE_SRC = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from lightgbm_tpu_torch.ops import rank_kernels as rk
+a = torch.load(sys.argv[1])
+score = a.pop("score").cuda()
+args = {k: v.cuda() if torch.is_tensor(v) else v for k, v in a.items()}
+rk.lambdarank_pairs(score, **args)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(int(sys.argv[2])):
+        rk.lambdarank_pairs(score, **args)
+    torch.cuda.synchronize()
+ev = [e for e in prof.events()
+      if e.device_type == torch.autograd.DeviceType.CUDA]
+print(json.dumps({"names": [e.name for e in ev],
+                  "device_ms": [e.device_time_total / 1e3 for e in ev]}))
+"""
+
+
+def rank_device_profile(torch, score, args):
+    """The device events of RANK_PROFILED_CALLS pair-gradient calls on
+    (score, args), profiled in a fresh process (RANK_PROFILE_SRC)."""
+    saved = {k: v.cpu() if torch.is_tensor(v) else v
+             for k, v in args.items()}
+    saved["score"] = score.cpu()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(saved, path)
+        proc = subprocess.run(
+            [sys.executable, "-c", RANK_PROFILE_SRC, path,
+             str(RANK_PROFILED_CALLS)], capture_output=True, text=True,
+            timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, "lambdarank gradients: the profiling "
+          f"process failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def rank_pairs_needed(qb, gain):
@@ -2151,7 +2195,8 @@ def rank_gradients_case(torch, booster, timer):
     its plain version on the card (same inputs), within 2e-4 of the
     largest |value| of the objective's host float64 path
     (tests/test_rank_device.py's bound), two calls bitwise equal, one
-    call profiled (one device kernel, the pair kernel: no torch pair
+    call profiled on the host and three on the device in a fresh
+    process (one device kernel a call, the pair kernel: no torch pair
     program), timed with CUDA events (L2 flushed, the device sleep
     ahead) beside its bound, its plain version and the host path; with
     --baseline the other checkout's function on the same score (within
@@ -2196,18 +2241,17 @@ def rank_gradients_case(torch, booster, timer):
                              2),
            "plain_once_ms": plain_once_ms, "library_ms": None,
            "host_f64_ms": host_ms, "bound_ms": bound, "bound_by": bound_by}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        obj.get_gradients(score)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if getattr(e, "device_type", None)
-               == torch.autograd.DeviceType.CUDA]
-    res["device_ops"] = len(kernels)
-    res["device_op_names"] = sorted({e.name for e in kernels})
-    res["device_busy_ms"] = sum(e.device_time_total for e in kernels) / 1e3
+    # the device: one pair kernel a call, nothing else (a fresh process)
+    dev = rank_device_profile(torch, score, args)
+    res["device_ops"] = len(dev["names"])
+    res["device_op_names"] = sorted(set(dev["names"]))
+    res["device_busy_ms"] = sum(dev["device_ms"]) / RANK_PROFILED_CALLS
     # the call's PyTorch operators: the outputs' allocations and the
     # score's reshape, no torch pair program
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        obj.get_gradients(score)
+        torch.cuda.synchronize()
     res["torch_ops"] = sorted({e.name for e in prof.events()
                                if e.name.startswith("aten::")})
     if BASELINE is not None:
@@ -2224,8 +2268,9 @@ def rank_gradients_case(torch, booster, timer):
     log(f"lambdarank_pairs: {lay.num_queries} queries of up to "
         f"{lay.max_docs} rows, {needed} pair terms ({squares} ordered "
         f"pairs); ms {res['ms']:.4f} (device busy "
-        f"{res['device_busy_ms']:.4f} over {res['device_ops']} ops "
-        f"{res['device_op_names']}, torch ops {res['torch_ops']}) bound "
+        f"{res['device_busy_ms']:.4f} a call, {res['device_ops']} device "
+        f"ops in {RANK_PROFILED_CALLS} calls {res['device_op_names']}, "
+        f"torch ops {res['torch_ops']}) bound "
         f"{bound:.4f} ({bound_by}); plain "
         f"{res['plain_ms']:.1f} ms; host f64 {host_ms:.0f} ms; bits = plain "
         f"{res['bitwise_vs_plain']} (max |diff| {res['max_abs_err']:.3g}); "
@@ -2235,11 +2280,14 @@ def rank_gradients_case(torch, booster, timer):
            f"{res['baseline_max_abs_diff']:.3g}" if BASELINE else ""))
     check(launches == 2, f"lambdarank gradients: {launches} kernel launches "
           "in two calls")
-    check(set(res["torch_ops"]) <= RANK_CALL_OPS
-          and all("lambdarank" in k for k in res["device_op_names"]),
-          f"lambdarank gradients: a call ran {res['torch_ops']} and "
-          f"{res['device_op_names']} on the device, not the pair kernel "
-          "alone")
+    check(res["device_ops"] == RANK_PROFILED_CALLS
+          and all("lambdarank_pairs" in k for k in res["device_op_names"]),
+          f"lambdarank gradients: {RANK_PROFILED_CALLS} calls ran "
+          f"{res['device_ops']} device ops {res['device_op_names']}, not "
+          "one pair kernel each")
+    check(set(res["torch_ops"]) <= RANK_CALL_OPS,
+          f"lambdarank gradients: a call ran {res['torch_ops']}, not the "
+          "pair kernel alone")
     check(res["bitwise_vs_plain"],
           "lambdarank gradients: the kernel differs from its plain version")
     check(err_g < 2e-4 and err_h < 2e-4,
@@ -3002,7 +3050,9 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
 
 # ---------------------------------------------------------------- ingestion
 
-INGEST_INT16_BINS = 1023
+# int16 cases: the lane route's widest table (1,024 bounds), and the
+# direct route with its bounds in shared-memory feature tiles
+INGEST_INT16_BINS = (1023, 3000)
 CLI_ROWS = 100_000
 CLI_ROUNDS = 5
 TORCH_BIN_DTYPE = {np.dtype(np.uint8): "uint8", np.dtype(np.int16): "int16",
@@ -3164,7 +3214,7 @@ def cli_phase(torch, lgt, x, y, work):
 
 def phase_ingest(torch, lgt, timer, x, y, seed, work):
     """Data ingestion on the card: bin_dense at the bench shape (uint8,
-    and int16 at max_bin 1023); the bench's own construction
+    and int16 at max_bin 1023 and 3000); the bench's own construction
     (Dataset(X).construct() on the card, launches counted from zero)
     against device="cpu" and the host pass; the bench matrix through a
     TSV file, the binary cache and training from both; the CLI. Returns
@@ -3209,13 +3259,15 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
     xs = plant_specials(x, rng)
     plant_on_bounds(xs, core.bin_mappers, core.real_feature_idx, rng)
     cases = [bin_kernel_case(torch, bk, timer, xs, core, "uint8")]
-    wide = DatasetLoader(Config.from_params(
-        {"max_bin": INGEST_INT16_BINS, "verbose": 0})).construct_from_matrix(x)
-    xw = plant_specials(x, rng)
-    plant_on_bounds(xw, wide.bin_mappers, wide.real_feature_idx, rng)
-    cases.append(bin_kernel_case(torch, bk, timer, xw, wide,
-                                 f"int16 (max_bin {INGEST_INT16_BINS})"))
-    del xs, xw, wide
+    for max_bin in INGEST_INT16_BINS:
+        wide = DatasetLoader(Config.from_params(
+            {"max_bin": max_bin, "verbose": 0})).construct_from_matrix(x)
+        xw = plant_specials(x, rng)
+        plant_on_bounds(xw, wide.bin_mappers, wide.real_feature_idx, rng)
+        cases.append(bin_kernel_case(torch, bk, timer, xw, wide,
+                                     f"int16 (max_bin {max_bin})"))
+        del xw, wide
+    del xs
     res["kernel_cases"] = cases
 
     # the file path: TSV with a header, the binary cache

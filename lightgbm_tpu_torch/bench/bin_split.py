@@ -13,7 +13,7 @@ This builds copies of the source in a temp dir, one per part:
 
 times two PyTorch yardsticks under the same timer (a fill_ of the
 output's bytes, a sum of x), runs each part of each route (the direct
-route by passing no table) on
+route from copies whose lane route takes no bounds, kLaneMaxP 0) on
 the bench matrix (1,000,000 x 28 float32, normal values, uint8 at 255
 bins; int16 at 1,023; and each width at the other bin count), requires
 the full builds' bits to equal the wrapper's, and prints each time (CUDA
@@ -68,9 +68,9 @@ _EDITS = {
 
 
 def build_variant(part, work, knobs=None):
-    """bin.cu with the part's edits and the lane plan's `knobs`
-    ({"kLaneIlp": 8, ...}), compiled into `work`: (library path, nvcc
-    process)."""
+    """bin.cu with the part's edits and the `knobs` ({"kLaneIlp": 8,
+    ...}: the lane plan; {"kLaneMaxP": 0}: the direct route at every
+    width), compiled into `work`: (library path, nvcc process)."""
     with open(os.path.join(hk._CSRC, "bin.cu")) as f:
         text = f.read()
     edits = list(_EDITS[part])
@@ -95,15 +95,13 @@ def build_variant(part, work, knobs=None):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def call(lib, x, cols, bounds, table, out):
-    """The C entry point: the lane route with `table`, the direct route
-    without."""
+def call(lib, x, cols, bounds, out):
+    """The C entry point of a built copy."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     status = lib.bin_dense(x.data_ptr(), x.shape[0], x.shape[1],
                            cols.data_ptr(), cols.shape[0], bounds.data_ptr(),
-                           bounds.shape[1],
-                           None if table is None else table.data_ptr(),
-                           out.data_ptr(), out.element_size(), sms,
+                           bounds.shape[1], out.data_ptr(),
+                           out.element_size(), sms,
                            torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(lib.bin_status_string(status).decode())
@@ -132,7 +130,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     with tempfile.TemporaryDirectory() as work:
-        procs = {p: build_variant(p, work) for p in PARTS}
+        procs = {f"{route}_{part}": build_variant(
+                     part, work, {"kLaneMaxP": 0} if route == "direct"
+                     else None)
+                 for route in ROUTES for part in PARTS}
         plans = ([{"kLaneIlp": i, "kLaneThreads": t}
                   for i in (4, 8, 16) for t in (256, 512)]
                  if args.sweep else [])
@@ -173,18 +174,14 @@ def main():
                         x, cols, bounds, dt), 20),
                     "fill_output_ms": timer(lambda: sink.fill_(1), 20),
                     "sum_x_ms": timer(lambda: x.sum(), 20), "ms": {}}
-            table = bk.lane_scratch(bounds, 1 << 30)
-            for part, lib in libs.items():
-                routes = ((("lane", table),) if part.startswith("plan")
-                          else (("lane", table), ("direct", None)))
-                for route, tab in routes:
-                    out = torch.empty_like(want)
-                    call(lib, x, cols, bounds, tab, out)
-                    torch.cuda.synchronize()
-                    if part == "full":
-                        assert torch.equal(out, want), f"{route}: other bits"
-                    case["ms"][f"{route}_{part}"] = timer(
-                        lambda: call(lib, x, cols, bounds, tab, out), 20)
+            for key, lib in libs.items():
+                out = torch.empty_like(want)
+                call(lib, x, cols, bounds, out)
+                torch.cuda.synchronize()
+                if key.endswith("_full") or key.startswith("plan"):
+                    assert torch.equal(out, want), f"{key}: other bits"
+                case["ms"][key] = timer(
+                    lambda: call(lib, x, cols, bounds, out), 20)
             report["cases"].append(case)
             print(json.dumps(case), flush=True)
     print(smi)

@@ -38,14 +38,15 @@
 // staged row tiles in a shared-memory ring with cp.async (8 warps an SM,
 // its shared-memory limit raised on every launch) took 0.176 ms. So:
 // 1. Bank-free searches. A group of up to 32 features (blockIdx.y) has a
-//    (P, 32) table, laid out from the bounds by a small kernel ahead of
-//    the pass (lane_table_kernel, into the wrapper's scratch): column l
-//    holds feature l % fg of the group's fg, padded with +inf to a power
-//    of two P; bound k of column l at k * 32 + l. Lane l searches only
-//    column l, so its loads always hit bank l, whatever the positions; a
-//    group of fewer than 32 features is searched 32 / fg rows at once.
-//    A block copies its group's table into shared memory once
-//    (coalesced).
+//    (P, 32) table in shared memory: column l holds feature l % fg of
+//    the group's fg, padded with +inf to a power of two P; bound k of
+//    column l at k * 32 + l. Lane l searches only column l, so its loads
+//    always hit bank l, whatever the positions; a group of fewer than 32
+//    features is searched 32 / fg rows at once. Each block lays out its
+//    table from the bounds once, 128 bounds of each column at a time:
+//    coalesced loads into a padded (32, 129) stage, the next chunk's
+//    loads in flight while the stage is transposed into the table, no
+//    bank conflict on either side.
 // 2. Loads in flight. Lane (sub, j) bins feature j for 32 bytes of
 //    output rows (32 uint8, 16 int16 or 8 int32 bins): kLaneIlp values
 //    at a time loaded straight into registers (a warp reads whole rows
@@ -63,12 +64,14 @@
 // Any x works: a misaligned view, a column subset, a ragged end.
 //
 // The direct route (bin_dense_kernel; more than 1,024 bounds, the first
-// design): a block keeps its feature tile's bounds in at most 48 KB of
-// static shared memory (rows of bounds of more than 8,192 are searched
-// in device memory through L1/L2 with a plain lower bound instead),
-// walks 256-row tiles grid-stride, each thread loading kIlp values and
-// running their searches in lockstep, and stores through a shared
-// (features, 256 rows) transpose tile.
+// design; bin_dense picks the route by the bounds' count): a block keeps
+// its feature tile's bounds in at most 48 KB of static shared memory
+// (rows of bounds of more than 8,192 are searched in device memory
+// through L1/L2 with a plain lower bound instead), walks 256-row tiles
+// grid-stride, each thread loading kIlp values and running their
+// searches in lockstep, and stores through a shared (features, 256 rows)
+// transpose tile. Not redesigned: at 3,000 int16 bins on the bench
+// matrix it takes 0.576 ms on an H100, above torch.searchsorted's 0.475.
 // No atomics, no data-dependent order: two launches give the same bits.
 
 #include <cuda_runtime.h>
@@ -278,15 +281,67 @@ __device__ __forceinline__ void store_v4(void* p, unsigned a, unsigned b,
                : "memory");
 }
 
+constexpr int kStageK = 128;                 // bounds of a column a chunk
+constexpr int kStageStride = kStageK + 1;   // odd: no bank conflicts
+
+// Bounds k0 + e % kStageK of columns e / kStageK for the thread's
+// entries e of a chunk: +inf past b.
+__device__ __forceinline__ void load_chunk(
+    float (&r)[32 * kStageK / kLaneThreads], const float* __restrict__ bounds,
+    int b, int f0, int fg, int k0) {
+#pragma unroll
+  for (int i = 0; i < 32 * kStageK / kLaneThreads; ++i) {
+    const int e = threadIdx.x + i * kLaneThreads;
+    const int k = k0 + e % kStageK;
+    r[i] = k < b ? bounds[(size_t)(f0 + (e / kStageK) % fg) * b + k]
+                 : CUDART_INF_F;
+  }
+}
+
+// The group's (p, 32) table in shared memory: bound k of column l
+// (feature f0 + l % fg) at k * 32 + l, +inf past b. kStageK bounds a
+// column at a time: loaded coalesced into the padded stage (a warp reads
+// 32 bounds of one column), then transposed into the table (a warp writes
+// one row of it, lane l from column l), the next chunk's loads issued
+// before the transpose.
+__device__ __forceinline__ void lay_out_table(const float* __restrict__ bounds,
+                                              int b, int f0, int fg, int p,
+                                              float* tab, float* stage) {
+  constexpr int kPer = 32 * kStageK / kLaneThreads;
+  float r[kPer];
+  load_chunk(r, bounds, b, f0, fg, 0);
+  for (int k0 = 0; k0 < p; k0 += kStageK) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = threadIdx.x + i * kLaneThreads;
+      stage[(e / kStageK) * kStageStride + e % kStageK] = r[i];
+    }
+    __syncthreads();
+    if (k0 + kStageK < p) load_chunk(r, bounds, b, f0, fg, k0 + kStageK);
+    const int entries = min(kStageK, p - k0) * 32;
+    for (int e = threadIdx.x; e < entries; e += kLaneThreads) {
+      tab[k0 * 32 + e] = stage[(e & 31) * kStageStride + (e >> 5)];
+    }
+    __syncthreads();
+  }
+}
+
+// Dynamic shared memory of a lane block: the table and the stage.
+inline size_t lane_smem(int p) {
+  return ((size_t)p * 32 + 32 * kStageStride) * sizeof(float);
+}
+
 // kLogP > 0: P = 1 << kLogP known at compile time (each step's offset an
-// immediate); 0: P at run time.
+// immediate); 0: P at run time. At least one block an SM, so ptxas may
+// take up to 128 registers (left to itself, it held the int16 instance
+// at P = 1,024 to 40 and spilled).
 template <typename OutT, int kLogP>
-__global__ void __launch_bounds__(kLaneThreads)
+__global__ void __launch_bounds__(kLaneThreads, 1)
 bin_lane_kernel(const float* __restrict__ x, int64_t n, int c,
                 const int* __restrict__ cols, int f,
-                const float4* __restrict__ table, int p_run,
+                const float* __restrict__ bounds, int b, int p_run,
                 OutT* __restrict__ out) {
-  extern __shared__ __align__(16) float4 tab4[];
+  extern __shared__ __align__(16) float tab[];
   constexpr int kRL = rows_lane<OutT>();
   constexpr int kIlp = kRL < kLaneIlp ? kRL : kLaneIlp;
   constexpr int kUnits = kRL / kIlp;                 // load units a pass
@@ -296,12 +351,7 @@ bin_lane_kernel(const float* __restrict__ x, int64_t n, int c,
   const int f0 = blockIdx.y * 32;
   const int fg = min(32, f - f0);
   const int rpw = 32 / fg;                           // row blocks a warp
-  // the group's (P, 32) table (lane_table_kernel): bound k of column l
-  // (feature l % fg) at k * 32 + l; one coalesced copy a block
-  const float4* src = table + (size_t)blockIdx.y * p * 8;
-  for (int e = threadIdx.x; e < p * 8; e += blockDim.x) tab4[e] = src[e];
-  __syncthreads();
-  const float* tab = reinterpret_cast<const float*>(tab4);
+  lay_out_table(bounds, b, f0, fg, p, tab, tab + (size_t)p * 32);
   const int lane = threadIdx.x & 31;
   const int sub = lane / fg;
   const int j = lane - sub * fg;
@@ -361,21 +411,6 @@ bin_lane_kernel(const float* __restrict__ x, int64_t n, int c,
   }
 }
 
-// The lane route's table of every group from the (f, b) bounds: group g's
-// (p, 32) block, column l holding feature 32 g + l % fg, +inf past b.
-// One thread an entry; the bounds are read once.
-__global__ void lane_table_kernel(const float* __restrict__ bounds, int f,
-                                  int b, int p, float* __restrict__ table) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;   // in the group
-  if (e >= p * 32) return;
-  const int f0 = blockIdx.y * 32;
-  const int fg = min(32, f - f0);
-  const int k = e >> 5;
-  const int feat = f0 + (e & 31) % fg;
-  table[(size_t)blockIdx.y * p * 32 + e] =
-      k < b ? bounds[(size_t)feat * b + k] : CUDART_INF_F;
-}
-
 constexpr int kMaxDevices = 64;
 
 // Raise a lane kernel's shared-memory limit once per (device, size) and
@@ -415,15 +450,13 @@ int lane_blocks_per_sm(size_t smem, int* per_sm) {
 
 template <typename OutT, int kLogP>
 int launch_lane_p(const float* x, int64_t n, int c, const int* cols, int f,
-                  const float* bounds, int b, float* table, int p, void* out,
-                  int sms, cudaStream_t stream) {
+                  const float* bounds, int b, int p, void* out, int sms,
+                  cudaStream_t stream) {
   auto kernel = bin_lane_kernel<OutT, kLogP>;
-  const size_t smem = (size_t)p * 32 * sizeof(float);
+  const size_t smem = lane_smem(p);
   int per_sm = 0;
   if (lane_blocks_per_sm<OutT, kLogP>(smem, &per_sm) != kOk) return kLaunch;
   const int groups = (f + 31) / 32;
-  lane_table_kernel<<<dim3((p * 32 + 255) / 256, groups), 256, 0, stream>>>(
-      bounds, f, b, p, table);
   const int rows_block = (kLaneThreads / 32) * rows_lane<OutT>() *
                          (32 / (f < 32 ? f : 32));
   const int64_t row_blocks = (n + rows_block - 1) / rows_block;
@@ -432,36 +465,34 @@ int launch_lane_p(const float* x, int64_t n, int c, const int* cols, int f,
   if (gx < 1) gx = 1;
   dim3 grid((unsigned)gx, (unsigned)groups);
   kernel<<<grid, kLaneThreads, smem, stream>>>(
-      x, n, c, cols, f, reinterpret_cast<const float4*>(table), p,
-      static_cast<OutT*>(out));
+      x, n, c, cols, f, bounds, b, p, static_cast<OutT*>(out));
   return cudaGetLastError() == cudaSuccess ? kOk : kLaunch;
 }
 
 template <typename OutT>
 int launch_lane(const float* x, int64_t n, int c, const int* cols, int f,
-                const float* bounds, int b, float* table, void* out, int sms,
+                const float* bounds, int b, void* out, int sms,
                 cudaStream_t stream) {
   const int p = pow2_at_least(b);
   switch (p) {   // the bench's 255 and 1,023 bins, unrolled
     case 256:
-      return launch_lane_p<OutT, 8>(x, n, c, cols, f, bounds, b, table, p,
-                                    out, sms, stream);
+      return launch_lane_p<OutT, 8>(x, n, c, cols, f, bounds, b, p, out, sms,
+                                    stream);
     case 1024:
-      return launch_lane_p<OutT, 10>(x, n, c, cols, f, bounds, b, table, p,
-                                     out, sms, stream);
+      return launch_lane_p<OutT, 10>(x, n, c, cols, f, bounds, b, p, out,
+                                     sms, stream);
     default:
-      return launch_lane_p<OutT, 0>(x, n, c, cols, f, bounds, b, table, p,
-                                    out, sms, stream);
+      return launch_lane_p<OutT, 0>(x, n, c, cols, f, bounds, b, p, out, sms,
+                                    stream);
   }
 }
 
 template <typename OutT>
 int launch(const float* x, int64_t n, int c, const int* cols, int f,
-           const float* bounds, int b, float* table, void* out, int sms,
+           const float* bounds, int b, void* out, int sms,
            cudaStream_t stream) {
-  if (table != nullptr) {
-    return launch_lane<OutT>(x, n, c, cols, f, bounds, b, table, out, sms,
-                             stream);
+  if (pow2_at_least(b) <= kLaneMaxP) {
+    return launch_lane<OutT>(x, n, c, cols, f, bounds, b, out, sms, stream);
   }
   const size_t per_feat_tile = (size_t)tile_stride<OutT>() * sizeof(OutT);
   const size_t per_feat_bounds = (size_t)smem_bound_stride(b) * sizeof(float);
@@ -488,36 +519,28 @@ int launch(const float* x, int64_t n, int c, const int* cols, int f,
 extern "C" {
 
 // x (n, c) float32 row-major; cols (f,) int32 column of each feature;
-// bounds (f, b) float32 row-major; table: null (the direct route) or
-// scratch of ceil(f / 32) * p * 32 float32 (p the power of two >= b, at
-// most bin_lane_max_p()), which the lane route fills with its search
-// table first; out (f, n) of out_bytes (1: uint8, 2: int16, 4: int32).
-// Launches on `stream`; returns a Status.
+// bounds (f, b) float32 row-major; out (f, n) of out_bytes (1: uint8,
+// 2: int16, 4: int32). One launch on `stream`: the lane route up to
+// kLaneMaxP bounds, the direct route above. Returns a Status.
 int bin_dense(const float* x, long long n, int c, const int* cols, int f,
-              const float* bounds, int b, float* table, void* out,
-              int out_bytes, int sms, cudaStream_t stream) {
+              const float* bounds, int b, void* out, int out_bytes, int sms,
+              cudaStream_t stream) {
   if (x == nullptr || cols == nullptr || bounds == nullptr ||
       out == nullptr || n <= 0 || c <= 0 || f <= 0 || b <= 0 || sms <= 0 ||
-      b > (1 << 30) || (table != nullptr && b > kLaneMaxP)) {
+      b > (1 << 30)) {
     return kBadArgs;
   }
   switch (out_bytes) {
     case 1:
-      return launch<uint8_t>(x, n, c, cols, f, bounds, b, table, out, sms,
-                             stream);
+      return launch<uint8_t>(x, n, c, cols, f, bounds, b, out, sms, stream);
     case 2:
-      return launch<int16_t>(x, n, c, cols, f, bounds, b, table, out, sms,
-                             stream);
+      return launch<int16_t>(x, n, c, cols, f, bounds, b, out, sms, stream);
     case 4:
-      return launch<int32_t>(x, n, c, cols, f, bounds, b, table, out, sms,
-                             stream);
+      return launch<int32_t>(x, n, c, cols, f, bounds, b, out, sms, stream);
     default:
       return kBadWidth;
   }
 }
-
-// The largest padded row of bounds the lane route takes.
-int bin_lane_max_p() { return kLaneMaxP; }
 
 const char* bin_status_string(int status) {
   switch (status) {

@@ -16,11 +16,9 @@ the mapper's bounds; rows of unequal length are padded with +inf, which
 no value exceeds.
 
 The kernel is csrc/bin.cu (design and bound are noted there), built by
-hist_kernels.build with the other sources and loaded with ctypes. Up to
-1,024 bounds a feature it takes the lane route, whose bank-free search
-table the kernel lays out in the wrapper's scratch (lane_scratch);
-wider bounds take the direct route. It launches on PyTorch's current
-stream and counts its launches in `KERNELS["bin_dense"].launches`.
+hist_kernels.build with the other sources and loaded with ctypes. A
+call is one launch, on PyTorch's current stream (the kernel picks its
+route by the bounds' count), counted in `KERNELS["bin_dense"].launches`.
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 version, a CUDA tensor the kernel or an exception; there is no fallback
 from a failed build or launch.
@@ -104,19 +102,6 @@ def _library():
     return hist_kernels._library("bin.cu")
 
 
-def lane_scratch(bounds, max_p):
-    """Scratch for the lane route's search table of the (F, B) bounds
-    (csrc/bin.cu lane_table_kernel fills it): (ceil(F / 32), P, 32)
-    float32, P the power of two >= B; None when P > max_p (the direct
-    route)."""
-    f, b = bounds.shape
-    p = 1 << (b - 1).bit_length()
-    if p > max_p:
-        return None
-    return torch.empty(((f + 31) // 32, p, 32), dtype=torch.float32,
-                       device=bounds.device)
-
-
 def bin_dense(x, cols, bounds, out_dtype):
     """(F, N) bins of the float32 matrix x (N, C) by the bounds (F, B)
     of its columns `cols` (F,) int32, at `out_dtype` (torch.uint8,
@@ -136,12 +121,10 @@ def bin_dense(x, cols, bounds, out_dtype):
     if n == 0:
         return out
     lib = _library()
-    table = lane_scratch(bounds, lib.bin_lane_max_p())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     status = lib.bin_dense(x.data_ptr(), n, c, cols.data_ptr(), f,
-                           bounds.data_ptr(), b,
-                           None if table is None else table.data_ptr(),
-                           out.data_ptr(), _OUT_BYTES[out_dtype], sms,
+                           bounds.data_ptr(), b, out.data_ptr(),
+                           _OUT_BYTES[out_dtype], sms,
                            hist_kernels._stream(x.device))
     if status != 0:
         raise RuntimeError("bin_dense launch failed: "

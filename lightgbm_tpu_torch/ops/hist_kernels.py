@@ -253,11 +253,9 @@ def _bind_compact_hist(lib):
 
 def _bind_bin(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bin_dense.argtypes = [p, ctypes.c_longlong, i, p, i, p, i, p, p, i,
-                              i, p]
+    lib.bin_dense.argtypes = [p, ctypes.c_longlong, i, p, i, p, i, p, i, i,
+                              p]
     lib.bin_dense.restype = i
-    lib.bin_lane_max_p.argtypes = []
-    lib.bin_lane_max_p.restype = i
     lib.bin_status_string.argtypes = [i]
     lib.bin_status_string.restype = ctypes.c_char_p
 

@@ -3,13 +3,15 @@
 bin_dense (csrc/bin.cu) against its plain PyTorch version on the card
 and against the host pass (BinMapper.value_to_bin), bit for bit, on row
 counts no tile divides, with NaN, +-inf and values on the bounds, at
-uint8, int16 and int32 widths (40,000 bins: the direct route, bounds in
-device memory); the staged route on a ragged last tile, an x that is a
-misaligned view (4-byte copies), a column subset, int16 and int32
-output, more than 32 features (several groups), and rows too wide to
-stage (the direct route); two launches bitwise equal; and a dataset
-built for the card binned by it, its bins seeding the device cache the
-learner reads.
+uint8 and int16 widths on the lane route (up to 1,024 bounds), int16 at
+3,000 bins on the direct route with its bounds in shared-memory feature
+tiles, and int32 at 40,000 bins on the direct route with its bounds in
+device memory; the lane route on a ragged last tile, an x that is a
+misaligned view, a column subset, int16 and int32 output, more than 32
+features (several groups) and 400 features (1,600-byte rows of x), and
+the direct route's shared-memory tiles on the same ragged matrix; two
+launches bitwise equal; and a dataset built for the card binned by it,
+its bins seeding the device cache the learner reads.
 
 They need a CUDA device and skip without one (`cuda` marker). They
 import neither JAX nor the JAX package:
@@ -62,11 +64,14 @@ def _host(x, ds, dtype):
 
 @pytest.mark.parametrize("n,f,max_bin", [
     (100_003, 28, 255), (4_097, 28, 1023), (257, 3, 255), (1, 5, 63),
-    (40_000, 2, 40_000)],
-    ids=["uint8", "int16-feature-tiles", "short", "one-row",
-         "int32-bounds-in-device-memory"])
+    (20_011, 5, 3000), (40_000, 2, 40_000)],
+    ids=["uint8", "int16-lane-table", "short", "one-row",
+         "int16-shared-bound-tiles", "int32-bounds-in-device-memory"])
 def test_kernel_equals_plain_and_host(n, f, max_bin):
     x, ds = _case(n, f, max_bin, seed=n)
+    if max_bin == 3000:          # the direct route, bounds in shared memory
+        assert 1024 < max(len(m.bin_upper_bound) for m in ds.bin_mappers) \
+            <= 8192
     dtype = ds.bins.dtype
     tdt = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int16,
            np.dtype(np.int32): torch.int32}[np.dtype(dtype)]
@@ -86,16 +91,18 @@ def test_kernel_equals_plain_and_host(n, f, max_bin):
 
 @pytest.mark.parametrize("case", [
     "ragged", "misaligned-view", "column-subset", "int16", "int32",
-    "groups", "wide-rows-direct"])
-def test_staged_route_cases(case):
+    "groups", "wide-rows", "direct-shared-bounds"])
+def test_lane_route_cases(case):
     rng = np.random.RandomState(11)
     # n = 12,345 leaves a ragged last tile and unaligned output rows
     # (scalar stores); the multiples of 64 take the 32-byte stores
     n, c, bins, tdt = 12_345, 28, 255, torch.uint8
     if case == "groups":
         n, c = 12_800, 70
-    if case == "wide-rows-direct":   # 128 rows x 400 floats > a stage
+    if case == "wide-rows":          # 13 groups, 1,600-byte rows of x
         c = 400
+    if case == "direct-shared-bounds":   # > 1,024 bounds: the direct route
+        bins, tdt = 3000, torch.int16
     if case == "int16":
         n, bins, tdt = 12_288, 1023, torch.int16
     if case == "int32":

@@ -14,7 +14,11 @@ holds it to the plain version there); these tests pin what it computes:
 - a torch transcription of the kernel's walk (a query unpadded, a
   thread a row in lockstep, j in row order, the high row's values
   first, each operation in the kernel's order) equals the plain version
-  bit for bit, edge scores included (NaN compared by position).
+  bit for bit, edge scores included (NaN compared by position);
+- where the two packages part on NaN scores: the JAX package ranks a
+  query's padded slots (score -inf) between its numbers and its NaNs,
+  so a finite row's gradient there depends on the padded width; the
+  port's equals the JAX package's on the unpadded query.
 """
 
 import jax.numpy as jnp
@@ -248,3 +252,36 @@ def test_wrapper_dispatches_by_device_and_checks():
         rk.lambdarank_pairs(score, **dict(args, gain=args["gain"][:-1]))
     with pytest.raises(ValueError):
         rk.lambdarank_pairs(score.to("meta"), **args)
+
+
+def test_nan_scores_part_from_jax_only_through_its_padding():
+    # query A: rows 0 and 1 score 0.0, row 2 NaN; rows 0 and 2 share a
+    # label, so row 0 pairs only with row 1 (a finite pair). Query B pads
+    # A to M = 6 in the JAX layout.
+    rng = np.random.RandomState(12)
+    label = np.array([2, 0, 2, *rng.randint(0, 5, 6)], np.float32)
+    score = np.array([0.0, 0.0, np.nan, *rng.randn(6)], np.float32)
+    qb = np.array([0, 3, 9], np.int64)
+    n = len(label)
+    tg, th = _plain(score, _inputs(label, qb))
+    ag, ah = _plain(score[:3], _inputs(label[:3], qb[:2]))
+    jg, jh = (np.asarray(v)[0] for v in jgradfn(
+        JLayout(qb, n), label, LABEL_GAIN, SIG, 20, None)(
+            jnp.asarray(score[None, :])))
+    kg, kh = (np.asarray(v)[0] for v in jgradfn(
+        JLayout(qb[:2], 3), label[:3], LABEL_GAIN, SIG, 20, None)(
+            jnp.asarray(score[None, :3])))
+    # the port: row 0 the same bits with and without the other query
+    assert tg[0, 0] == ag[0, 0] != 0 and th[0, 0] == ah[0, 0] != 0
+    assert torch.isnan(tg[0, 1:3]).all() and np.isnan(jg[1:3]).all()
+    # the JAX package unpadded agrees with the port (1e-5, as above)
+    for got, want in ((tg[0, 0], kg[0]), (th[0, 0], kh[0])):
+        assert abs(float(got) - want) <= 1e-5 * abs(want)
+    # padded, its kMinScore rule takes a -inf slot for the worst score,
+    # finds best == worst (both 0.0) and drops the 1 / (0.01 + |ds|)
+    # factor: row 0 is 100 times smaller
+    for got, want in ((tg[0, 0], jg[0]), (th[0, 0], jh[0])):
+        assert abs(float(got) - 100.0 * want) <= 1e-4 * abs(float(got))
+    # query B holds no NaN: the two packages agree there
+    for got, want in ((tg[0, 3:], jg[3:]), (th[0, 3:], jh[3:])):
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
