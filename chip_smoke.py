@@ -80,6 +80,22 @@ Phases (any failure exits non-zero and prints no result line):
    the first tree grown again with the plain histogram functions;
    predict on 100k rows against a host traversal of the saved model
    text; one tree build profiled with torch.profiler;
+4b. exclusive feature bundling at full width: a Flight-Delay-shaped
+   table (1,000,000 rows; one-hot blocks of 12, 31, 7, 24, 22, 300 and
+   300 columns and 4 dense ones: the 700 features of the LightGBM EFB
+   evaluation) with default parameters (63 leaves), which bundle it into
+   fewer than 20 stored rows; the plan, both datasets' construction
+   seconds (bundled on the host, unbundled by bin_dense), 5 rounds
+   per-iteration on each (histogram launches a tree, round times), the
+   bundled first tree against the plain engines' in the same booster and
+   against the unbundled run's (splits equal with leaf values within
+   1e-5 relative, or, where they part, the bundled chosen gain within
+   1e-5 relative of the unbundled one: a near-tie), train AUCs within
+   0.002, the fused trainer on both (model text equal to the
+   per-iteration one, a replay profiled, histogram milliseconds), one
+   tree's histogram expansions replayed as a graph beside a fused
+   replay, and the bundled train set as its own valid set scoring its
+   train scores bit for bit;
 5. a 2-round cache-less run (histogram_pool_size below the cache) that
    drives frontier_hist with L = 2;
 6. the partitioned main path: the same workload with
@@ -188,8 +204,9 @@ Phases (any failure exits non-zero and prints no result line):
     p50, stages on one row, pairs won, the tree_leaf dispatch's host
     microseconds;
 14. a `kernels` JSON line (launches from the fused phases, binary,
-    multiclass and lambdarank, for compact_rows and compacted_hist from
-    the compacted phase's fused runs, binary and multiclass, for the
+    bundled, multiclass and lambdarank, for compact_rows and
+    compacted_hist from the compacted phase's fused runs, binary and
+    multiclass, and the bundled phase's, for the
     traversal kernels from the serving main path and the multiclass
     serving, for bin_dense from the bench's construction, for
     lambdarank_pairs from the fused lambdarank run), the card line, and
@@ -996,7 +1013,8 @@ def builder_args(torch, booster):
             learner._pad(torch.ones(n, device=gbdt.device)), fmask,
             learner.num_bin_pf, learner.is_cat)
     kwargs = {"num_leaves": 63, "max_bin": learner.max_bin,
-              "params": learner.params, "max_depth": -1, "cache_hists": True}
+              "params": learner.params, "max_depth": -1, "cache_hists": True,
+              **learner.bundle_hooks()}
     return args, kwargs
 
 
@@ -1782,6 +1800,253 @@ def phase_compacted(torch, lgt, hk, ds, y, logit, main_booster, main_fused):
         f"{res['fused_vs_masked_round']}")
     del booster
     res["multiclass"] = compacted_multiclass(torch, lgt, hk, ds, logit)
+    return res
+
+
+# the Flight-Delay-shaped table of the LightGBM EFB evaluation (Ke et
+# al., NIPS 2017, table 1): 700 features, 696 of them the one-hot
+# columns of these categorical blocks, and 4 dense ones
+FLIGHT_BLOCKS = (12, 31, 7, 24, 22, 300, 300)
+FLIGHT_DENSE = 4
+# default parameters (is_enable_sparse true, hist_compaction auto), 63
+# leaves
+BUNDLED_PARAMS = {"objective": "binary", "num_leaves": 63, "verbose": 0}
+BUNDLED_MAX_STORED = 20
+
+
+def make_flight_data(n, seed):
+    """(x, y): one-hot blocks of FLIGHT_BLOCKS (a uniform category each
+    row), FLIGHT_DENSE Gaussian columns, and a binary label from a
+    linear logit (a random weight per category and per dense column)
+    plus noise, cut at its median."""
+    rng = np.random.RandomState(seed + 7)
+    f = sum(FLIGHT_BLOCKS) + FLIGHT_DENSE
+    x = np.zeros((n, f), np.float32)
+    logit = 0.5 * rng.randn(n)
+    rows = np.arange(n)
+    off = 0
+    for w in FLIGHT_BLOCKS:
+        cat = rng.randint(0, w, n)
+        x[rows, off + cat] = 1.0
+        logit += rng.randn(w)[cat]
+        off += w
+    dense = rng.randn(n, FLIGHT_DENSE)
+    x[:, off:] = dense
+    logit += dense @ rng.randn(FLIGHT_DENSE)
+    return x, (logit > np.median(logit)).astype(np.float32)
+
+
+def first_tree_vs_unbundled(a, b):
+    """The bundled first tree `a` against the unbundled one `b`, split by
+    split in split order. At the first split where they part (bin 0 of
+    a bundled histogram comes from a subtraction, so a near-tie may go
+    either way) both chosen gains are returned; the trees agree when no
+    split parts, and then their leaf values are compared."""
+    n = min(len(a.split_feature), len(b.split_feature))
+    for i in range(n):
+        if (a.split_feature[i] != b.split_feature[i]
+                or a.threshold_in_bin[i] != b.threshold_in_bin[i]):
+            return {"parted_at_split": i,
+                    "bundled": [int(a.split_feature[i]),
+                                int(a.threshold_in_bin[i]),
+                                float(a.split_gain[i])],
+                    "unbundled": [int(b.split_feature[i]),
+                                  int(b.threshold_in_bin[i]),
+                                  float(b.split_gain[i])]}
+    if a.num_leaves != b.num_leaves:
+        return {"parted_at_split": n, "bundled": None, "unbundled": None}
+    rel = float(np.max(np.abs(a.leaf_value - b.leaf_value)
+                       / np.maximum(np.abs(b.leaf_value), 1e-12)))
+    return {"parted_at_split": None, "leaf_rel_diff": rel}
+
+
+def expansion_cost(torch, booster, replay_busy_ms, reps=5):
+    """The stored -> virtual histogram expansion of one tree (the root's
+    and 62 children pairs', at the learner's shapes) captured as a CUDA
+    graph: replays timed with CUDA events and one profiled; its device
+    busy time against a fused replay's."""
+    from torch.profiler import ProfilerActivity, profile
+    learner = booster.gbdt.tree_learner
+    bundle = learner.bundle
+    s, b = learner.bins.shape[0], learner.max_bin
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    root = torch.rand((s, b, 3), device=DEVICE, generator=gen)
+    pair = torch.rand((2, s, b, 3), device=DEVICE, generator=gen)
+    splits = int(booster.gbdt.config.num_leaves) - 1
+
+    def one_tree():
+        bundle.expand(root)
+        for _ in range(splits):
+            bundle.expand(pair)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        one_tree()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        one_tree()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    del graph
+    return {"stored_hist_shape": [s, b, 3],
+            "virtual_hist_shape": list(bundle.shape) + [3],
+            "expansions_a_tree": splits + 1,
+            "tree_replay_event_ms": float(np.median(times)),
+            "tree_replay_event_ms_all": times,
+            "device_ops": len(kernels),
+            "device_busy_ms": busy if kernels else None,
+            "share_of_fused_replay_busy": (busy / replay_busy_ms
+                                           if kernels and replay_busy_ms
+                                           else None)}
+
+
+def phase_bundled(torch, lgt, hk, seed):
+    """Exclusive feature bundling at full width: the Flight-Delay-shaped
+    table (N_ROWS x 700, 696 one-hot columns) with default parameters,
+    which bundle it into fewer than BUNDLED_MAX_STORED stored rows; both
+    datasets constructed and timed (the bundled one on the host, the
+    unbundled one by bin_dense); N_ROUNDS rounds per-iteration on each
+    with counts read from zero; the bundled first tree against the
+    plain engines' in the same booster and against the unbundled one
+    (near-ties allowed, see first_tree_vs_unbundled), train AUCs within
+    0.002; the fused trainer on both (phase_fused: text equal to the
+    per-iteration one, launches through the replays, a replay profiled);
+    the expansion's device time a tree beside a fused replay's; the
+    bundled train set as its own valid set scores its train scores."""
+    res = {}
+    x, y = make_flight_data(N_ROWS, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(x, y, params=BUNDLED_PARAMS).construct(device=DEVICE)
+    res["construct_s"] = time.perf_counter() - t0
+    core = ds._core
+    plan = core.bundle_plan
+    check(plan is not None, "bundled: the default parameters did not bundle")
+    stored = int(core.bins.shape[0])
+    res["plan"] = {"virtual_features": core.num_features,
+                   "stored_rows": stored, "num_slots": plan.num_slots,
+                   "bundles": int((np.bincount(plan.feat_slot) > 1).sum()),
+                   "slot_bins": plan.slot_bins.tolist(),
+                   "bins_dtype": str(core.bins.dtype)}
+    unbundled_params = dict(BUNDLED_PARAMS, is_enable_sparse=False)
+    t0 = time.perf_counter()
+    flat = lgt.Dataset(x, y, params=unbundled_params).construct(
+        device=DEVICE)
+    torch.cuda.synchronize()
+    res["construct_unbundled_s"] = time.perf_counter() - t0
+    del x
+    log(f"bundled: {core.num_features} virtual features in {stored} stored "
+        f"rows ({res['plan']['bundles']} bundles, slot bins "
+        f"{res['plan']['slot_bins']}, {core.bins.dtype}); construction "
+        f"{res['construct_s']:.2f} s bundled (host), "
+        f"{res['construct_unbundled_s']:.2f} s unbundled (bin_dense)")
+    check(core.num_features == sum(FLIGHT_BLOCKS) + FLIGHT_DENSE
+          and stored < BUNDLED_MAX_STORED,
+          f"bundled: {stored} stored rows for {core.num_features} features")
+    check(flat._core.bundle_plan is None
+          and flat._core.bins.shape[0] == core.num_features,
+          "bundled: is_enable_sparse=false still bundled")
+
+    runs = {}
+    for name, dset, params in (("bundled", ds, BUNDLED_PARAMS),
+                               ("unbundled", flat, unbundled_params)):
+        mem0 = memory_mark(torch)
+        hk.reset_launch_counts()
+        booster, round_ms = train_rounds(torch, lgt, params, dset, N_ROUNDS)
+        counts = hk.launch_counts()
+        run = {"round_ms": round_ms,
+               "round_ms_median": float(np.median(round_ms)),
+               "train_auc": auc(booster.gbdt.get_training_score(), y),
+               "launches": counts,
+               "launches_a_tree": {k: v / N_ROUNDS for k, v in counts.items()
+                                   if v},
+               "memory": memory_peak(torch, mem0)}
+        log(f"{name} per-iteration: round ms "
+            f"{[round(v, 1) for v in round_ms]}, median "
+            f"{run['round_ms_median']:.2f}, train AUC {run['train_auc']:.5f}, "
+            f"histogram launches a tree {run['launches_a_tree']}")
+        check(len(booster.gbdt.models) == N_ROUNDS,
+              f"{name}: training stopped early")
+        check(booster.gbdt.tree_learner.use_compact
+              and counts["compacted_hist"] >= N_ROUNDS * 62
+              and counts["compact_rows"] == counts["compacted_hist"]
+              and counts["frontier_hist"] >= N_ROUNDS
+              and counts["masked_hist"] == 0,
+              f"{name}: kernels launched {counts}")
+        runs[name] = (booster, run)
+        res[name] = run
+    booster, flat_booster = runs["bundled"][0], runs["unbundled"][0]
+    check(booster.gbdt.tree_learner.bins.shape[0] == stored,
+          "bundled: the learner does not stream the stored rows")
+    auc_gap = abs(res["bundled"]["train_auc"] - res["unbundled"]["train_auc"])
+    check(auc_gap <= 0.002, f"bundled: train AUC {res['bundled']['train_auc']}"
+          f" against {res['unbundled']['train_auc']} unbundled")
+
+    cmp = first_tree_vs_unbundled(booster.gbdt.models[0],
+                                  flat_booster.gbdt.models[0])
+    res["first_tree_vs_unbundled"] = cmp
+    log(f"bundled first tree against the unbundled one: {cmp}")
+    if cmp["parted_at_split"] is None:
+        check(cmp["leaf_rel_diff"] <= 1e-5, f"bundled: first-tree leaf "
+              f"values differ from the unbundled ones by {cmp}")
+    else:
+        check(cmp["bundled"] is not None and cmp["bundled"][2]
+              >= cmp["unbundled"][2] * (1 - 1e-5),
+              f"bundled: the first tree parts from the unbundled one "
+              f"without a near-tie: {cmp}")
+    res["plain_tree"] = compacted_plain_tree(torch, hk, booster)
+
+    res["fused"] = phase_fused(torch, lgt, hk, ds, y, booster,
+                               res["bundled"], BUNDLED_PARAMS, "bundled")
+    check(res["fused"]["model_text_equal"], "bundled: the fused model text "
+          "differs from the per-iteration one")
+    res["fused_unbundled"] = phase_fused(
+        torch, lgt, hk, flat, y, flat_booster, res["unbundled"],
+        unbundled_params, "unbundled")
+    del flat, flat_booster, runs
+    fb, fu = res["fused"]["profile"], res["fused_unbundled"]["profile"]
+    res["fused_round"] = {
+        "bundled_ms": res["fused"]["round_ms_median"],
+        "unbundled_ms": res["fused_unbundled"]["round_ms_median"],
+        "bundled_busy_ms": fb["device_busy_ms"],
+        "unbundled_busy_ms": fu["device_busy_ms"],
+        "bundled_hist_ms": fb["hist_ms"], "unbundled_hist_ms": fu["hist_ms"]}
+    log(f"fused round at 700 features, bundled against unbundled: "
+        f"{res['fused_round']}")
+    res["expansion"] = expansion_cost(torch, booster, fb["device_busy_ms"])
+    log(f"bundled: one tree's histogram expansions "
+        f"{res['expansion']['tree_replay_event_ms']:.3f} ms (graph replay, "
+        f"events), device busy {res['expansion']['device_busy_ms']} ms over "
+        f"{res['expansion']['device_ops']} ops, share of a fused replay's "
+        f"busy time {res['expansion']['share_of_fused_replay_busy']}")
+
+    valid = lgt.Booster(BUNDLED_PARAMS, ds)
+    valid.add_valid(ds, "self")
+    for _ in range(2):
+        valid.update()
+    torch.cuda.synchronize()
+    same = torch.equal(valid.gbdt.valid_score_updaters[0].score,
+                       valid.gbdt.train_score_updater.score)
+    res["valid_scores_equal_train"] = bool(same)
+    log(f"bundled train set as its own valid set: scores equal {same}")
+    check(same, "bundled: the valid-set traversal does not decode the slots")
+    del valid, booster, ds
     return res
 
 
@@ -3444,6 +3709,9 @@ def main():
         report["plain_tree"] = phase_plain_tree(torch, hk, booster)
         report["predict"] = phase_predict(torch, booster, x)
         report["profile"] = phase_profile(torch, booster)
+        t0 = time.time()
+        report["bundled"] = phase_bundled(torch, lgt, hk, args.seed)
+        report["bundled"]["phase_s"] = time.time() - t0
         report["cacheless"] = phase_cacheless(torch, lgt, hk, ds, booster)
         part, report["partitioned"] = phase_partitioned(torch, lgt, hk, ds,
                                                         y, booster)
@@ -3491,6 +3759,8 @@ def main():
         return sum(report[a][b]["launches"].get(name, 0) if b else
                    report[a]["launches"].get(name, 0)
                    for a, b in (("fused", None), ("fused_partitioned", None),
+                                ("bundled", "fused"),
+                                ("bundled", "fused_unbundled"),
                                 ("multiclass", "fused"),
                                 ("multiclass", "fused_partitioned"),
                                 ("lambdarank", "fused")))
@@ -3507,12 +3777,15 @@ def main():
                     "lightgbm_tpu_torch/csrc/seg_hist.cu",
                     "lightgbm_tpu/ops/ordered_hist.py:123")]
     # the gather-compacted engine's kernels at a 10% leaf, launches from
-    # the compacted phase's fused runs (binary and multiclass)
-    comp = report["compacted"]
+    # the compacted phase's fused runs (binary and multiclass) and the
+    # bundled phase's (bundled and unbundled)
+    comp, bund = report["compacted"], report["bundled"]
 
     def compacted_launches(name):
         return (comp["fused"]["launches"].get(name, 0)
-                + comp["multiclass"]["launches"].get(name, 0))
+                + comp["multiclass"]["launches"].get(name, 0)
+                + bund["fused"]["launches"].get(name, 0)
+                + bund["fused_unbundled"]["launches"].get(name, 0))
 
     share = COMPACT_SHARES.index(0.10)
     kernels += [

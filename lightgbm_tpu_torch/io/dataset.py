@@ -4,10 +4,16 @@ Reference: include/LightGBM/dataset.h:278-421, src/io/dataset.cpp,
 include/LightGBM/dataset_loader.h, src/io/dataset_loader.cpp:162-941.
 
 The training data is ONE dense features-major integer matrix `bins` of
-shape (num_features, num_data) at its natural packed width (bins_dtype:
-uint8 when every feature has <= 256 bins, int16 up to 32768). It moves
-to the device once, at that width, and every histogram kernel streams it
-there (`device_bins`).
+shape (stored rows, num_data) at its natural packed width (bins_dtype:
+uint8 when every stored row has <= 256 bins, int16 up to 32768). It
+moves to the device once, at that width, and every histogram kernel
+streams it there (`device_bins`). Stored rows are the features, or, when
+exclusive feature bundling engages (is_enable_sparse, io/bundling.py),
+the bundle plan's slots: mutually exclusive sparse features share one
+row, so a one-hot-heavy table stores a few rows for many features. A
+bundled matrix is built on the host on every route (matrix, column
+source, two-round stream, O(nnz) LibSVM stream, aligned valid sets,
+which share the train plan), as in the JAX package.
 
 Sources: dense matrices and column sources (DenseColumns, CscColumns:
 sparse inputs bin one column at a time), CSV/TSV/LibSVM files parsed in
@@ -27,10 +33,9 @@ input, and a loader without a device, takes the host pass
 text load) and categorical columns always take the host pass, as in the
 JAX package. A failed build or launch raises: there is no fallback.
 
-Later slices of the port: exclusive feature bundling (ROADMAP queue 1
-item 3; two or more bundling candidates raise unless
-is_enable_sparse=false), out-of-core block stores (item 5), per-rank
-row partitions (item 6) and the training-time dataset profile (item 7).
+Later slices of the port: out-of-core block stores (ROADMAP queue 1
+item 5), per-rank row partitions (item 6) and the training-time dataset
+profile (item 7).
 """
 
 import os
@@ -42,13 +47,11 @@ from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
 from ..utils.random import Random
 from .bin_mapper import BinMapper, CATEGORICAL, NUMERICAL
+from .bundling import (BundlePlan, build_stored_matrix, log_conflicts,
+                       plan_bundles, write_member)
 from .metadata import Metadata
 from .parser import ZERO_THRESHOLD, detect_format, libsvm_pairs, \
     parse_text_file
-
-# lightgbm_tpu/io/bundling.py: a numerical feature whose zero maps to
-# bin 0 and whose sample is at least this sparse is a bundling candidate
-SPARSE_THRESHOLD = 0.8
 
 # the JAX package's binary cache format, so that a cache written by one
 # package loads in the other. v2: bins persist at their natural packed
@@ -94,6 +97,26 @@ class BinaryDatasetError(Exception):
     def __init__(self, message, claimed=False):
         super().__init__(message)
         self.claimed = claimed
+
+
+class _VirtualBinsView:
+    """Fancy-indexable [feat, rows] view of a bundled stored matrix in
+    virtual feature space (io/bundling.py's encoding): a member owns the
+    slot window (off, off + nb - 1]; anything else is its bin 0."""
+
+    def __init__(self, stored, plan, num_bin_pf):
+        self._stored = stored
+        self._plan = plan
+        self._nb = np.asarray(num_bin_pf)
+        self.shape = (len(plan.feat_slot), stored.shape[1])
+
+    def __getitem__(self, key):
+        feat, rows = key
+        feat = np.asarray(feat)
+        sc = self._stored[self._plan.feat_slot[feat], rows].astype(np.int64)
+        off = self._plan.feat_offset[feat]
+        nb = self._nb[feat]
+        return np.where((sc > off) & (sc <= off + nb - 1), sc - off, 0)
 
 
 def _qid_to_counts(qid_col):
@@ -217,8 +240,8 @@ class CscColumns:
 
 def encode_dataset_sidecar(ds, arrays=None):
     """npz encoding of a CoreDataset minus its bin matrix: feature maps,
-    names, bin mappers, metadata (the JAX package's dictionary, whose
-    bundle plan and profile this port does not make)."""
+    names, bin mappers, bundle plan, metadata (the JAX package's
+    dictionary, whose profile this port does not make)."""
     arrays = {} if arrays is None else arrays
     arrays.update({
         "used_feature_map": ds.used_feature_map,
@@ -230,6 +253,9 @@ def encode_dataset_sidecar(ds, arrays=None):
     for i, m in enumerate(ds.bin_mappers):
         for k, v in m.to_dict().items():
             arrays[f"mapper{i}_{k}"] = np.asarray(v)
+    if ds.bundle_plan is not None:
+        for k, v in ds.bundle_plan.to_dict().items():
+            arrays[f"bundle_{k}"] = np.asarray(v)
     for k, v in ds.metadata.to_dict().items():
         arrays[f"meta_{k}"] = np.asarray(v)
     return arrays
@@ -239,11 +265,7 @@ def decode_dataset_sidecar(ds, z, truncated):
     """Inverse of encode_dataset_sidecar: populate `ds` (everything but
     bins) from npz archive `z`. `truncated(msg)` builds the exception to
     raise on a structurally incomplete archive. A JAX cache's profile
-    members are not read; a bundled dataset raises NotImplementedError
-    (bundling is a later slice)."""
-    if any(k.startswith("bundle_") for k in z.files):
-        raise _later_slice("a bundled binary dataset (exclusive feature "
-                           "bundling)", 3)
+    members are not read."""
     ds.used_feature_map = z["used_feature_map"]
     ds.real_feature_idx = z["real_feature_idx"]
     ds.num_total_features = int(z["num_total_features"])
@@ -258,6 +280,9 @@ def decode_dataset_sidecar(ds, z, truncated):
             raise truncated(f"missing bin mapper {i} of {n_used}")
         mappers.append(BinMapper.from_dict(d))
     ds.bin_mappers = mappers
+    bundle = {k[7:]: z[k] for k in z.files if k.startswith("bundle_")}
+    if bundle:
+        ds.bundle_plan = BundlePlan.from_dict(bundle)
     meta = {k[5:]: z[k] for k in z.files if k.startswith("meta_")}
     ds.metadata = Metadata.from_dict(meta)
     return ds
@@ -267,7 +292,7 @@ class CoreDataset:
     """Eagerly-binned dataset (the reference's `Dataset`, dataset.h:278-421)."""
 
     def __init__(self):
-        self.bins = None              # (F_used, N) packed (bins_dtype), host
+        self.bins = None              # (stored rows, N) packed, host
         self.bin_mappers = []         # per used feature
         self.used_feature_map = None  # (num_total_features,) int32: total->used or -1
         self.real_feature_idx = None  # (F_used,) int32: used -> total
@@ -275,7 +300,7 @@ class CoreDataset:
         self.num_total_features = 0
         self.label_idx = 0
         self.metadata = Metadata()
-        self.bundle_plan = None       # bundling is a later slice: always None
+        self.bundle_plan = None       # io/bundling.py BundlePlan or None
         self.raw_data = None          # (N, C) raw values for init scores
         self._device_bins = {}
         self._bin_value_cache = None
@@ -295,8 +320,19 @@ class CoreDataset:
 
     @property
     def max_stored_bin(self):
-        """Histogram width of the stored matrix (no bundle slots here)."""
-        return self.max_num_bin
+        """Histogram width of the stored matrix (a bundle slot packs
+        several features' bin ranges)."""
+        if self.bundle_plan is None:
+            return self.max_num_bin
+        return int(self.bundle_plan.slot_bins.max())
+
+    def traversal_bins(self):
+        """The bins indexable as [feature, rows] in virtual feature
+        space: the matrix itself, or a view decoding bundle slots."""
+        if self.bundle_plan is None:
+            return self.bins
+        return _VirtualBinsView(self.bins, self.bundle_plan,
+                                self.num_bin_array())
 
     @property
     def stored_bins_dtype(self):
@@ -334,7 +370,7 @@ class CoreDataset:
         return self._bin_value_cache
 
     def device_bins(self, device):
-        """The (F, N) bin matrix on `device` at its stored width, moved
+        """The (S, N) stored bin matrix on `device` at its width, moved
         there once and cached per device (binning on the card seeds the
         cache with the kernel's output)."""
         key = str(torch.device(device))
@@ -354,6 +390,7 @@ class CoreDataset:
         out.feature_names = self.feature_names
         out.num_total_features = self.num_total_features
         out.label_idx = self.label_idx
+        out.bundle_plan = self.bundle_plan
         out.metadata = self.metadata.subset(indices)
         if self.raw_data is not None:
             out.raw_data = self.raw_data[indices]
@@ -433,7 +470,7 @@ class CoreDataset:
             decode_dataset_sidecar(
                 ds, z, lambda msg: BinaryDatasetError(
                     f"{path} is truncated ({msg})", claimed=True))
-        except (BinaryDatasetError, NotImplementedError):
+        except BinaryDatasetError:
             raise
         except Exception as e:  # zip CRC failures surface at entry access
             raise BinaryDatasetError(
@@ -517,11 +554,13 @@ class DatasetLoader:
                     if e.claimed:
                         Log.warning("ignoring unusable binary cache: %s", e)
                     continue  # not a binary cache; fall through
-                except NotImplementedError:
-                    if cand == str(filename):
-                        raise
-                    # a bundled sibling cache this slice cannot use:
-                    # rebuild from text without overwriting it
+                if ds.bundle_plan is not None and (
+                        not cfg.is_enable_sparse
+                        or ds.bundle_plan.conflict_rate
+                        > cfg.max_conflict_rate):
+                    # bundled with a plan this config cannot use
+                    # (bundling off, or a more tolerant plan): rebuild
+                    # from text without overwriting the cache
                     Log.warning("Binary cache %s contains a bundled "
                                 "dataset incompatible with this config; "
                                 "rebuilding from text", cand)
@@ -656,18 +695,19 @@ class DatasetLoader:
                 return sample_feats[:, j]
         mappers, used_map, real_idx = self._make_mappers(
             sample_feat_col, num_feats, ignore, categorical)
-        self._check_no_bundling(mappers)
+        # the in-memory path's plan: same sample rows, same greedy pass
+        plan = self._plan(mappers,
+                          lambda u: sample_feat_col(real_idx[u]))
 
         # round two: stream blocks, pushing binned values + metadata columns
         weights = qid = None
         if sparse_route:
             bins, label = self._stream_sparse_libsvm(filename, mappers,
-                                                     used_map, n)
+                                                     used_map, plan, n)
         else:
-            dtype = bins_dtype(max(m.num_bin for m in mappers))
-            check_bins_budget(len(mappers), n, np.dtype(dtype).itemsize,
-                              "Dense (unbundled) streaming load")
-            bins = np.empty((len(mappers), n), dtype=dtype)
+            dtype, bins = self._alloc_bins(mappers, plan, n,
+                                           "streaming load")
+            conflicts = 0
             label = np.empty(n, dtype=np.float32)
             weights = (np.empty(n, dtype=np.float32)
                        if weight_idx >= 0 else None)
@@ -684,14 +724,21 @@ class DatasetLoader:
                 if qid is not None:
                     qid[start:end] = feats_block[:, group_idx]
                 for u, j in enumerate(real_idx):
-                    bins[u, start:end] = mappers[u].value_to_bin(
-                        feats_block[:, j]).astype(dtype)
+                    col = mappers[u].value_to_bin(feats_block[:, j])
+                    if plan is None:
+                        bins[u, start:end] = col.astype(dtype)
+                    else:
+                        conflicts += write_member(
+                            bins[plan.feat_slot[u], start:end], col,
+                            plan.feat_offset[u], dtype)
+            log_conflicts(conflicts)
 
         ds = CoreDataset()
         ds.num_total_features = num_feats
         ds.feature_names = (list(feat_names) if feat_names is not None
                             else [f"Column_{i}" for i in range(num_feats)])
         ds.bins = bins
+        ds.bundle_plan = plan
         ds.bin_mappers = mappers
         ds.used_feature_map = used_map
         ds.real_feature_idx = np.asarray(real_idx, dtype=np.int32)
@@ -708,24 +755,27 @@ class DatasetLoader:
                  n, len(mappers))
         return ds
 
-    def _stream_sparse_libsvm(self, filename, mappers, used_map, n):
+    def _stream_sparse_libsvm(self, filename, mappers, used_map, plan, n):
         """Round two over LibSVM triplet blocks: O(block nnz) transient
-        memory, and the only (rows x cols) allocation is the bin matrix
-        itself. Each stored row is pre-filled with its feature's zero
-        bin, so only nonzero entries are binned (the reference's
-        sparse_bin.hpp:17-331 storage, densified)."""
+        memory, and the only (rows x cols) allocation is the stored bin
+        matrix itself, (slots, N) when bundling engaged. A feature alone
+        in its row is pre-filled with its zero bin (a bundle member's is
+        0 by the plan's candidate rule), so only nonzero entries are
+        binned (the reference's sparse_bin.hpp:17-331 storage,
+        densified)."""
         from .streaming import iter_sparse_blocks, prefetch_blocks
         cfg = self.config
-        f_used = len(mappers)
-        dtype = bins_dtype(max(m.num_bin for m in mappers))
-        check_bins_budget(f_used, n, np.dtype(dtype).itemsize,
-                          "Dense (unbundled) sparse-LibSVM load")
-        bins = np.zeros((f_used, n), dtype=dtype)
+        dtype, bins = self._alloc_bins(mappers, plan, n,
+                                       "sparse-LibSVM load")
+        slot = (np.arange(len(mappers)) if plan is None
+                else plan.feat_slot)
+        alone = np.bincount(slot, minlength=bins.shape[0])[slot] == 1
         for u, m in enumerate(mappers):
             b0 = int(m.value_to_bin(np.zeros(1))[0])
-            if b0:
-                bins[u, :] = b0
+            if b0 and alone[u]:
+                bins[slot[u], :] = b0
         label = np.empty(n, dtype=np.float32)
+        conflicts = 0
         for start, lab, rows, cols, vals in prefetch_blocks(
                 iter_sparse_blocks(filename, cfg.has_header)):
             label[start:start + len(lab)] = lab
@@ -738,6 +788,8 @@ class DatasetLoader:
             v = np.nan_to_num(vals, nan=0.0)
             used = u_arr >= 0
             r, v, u_arr = r[used], v[used], u_arr[used]
+            # entries grouped by used feature, ascending: in a bundle the
+            # first (lowest) member wins a conflict, as on the dense routes
             order = np.argsort(u_arr, kind="stable")
             r, v, u_arr = r[order], v[order], u_arr[order]
             cuts = np.flatnonzero(np.diff(u_arr)) + 1
@@ -746,20 +798,31 @@ class DatasetLoader:
                 if g1 <= g0:
                     continue
                 u = int(u_arr[g0])
-                bins[u, r[g0:g1]] = mappers[u].value_to_bin(
-                    v[g0:g1]).astype(dtype)
+                b = mappers[u].value_to_bin(v[g0:g1]).astype(np.int64)
+                rr = r[g0:g1]
+                if alone[u]:
+                    bins[slot[u], rr] = b.astype(dtype)
+                    continue
+                nz = b > 0
+                rnz = rr[nz]
+                clash = bins[slot[u], rnz] != 0
+                conflicts += int(clash.sum())
+                bins[slot[u], rnz[~clash]] = (
+                    b[nz][~clash] + plan.feat_offset[u]).astype(dtype)
+        log_conflicts(conflicts)
         return bins, label
 
     def _load_sparse_aligned(self, filename, train_ds) -> CoreDataset:
-        """O(nnz) valid-set LibSVM load with the TRAIN mappers (the
-        sparse analog of the dense aligned path)."""
+        """O(nnz) valid-set LibSVM load with the TRAIN mappers and bundle
+        plan (the sparse analog of the dense aligned path)."""
         from .streaming import count_rows
         cfg = self.config
         n = count_rows(filename, cfg.has_header)
         if n == 0:
             Log.fatal("Data file %s is empty", str(filename))
         bins, label = self._stream_sparse_libsvm(
-            filename, train_ds.bin_mappers, train_ds.used_feature_map, n)
+            filename, train_ds.bin_mappers, train_ds.used_feature_map,
+            train_ds.bundle_plan, n)
         ds = self._aligned_shell(train_ds)
         ds.bins = bins.astype(train_ds.stored_bins_dtype, copy=False)
         meta = Metadata(n)
@@ -887,23 +950,31 @@ class DatasetLoader:
                       "features. It should be at least two unique rows.")
         return mappers, used_map, real_idx
 
-    def _check_no_bundling(self, mappers):
-        """The JAX loader bundles mutually exclusive sparse features
-        (lightgbm_tpu/io/bundling.py plan_bundles) when at least two
-        candidates exist; that storage is a later slice here."""
-        if not self.config.is_enable_sparse:
-            return
-        candidates = sum(
-            1 for m in mappers
-            if m.bin_type == NUMERICAL and m.sparse_rate >= SPARSE_THRESHOLD
-            and int(m.value_to_bin(np.zeros(1))[0]) == 0)
-        if candidates >= 2:
-            raise NotImplementedError(
-                f"{candidates} sparse features are bundling candidates; "
-                "exclusive feature bundling (ROADMAP queue 1 item 3) is a "
-                "later slice of "
-                "lightgbm_tpu_torch (set is_enable_sparse=false to store "
-                "them unbundled)")
+    def _plan(self, mappers, sample_col):
+        """The bundle plan from the binning sample (io/bundling.py), or
+        None when bundling is off or nothing bundles. `sample_col(u)`
+        gives used feature u's sample values: planning bins one sample
+        column at a time, never the (F, sample) stack."""
+        cfg = self.config
+        if not cfg.is_enable_sparse:
+            return None
+        plan = plan_bundles(
+            mappers, lambda u: mappers[u].value_to_bin(sample_col(u)),
+            enable=True, max_conflict_rate=cfg.max_conflict_rate)
+        return None if plan.is_identity else plan
+
+    @staticmethod
+    def _alloc_bins(mappers, plan, n, what):
+        """(dtype, zeroed (stored rows, n) bin matrix) of an unbundled
+        or bundled load, behind the budget guard."""
+        if plan is None:
+            dtype = bins_dtype(max(m.num_bin for m in mappers))
+            rows, what = len(mappers), "Dense (unbundled) " + what
+        else:
+            dtype = bins_dtype(int(plan.slot_bins.max()))
+            rows, what = plan.num_slots, "Bundled " + what
+        check_bins_budget(rows, n, np.dtype(dtype).itemsize, what)
+        return dtype, np.zeros((rows, n), dtype=dtype)
 
     def _bin_dense_on_device(self, mat, real_idx, mappers, dtype):
         """(F, N) bins of a dense float32 matrix on the loader's device:
@@ -936,7 +1007,20 @@ class DatasetLoader:
                             else [f"Column_{i}" for i in range(num_total)])
         mappers, used_map, real_idx = self._make_mappers(
             sample_col, num_total, ignore, categorical)
-        self._check_no_bundling(mappers)
+        # exclusive feature bundling (io/bundling.py): a bundled matrix
+        # is built on the host, one column at a time, as in the JAX
+        # package, which never bins one on its device
+        ds.bundle_plan = self._plan(mappers,
+                                    lambda u: sample_col(real_idx[u]))
+        if ds.bundle_plan is not None:
+            plan = ds.bundle_plan
+            dtype = bins_dtype(int(plan.slot_bins.max()))
+            check_bins_budget(plan.num_slots, n, np.dtype(dtype).itemsize,
+                              "Bundled dataset construction")
+            ds.bins = build_stored_matrix(
+                plan, lambda u: mappers[u].value_to_bin(
+                    src.col(real_idx[u])), dtype)
+            return self._finish(ds, mappers, used_map, real_idx, meta)
         dtype = bins_dtype(max(m.num_bin for m in mappers))
         check_bins_budget(len(real_idx), n, np.dtype(dtype).itemsize,
                           "Dense (unbundled) dataset construction")
@@ -954,12 +1038,16 @@ class DatasetLoader:
                 lambda u: mappers[u].value_to_bin(
                     src.col(real_idx[u])).astype(dtype),
                 len(real_idx)), axis=0)
+        return self._finish(ds, mappers, used_map, real_idx, meta)
+
+    @staticmethod
+    def _finish(ds, mappers, used_map, real_idx, meta):
         ds.bin_mappers = mappers
         ds.used_feature_map = used_map
         ds.real_feature_idx = np.asarray(real_idx, dtype=np.int32)
         ds.metadata = meta
-        Log.info("Number of data: %d, number of features: %d", n,
-                 len(mappers))
+        Log.info("Number of data: %d, number of features: %d",
+                 ds.num_data, len(mappers))
         return ds
 
     @staticmethod
@@ -972,23 +1060,33 @@ class DatasetLoader:
         ds.bin_mappers = ref_ds.bin_mappers
         ds.used_feature_map = ref_ds.used_feature_map
         ds.real_feature_idx = ref_ds.real_feature_idx
+        ds.bundle_plan = ref_ds.bundle_plan
         return ds
 
     def _bin_with_mappers(self, feats, ref_ds: CoreDataset, meta) -> CoreDataset:
-        """A valid set binned with the training set's mappers (host pass)."""
+        """A valid set binned with the training set's mappers (host
+        pass); a bundled train set's plan is shared, so scoring decodes
+        the valid set's slots as the train set's."""
         src = feats if is_column_source(feats) else DenseColumns(feats)
         ds = self._aligned_shell(ref_ds)
         if src.num_total < ref_ds.num_total_features:
             Log.fatal("Validation data has fewer features than training data")
         dtype = ref_ds.stored_bins_dtype
-        check_bins_budget(len(ref_ds.bin_mappers), src.n,
-                          np.dtype(dtype).itemsize,
-                          "Aligned (valid set) dataset construction")
         real, mappers = ref_ds.real_feature_idx, ref_ds.bin_mappers
+        plan = ref_ds.bundle_plan
+        check_bins_budget(
+            len(mappers) if plan is None else plan.num_slots, src.n,
+            np.dtype(dtype).itemsize,
+            "Aligned (valid set) dataset construction")
+        ds.metadata = meta
+        if plan is not None:
+            ds.bins = build_stored_matrix(
+                plan, lambda u: mappers[u].value_to_bin(src.col(real[u])),
+                dtype)
+            return ds
         ds.bins = np.stack(_bin_columns_threaded(
             lambda u: mappers[u].value_to_bin(
                 src.col(real[u])).astype(dtype), len(mappers)), axis=0)
-        ds.metadata = meta
         return ds
 
     def _attach_init_score(self, ds):

@@ -95,13 +95,15 @@ class DatasetProfile:
 
     @classmethod
     def from_dataset(cls, ds, missing=None):
-        """Occupancy pass over a constructed dataset (its host (F, N)
-        bin matrix): one bincount per used feature."""
+        """Occupancy pass over a constructed dataset (its host bins in
+        virtual feature space): one bincount per used feature."""
         if ds.bins is None:
             return None
         counts = []
+        bins = ds.traversal_bins()
         for u, m in enumerate(ds.bin_mappers):
-            col = np.asarray(ds.bins[u]).astype(np.int64, copy=False)
+            col = np.asarray(bins[u, slice(None)]).astype(np.int64,
+                                                          copy=False)
             counts.append(np.bincount(np.minimum(col, m.num_bin - 1),
                                       minlength=m.num_bin)[:m.num_bin])
         return cls.from_parts(ds.bin_mappers, ds.real_feature_idx,

@@ -30,6 +30,12 @@ bool `do`, and the segment bounds are an (L, 2) int32 device tensor
 that reaches the kernel as a device tensor. The partition runs over
 the whole arrays (ops/partition.py says why); when `do` is false its
 segment is empty, so the permutation is the identity.
+
+On a bundled dataset (io/bundling.py) the words pack the slot matrix:
+histograms build and cache in slot space, `expand_fn` turns them into
+virtual ones in front of the split scan and `decode_fn` reads a split
+feature out of its slot (the JAX learner's _bundle_partitioned_kwargs,
+tree_learner.py:746-760).
 """
 
 import torch
@@ -38,17 +44,19 @@ from ..ops.ordered_hist import segment_histograms, unpack_feature
 from ..ops.partition import (apply_partition, invert_permutation,
                              split_destinations)
 from ..ops.split import SplitParams, find_best_split
-from .tree_learner import LeafState, _collapse, root_sums
+from .tree_learner import LeafState, _collapse, _identity, root_sums
 
 
-def _partition_segment(words, ghc, perm, seg_b, seg_c, feat, thr, cat):
+def _partition_segment(words, ghc, perm, seg_b, seg_c, feat, thr, cat,
+                       decode_fn=unpack_feature):
     """Stable-partition the segment [seg_b, seg_b + seg_c) by the split
-    decision (`col == thr` on a categorical feature, `col <= thr` else).
+    decision (`col == thr` on a categorical feature, `col <= thr` else)
+    on the column `decode_fn(words, feat)`.
 
     Returns (words, ghc, perm, n_left), n_left counting ALL left rows
     of the segment (in-bag + out-of-bag + padding).
     """
-    col = unpack_feature(words, feat)
+    col = decode_fn(words, feat)
     go_left = torch.where(cat, col == thr, col <= thr)
     dest, n_left = split_destinations(go_left, seg_b, seg_c)
     words, ghc, perm = apply_partition(invert_permutation(dest), words, ghc,
@@ -58,18 +66,25 @@ def _partition_segment(words, ghc, perm, seg_b, seg_c, feat, thr, cat):
 
 def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
                            num_bin_pf, is_cat, *, num_leaves, max_bin,
-                           params: SplitParams, max_depth, cache_hists=True):
+                           params: SplitParams, max_depth, cache_hists=True,
+                           expand_fn=_identity, decode_fn=unpack_feature):
     """Grow one leaf-wise tree over the packed-word layout on
     `words.device`. No host synchronization.
 
     Args:
-      words: (W, N_pad) int32 packed bins, N_pad % HIST_CHUNK == 0.
+      words: (W, N_pad) int32 packed stored bins (features, or bundle
+        slots), N_pad % HIST_CHUNK == 0.
       grad, hess, inbag: (N_pad,) float32 (pad rows: inbag == 0).
-      feature_mask: (4W,) bool; num_bin_pf: (4W,) int32; is_cat: (4W,)
-        bool, the pad features with 1 bin and not categorical.
+      feature_mask: (F,) bool; num_bin_pf: (F,) int32; is_cat: (F,)
+        bool, in virtual feature space (F == 4W unbundled, the pad
+        features with 1 bin and not categorical).
       num_leaves/max_bin/params/max_depth: static config.
       cache_hists: False = memory-bounded mode: no (L, 4W, B, 3) cache;
         both children's segment histograms are built at each split.
+      expand_fn: stored -> virtual histogram expansion in front of the
+        split scan (BundleMaps.expand when bundled).
+      decode_fn: (words, feature) -> (N_pad,) int32 bins of the split
+        feature (BundleMaps.decode when bundled).
 
     Returns the same output dict as build_tree_device; its row_leaf is
     in original row order.
@@ -81,8 +96,8 @@ def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
     i32 = torch.int32
 
     def scan(hist3, sum_g, sum_h, cnt):
-        return find_best_split(hist3, sum_g, sum_h, cnt, num_bin_pf, is_cat,
-                               feature_mask, params)
+        return find_best_split(expand_fn(hist3), sum_g, sum_h, cnt,
+                               num_bin_pf, is_cat, feature_mask, params)
 
     def leaf_histogram(words_c, ghc_c, bounds):
         return _collapse(segment_histograms(words_c, ghc_c, bounds, b))
@@ -114,7 +129,7 @@ def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
         seg_b, seg_c = bounds[0], bounds[1]
         words, ghc, perm, n_left = _partition_segment(
             words, ghc, perm, seg_b, torch.where(sp.do[0], seg_c, 0),
-            sp.feat, sp.thr, is_cat.index_select(0, sp.feat)[0])
+            sp.feat, sp.thr, is_cat.index_select(0, sp.feat)[0], decode_fn)
         st.write_rows(seg, sp.pair, torch.stack([
             torch.stack([seg_b, n_left]),
             torch.stack([seg_b + n_left, seg_c - n_left])]))

@@ -9,7 +9,9 @@ traversal of stacked trees on the device (stacked_deltas, the
 counterpart of _stacked_deltas :67-84), every row walking every tree in
 lockstep for the deepest tree's depth: one tree for a valid set per
 iteration, many at once for a fused block, an early-stopping truncation,
-a rollback or a valid set added after training. The deltas are added one
+a rollback or a valid set added after training. On a bundled dataset
+the traversal reads each split feature out of its slot (the decode of
+the JAX package's _traverse_add :41-47). The deltas are added one
 tree at a time in order, the same float32 adds whatever the batch, so
 the scores come out bit for bit the same. Every update is in place: the
 fused trainer's CUDA graph holds the train score's storage.
@@ -19,14 +21,18 @@ import numpy as np
 import torch
 
 
-def stacked_deltas(bins_dev, is_cat, stk, scale):
+def stacked_deltas(bins_dev, is_cat, stk, scale, decode=None):
     """(M, N) float32 `scale * leaf_value[leaf(bins)]` of N rows through
     M stacked trees, one lockstep bin-space traversal.
 
     stk: the trees' device arrays as (M, S) split_feature,
     split_threshold_bin, left_child, right_child, (M, L) leaf_value and
     (M,) n_splits (leaves encoded as ~leaf in the child arrays), plus
-    "depth", a host int no smaller than any tree's depth."""
+    "depth", a host int no smaller than any tree's depth.
+    decode: None when bins_dev holds one row per feature, else the
+    bundle's (feat_slot int64, feat_offset, num_bin) device tensors:
+    virtual feature f reads slot feat_slot[f] and owns its window
+    (off, off + nb - 1]."""
     sf = stk["split_feature"]
     m, s = sf.shape
     dev = bins_dev.device
@@ -39,7 +45,14 @@ def stacked_deltas(bins_dev, is_cat, stk, scale):
     for _ in range(int(stk["depth"])):
         idx = base + node.clamp(min=0).long()                # (M, N)
         feat = sf_f[idx].long()
-        fv = bins_dev[feat, rows].to(torch.int32)
+        if decode is None:
+            fv = bins_dev[feat, rows].to(torch.int32)
+        else:
+            slot, off, nb = decode
+            sc = bins_dev[slot[feat], rows].to(torch.int32)
+            o = off[feat]
+            fv = torch.where((sc > o) & (sc <= o + nb[feat] - 1), sc - o,
+                             torch.zeros_like(sc))
         thr = thr_f[idx]
         go_left = torch.where(is_cat[feat], fv == thr, fv <= thr)
         nxt = torch.where(go_left, lc_f[idx], rc_f[idx])
@@ -91,6 +104,7 @@ class ScoreUpdater:
         n = dataset.num_data
         self.num_data = n
         self._is_cat_dev = None
+        self._decode_dev = None
         init = dataset.metadata.init_score
         if init is not None:
             if len(init) != n * self.num_class:
@@ -123,11 +137,21 @@ class ScoreUpdater:
                 self.dataset.feature_is_categorical()).to(self.device)
         return self._is_cat_dev
 
+    def _decode(self):
+        """The bundle decode tables on the device (None unbundled)."""
+        plan = self.dataset.bundle_plan
+        if plan is not None and self._decode_dev is None:
+            self._decode_dev = tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (plan.feat_slot.astype(np.int64), plan.feat_offset,
+                          self.dataset.num_bin_array()))
+        return self._decode_dev
+
     def deltas_by_stacked_device_trees(self, stk, scale):
         """(M, N) scaled deltas of M stacked trees (stacked_deltas) on
         this dataset's device bins. No host sync."""
         return stacked_deltas(self.dataset.device_bins(self.device),
-                              self._is_cat(), stk, scale)
+                              self._is_cat(), stk, scale, self._decode())
 
     def add_score_by_stacked_trees(self, stk, num_class, scale, sign=1.0):
         """Add (sign=-1: subtract) M class-major stacked trees' deltas,

@@ -33,6 +33,15 @@ The builder takes the histogram engines as arguments, as the JAX
 builder takes its hooks, so a caller can hand it the plain versions for
 comparison.
 
+A bundled dataset (io/bundling.py) stores S slot rows for F features.
+Histograms, the cache and the parent subtraction stay in stored (S, B)
+space; BundleMaps.expand turns a stored histogram into the (F, B_v)
+virtual one just before the split scan (gathers of each member's bin
+range, bin 0 as the slot total minus that range), and the partition
+reads a split feature's column out of its slot (BundleMaps.split_col,
+BundleMaps.window). Every table is a device tensor placed once per
+learner, so a captured graph reads fixed addresses.
+
 Split semantics (gain formulas, epsilons, tie-breaks, max_depth guard,
 min_data/min_sum_hessian constraints) follow ops/split.py.
 
@@ -56,7 +65,8 @@ import torch
 from ..ops.histogram import (compacted_histograms, frontier_histograms,
                              masked_histograms)
 from ..ops.hist_kernels import HIST_CHUNK, CompactScratch
-from ..ops.ordered_hist import pack_feature_words
+from ..ops.ordered_hist import pack_feature_words, unpack_feature
+from ..ops.reduce_order import ordered_sum
 from ..ops.split import K_MIN_SCORE, SplitParams, find_best_split
 from ..utils.device import resolve_device
 from ..utils.log import Log
@@ -308,10 +318,68 @@ class LeafState:
 
 
 def root_sums(hist_root):
-    """Root totals (g, h, count) from the root histogram: feature 0's
-    bins partition the rows, so its bin sums are the totals."""
-    return (hist_root[0, :, 0].sum(), hist_root[0, :, 1].sum(),
-            hist_root[0, :, 2].sum())
+    """Root totals (g, h, count) from the root histogram: stored row 0's
+    bins partition the rows (a feature's, or a bundle slot's), so its
+    bin sums are the totals (summed in the order of ops/reduce_order.py)."""
+    sums = ordered_sum(hist_root[0])
+    return sums[0], sums[1], sums[2]
+
+
+def _identity(x):
+    return x
+
+
+class BundleMaps:
+    """The learner's device tables of a bundle plan (io/bundling.py) and
+    the stored <-> virtual hooks of the builders (the JAX learner's
+    _bundle_expand_fn, _bundle_window and _bundle_kwargs, :698-760)."""
+
+    def __init__(self, plan, num_bin_pf, b_virtual, dev):
+        from ..io.bundling import expansion_maps
+        self.num_slots = int(plan.num_slots)
+        src = expansion_maps(plan, num_bin_pf, b_virtual)
+        self.shape = src.shape                                # (F, B_v)
+        self.src = torch.from_numpy(src.reshape(-1)).to(dev)
+        self.slot_of = torch.from_numpy(
+            plan.feat_slot.astype(np.int64)).to(dev)
+        self.off = torch.from_numpy(plan.feat_offset).to(dev)
+        self.num_bin = torch.from_numpy(
+            np.asarray(num_bin_pf, np.int32)).to(dev)
+
+    def expand(self, h):
+        """(..., S_pad, B, 3) stored histograms -> (..., F, B_v, 3)
+        virtual ones. Slices to the real slots first: a padding slot's
+        bin 0 holds row totals, and the gather's zero cell must lie past
+        the real slots. Both sums are ordered_sum's: on the CPU bin 0
+        has the JAX package's bits."""
+        lead = h.shape[:-3]
+        hs = h[..., :self.num_slots, :, :]
+        flat = hs.reshape(*lead, -1, 3)
+        flat = torch.cat([flat, flat.new_zeros(*lead, 1, 3)], dim=-2)
+        hv = flat.index_select(-2, self.src).reshape(*lead, *self.shape, 3)
+        slot_tot = ordered_sum(hs)                          # (..., S, 3)
+        hv0 = (slot_tot.index_select(-2, self.slot_of)
+               - ordered_sum(hv[..., 1:, :]))
+        return torch.cat([hv0.unsqueeze(-2), hv[..., 1:, :]], dim=-2)
+
+    def window(self, sc, feat):
+        """Slot column -> virtual feature `feat`'s bins: the member owns
+        (off, off + nb - 1]; anything else (slot bin 0, another member's
+        bins) is its bin 0. The one decode rule of every path."""
+        off = self.off.index_select(0, feat)
+        nb = self.num_bin.index_select(0, feat)
+        return torch.where((sc > off) & (sc <= off + nb - 1), sc - off,
+                           torch.zeros_like(sc))
+
+    def split_col(self, bins, feat):
+        """(N_pad,) int32 bins of virtual feature `feat` (int64 (1,))."""
+        sc = bins.index_select(0, self.slot_of.index_select(0, feat))[0]
+        return self.window(sc.to(torch.int32), feat)
+
+    def decode(self, words, feat):
+        """The same from the partitioned builder's packed words."""
+        return self.window(
+            unpack_feature(words, self.slot_of.index_select(0, feat)), feat)
 
 
 def build_tree_device(bins, grad, hess, inbag, feature_mask,
@@ -320,17 +388,20 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
                       compact_hist=False, use_frontier=True,
                       masked_fn=masked_histograms,
                       frontier_fn=frontier_histograms,
-                      compacted_fn=compacted_histograms):
+                      compacted_fn=compacted_histograms,
+                      expand_fn=_identity, split_col_fn=None):
     """Grow one leaf-wise tree on `bins.device`. No host synchronization.
 
     Args:
-      bins: (F, N_pad) uint8/int16 bins, N_pad % HIST_CHUNK == 0 (pad
-        rows have no effect: inbag = 0 there).
+      bins: (S, N_pad) uint8/int16 stored bins (S == F unbundled),
+        N_pad % HIST_CHUNK == 0 (pad rows have no effect: inbag = 0
+        there).
       grad, hess: (N_pad,) float32; inbag: (N_pad,) float32 0/1 mask.
       feature_mask: (F,) bool feature_fraction mask.
       num_bin_pf: (F,) int32 bins per feature; is_cat: (F,) bool.
-      num_leaves/max_bin/params/max_depth: static config.
-      cache_hists: keep the (L, F, B, 3) per-leaf cache and subtract
+      num_leaves/max_bin/params/max_depth: static config (max_bin the
+        stored histogram width).
+      cache_hists: keep the (L, S, B, 3) per-leaf cache and subtract
         (False = memory-bounded mode: both children recomputed).
       compact_hist: a split's child histograms come from the gather-
         compacted engine (cost follows the child's rows); the root stays
@@ -341,6 +412,11 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
       masked_fn, frontier_fn, compacted_fn: the histogram engines,
         (bins, ghc_t, row_leaf, leaf id(s), B) -> (value, residual)
         pair.
+      expand_fn: stored -> virtual histogram expansion in front of the
+        split scan (BundleMaps.expand for a bundled dataset).
+      split_col_fn: (bins, feature (int64 (1,))) -> (N_pad,) int32 bin
+        column of the split feature (BundleMaps.split_col for a bundled
+        dataset; by default the feature's row).
 
     Returns a dict of device tensors: the tree arrays, n_splits and the
     final (N_pad,) row -> leaf partition.
@@ -351,8 +427,12 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
     b = int(max_bin)
 
     def scan(hist3, sum_g, sum_h, cnt):
-        return find_best_split(hist3, sum_g, sum_h, cnt, num_bin_pf, is_cat,
-                               feature_mask, params)
+        return find_best_split(expand_fn(hist3), sum_g, sum_h, cnt,
+                               num_bin_pf, is_cat, feature_mask, params)
+
+    if split_col_fn is None:
+        def split_col_fn(bins, feat):
+            return bins.index_select(0, feat)[0].to(torch.int32)
 
     ghc_t = torch.stack([grad * inbag, hess * inbag, inbag])  # (3, N_pad)
 
@@ -377,7 +457,7 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
         sp = st.split(i)
 
         # ---- partition update (DataPartition::Split): one where()
-        col = bins.index_select(0, sp.feat)[0].to(torch.int32)
+        col = split_col_fn(bins, sp.feat)
         feat_is_cat = is_cat.index_select(0, sp.feat)[0]
         go_left = torch.where(feat_is_cat, col == sp.thr, col <= sp.thr)
         move = sp.do & (row_leaf == sp.best32) & ~go_left
@@ -452,7 +532,12 @@ class SerialTreeLearner:
         self.n_pad = self._pad_rows(self.num_data)
         num_bin_pf = train_set.num_bin_array()
         is_cat = train_set.feature_is_categorical()
-        self.f_pad = self._pad_feature_count(self.num_features)
+        plan = train_set.bundle_plan
+        # stored rows the builder streams (features, or bundle slots),
+        # padded to whole packed words for the partitioned builder; the
+        # virtual per-feature arrays pad with them only when unbundled
+        self.s_pad = self._pad_feature_count(train_set.bins.shape[0])
+        self.f_pad = self.s_pad if plan is None else self.num_features
         extra = self.f_pad - self.num_features
         if extra:
             # pad features: all rows in bin 0, one bin, never split
@@ -460,6 +545,8 @@ class SerialTreeLearner:
             is_cat = np.concatenate([is_cat, np.zeros(extra, bool)])
         dev = self.device
         self.bins = self._place_bins(train_set)
+        self.bundle = (None if plan is None else BundleMaps(
+            plan, num_bin_pf, train_set.max_num_bin, dev))
         # the feature_fraction mask of the tree being built: every tree
         # reads this one buffer, so a captured CUDA graph reads it too
         self.fmask = torch.ones(self.f_pad, dtype=torch.bool, device=dev)
@@ -473,7 +560,7 @@ class SerialTreeLearner:
             lambda_l1=float(cfg.lambda_l1),
             lambda_l2=float(cfg.lambda_l2),
             min_gain_to_split=float(cfg.min_gain_to_split))
-        self.cache_hists = cache_hists_fits(cfg, self.f_pad, self.max_bin)
+        self.cache_hists = cache_hists_fits(cfg, self.s_pad, self.max_bin)
         # the compaction's index buffer and count, and on the card the
         # kernels' scratch (look-back flags, chunk partials, fold
         # counters), once per learner: a captured graph reads the same
@@ -526,21 +613,21 @@ class SerialTreeLearner:
         return f
 
     def _place_bins(self, train_set):
-        """The matrix the builder streams, zero-padded to (f_pad, n_pad)
-        rows of bin 0: the dataset's (F, N) device bins at stored width
+        """The matrix the builder streams, zero-padded to (s_pad, n_pad)
+        rows of bin 0: the dataset's (S, N) device bins at stored width
         (moved to the device once, or binned there), padded on the
-        device; or, for the partitioned builder, the packed (f_pad/4,
+        device; or, for the partitioned builder, the packed (s_pad/4,
         n_pad) int32 words, packed on the host and moved once."""
-        f, n = train_set.num_features, train_set.num_data
+        f, n = train_set.bins.shape
         if self.use_partitioned:
-            bins = np.zeros((self.f_pad, self.n_pad),
+            bins = np.zeros((self.s_pad, self.n_pad),
                             dtype=train_set.bins.dtype)
             bins[:f, :n] = train_set.bins
             return torch.from_numpy(pack_feature_words(bins)).to(self.device)
         dev_bins = train_set.device_bins(self.device)
-        if (self.f_pad, self.n_pad) == (f, n):
+        if (self.s_pad, self.n_pad) == (f, n):
             return dev_bins
-        bins = torch.zeros((self.f_pad, self.n_pad), dtype=dev_bins.dtype,
+        bins = torch.zeros((self.s_pad, self.n_pad), dtype=dev_bins.dtype,
                            device=self.device)
         bins[:f, :n] = dev_bins
         return bins
@@ -594,12 +681,25 @@ class SerialTreeLearner:
                 use_frontier=self.use_frontier)
             if self.compacted_fn is not None:
                 engines.setdefault("compacted_fn", self.compacted_fn)
+        engines.update(self.bundle_hooks())
         return build(
             self.bins, self._pad(grad), self._pad(hess), self._pad(inbag),
             fmask, self.num_bin_pf, self.is_cat,
             num_leaves=int(cfg.num_leaves), max_bin=self.max_bin,
             params=self.params, max_depth=int(cfg.max_depth),
             cache_hists=self.cache_hists, **engines)
+
+    def bundle_hooks(self):
+        """The builder's stored -> virtual hooks of a bundled dataset
+        (none unbundled): expand_fn, and split_col_fn for the dense
+        builder or decode_fn for the partitioned one."""
+        if self.bundle is None:
+            return {}
+        if self.use_partitioned:
+            return {"expand_fn": self.bundle.expand,
+                    "decode_fn": self.bundle.decode}
+        return {"expand_fn": self.bundle.expand,
+                "split_col_fn": self.bundle.split_col}
 
     def fetch(self, out, extra=()):
         """The tree's ONE device -> host transfer: every tree array (and

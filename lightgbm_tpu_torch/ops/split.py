@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from .reduce_order import ordered_cumsum
+
 K_EPSILON = 1e-15
 K_MIN_SCORE = float("-inf")
 
@@ -75,8 +77,9 @@ def leaf_output(sum_g, sum_h, l1, l2):
 
 
 def _rcum(x):
-    """rcum[..., j] = sum_{b >= j} x[..., b] (float32 running sum)."""
-    return torch.flip(torch.cumsum(torch.flip(x, [-1]), -1), [-1])
+    """rcum[..., j] = sum_{b >= j} x[..., b] (float32; on the CPU in the
+    JAX package's order, ops/reduce_order.py)."""
+    return torch.flip(ordered_cumsum(torch.flip(x, [-1])), [-1])
 
 
 def per_feature_best(hist, sum_g, sum_h, num_data,

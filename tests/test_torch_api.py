@@ -275,24 +275,45 @@ def test_class_weights_match_jax(extra, atol):
     _assert_same_model(jb, tb, x, atol)
 
 
-def _construct_wide_libsvm():
-    """Dataset(path) on a LibSVM file with feature ids past 1024 (the
-    O(nnz) streaming route) whose sparse columns are bundling
-    candidates."""
+def _write_wide_libsvm(path):
+    """A LibSVM file with feature ids past 1024 (the O(nnz) streaming
+    route) whose sparse columns are bundling candidates; returns its
+    dense matrix."""
     rng = np.random.RandomState(3)
+    x = np.zeros((200, 1100), np.float32)
+    with open(path, "w") as f:
+        for i in range(200):
+            cols = np.unique(rng.choice(1100, 5, replace=False))
+            vals = [float(f"{rng.rand():.6g}") for _ in cols]
+            x[i, cols] = vals
+            f.write(" ".join([str(i % 2)] + [f"{c}:{v:.6g}" for c, v
+                                             in zip(cols, vals)]) + "\n")
+    return x
+
+
+def test_wide_libsvm_bundling_trains_as_jax():
+    """Dataset(path) on the wide LibSVM file bundles its sparse columns
+    as the JAX package does (same plan, same slot matrix) and trains to
+    the JAX package's trees."""
+    params = dict(BASE, min_data_in_leaf=5, verbose=-1)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "wide.svm")
-        with open(path, "w") as f:
-            for i in range(200):
-                cols = np.unique(rng.choice(1100, 5, replace=False))
-                f.write(" ".join([str(i % 2)] + [f"{c}:{rng.rand():.6g}"
-                                                 for c in cols]) + "\n")
-        lgt.Dataset(path, params={"verbose": -1}).construct()
+        x = _write_wide_libsvm(path)
+        jd = lgj.Dataset(path, params=params).construct()
+        td = lgt.Dataset(path, params=params).construct()
+        jc, tc = jd._core, td._core
+        assert tc.bundle_plan is not None
+        assert tc.bins.shape[0] < tc.num_features
+        for k, v in jc.bundle_plan.to_dict().items():
+            np.testing.assert_array_equal(tc.bundle_plan.to_dict()[k], v)
+        np.testing.assert_array_equal(tc.bins, jc.bins)
+        jb = _loop(lgj.Booster(params, jd), 3)
+        tb = _loop(lgt.Booster(params, td, device=CPU), 3)
+    _assert_same_model(jb, tb, x)
 
 
 @pytest.mark.parametrize("call", [
     lambda: Application(["task=train", "snapshot_freq=2"], device=CPU),
-    _construct_wide_libsvm,
     lambda: lgt.train(BASE, lgt.Dataset(*_data(n=300)), 1, device=CPU,
                       resume_from="ckpt"),
     lambda: lgt.train(dict(BASE, boosting_type="dart"),
@@ -301,7 +322,7 @@ def _construct_wide_libsvm():
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
     lambda: lgt.train(dict(BASE, tree_learner="data", num_machines=2),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
-], ids=["cli_snapshots", "wide_libsvm_bundling", "resume_from", "dart",
+], ids=["cli_snapshots", "resume_from", "dart",
         "out_of_core", "parallel"])
 def test_remaining_refusals_name_their_roadmap_item(call):
     with pytest.raises(NotImplementedError) as err:

@@ -111,6 +111,10 @@ def _cfg(params):
 
 
 def _same_core(j, t):
+    assert (t.bundle_plan is None) == (j.bundle_plan is None)
+    if j.bundle_plan is not None:
+        for k, v in j.bundle_plan.to_dict().items():
+            np.testing.assert_array_equal(t.bundle_plan.to_dict()[k], v)
     assert t.bins.dtype == j.bins.dtype
     np.testing.assert_array_equal(np.asarray(t.bins), np.asarray(j.bins))
     np.testing.assert_array_equal(t.real_feature_idx, j.real_feature_idx)
@@ -276,7 +280,8 @@ def test_two_round_equals_in_memory_and_jax(files, params):
 def test_wide_libsvm_streams_sparse_as_jax(tmp_path):
     """Feature ids past 1024 auto-route to the O(nnz) streamer; with
     bundling off (is_enable_sparse=false) both packages store the
-    unbundled matrix; the aligned valid file streams too."""
+    unbundled matrix, and with it on (the default) the same bundle plan
+    and slot matrix; the aligned valid file streams too."""
     rng = np.random.RandomState(6)
     n, width = 300, 1100
     path, valid = str(tmp_path / "wide.svm"), str(tmp_path / "wide_v.svm")
@@ -294,8 +299,12 @@ def test_wide_libsvm_streams_sparse_as_jax(tmp_path):
     jc, tc = _cfg(params)
     _same_core(JLoader(jc).load_from_file_align_with_other_dataset(valid, j),
                TLoader(tc).load_from_file_align_with_other_dataset(valid, t))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TLoader(TConfig.from_params({"verbose": -1})).load_from_file(path)
+    j, t = _load_both(path, {"bin_construct_sample_cnt": 200})
+    assert j.bundle_plan is not None
+    _same_core(j, t)
+    jc, tc = _cfg({})
+    _same_core(JLoader(jc).load_from_file_align_with_other_dataset(valid, j),
+               TLoader(tc).load_from_file_align_with_other_dataset(valid, t))
 
 
 # ------------------------------------------------------------------ aligned

@@ -202,17 +202,21 @@ def test_later_slice_settings_raise(params):
 
 def test_bundling_candidates_raise():
     """Data the JAX loader bundles (eight mutually exclusive sparse
-    columns) is refused unless is_enable_sparse=false."""
+    columns) no longer raises: the port makes the JAX package's plan and
+    stored bins."""
     rng = np.random.RandomState(10)
     x = np.zeros((1000, 8), np.float32)
     for j in range(8):
         x[j::8, j] = rng.rand(125) + 1.0
     j = JLoader(JConfig.from_params({"verbose": -1})).construct_from_matrix(
         x, np.zeros(1000))
-    assert j.bundle_plan is not None
-    with pytest.raises(NotImplementedError):
-        TLoader(TConfig.from_params({"verbose": -1})).construct_from_matrix(
-            x, np.zeros(1000))
+    t = TLoader(TConfig.from_params({"verbose": -1})).construct_from_matrix(
+        x, np.zeros(1000))
+    assert j.bundle_plan is not None and t.bundle_plan is not None
+    for k, v in j.bundle_plan.to_dict().items():
+        np.testing.assert_array_equal(t.bundle_plan.to_dict()[k], v)
+    assert t.bins.dtype == j.bins.dtype
+    np.testing.assert_array_equal(t.bins, j.bins)
     ds = TLoader(TConfig.from_params(
         {"verbose": -1, "is_enable_sparse": False})).construct_from_matrix(
             x, np.zeros(1000))
