@@ -169,6 +169,30 @@ Phases (any failure exits non-zero and prints no result line):
    replays; NDCG@1,3,5 after 10 rounds above the first round's, model
    text), and query-unit bagging (0.7, every 2 rounds) fused against
    its per-iteration loop;
+11a. GOSS (boosting=goss, learning_rate 0.25: a warm-up of 4 rounds,
+   then 4 sampled) 8 rounds on the default compacted engine per
+   iteration and fused (the model text equal; every sampled iteration's
+   weights: at least top_n rows in the top set, the sampled rest within
+   5 sigma of rand_n, the weights' sum within 5 sigma of N), the fused
+   round beside the compacted phase's plain gbdt fused round, a replay
+   profiled (histogram ms), the weights' device ms at 1M rows with the
+   sort apart; then per iteration and fused with partitioned_build=true;
+11b. DART (drop_rate 0.1) 10 rounds per iteration: the drop sets equal
+   to a host replay of Random(drop_seed), the train score against a
+   fresh bin-space scoring of the final model within the float32
+   rounding of its adds and subtracts, the trained booster's
+   predictions (host and device routes) equal to a booster loaded from
+   its model text, the text round-trips byte for byte;
+11c. linear leaves (linear_tree=true) 3 rounds: the fit's host seconds
+   a tree, the format-version-2 text round trip, the CompiledPredictor
+   exact path bit-equal to the host f64 predict on rows with 2% NaN,
+   tree_lin_raw (csrc/traverse.cu) f32 and bf16, raw and transformed,
+   at the 4096-row and 1-row buckets bit for bit its plain version on
+   the card and across two launches, within the class-sum bound of the
+   host f64 path (bf16: the pinned accuracy bound), timed with L2
+   flushed beside its bound, its plain version and tree_raw on the same
+   forest, ptxas's registers and spills; then the serving main path
+   (device variants and bf16 predict) with launch counts from zero;
 12. categorical features: the bench matrix plus 4 integer columns of 32
    categories that enter the label's logit, declared categorical, 2
    rounds with each builder: categorical splits, the same first tree,
@@ -209,8 +233,9 @@ Phases (any failure exits non-zero and prints no result line):
     multiclass, and the bundled phase's, for the
     traversal kernels from the serving main path and the multiclass
     serving, for bin_dense from the bench's construction, for
-    lambdarank_pairs from the fused lambdarank run), the card line, and
-    the result line.
+    lambdarank_pairs from the fused lambdarank run, for tree_lin_raw
+    from the linear phase's serving), the card line, and the result
+    line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -2711,41 +2736,51 @@ def random_forest(rng, t_cnt, max_leaves, f):
     return (sf, thr, cat, lc, rc, node0, depth), lv
 
 
-def leaf_depths(forest):
-    """(T, S + 1) steps from the root to each leaf of a Forest (the
-    walk's length for a row that lands there)."""
+def walk_reads(forest, leaves):
+    """What this run's walks read of a Forest, from the (B, T) leaves
+    its rows reach: the steps taken (one compare each), the distinct
+    node records on those paths, and the (T, S + 1) mask of the leaves
+    reached (padding nodes and unreached subtrees are never read)."""
     lc, rc = forest.lc.cpu().numpy(), forest.rc.cpu().numpy()
     node0 = forest.node0.cpu().numpy()
-    out = np.zeros((lc.shape[0], lc.shape[1] + 1), np.int64)
-    for t in range(lc.shape[0]):
-        stack = [(int(node0[t]), 0)]
+    t_cnt, s = lc.shape
+    reached = np.zeros((t_cnt, s + 1), bool)
+    reached[np.arange(t_cnt)[None, :], leaves] = True
+    depth = np.zeros((t_cnt, s + 1), np.int64)
+    nodes = 0
+    for t in range(t_cnt):
+        stack, on_path = [(int(node0[t]), ())], set()
         while stack:
-            node, d = stack.pop()
+            node, path = stack.pop()
             if node < 0:
-                out[t, ~node] = d
+                depth[t, ~node] = len(path)
+                if reached[t, ~node]:
+                    on_path.update(path)
                 continue
-            stack += [(int(lc[t, node]), d + 1), (int(rc[t, node]), d + 1)]
-    return out
+            path = path + (node,)
+            stack += [(int(lc[t, node]), path), (int(rc[t, node]), path)]
+        nodes += len(on_path)
+    steps = float(depth[np.arange(t_cnt)[None, :], leaves].sum())
+    return steps, nodes, reached
 
 
 def traverse_bound_ms(x, forest, leaves, lv=None, num_class=1):
-    """Least time for one traversal call on this run's rows and the
-    model's own trees (a frozen forest holds no padding): x, the node
-    records and node0 read once and the output written once (tree_leaf: (B, T) int32;
-    tree_raw: the (T, L) leaf values read once and (B, K) float32
-    written), over HBM bandwidth; against one float32 compare per step
-    this run's rows take (and one add per (row, tree) for tree_raw)
-    over the float32 rate. Returns (ms, bound_by)."""
+    """Least time for one traversal call on this run's rows: x and node0
+    read once, the node records on the rows' paths read once, and the
+    output written once (tree_leaf: (B, T) int32; tree_raw: the reached
+    leaves' values read once and (B, K) float32 written), over HBM
+    bandwidth; against one float32 compare per step this run's rows
+    take (and one add per (row, tree) for tree_raw) over the float32
+    rate. Returns (ms, bound_by)."""
     b, f = x.shape
-    t, s = forest.sf.shape
-    nbytes = b * f * 4 + t * s * 16 + t * 4
-    steps = float(leaf_depths(forest)[np.arange(leaves.shape[1])[None, :],
-                                      leaves].sum())
+    t = forest.sf.shape[0]
+    steps, nodes, reached = walk_reads(forest, leaves)
+    nbytes = b * f * 4 + nodes * 16 + t * 4
     if lv is None:
         nbytes += b * t * 4
         ops = steps
     else:
-        nbytes += lv.numel() * lv.element_size() + b * num_class * 4
+        nbytes += int(reached.sum()) * lv.element_size() + b * num_class * 4
         ops = steps + b * leaves.shape[1]
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
@@ -3313,6 +3348,566 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
     return res, cases
 
 
+# ------------------------------------------------- GOSS, DART, linear leaves
+
+GOSS_PARAMS = dict(BENCH_PARAMS, boosting="goss", learning_rate=0.25,
+                   hist_compaction="auto")
+GOSS_ROUNDS = 8          # a warm-up of ceil(1 / 0.25) = 4, then 4 sampled
+DART_PARAMS = dict(BENCH_PARAMS, boosting="dart", drop_rate=0.1)
+DART_ROUNDS = 10
+LINEAR_PARAMS = dict(BENCH_PARAMS, linear_tree=True)
+LINEAR_ROUNDS = 3
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def goss_sample_check(w, cfg):
+    """One sampled iteration's (N,) host weights against GOSS's
+    expectations: at least top_n rows of weight 1 (ties join the top);
+    the sampled rest (the rows of weight amp = n_rest / rand_n) within 5
+    sigma of rand_n, a binomial over the n_rest rows with p = rand_n /
+    n_rest; the weights' sum within 5 sigma of N (its mean; sigma = amp x
+    the count's)."""
+    n = len(w)
+    top_n = max(1, int(cfg.top_rate * n))
+    rand_n = int(cfg.other_rate * n)
+    top = int((w == 1.0).sum())
+    amp_rows = w[(w != 0.0) & (w != 1.0)]
+    sampled = len(amp_rows)
+    amp = float(amp_rows[0]) if sampled else 0.0
+    n_rest = n - top
+    p = rand_n / max(n_rest, 1)
+    sigma = float(np.sqrt(n_rest * p * (1.0 - p)))
+    total = float(w.astype(np.float64).sum())
+    res = {"top": top, "top_n": top_n, "sampled": sampled, "rand_n": rand_n,
+           "sigma": sigma, "amp": amp, "weight_sum": total, "n": n,
+           "one_amp": bool(np.all(amp_rows == amp_rows[0])) if sampled
+           else True}
+    res["ok"] = (top >= top_n and res["one_amp"]
+                 and abs(sampled - rand_n) <= 5 * sigma
+                 and abs(total - n) <= 5 * amp * sigma)
+    return res
+
+
+def timed_updates(torch, booster, rounds, after=None):
+    """`rounds` Booster.update calls, each timed on the host to a device
+    sync (ms); `after(it)` runs after each, outside the timing."""
+    round_ms = []
+    for it in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster.update()
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        if after is not None:
+            after(it)
+    return round_ms
+
+
+def goss_per_iteration(torch, lgt, ds, params):
+    """GOSS_ROUNDS per-iteration rounds; each sampled iteration's weights
+    kept on the device (a clone) and checked after the loop."""
+    booster = lgt.Booster(dict(params), ds)
+    gbdt = booster.gbdt
+    kept = {}
+    orig = gbdt._bagging
+
+    def record(it, g=None, h=None):
+        w = orig(it, g, h)
+        if w is not None:
+            kept[it] = w.clone()
+        return w
+    gbdt._bagging = record
+    round_ms = timed_updates(torch, booster, GOSS_ROUNDS)
+    samples = {it: goss_sample_check(w.cpu().numpy(), gbdt.config)
+               for it, w in kept.items()}
+    return booster, round_ms, samples
+
+
+def phase_goss(torch, lgt, hk, ds, comp_fused, timer):
+    """GOSS on the bench data at full width (learning_rate 0.25: 4
+    warm-up iterations, then 4 sampled), on the default compacted engine
+    per iteration (counts from zero; each sampled iteration's weights
+    checked: goss_sample_check) and fused (lgt.train's fast path, counts
+    through the replays; the model text must equal the per-iteration
+    one), then the fused blocks timed beside the compacted phase's plain
+    gbdt fused round, a replay profiled, and the weights' device time
+    (_goss_weights at 1M rows, its sort apart); then both with
+    partitioned_build=true."""
+    res = {}
+    hk.reset_launch_counts()
+    booster, round_ms, samples = goss_per_iteration(torch, lgt, ds,
+                                                    GOSS_PARAMS)
+    counts = hk.launch_counts()
+    gbdt = booster.gbdt
+    warmup = gbdt._warmup
+    res["per_iteration"] = {"round_ms": round_ms,
+                            "round_ms_median": float(np.median(round_ms)),
+                            "sampled_round_ms_median": float(np.median(
+                                round_ms[warmup:])),
+                            "launches": counts, "warmup": warmup,
+                            "samples": {str(k): v
+                                        for k, v in samples.items()}}
+    log(f"goss per-iteration: round ms {[round(v, 1) for v in round_ms]} "
+        f"(warm-up {warmup}), launches {counts}; samples "
+        + "; ".join(f"it {k}: top {v['top']} (>= {v['top_n']}), sampled "
+                    f"{v['sampled']} (rand_n {v['rand_n']}, sigma "
+                    f"{v['sigma']:.1f}), amp {v['amp']:.4f}, weight sum "
+                    f"{v['weight_sum']:.1f}" for k, v in samples.items()))
+    check(len(gbdt.models) == GOSS_ROUNDS, "goss: training stopped early")
+    check(gbdt.tree_learner.use_compact, "goss: not the compacted engine")
+    check(sorted(samples) == list(range(warmup, GOSS_ROUNDS)),
+          f"goss: sampled iterations {sorted(samples)}")
+    check(all(v["ok"] for v in samples.values()),
+          "goss: a sample is off its expectation")
+    check(counts["compacted_hist"] >= GOSS_ROUNDS * 62
+          and counts["frontier_hist"] >= GOSS_ROUNDS,
+          f"goss: kernels launched {counts}")
+
+    hk.reset_launch_counts()
+    fused = lgt.train(dict(GOSS_PARAMS), ds, GOSS_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    counts = hk.launch_counts()
+    runner = fused_runner(fused)
+    per_replay = dict(runner.graph.launches) if runner.graph else {}
+    text_equal = fused.model_to_string() == booster.model_to_string()
+    res["fused"] = {"launches": counts, "launches_per_replay": per_replay,
+                    "model_text_equal": text_equal}
+    log(f"goss fused: launches {counts} ({per_replay} a replay), model "
+        f"text equal to the per-iteration one {text_equal}")
+    check(runner.graph is not None, "goss fused: no graph was captured")
+    check(text_equal, "goss fused: model text differs from per-iteration")
+    for kname, c in per_replay.items():
+        check(counts[kname] == (GOSS_ROUNDS + 1) * c,
+              f"goss fused: {kname} counted {counts[kname]}, not "
+              f"{GOSS_ROUNDS + 1} x {c}")
+    del fused, runner
+
+    timed = lgt.Booster(dict(GOSS_PARAMS), ds)
+    check(timed.gbdt.warm_up_fused(GOSS_ROUNDS), "goss: not fused-eligible")
+    block_ms = []
+    for _ in range(3):      # the first block holds the warm-up iterations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.gbdt.train_many(GOSS_ROUNDS)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - t0))
+    runner = fused_runner(timed)
+    prof = profile_replay(torch, runner)
+    tg = timed.gbdt
+    g, h = tg.objective.get_gradients(tg.train_score_updater.score)
+    it_dev = torch.tensor([4 * GOSS_ROUNDS], dtype=torch.int64,
+                          device=DEVICE)
+    score = (g * h).abs().sum(dim=0)
+    res["fused"].update(
+        block_ms=block_ms,
+        round_ms_median=float(np.median(block_ms[1:])) / GOSS_ROUNDS,
+        profile=prof,
+        weights_ms=timer(lambda: tg._goss_weights(it_dev, g, h), 20),
+        sort_ms=timer(lambda: torch.sort(score), 20))
+    fr = res["fused"]
+    res["fused_vs_gbdt_round"] = {
+        "goss_fused_ms": fr["round_ms_median"],
+        "goss_per_iteration_sampled_ms":
+            res["per_iteration"]["sampled_round_ms_median"],
+        "gbdt_fused_ms": comp_fused["round_ms_median"],
+        "goss_busy_ms": prof["device_busy_ms"],
+        "gbdt_busy_ms": comp_fused["profile"]["device_busy_ms"],
+        "goss_hist_ms": prof["hist_ms"],
+        "gbdt_hist_ms": comp_fused["profile"]["hist_ms"]}
+    log(f"goss fused blocks of {GOSS_ROUNDS} "
+        f"{[round(v, 1) for v in block_ms]} ms (sampled blocks' round "
+        f"{fr['round_ms_median']:.2f} ms); weights {fr['weights_ms']:.3f} ms "
+        f"(sort {fr['sort_ms']:.3f} ms) at {tg.num_data} rows; a replay: "
+        f"busy {prof['device_busy_ms']} ms, histograms "
+        f"{prof['hist_ms']:.2f} ms, idle share {prof['device_idle_share']}; "
+        f"against gbdt (this run): {res['fused_vs_gbdt_round']}")
+    del timed, runner, g, h, score
+
+    part_params = dict(GOSS_PARAMS, partitioned_build="true")
+    hk.reset_launch_counts()
+    seq, round_ms, samples = goss_per_iteration(torch, lgt, ds, part_params)
+    seq_counts = hk.launch_counts()
+    hk.reset_launch_counts()
+    fused = lgt.train(dict(part_params), ds, GOSS_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    counts = hk.launch_counts()
+    runner = fused_runner(fused)
+    per_replay = dict(runner.graph.launches) if runner.graph else {}
+    text_equal = fused.model_to_string() == seq.model_to_string()
+    res["partitioned"] = {
+        "round_ms_median": float(np.median(round_ms)),
+        "launches_per_iteration": seq_counts, "launches_fused": counts,
+        "launches_per_replay": per_replay, "model_text_equal": text_equal,
+        "samples_ok": all(v["ok"] for v in samples.values())}
+    log(f"goss partitioned: per-iteration round ms "
+        f"{[round(v, 1) for v in round_ms]}, launches {seq_counts}; fused "
+        f"launches {counts}; model text equal {text_equal}")
+    check(text_equal, "goss partitioned: fused text differs")
+    check(res["partitioned"]["samples_ok"], "goss partitioned: a sample is off")
+    check(seq_counts["seg_hist"] >= GOSS_ROUNDS * 63
+          and counts["seg_hist"] == (GOSS_ROUNDS + 1)
+          * per_replay.get("seg_hist", -1),
+          f"goss partitioned: seg_hist {seq_counts} / {counts}")
+    return res
+
+
+def dart_drop_replay(seed, rate, rounds):
+    """The drop sets a DART run draws, replayed on the host from
+    Random(drop_seed) (dart.hpp:85-110)."""
+    from lightgbm_tpu_torch.utils.random import Random
+    r = Random(seed)
+    out = []
+    for it in range(rounds):
+        drop = ([i for i in range(it) if r.next_double() < rate]
+                if rate > 1e-15 else [])
+        if not drop:
+            drop = [int(i) for i in r.sample(it, 1)]
+        out.append(drop)
+    return out
+
+
+def phase_dart(torch, lgt, hk, ds, x):
+    """DART on the bench data, DART_ROUNDS per-iteration rounds (counts
+    from zero): the drop sets against a host replay of Random(drop_seed);
+    the train score against a fresh bin-space scoring of the final model,
+    within the float32 rounding of every add and subtract made (each at
+    most 2^-24 of a sum no larger than the trees' largest leaves at their
+    creation weight); the trained booster's predictions (host and device
+    routes) against a booster loaded from its model text, which must
+    round-trip byte for byte."""
+    from lightgbm_tpu_torch.models.gbdt import create_boosting
+    from lightgbm_tpu_torch.models.score_updater import ScoreUpdater
+    hk.reset_launch_counts()
+    booster = lgt.Booster(dict(DART_PARAMS), ds)
+    gbdt = booster.gbdt
+    drops, created = [], []
+
+    def after(it):
+        drops.append(list(gbdt.drop_index))
+        created.append(float(np.abs(gbdt.models[-1].leaf_value).max()))
+    round_ms = timed_updates(torch, booster, DART_ROUNDS, after)
+    counts = hk.launch_counts()
+    want = dart_drop_replay(gbdt.config.drop_seed, gbdt.config.drop_rate,
+                            DART_ROUNDS)
+    fresh = ScoreUpdater(gbdt.train_data, 1, gbdt.device)
+    fresh.add_score_by_trees(gbdt.models, 1)
+    score_diff = float((fresh.score - gbdt.train_score_updater.score)
+                       .abs().max())
+    n_ops = sum(1 + 2 * len(d) for d in drops) + DART_ROUNDS
+    score_bound = n_ops * 2.0 ** -24 * sum(created)
+    text = booster.model_to_string()
+    loaded = create_boosting(text.splitlines()[0], DEVICE)
+    loaded.load_model_from_string(text)
+    rows = np.asarray(x[:HOST_CHECK_ROWS], np.float64)
+    same = {}
+    for route in ("false", "true"):
+        gbdt.device_predict = loaded.device_predict = route
+        same[route] = bool(np.array_equal(gbdt.predict(rows),
+                                          loaded.predict(rows)))
+    res = {"round_ms": round_ms, "round_ms_median": float(np.median(round_ms)),
+           "launches": counts, "drops": drops, "drops_equal_replay":
+           drops == want, "train_score_vs_fresh": score_diff,
+           "train_score_bound": score_bound, "predict_equal_loaded": same,
+           "text_round_trip": loaded.save_model_to_string() == text,
+           "loaded_class": type(loaded).__name__}
+    log(f"dart: round ms {[round(v, 1) for v in round_ms]}, launches "
+        f"{counts}, drops {drops} (replay equal "
+        f"{res['drops_equal_replay']}), train score vs a fresh scoring "
+        f"{score_diff:.3g} (bound {score_bound:.3g}), predict equal to the "
+        f"loaded booster {same}, text round trip {res['text_round_trip']}")
+    check(len(gbdt.models) == DART_ROUNDS, "dart: training stopped early")
+    check(res["drops_equal_replay"], f"dart: drop sets {drops} != {want}")
+    check(score_diff <= score_bound, "dart: train score off a fresh scoring")
+    check(all(same.values()), "dart: predictions differ from a reload")
+    check(res["text_round_trip"] and res["loaded_class"] == "DART",
+          "dart: the model text does not round-trip")
+    check(counts["masked_hist"] >= DART_ROUNDS * 62,
+          f"dart: masked_hist launched {counts['masked_hist']}")
+    return res
+
+
+def plant_nan(x, rng, frac=0.02):
+    """x (float32) with NaN in `frac` of its entries."""
+    x = np.array(x, dtype=np.float32)
+    x[rng.rand(*x.shape) < frac] = np.nan
+    return x
+
+
+def lin_bound_ms(x, forest, leaves, lv, lin, num_class):
+    """Least time for one tree_lin_raw call on this run's rows: x and
+    node0 read once, the node records on the rows' paths read once and
+    the (B, K) sums written once; of the linear blocks only what the
+    rows' lanes need, once for each (tree, leaf) some row reaches: its
+    count, and at a linear leaf its intercept and the coefficient and
+    column of each live slot; of the leaf values those of the reached
+    leaves whose value some lane returns (a constant leaf, or a linear
+    one that a row's NaN in a live column sends to its fallback). Over
+    HBM bandwidth; against one compare a walk step, a multiply and an
+    add a live slot, one add for the intercept at a linear lane and one
+    a (row, tree) for the class sums, over the float32 rate. Returns
+    (ms, bound_by)."""
+    b, f = x.shape
+    t = forest.sf.shape[0]
+    t_idx = np.broadcast_to(np.arange(leaves.shape[1])[None, :],
+                            leaves.shape)
+    steps, nodes, reached = walk_reads(forest, leaves)
+    cnt, feat = lin.cnt.cpu().numpy(), lin.feat.cpu().numpy()
+    lane_cnt = np.maximum(cnt[t_idx, leaves], 0)               # (B, T)
+    xf = x.cpu().numpy()[np.arange(b)[:, None, None],
+                         feat[t_idx, leaves]]                  # (B, T, C)
+    live = np.arange(feat.shape[2]) < lane_cnt[:, :, None]
+    needs_lv = (lane_cnt == 0) | (np.isnan(xf) & live).any(axis=2)
+    lv_leaves = np.zeros(cnt.shape, bool)
+    lv_leaves[t_idx[needs_lv], leaves[needs_lv]] = True
+    r_cnt = np.maximum(cnt[reached], 0)
+    nbytes = (b * f * 4 + nodes * 16 + t * 4 + b * num_class * 4
+              + r_cnt.size * 4
+              + int((r_cnt > 0).sum()) * lin.const.element_size()
+              + int(r_cnt.sum()) * (lin.coef.element_size() + 4)
+              + int(lv_leaves.sum()) * lv.element_size())
+    ops = (steps + 2 * float(lane_cnt.sum()) + float((lane_cnt > 0).sum())
+           + b * t)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lin_checks(torch, tk, pred, pred16, rows, host_raw, bucket):
+    """tree_lin_raw on `bucket` rows: each precision (f32, bf16) and
+    variant (raw, transformed) bit for bit its plain version on the card
+    and across two launches; f32 raw within the class-sum bound of the
+    host f64 path ((T + 9) roundings of a lane's terms' magnitude, |const|
+    + sum |coef x|, summed over trees: the 8 slots' products and adds
+    then the tree-order adds), bf16 raw within the pinned accuracy
+    bound."""
+    x = torch.from_numpy(np.ascontiguousarray(rows[:bucket])).to(DEVICE)
+    leaves = pred.predict_leaf_index(rows[:bucket])
+    t_idx = np.arange(pred.num_trees)[None, :]
+    xf = np.nan_to_num(rows[:bucket].astype(np.float64)[
+        np.arange(bucket)[:, None, None], pred._lin_feat[t_idx, leaves]])
+    live = (np.arange(tk.COEF_PAD)[None, None, :]
+            < pred._lin_cnt[t_idx, leaves][:, :, None])
+    mag = (np.abs(pred._lin_const64[t_idx, leaves])
+           + np.where(live, np.abs(pred._lin_coef64[t_idx, leaves] * xf),
+                      0.0).sum(axis=2))
+    mag = np.maximum(mag, np.abs(pred._lv64[t_idx, leaves]))
+    bound = (pred.num_trees + tk.COEF_PAD + 1) * EPS32 * float(
+        mag.max(axis=0).sum())
+    out = {"rows": bucket, "class_sum_bound": bound}
+    for p in (pred, pred16):
+        lv = p._linear_values()
+        for transform in (False, True):
+            def kern():
+                return tk.tree_lin_raw(x, p._forest, lv, p._lin_dev,
+                                       p.num_class, transform, p.sigmoid)
+            got, again = kern(), kern()
+            want = tk.tree_lin_raw_plain(x, p._forest, lv, p._lin_dev,
+                                         p.num_class, transform, p.sigmoid)
+            torch.cuda.synchronize()
+            key = f"{p.serving_precision}_{'tr' if transform else 'raw'}"
+            out[key] = {
+                "bitwise_vs_plain": bool(torch.equal(
+                    got.view(torch.int32), want.view(torch.int32))),
+                "deterministic": bool(torch.equal(got.view(torch.int32),
+                                                  again.view(torch.int32))),
+                "max_abs_err": float((got - want).abs().max())}
+            if not transform:
+                vs = float(np.abs(got.cpu().numpy().astype(np.float64)
+                                  - host_raw[:bucket]).max())
+                out[key]["vs_host_f64"] = vs
+                limit = bound if p is pred else p.accuracy_bound
+                out[key]["limit"] = limit
+                check(vs <= limit, f"tree_lin_raw {key} {bucket} rows: {vs} "
+                      f"from the host f64 path (bound {limit})")
+            check(out[key]["bitwise_vs_plain"],
+                  f"tree_lin_raw {key} {bucket} rows: differs from plain "
+                  f"by {out[key]['max_abs_err']}")
+            check(out[key]["deterministic"],
+                  f"tree_lin_raw {key} {bucket} rows: launches differ")
+    log(f"tree_lin_raw checks, {bucket} rows: {out}")
+    return out
+
+
+def random_linear_blocks(rng, t, l, f):
+    """Random linear blocks for a (T, L) forest: a third of the leaves
+    constant, the rest 1..8 live slots on random columns."""
+    from lightgbm_tpu_torch.ops.traverse_kernels import COEF_PAD
+    cnt = rng.randint(1, COEF_PAD + 1, size=(t, l)).astype(np.int32)
+    cnt[rng.rand(t, l) < 1.0 / 3.0] = 0
+    feat = rng.randint(0, f, size=(t, l, COEF_PAD)).astype(np.int32)
+    coef = rng.randn(t, l, COEF_PAD) * 0.05
+    const = rng.randn(t, l) * 0.1
+    return const, coef, feat, cnt
+
+
+def lin_forest_case(torch, tk, timer, rng, rows):
+    """tree_lin_raw on a forest of the serving model's size (100 random
+    trees of 63 leaves, random linear blocks) at a 4096-row bucket:
+    bit for bit its plain version, timed beside tree_raw on the same
+    forest, its plain version and its bound."""
+    arrays, lv = random_forest(rng, SERVE_ROUNDS, 63, N_FEATURES)
+    forest = tk.freeze(*arrays, DEVICE)
+    const, coef, feat, cnt = random_linear_blocks(rng, *lv.shape,
+                                                  N_FEATURES)
+    lin = tk.freeze_linear(const, coef, feat, cnt, torch.float32, DEVICE)
+    lv32 = torch.from_numpy(lv).to(DEVICE)
+    x = torch.from_numpy(np.ascontiguousarray(rows)).to(DEVICE)
+    got = tk.tree_lin_raw(x, forest, lv32, lin, 1)
+    want = tk.tree_lin_raw_plain(x, forest, lv32, lin, 1)
+    torch.cuda.synchronize()
+    leaves = tk.tree_leaf(x, forest).cpu().numpy()
+    res = {"T": SERVE_ROUNDS, "L": 63, "B": len(rows),
+           "bitwise_vs_plain": bool(torch.equal(got.view(torch.int32),
+                                                want.view(torch.int32))),
+           "live_slots_per_lane": float(cnt[np.arange(SERVE_ROUNDS)[None, :],
+                                            leaves].mean())}
+    res["bound_ms"], res["bound_by"] = lin_bound_ms(x, forest, leaves, lv32,
+                                                    lin, 1)
+    res["ms"] = timer(lambda: tk.tree_lin_raw(x, forest, lv32, lin, 1), 50)
+    res["tree_raw_ms"] = timer(lambda: tk.tree_raw(x, forest, lv32, 1), 50)
+    res["plain_ms"] = timer(lambda: tk.tree_lin_raw_plain(x, forest, lv32,
+                                                          lin, 1), 5)
+    log(f"tree_lin_raw on 100 random trees of 63 leaves, {len(rows)} rows: "
+        f"{res}")
+    check(res["bitwise_vs_plain"], "tree_lin_raw, 100 trees: differs from "
+          "its plain version")
+    return res
+
+
+def phase_linear(torch, lgt, ds, x, timer, seed, ptxas):
+    """Linear leaves on the bench data: LINEAR_ROUNDS per-iteration rounds
+    (the fit's host seconds a tree); the format-version-2 text through
+    save, load, save; a CompiledPredictor of the model whose exact path
+    equals the host f64 predict in bits on rows with 2% NaN; tree_lin_raw
+    held to its plain version (lin_checks, 4096-row and 1-row buckets),
+    timed with L2 flushed beside its bound, its plain version and
+    tree_raw on the same forest; ptxas's registers and spills of its
+    instantiations; then the serving main path (the `_device` variants
+    and bf16 predict) with launches counted from zero."""
+    from lightgbm_tpu_torch.models.gbdt import GBDT, create_boosting
+    from lightgbm_tpu_torch.ops import traverse_kernels as tk
+    from lightgbm_tpu_torch.serving import CompiledPredictor
+    rng = np.random.RandomState(seed + 13)
+    # the fit's host seconds a tree (it starts after the tree's one sync)
+    fit_s, fit = [], GBDT._fit_linear_tree
+
+    def timed_fit(self, *args):
+        t0 = time.perf_counter()
+        out = fit(self, *args)
+        fit_s.append(time.perf_counter() - t0)
+        return out
+    GBDT._fit_linear_tree = timed_fit
+    try:
+        booster, round_ms = train_rounds(torch, lgt, LINEAR_PARAMS, ds,
+                                         LINEAR_ROUNDS)
+    finally:
+        GBDT._fit_linear_tree = fit
+    gbdt = booster.gbdt
+    res = {"round_ms": round_ms, "round_ms_median": float(np.median(round_ms)),
+           "fit_s_per_tree": fit_s,
+           "linear_leaves": [int((t.leaf_coeff_count > 0).sum())
+                             for t in gbdt.models]}
+    log(f"linear: round ms {[round(v, 1) for v in round_ms]}, the fit's "
+        f"host s a tree {[round(v, 3) for v in fit_s]}, linear "
+        f"leaves a tree {res['linear_leaves']}")
+    check(len(gbdt.models) == LINEAR_ROUNDS
+          and all(t.is_linear for t in gbdt.models),
+          "linear: a tree stopped or has no linear leaf")
+    text = booster.model_to_string()
+    loaded = create_boosting(text.splitlines()[0], "cpu")
+    loaded.load_model_from_string(text)
+    res["text_round_trip"] = (text.splitlines()[1] == "format_version=2"
+                              and loaded.save_model_to_string() == text)
+    check(res["text_round_trip"], "linear: v2 text does not round-trip")
+
+    rows = plant_nan(x[:HOST_CHECK_ROWS], rng)
+    host_raw = gbdt.predict_raw(rows.astype(np.float64))
+    host_pred = gbdt.predict(rows.astype(np.float64))
+    pred = CompiledPredictor.from_booster(booster, max_batch_rows=SERVE_BUCKET)
+    pred16 = CompiledPredictor.from_booster(booster,
+                                            max_batch_rows=SERVE_BUCKET,
+                                            serving_precision="bf16")
+    res["exact_raw_equal_host"] = bool(np.array_equal(pred.predict_raw(rows),
+                                                      host_raw))
+    res["exact_equal_host"] = bool(np.array_equal(pred.predict(rows),
+                                                  host_pred))
+    log(f"linear serving: {pred.num_trees} trees, exact path equal to the "
+        f"host f64 path: raw {res['exact_raw_equal_host']}, transformed "
+        f"{res['exact_equal_host']}; bf16 bound {pred16.accuracy_bound:.3g}")
+    check(res["exact_raw_equal_host"] and res["exact_equal_host"],
+          "linear: the exact path differs from the host f64 path")
+    res["checks"] = {str(b): lin_checks(torch, tk, pred, pred16, rows,
+                                        host_raw, b)
+                     for b in (SERVE_BUCKET, 1)}
+
+    xb = torch.from_numpy(np.ascontiguousarray(rows[:SERVE_BUCKET])).to(
+        DEVICE)
+    lv, lin = pred._f32_values(), pred._lin_dev
+    leaves = pred.predict_leaf_index(rows[:SERVE_BUCKET])
+    case = {"name": "tree_lin_raw",
+            "shape": {"B": SERVE_BUCKET, "F": int(xb.shape[1]),
+                      "T": pred.num_trees,
+                      "S": int(pred._forest.sf.shape[1])},
+            "max_abs_err": res["checks"][str(SERVE_BUCKET)]["f32_raw"][
+                "max_abs_err"], "library_ms": None}
+    case["bound_ms"], case["bound_by"] = lin_bound_ms(
+        xb, pred._forest, leaves, lv, lin, pred.num_class)
+    case["ms"] = timer(lambda: tk.tree_lin_raw(xb, pred._forest, lv, lin,
+                                               pred.num_class), 50)
+    case["ms_warm"] = timer(lambda: tk.tree_lin_raw(
+        xb, pred._forest, lv, lin, pred.num_class), 50, flush=False)
+    case["ms_transformed"] = timer(lambda: tk.tree_lin_raw(
+        xb, pred._forest, lv, lin, pred.num_class, True, pred.sigmoid), 50)
+    case["plain_ms"] = timer(lambda: tk.tree_lin_raw_plain(
+        xb, pred._forest, lv, lin, pred.num_class), 5)
+    case["tree_raw_ms"] = timer(lambda: tk.tree_raw(
+        xb, pred._forest, lv, pred.num_class), 50)
+    case["ms_1_row"] = timer(lambda: tk.tree_lin_raw(
+        xb[:1], pred._forest, lv, lin, pred.num_class), 50)
+    case["ptxas"] = [r for r in ptxas.get(tk.SOURCE, [])
+                     if "Lb1EEEv" in r["kernel"]]
+    res["kernel_case"] = case
+    log(f"tree_lin_raw {case['shape']}: ms {case['ms']:.4f} (L2-warm "
+        f"{case['ms_warm']:.4f}, transformed {case['ms_transformed']:.4f}, "
+        f"1 row {case['ms_1_row']:.4f}) bound {case['bound_ms']:.5f} "
+        f"({case['bound_by']}), plain {case['plain_ms']:.3f}, tree_raw on "
+        f"the same forest {case['tree_raw_ms']:.4f}; ptxas "
+        + "; ".join(f"{r['registers']} registers, spills "
+                    f"{r['spill_stores']}/{r['spill_loads']}"
+                    for r in case["ptxas"]))
+    check(len(case["ptxas"]) == 8, "linear: ptxas lists "
+          f"{len(case['ptxas'])} tree_lin_raw instantiations, not 8")
+    res["forest_100"] = lin_forest_case(torch, tk, timer, rng,
+                                        rows[:SERVE_BUCKET])
+
+    # the main path: the linear model served through its device variants
+    tk.reset_launch_counts()
+    dev_raw = pred.predict_raw_device(rows)
+    dev_pred = pred.predict_device(rows)
+    raw16 = pred16.predict_raw(rows)
+    pred16_out = pred16.predict(rows)
+    res["launches"] = tk.launch_counts()
+    bound = res["checks"][str(SERVE_BUCKET)]["class_sum_bound"]
+    res["device_vs_host"] = float(np.abs(dev_raw - host_raw).max())
+    res["device_transformed_vs_host"] = float(np.abs(dev_pred
+                                                     - host_pred).max())
+    res["bf16_vs_host"] = float(max(np.abs(raw16 - host_raw).max(),
+                                    np.abs(pred16_out - host_pred).max()))
+    log(f"linear serving main path: launches {res['launches']}, device f32 "
+        f"vs host {res['device_vs_host']:.3g} (transformed "
+        f"{res['device_transformed_vs_host']:.3g}), bf16 vs host "
+        f"{res['bf16_vs_host']:.3g} (bound {pred16.accuracy_bound:.3g})")
+    check(res["launches"]["tree_lin_raw"] > 0,
+          f"linear serving missed tree_lin_raw: {res['launches']}")
+    # the transform adds its f32 exp, add and divide on values below 1
+    check(res["device_vs_host"] <= bound
+          and res["device_transformed_vs_host"] <= bound + 4 * EPS32,
+          "linear: the device variants are off the host path")
+    check(res["bf16_vs_host"] <= pred16.accuracy_bound,
+          "linear: bf16 outside its pinned bound")
+    return res, case
+
+
 # ---------------------------------------------------------------- ingestion
 
 # int16 cases: the lane route's widest table (1,024 bounds), and the
@@ -3739,6 +4334,17 @@ def main():
         report["lambdarank"] = phase_lambdarank(torch, lgt, hk, ds, x,
                                                 logit, timer, args.seed)
         report["lambdarank"]["phase_s"] = time.time() - t0
+        t0 = time.time()
+        report["goss"] = phase_goss(torch, lgt, hk, ds,
+                                    report["compacted"]["fused"], timer)
+        report["goss"]["phase_s"] = time.time() - t0
+        t0 = time.time()
+        report["dart"] = phase_dart(torch, lgt, hk, ds, x)
+        report["dart"]["phase_s"] = time.time() - t0
+        t0 = time.time()
+        report["linear"], lin_case = phase_linear(
+            torch, lgt, ds, x, timer, args.seed, report["ptxas"])
+        report["linear"]["phase_s"] = time.time() - t0
         report["categorical"], cat_booster, cat_x = phase_categorical(
             torch, lgt, args.seed)
         serving, serve_cases = phase_serving(torch, lgt, ds, x, cat_booster,
@@ -3813,6 +4419,12 @@ def main():
                     + mc_serve.get("tree_raw", 0),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:110 "
                     "(XLA device_traverse, no Pallas counterpart)")]
+    # linear-leaf serving's value stage, launches from the linear phase's
+    # serving main path (its device variants and bf16)
+    kernels.append(kernel_line(
+        lin_case, report["linear"]["launches"]["tree_lin_raw"], trav_src,
+        "lightgbm_tpu/serving/compiled_model.py:170 (XLA _linraw_kernel, "
+        "and _lintransformed_kernel :183; no Pallas counterpart)"))
     # the dataset's binning kernel, launches from the bench's construction
     kernels.append(kernel_line(
         bin_cases[0], report["ingest"]["launches"]["bin_dense"],

@@ -154,7 +154,8 @@ class Application:
     # -------------------------------------------------------------- training
     def init_train(self):
         cfg = self.config
-        self.boosting = create_boosting(cfg.boosting_type, self.device)
+        self.boosting = create_boosting(cfg.boosting_type, self.device,
+                                        cfg.input_model)
         self.objective = create_objective(cfg.objective, cfg)
         self._load_data()
         if self.objective is not None:
@@ -254,7 +255,7 @@ class Application:
         cfg = self.config
         if not cfg.input_model:
             Log.fatal("Please specify the model file for prediction")
-        self.boosting = create_boosting("gbdt", self.device)
+        self.boosting = create_boosting("gbdt", self.device, cfg.input_model)
         with open(cfg.input_model) as f:
             self.boosting.load_model_from_string(f.read())
         # a predict-only booster never runs init, so the routing knobs

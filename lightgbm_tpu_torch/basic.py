@@ -25,7 +25,7 @@ from .config import Config, key_alias_transform
 from .io.dataset import CscColumns, DatasetLoader, is_column_source
 from .io.parser import parse_text_file
 from .metrics import create_metric
-from .models.gbdt import GBDT, create_boosting
+from .models.gbdt import create_boosting
 from .objectives import create_objective
 from .utils.log import LightGBMError, Log
 
@@ -72,9 +72,10 @@ def _coerce_label(label):
 
 
 def load_model_file(model_file, device=None):
-    """A model file loaded into a GBDT on `device` (the predictor of
-    continued training, basic.py:182-390)."""
-    gbdt = GBDT(device)
+    """A model file loaded into a booster of the class its first line
+    names (gbdt, dart or goss) on `device` (the predictor of continued
+    training, basic.py:182-390)."""
+    gbdt = create_boosting("gbdt", device, input_model=model_file)
     with open(model_file) as f:
         gbdt.load_model_from_string(f.read())
     return gbdt
@@ -490,7 +491,10 @@ class Booster:
         return self.gbdt.dump_model()
 
     def feature_importance(self, importance_type="split"):
-        if importance_type not in ("split", "gain"):
+        """Per-feature importance: `split` int64 counts, `gain` float64
+        gain sums, `coeff` float64 gain-weighted |coefficient| sums over
+        linear leaves (all zeros for a constant-leaf model)."""
+        if importance_type not in ("split", "gain", "coeff"):
             raise LightGBMError(f"Unknown importance type {importance_type!r}")
         return self.gbdt.feature_importance_values(importance_type)
 

@@ -682,13 +682,9 @@ class Config:
         each naming its item of ROADMAP.md queue 1: training runs the
         serial learner with any of its histogram engines (masked,
         frontier, gather-compacted; models/tree_learner.py) or the
-        leaf-contiguous builder (partitioned_build=true)."""
+        leaf-contiguous builder (partitioned_build=true), with gbdt,
+        dart or goss boosting and constant or linear leaves."""
         later = []
-        if self.boosting_type != "gbdt":
-            later.append(f"boosting_type={self.boosting_type} (samplers, "
-                         "item 3)")
-        if self.linear_tree:
-            later.append("linear_tree=true (linear leaves, item 3)")
         if self.out_of_core:
             later.append("out_of_core=true (block-store training, item 5)")
         if self.tree_learner != "serial" or self.num_machines > 1:

@@ -6,12 +6,21 @@
 //   _leaf_kernel (:76)                              -> tree_leaf
 //   _raw_kernel, _transformed_kernel (:86, :95)     -> tree_raw<float>
 //   _raw16_kernel, _transformed16_kernel (:110, :124) -> tree_raw<bf16>
+//   _linraw_kernel, _lintransformed_kernel (:170, :183) -> tree_lin_raw
+//     (with _linear_leaf_values :138, f32 or bf16 storage)
 // and the port's plain PyTorch walk (lightgbm_tpu_torch/models/gbdt.py
 // device_traverse), about 14 small ops per depth step.
 //
 //   tree_leaf: leaf[r, t] = the leaf row r reaches in tree t   (B, T) int32
 //   tree_raw:  raw[r, c]  = sum over trees t with t % K == c of
 //                           leaf_value[t, leaf[r, t]], in tree order, f32
+//   tree_lin_raw: the same sum of each lane's linear leaf value
+//                           const + sum_{j < cnt} coef_j * x[r, feat_j]
+//                           (slots added in order 0..7, f32, a product
+//                           rounded before its add), or the constant
+//                           leaf value where cnt is 0 or a live feature
+//                           is NaN; with the transform, sigmoid or
+//                           softmax of the row's sums in the same launch
 //
 // A node is one 16-byte record packed at freeze time
 // (ops/traverse_kernels.py pack_nodes, then interleave): x = the split
@@ -68,6 +77,15 @@
 //    f32 adds and two launches and the plain version give the same bits.
 //    A block's rows shrink until their (rows, K) sums fit in shared
 //    memory (one row holds K of about 50,000).
+// 5. Linear leaves (tree_lin_raw) are tree_raw's walk with another value
+//    stage: a lane that reached its leaf reads the leaf's block (cnt,
+//    const, 8 coefficients, 8 feature columns: 72 bytes in f32) from
+//    device memory, where L2 keeps the forest's blocks, and dots it
+//    against the row, which is already staged in shared memory; the
+//    value goes into the window's values as the leaf value does in
+//    tree_raw, so the class sums keep tree order. The bound moves from
+//    the walk's chain to that chain plus one dependent load of the block
+//    and up to 8 feature loads a lane.
 // The launch plan (rows, tiles a block and a window, slots, staged rows,
 // threads) is made by traverse_kernels.plan; this file checks it, lays
 // out shared memory (layout()) and opts each kernel in to the card's
@@ -88,6 +106,10 @@ constexpr int kBadShape = -1;
 constexpr int kNoFit = -2;
 constexpr int kMaxDevices = 64;
 constexpr int kMaxGridY = 65535;
+constexpr int kCoefPad = 8;  // coefficient slots a linear leaf (COEF_PAD)
+
+// tree_lin_raw's output transform
+enum Transform { kRawSums = 0, kSigmoid = 1, kSoftmax = 2 };
 
 // A launch plan (ops/traverse_kernels.py plan): rows a block, tiles a
 // block (group), tiles a window, shared-memory window slots (0: records
@@ -128,6 +150,50 @@ Layout layout(const Plan& p, int f, int s, int k, bool sums) {
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// The linear leaves of tree_lin_raw (ops/traverse_kernels.py
+// LinearLeaves), indexed by tree * L + leaf: the intercept, kCoefPad
+// coefficients and their feature columns (real column ids, a byte
+// offset of 4 each in a row) and the live count; the output transform
+// and, for the sigmoid, -2 * sigmoid rounded to f32.
+template <typename V>
+struct Lin {
+  const V* cst;
+  const V* coef;
+  const int* feat;
+  const int* cnt;
+  int xform;
+  float neg2sig;
+};
+
+// One lane's linear leaf value at (tree, leaf) index li for the row at
+// xr (shared or device memory): the plain version's arithmetic, every
+// slot added in order (a dead or NaN slot adds 0.0), each product
+// rounded before its add, and the constant leaf value `base` where the
+// leaf is constant or a live feature is NaN.
+template <typename V>
+__device__ __forceinline__ float linear_value(const Lin<V>& lin, size_t li,
+                                              const float* xr, float base) {
+  const int cn = __ldg(lin.cnt + li);
+  if (cn <= 0) return base;
+  const V* co = lin.coef + li * kCoefPad;
+  const int* ft = lin.feat + li * kCoefPad;
+  float a = widen(lin.cst[li]);
+  bool nan = false;
+#pragma unroll
+  for (int j = 0; j < kCoefPad; ++j) {
+    float prod = 0.0f;
+    if (j < cn) {
+      const float xv = xr[__ldg(ft + j)];
+      if (xv != xv)
+        nan = true;
+      else
+        prod = __fmul_rn(widen(co[j]), xv);
+    }
+    a = __fadd_rn(a, prod);
+  }
+  return nan ? base : a;
 }
 
 // ------------------------------------------------- mbarrier and TMA copy
@@ -279,15 +345,16 @@ __device__ __forceinline__ int walk(int node, const char* tree,
 // outputs. Many warps a SM hide the chain's latency: the compiler runs
 // several walks of one thread one after another, not overlapped.
 // kRaw false writes leaves to out (B, T) int32; kRaw true (one tile
-// group, the whole forest) the class sums to out (B, K) f32. kFast: the
-// records and rows are both in shared memory, so every load of the walk
-// is a shared one.
-template <bool kRaw, typename V, bool kFast, bool kCat>
+// group, the whole forest) the class sums to out (B, K) f32, of the leaf
+// values or, kLin, of the linear leaf values (transformed as lin.xform
+// says). kFast: the records and rows are both in shared memory, so
+// every load of the walk is a shared one.
+template <bool kRaw, typename V, bool kFast, bool kCat, bool kLin>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 walk_kernel(const float* __restrict__ x, int b, int f,
             const int4* __restrict__ tiles, const int* __restrict__ node0,
             int t, int s, int depth, const V* __restrict__ lv, int l, int k,
-            Plan p, Layout lay, void* __restrict__ out) {
+            Lin<V> lin, Plan p, Layout lay, void* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int4* buf = reinterpret_cast<int4*>(smem + lay.tiles);
@@ -374,10 +441,16 @@ walk_kernel(const float* __restrict__ x, int b, int f,
           xbase + (size_t)r * xstride * 4, depth);
       if (node >= 0) node /= kTile * 16;     // cut short: the node index
       const int tree = g0 + wtrees0 + jw;    // in the forest
-      if (kRaw)
-        wvals[r * pitch + jw] =
-            widen(lv[(size_t)tree * l + (node < 0 ? ~node : 0)]);
-      else
+      if (kRaw) {
+        const size_t li = (size_t)tree * l + (node < 0 ? ~node : 0);
+        float v = widen(lv[li]);
+        if (kLin)
+          v = linear_value(lin, li,
+                           reinterpret_cast<const float*>(
+                               xbase + (size_t)r * xstride * 4),
+                           v);
+        wvals[r * pitch + jw] = v;
+      } else
         static_cast<int*>(out)[(size_t)(row0 + r) * t + tree] = ~node;
     }
     // the next window's roots, into the buffer the window before this
@@ -418,9 +491,32 @@ walk_kernel(const float* __restrict__ x, int b, int f,
     }
   }
   if (kRaw) {
-    // each thread stores the cells it added
     float* dst = static_cast<float*>(out) + (size_t)row0 * k;
-    for (int q = tid; q < nrows * k; q += nthreads) dst[q] = acc[q];
+    if (kLin && lin.xform == kSoftmax) {
+      // a row's K sums were added by several threads: each row's softmax
+      // in the plain version's order (max, exp of the differences, their
+      // sum from class 0 up, each exp over the sum)
+      __syncthreads();
+      for (int rr = tid; rr < nrows; rr += nthreads) {
+        const float* ar = acc + rr * k;
+        float m = ar[0];
+        for (int c = 1; c < k; ++c) m = fmaxf(m, ar[c]);
+        float sum = expf(__fsub_rn(ar[0], m));
+        for (int c = 1; c < k; ++c)
+          sum = __fadd_rn(sum, expf(__fsub_rn(ar[c], m)));
+        for (int c = 0; c < k; ++c)
+          dst[rr * k + c] = __fdiv_rn(expf(__fsub_rn(ar[c], m)), sum);
+      }
+    } else {
+      // each thread stores the cells it added
+      for (int q = tid; q < nrows * k; q += nthreads) {
+        float v = acc[q];
+        if (kLin && lin.xform == kSigmoid)
+          v = __fdiv_rn(1.0f,
+                        __fadd_rn(1.0f, expf(__fmul_rn(lin.neg2sig, v))));
+        dst[q] = v;
+      }
+    }
   }
 }
 
@@ -435,7 +531,7 @@ int smem_optin(int device, int* bytes) {
 
 // Opt a kernel in to the device's largest dynamic shared memory, once a
 // device (the batcher's worker and the HTTP threads launch at once).
-template <bool kRaw, typename V, bool kFast, bool kCat>
+template <bool kRaw, typename V, bool kFast, bool kCat, bool kLin>
 int opt_in(int device) {
   static bool done[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return kBadShape;
@@ -445,7 +541,7 @@ int opt_in(int device) {
   int status = smem_optin(device, &bytes);
   if (status != 0) return status;
   status = static_cast<int>(cudaFuncSetAttribute(
-      walk_kernel<kRaw, V, kFast, kCat>,
+      walk_kernel<kRaw, V, kFast, kCat, kLin>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (status != 0) return status;
   done[device] = true;
@@ -454,23 +550,25 @@ int opt_in(int device) {
 
 int check_launch() { return static_cast<int>(cudaGetLastError()); }
 
-template <bool kRaw, typename V, bool kFast, bool kCat>
+template <bool kRaw, typename V, bool kFast, bool kCat, bool kLin>
 int launch_one(dim3 grid, const Layout& lay, cudaStream_t stream, int device,
                const float* x, int b, int f, const void* nodes,
                const int* node0, int t, int s, int depth, const V* lv, int l,
-               int k, const Plan& p, void* out) {
-  const int status = opt_in<kRaw, V, kFast, kCat>(device);
+               int k, const Lin<V>& lin, const Plan& p, void* out) {
+  const int status = opt_in<kRaw, V, kFast, kCat, kLin>(device);
   if (status != 0) return status;
-  walk_kernel<kRaw, V, kFast, kCat><<<grid, p.threads, lay.total, stream>>>(
-      x, b, f, static_cast<const int4*>(nodes), node0, t, s, depth, lv, l, k,
-      p, lay, out);
+  walk_kernel<kRaw, V, kFast, kCat, kLin>
+      <<<grid, p.threads, lay.total, stream>>>(
+          x, b, f, static_cast<const int4*>(nodes), node0, t, s, depth, lv,
+          l, k, lin, p, lay, out);
   return check_launch();
 }
 
-template <bool kRaw, typename V>
+template <bool kRaw, typename V, bool kLin>
 int launch_walk(const float* x, int b, int f, const void* nodes,
                 const int* node0, int t, int s, int depth, const V* lv,
-                int l, int k, const int* plan, void* out, void* stream) {
+                int l, int k, const Lin<V>& lin, const int* plan, void* out,
+                void* stream) {
   if (b < 0 || f < 1 || t < 1 || s < 1 || depth < 0 || l < 1 || k < 1)
     return kBadShape;
   if (b == 0) return 0;
@@ -489,6 +587,8 @@ int launch_walk(const float* x, int b, int f, const void* nodes,
     return kBadShape;
   if (p.slots > 0 && (reinterpret_cast<uintptr_t>(nodes) & 15))
     return kBadShape;  // TMA copies need 16-byte-aligned records
+  if (kLin && (lin.xform < kRawSums || lin.xform > kSoftmax))
+    return kBadShape;
   const Layout lay = layout(p, f, s, k, kRaw);
   int device = 0, limit = 0;
   int status = static_cast<int>(cudaGetDevice(&device));
@@ -499,20 +599,33 @@ int launch_walk(const float* x, int b, int f, const void* nodes,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fast = p.slots > 0 && p.stage_rows;
   if (fast && p.categorical)
-    return launch_one<kRaw, V, true, true>(grid, lay, st, device, x, b, f,
-                                           nodes, node0, t, s, depth, lv, l,
-                                           k, p, out);
+    return launch_one<kRaw, V, true, true, kLin>(grid, lay, st, device, x, b,
+                                                 f, nodes, node0, t, s, depth,
+                                                 lv, l, k, lin, p, out);
   if (fast)
-    return launch_one<kRaw, V, true, false>(grid, lay, st, device, x, b, f,
-                                            nodes, node0, t, s, depth, lv, l,
-                                            k, p, out);
+    return launch_one<kRaw, V, true, false, kLin>(grid, lay, st, device, x, b,
+                                                  f, nodes, node0, t, s, depth,
+                                                  lv, l, k, lin, p, out);
   if (p.categorical)
-    return launch_one<kRaw, V, false, true>(grid, lay, st, device, x, b, f,
-                                            nodes, node0, t, s, depth, lv, l,
-                                            k, p, out);
-  return launch_one<kRaw, V, false, false>(grid, lay, st, device, x, b, f,
-                                           nodes, node0, t, s, depth, lv, l,
-                                           k, p, out);
+    return launch_one<kRaw, V, false, true, kLin>(grid, lay, st, device, x, b,
+                                                  f, nodes, node0, t, s, depth,
+                                                  lv, l, k, lin, p, out);
+  return launch_one<kRaw, V, false, false, kLin>(grid, lay, st, device, x, b,
+                                                 f, nodes, node0, t, s, depth,
+                                                 lv, l, k, lin, p, out);
+}
+
+template <typename V>
+int launch_lin(const float* x, int b, int f, const void* nodes,
+               const int* node0, int t, int s, int depth, const void* lv,
+               const void* cst, const void* coef, const int* feat,
+               const int* cnt, int l, int k, int xform, float neg2sig,
+               const int* plan, float* out, void* stream) {
+  const Lin<V> lin{static_cast<const V*>(cst), static_cast<const V*>(coef),
+                   feat, cnt, xform, neg2sig};
+  return launch_walk<true, V, true>(x, b, f, nodes, node0, t, s, depth,
+                                    static_cast<const V*>(lv), l, k, lin,
+                                    plan, out, stream);
 }
 
 }  // namespace
@@ -526,8 +639,9 @@ extern "C" {
 int tree_leaf(const float* x, int b, int f, const void* nodes,
               const int* node0, int t, int s, int depth, const int* plan,
               int* out, void* stream) {
-  return launch_walk<false, float>(x, b, f, nodes, node0, t, s, depth,
-                                   nullptr, 1, 1, plan, out, stream);
+  return launch_walk<false, float, false>(x, b, f, nodes, node0, t, s, depth,
+                                          nullptr, 1, 1, Lin<float>{}, plan,
+                                          out, stream);
 }
 
 // (B, K) f32 class sums of the T trees' leaf values, lv (T, L) float32:
@@ -535,17 +649,47 @@ int tree_leaf(const float* x, int b, int f, const void* nodes,
 int tree_raw_f32(const float* x, int b, int f, const void* nodes,
                  const int* node0, int t, int s, int depth, const float* lv,
                  int l, int k, const int* plan, float* out, void* stream) {
-  return launch_walk<true, float>(x, b, f, nodes, node0, t, s, depth, lv, l,
-                                  k, plan, out, stream);
+  return launch_walk<true, float, false>(x, b, f, nodes, node0, t, s, depth,
+                                         lv, l, k, Lin<float>{}, plan, out,
+                                         stream);
 }
 
 // The same with bfloat16 leaf values, accumulated in f32.
 int tree_raw_bf16(const float* x, int b, int f, const void* nodes,
                   const int* node0, int t, int s, int depth, const void* lv,
                   int l, int k, const int* plan, float* out, void* stream) {
-  return launch_walk<true, __nv_bfloat16>(
+  return launch_walk<true, __nv_bfloat16, false>(
       x, b, f, nodes, node0, t, s, depth,
-      static_cast<const __nv_bfloat16*>(lv), l, k, plan, out, stream);
+      static_cast<const __nv_bfloat16*>(lv), l, k, Lin<__nv_bfloat16>{}, plan,
+      out, stream);
+}
+
+// (B, K) f32 class sums of the T trees' linear leaf values (tree_raw's
+// order), transformed by xform (0 none, 1 sigmoid with neg2sig = -2 *
+// sigmoid, 2 softmax over the K sums): lv and cst (T, L), coef (T, L, 8)
+// float32, feat (T, L, 8) and cnt (T, L) int32.
+int tree_lin_raw_f32(const float* x, int b, int f, const void* nodes,
+                     const int* node0, int t, int s, int depth,
+                     const void* lv, const void* cst, const void* coef,
+                     const int* feat, const int* cnt, int l, int k,
+                     int xform, float neg2sig, const int* plan, float* out,
+                     void* stream) {
+  return launch_lin<float>(x, b, f, nodes, node0, t, s, depth, lv, cst, coef,
+                           feat, cnt, l, k, xform, neg2sig, plan, out,
+                           stream);
+}
+
+// The same with bfloat16 leaf values, intercepts and coefficients,
+// widened to f32 where they are read.
+int tree_lin_raw_bf16(const float* x, int b, int f, const void* nodes,
+                      const int* node0, int t, int s, int depth,
+                      const void* lv, const void* cst, const void* coef,
+                      const int* feat, const int* cnt, int l, int k,
+                      int xform, float neg2sig, const int* plan, float* out,
+                      void* stream) {
+  return launch_lin<__nv_bfloat16>(x, b, f, nodes, node0, t, s, depth, lv,
+                                   cst, coef, feat, cnt, l, k, xform, neg2sig,
+                                   plan, out, stream);
 }
 
 // The dynamic shared memory a block may opt in to on `device` (bytes), or

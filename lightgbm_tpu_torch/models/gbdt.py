@@ -1,12 +1,16 @@
 """GBDT: the boosting loop (port of lightgbm_tpu/models/gbdt.py).
 
-Reference: src/boosting/gbdt.h:17-310, src/boosting/gbdt.cpp. This
-slice covers the per-iteration, single-process, constant-leaf loop
-(train_one_iter :835-955) for one tree or K class trees an iteration,
-record- and query-unit bagging (_bagging :769-832), continued training
-(merge_from), parameter resets,
-metric output with early stopping, prediction and the model text
-(save_model_to_string / load_model_from_string :1837-1945).
+Reference: src/boosting/gbdt.h:17-310, src/boosting/gbdt.cpp. The
+port covers the per-iteration, single-process loop (train_one_iter
+:835-955) for one tree or K class trees an iteration, record- and
+query-unit bagging (_bagging :769-832), the hooks its subclasses DART
+(models/dart.py, _score_for_boosting) and GOSS (models/goss.py, in-bag
+weights from the gradients) override, linear leaves (linear_tree=true:
+_fit_linear_tree refits each leaf on the host in float64, :961-994),
+continued training (merge_from), parameter resets, metric output with
+early stopping, prediction and the model text (save_model_to_string /
+load_model_from_string :1837-1945; format version 2 when a tree is
+linear).
 
 Prediction routes as the JAX package's does (predict_raw and
 _use_device_predict :1679-1760): below DEVICE_PREDICT_CELLS rows x
@@ -15,6 +19,8 @@ float64 sums, which pins the bits; above it, or with device_predict=
 true, the device path (f32_safe_thresholds :47-62), one tree_raw
 launch per block (ops/traverse_kernels.py; device_traverse :65-97 is
 its plain version). Leaf indices always come from the host traversal.
+Linear-leaf models always predict on the host (:1693-1741); their device
+route is the serving kernel tree_lin_raw (serving/compiled_model.py).
 
 One tree costs one host sync: the learner builds it on the device
 without reading anything back, then fetches all its arrays in one
@@ -27,7 +33,9 @@ a block of T iterations with one host sync: on the card one boosting
 iteration (gradients, tree build, train-score update, the tree's
 arrays into slot t of a stacked buffer) is captured once as a CUDA
 graph and replayed T times; on the CPU the same step runs eagerly.
-The trees it grows are the per-iteration loop's, bit for bit.
+The trees it grows are the per-iteration loop's, bit for bit. GOSS
+draws its in-bag weights inside the step, from the step's gradients and
+the iteration number held on the device.
 
 Bagging draws an exact-count bag (int(bagging_fraction * N) rows, or
 whole queries: int(bagging_fraction * num_queries) of them) from a
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import hist_kernels, traverse_kernels
+from ..telemetry.quality import tree_coeff_importance
 from ..utils import common, guardrails
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
@@ -58,7 +67,8 @@ from .tree_learner import (SerialTreeLearner, create_tree_learner,
 K_MIN_SCORE = -np.inf
 
 # model text format versions this reader accepts (2 = linear leaves);
-# the writer emits version 1 (no format_version line)
+# the writer emits version 2 for a model with linear leaves, else
+# version 1 (no format_version line)
 MODEL_FORMAT_VERSION = 2
 
 # rows per device-predict block (bounds the (rows, trees) node state)
@@ -127,7 +137,8 @@ class FusedRunner:
     The step computes the objective's gradients from the train score,
     grows each class's tree with the feature mask at row `counter` of
     the block's (capacity, K, F) mask buffer and the in-bag mask in a
-    static (N,) buffer, adds `leaf_value * shrinkage` to the train score
+    static (N,) buffer (times GOSS's weights of iteration it0 + counter,
+    drawn from these gradients, when the booster has that hook), adds `leaf_value * shrinkage` to the train score
     in place, and copies the packed tree into row `counter` of a
     (capacity, K, P) stack; then counter += 1, all on the device.
 
@@ -153,6 +164,8 @@ class FusedRunner:
         self.inbag = torch.ones(gbdt.num_data, dtype=torch.float32,
                                 device=dev)
         self._inbag_src = None
+        self._weights_fn = gbdt._fused_weights_fn()
+        self.it0 = torch.zeros(1, dtype=torch.int64, device=dev)
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
         self.stacked = torch.zeros((self.capacity, k, learner.packed_size),
                                    dtype=torch.int32, device=dev)
@@ -167,9 +180,12 @@ class FusedRunner:
         updater = gb.train_score_updater
         g, h = gb.objective.get_gradients(self.score)
         fmask = self.fmasks.index_select(0, self.counter)[0]     # (K, F)
+        inbag = self.inbag
+        if self._weights_fn is not None:
+            inbag = self._weights_fn(self.it0 + self.counter, g, h) * inbag
         rows = []
         for k in range(gb.num_class):
-            out = learner.train_device(g[k], h[k], self.inbag,
+            out = learner.train_device(g[k], h[k], inbag,
                                        fmask=fmask[k])
             updater.add_score_by_partition(
                 out["leaf_value"] * gb.shrinkage_rate,
@@ -208,6 +224,7 @@ class FusedRunner:
         changes. Returns the (num_iters, K, P) stacked trees. No host
         sync."""
         self.counter.zero_()
+        self.it0.fill_(int(it0))
         self.gbdt.tree_learner.load_fmask(fmasks, self.fmasks[:num_iters])
         for t in range(num_iters):
             if inbag_fn is not None:
@@ -440,9 +457,11 @@ class GBDT:
         self._device_model_cache = None
 
     # --------------------------------------------------------------- bagging
-    def _bagging(self, it):
+    def _bagging(self, it, gradients=None, hessians=None):
         """gbdt.cpp:150-201: the (N,) float32 in-bag mask on the device,
-        or None when bagging is off. Cached per re-bag window. With
+        or None when bagging is off. Cached per re-bag window. The
+        gradients are for gradient-based sampling (models/goss.py);
+        plain bagging ignores them. With
         query boundaries whole queries go in or out of the bag
         (int(num_queries * bagging_fraction) of them), spread to their
         rows through the row -> query map (gbdt.py:798-812)."""
@@ -482,7 +501,7 @@ class GBDT:
             if self.objective is None:
                 Log.fatal("No object function provided")
             gradients, hessians = self.objective.get_gradients(
-                self.train_score_updater.score)
+                self._score_for_boosting())
         else:
             gradients = torch.as_tensor(
                 np.asarray(gradients, dtype=np.float32)).reshape(
@@ -498,9 +517,10 @@ class GBDT:
                 # no tree and no iteration: the model list stays
                 # iter * num_class long
                 return False
-        inbag = self._bagging(self.iter)
+        inbag = self._bagging(self.iter, gradients, hessians)
         learner = self.tree_learner
         n = self.num_data
+        linear = bool(getattr(self.config, "linear_tree", False))
         for k in range(self.num_class):
             out = learner.train_device(gradients[k], hessians[k], inbag)
             extra = ()
@@ -513,23 +533,71 @@ class GBDT:
                 guardrails.guard_gradients(gradients.cpu().numpy(),
                                            hessians.cpu().numpy(),
                                            self.iter, policy)
-            tree = learner.host_out_to_tree(host, shrink=self.shrinkage_rate)
+            if linear:
+                # the split search fixed the structure; each leaf is
+                # refit on the host, so this tree syncs more than once
+                tree, values = self._fit_linear_tree(
+                    host, out, gradients[k], hessians[k], inbag)
+            else:
+                tree = learner.host_out_to_tree(host,
+                                                shrink=self.shrinkage_rate)
             if tree.num_leaves <= 1:
                 Log.info("Stopped training because there are no more leafs "
                          "that meet the split requirements.")
                 return True
-            self.train_score_updater.add_score_by_partition(
-                out["leaf_value"] * self.shrinkage_rate, out["row_leaf"][:n],
-                k)
-            for updater in self.valid_score_updaters:
-                updater.add_score_by_device_tree(
-                    out, tree.max_depth, self.shrinkage_rate, k)
+            if linear:
+                self.train_score_updater.add_score_by_values(
+                    values * self.shrinkage_rate, k)
+                for updater in self.valid_score_updaters:
+                    updater.add_score_by_tree(tree, k)
+            else:
+                self.train_score_updater.add_score_by_partition(
+                    out["leaf_value"] * self.shrinkage_rate,
+                    out["row_leaf"][:n], k)
+                for updater in self.valid_score_updaters:
+                    updater.add_score_by_device_tree(
+                        out, tree.max_depth, self.shrinkage_rate, k)
             self.models.append(tree)
         self.iter += 1
         self._device_model_cache = None
         if is_eval:
             return self.eval_and_check_early_stopping()
         return False
+
+    def _score_for_boosting(self):
+        """The train score the gradients are taken from: the hook of
+        DART's tree dropping (dart.hpp GetTrainingScore)."""
+        return self.train_score_updater.score
+
+    def _fit_linear_tree(self, host, out, grad, hess, inbag):
+        """The fetched tree with its leaves refit as ridge models
+        (models/linear_leaves.py; gbdt.py:961-994). Returns (tree,
+        values): the shrunk tree and the unshrunk (N,) float64 per-row
+        outputs (the caller applies the learning rate, as the constant
+        path's leaf_value * shrinkage_rate). The fit pulls the row ->
+        leaf partition, the gradients and the bag to the host."""
+        from .linear_leaves import fit_linear_leaves, leaf_path_features
+        learner = self.tree_learner
+        n = self.num_data
+        tree = learner.host_out_to_tree(host, shrink=1.0)
+        values = np.zeros(n, np.float64)
+        if tree.num_leaves > 1:
+            feats = leaf_path_features(
+                tree.split_feature, tree.left_child, tree.right_child,
+                tree.leaf_parent, tree.num_leaves,
+                self.config.linear_max_features)
+            chunks, bin_values, fit_chunk = learner.linear_fit_context()
+            const, coeffs, is_lin, values = fit_linear_leaves(
+                feats, tree.leaf_value, tree.leaf_count, bin_values,
+                out["row_leaf"][:n].cpu().numpy(), grad[:n].cpu().numpy(),
+                hess[:n].cpu().numpy(),
+                None if inbag is None else inbag[:n].cpu().numpy(),
+                chunks, fit_chunk, self.config.linear_lambda)
+            if is_lin.any():
+                tree.set_linear(const, coeffs, is_lin, feats,
+                                learner.train_set.real_feature_idx)
+        tree.shrinkage(self.shrinkage_rate)
+        return tree, values
 
     def _guard_gradients(self, gradients, hessians, policy):
         """warn_skip / clamp (utils/guardrails.py) on device gradients:
@@ -555,13 +623,21 @@ class GBDT:
 
     def _fused_boosting_ok(self):
         """Whether this boosting type's per-iteration logic is pure
-        device work (DART and GOSS are later slices of the port)."""
+        device work: DART's tree dropping rescales earlier trees on the
+        host; GOSS overrides this (its sample is drawn in the step)."""
         return type(self).__name__ == "GBDT"
 
+    def _fused_weights_fn(self):
+        """The in-graph in-bag hook of the fused step, (iteration int64
+        device tensor, (K, N) gradients, hessians) -> (N,) weights that
+        multiply the in-bag buffer, or None (GOSS overrides it)."""
+        return None
+
     def _fused_inbag_fn(self):
-        """The (iteration) -> (N,) in-bag mask hook of the fused block,
-        None when bagging is off: the bag is drawn outside the graph and
-        copied into its static buffer when the window changes."""
+        """The host bag hook of the fused block, (iteration) -> (N,)
+        in-bag mask, None when bagging is off: the bag is drawn outside
+        the graph and copied into its static buffer when the window
+        changes."""
         cfg = self.config
         if cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0:
             return self._bagging
@@ -884,10 +960,6 @@ class GBDT:
         has_split = np.zeros(t_cnt, bool)
         depth = 1
         for i, t in enumerate(trees):
-            if t.is_linear:
-                raise NotImplementedError(
-                    "linear-leaf prediction is a later slice of "
-                    "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
             ns = t.num_leaves - 1
             if ns > 0:
                 sf[i, :ns] = t.split_feature_real
@@ -900,6 +972,39 @@ class GBDT:
             lv[i, :t.num_leaves] = t.leaf_value
         cache["stack"] = (sf, thr, dt, lc, rc, lv, has_split, depth)
         return cache["stack"]
+
+    def _linear_model_indices(self, n_used):
+        """Model-list indices of the linear-leaf trees among the first
+        n_used."""
+        return [i for i in range(n_used) if self.models[i].is_linear]
+
+    def _stacked_linear_arrays(self, n_used):
+        """The per-leaf linear models of the first n_used trees, stacked
+        (gbdt.py:1539-1570), or None when none is linear: const (T, L)
+        f64, coeff (T, L, C) f64, feat (T, L, C) int32 real column ids,
+        cnt (T, L) int32, with L the leaf axis of _stacked_model_arrays
+        and C the widest leaf model. Constant leaves and trees carry cnt
+        0 and zero rows."""
+        lin_idx = set(self._linear_model_indices(n_used))
+        if not lin_idx:
+            return None
+        trees = self.models[:n_used]
+        max_l = max(t.num_leaves for t in trees)
+        width = max(t.leaf_coeff.shape[1] for i, t in enumerate(trees)
+                    if i in lin_idx)
+        const = np.zeros((n_used, max_l), np.float64)
+        coeff = np.zeros((n_used, max_l, width), np.float64)
+        feat = np.zeros((n_used, max_l, width), np.int32)
+        cnt = np.zeros((n_used, max_l), np.int32)
+        for i, t in enumerate(trees):
+            if i not in lin_idx:
+                continue
+            nl, c = t.num_leaves, t.leaf_coeff.shape[1]
+            const[i, :nl] = t.leaf_const
+            coeff[i, :nl, :c] = t.leaf_coeff
+            feat[i, :nl, :c] = t.leaf_coeff_feat
+            cnt[i, :nl] = t.leaf_coeff_count
+        return const, coeff, feat, cnt
 
     def _device_model(self, n_used):
         """The frozen trees on the device (traverse_kernels.Forest,
@@ -937,7 +1042,9 @@ class GBDT:
         predict_raw): below DEVICE_PREDICT_CELLS rows x trees the host
         float64 traversal and per-class sums, above it (or when the
         `device_predict` knob says so) the device traversal with float32
-        sums."""
+        sums. A linear tree's gathered constant is its leaves'
+        missing-value fallback, replaced by Tree._linear_values on the
+        row block (host f64)."""
         x = np.atleast_2d(np.asarray(x, dtype=np.float64))
         n_used = self._num_used_models(num_iteration)
         n = x.shape[0]
@@ -947,13 +1054,18 @@ class GBDT:
         if self._use_device_predict(n, n_used):
             return self._predict_raw_device(x, n_used)
         lv = self._stacked_model_arrays(n_used)[5]
+        lin_idx = self._linear_model_indices(n_used)
         t_cnt = lv.shape[0]
         t_idx = np.arange(t_cnt)
         cls = t_idx % self.num_class       # class-major model list
         block = max(1, min(n, self._HOST_TRAVERSE_CELLS // max(t_cnt, 1)))
         for s in range(0, n, block):
-            node = self._traverse_host(x[s:s + block], n_used)   # (b, T)
+            xb = x[s:s + block]
+            node = self._traverse_host(xb, n_used)               # (b, T)
             vals = lv[t_idx[None, :], ~node]                     # (b, T)
+            for i in lin_idx:
+                vals[:, i] = self.models[i]._linear_values(
+                    xb, (~node[:, i]).astype(np.int32), vals[:, i])
             for k in range(self.num_class):
                 out[s:s + block, k] = vals[:, cls == k].sum(axis=1)
         return out
@@ -974,8 +1086,9 @@ class GBDT:
         host_reference_scorer), then the LIGHTGBM_TPU_DEVICE_PREDICT
         environment flag ("0"/"false" forces the host, "force"/"true"
         the device), then the `device_predict` knob, else rows x trees
-        >= DEVICE_PREDICT_CELLS."""
-        if self.force_host_predict:
+        >= DEVICE_PREDICT_CELLS. A model with linear leaves stays on the
+        host whatever the knobs say (its device route is serving's)."""
+        if self.force_host_predict or self._linear_model_indices(n_used):
             return False
         knob = os.environ.get("LIGHTGBM_TPU_DEVICE_PREDICT")
         if knob in (None, "", "1"):  # "1" was the legacy auto default
@@ -1043,7 +1156,9 @@ class GBDT:
 
     # --------------------------------------------------------- serialization
     def feature_importance_values(self, importance_type="split"):
-        """int64 split counts or float64 gain sums per total feature."""
+        """int64 split counts, or float64 gain sums or linear-leaf
+        coefficient importances (telemetry/quality.py
+        tree_coeff_importance), per total feature."""
         out = np.zeros(self.max_feature_idx + 1,
                        np.int64 if importance_type == "split" else np.float64)
         for t in self.models:
@@ -1054,6 +1169,9 @@ class GBDT:
             elif importance_type == "gain":
                 np.add.at(out, feat, np.asarray(t.split_gain[:ns],
                                                 np.float64))
+            elif importance_type == "coeff":
+                if t.is_linear:
+                    out += tree_coeff_importance(t, len(out))
             else:
                 raise LightGBMError(
                     f"Unknown importance type {importance_type!r}")
@@ -1070,15 +1188,15 @@ class GBDT:
         return pairs
 
     def save_model_to_string(self, num_iteration=-1):
-        """gbdt.cpp:468-513 text format, version 1."""
+        """gbdt.cpp:468-513 text format. A model with linear leaves
+        declares format_version=2 after the name line; a constant-leaf
+        model omits the line (version 1)."""
         n_used = len(self.models) if num_iteration <= 0 else min(
             num_iteration * self.num_class, len(self.models))
-        if any(self.models[i].is_linear for i in range(n_used)):
-            raise NotImplementedError(
-                "writing linear-leaf models is a later slice of "
-                "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
-        lines = [self.name,
-                 f"num_class={self.num_class}",
+        lines = [self.name]
+        if self._linear_model_indices(n_used):
+            lines.append(f"format_version={MODEL_FORMAT_VERSION}")
+        lines += [f"num_class={self.num_class}",
                  f"label_index={self.label_idx}",
                  f"max_feature_idx={self.max_feature_idx}"]
         if self.objective is not None:
@@ -1177,10 +1295,23 @@ class GBDT:
         self.num_init_iteration = self.num_iteration_for_pred
 
 
-def create_boosting(boosting_type, device=None):
-    """Factory: gbdt only in this slice."""
-    if boosting_type != "gbdt":
-        raise NotImplementedError(
-            f"boosting_type={boosting_type} is a later slice of "
-            "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
-    return GBDT(device)
+BOOSTING_TYPES = ("gbdt", "dart", "goss")
+
+
+def create_boosting(boosting_type, device=None, input_model=""):
+    """Factory and model-file type sniffing (src/boosting/boosting.cpp:7-66,
+    gbdt.py:2199-2215): a model file's first line names its class."""
+    from .dart import DART
+    from .goss import GOSS
+    if input_model:
+        with open(input_model) as f:
+            first = f.readline().strip()
+        if first in BOOSTING_TYPES:
+            boosting_type = first
+    if boosting_type == "gbdt":
+        return GBDT(device)
+    if boosting_type == "dart":
+        return DART(device)
+    if boosting_type == "goss":
+        return GOSS(device)
+    Log.fatal("Unknown boosting type %s", boosting_type)

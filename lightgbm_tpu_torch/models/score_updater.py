@@ -9,12 +9,15 @@ traversal of stacked trees on the device (stacked_deltas, the
 counterpart of _stacked_deltas :67-84), every row walking every tree in
 lockstep for the deepest tree's depth: one tree for a valid set per
 iteration, many at once for a fused block, an early-stopping truncation,
-a rollback or a valid set added after training. On a bundled dataset
+a rollback or a valid set added after training (and DART's dropped
+trees, one at a time). On a bundled dataset
 the traversal reads each split feature out of its slot (the decode of
 the JAX package's _traverse_add :41-47). The deltas are added one
 tree at a time in order, the same float32 adds whatever the batch, so
 the scores come out bit for bit the same. Every update is in place: the
-fused trainer's CUDA graph holds the train score's storage.
+fused trainer's CUDA graph holds the train score's storage. Linear-leaf
+trees are scored on the host in float64 (Tree.predict_by_bins, as in
+the JAX package) and their float32 deltas added.
 """
 
 import numpy as np
@@ -120,6 +123,35 @@ class ScoreUpdater:
         """score += leaf_values[row_leaf] (device gather; in place)."""
         self.score[curr_class] += leaf_values[row_leaf.long()]
 
+    def add_score_by_values(self, values, curr_class):
+        """score += values: one (N,) per-row delta computed on the host
+        (:108), rounded to float32 there, as the linear-leaf training
+        path gives it (a leaf's contribution varies per row, so no
+        leaf-value gather expresses it)."""
+        self.score[curr_class] += torch.from_numpy(
+            np.asarray(values, dtype=np.float32)).to(self.device)
+
+    def add_score_by_tree(self, tree, curr_class, sign=1.0):
+        """Add (sign=-1: subtract) one materialized tree's outputs to one
+        class (:172-183). A constant-leaf tree goes through the device
+        traversal (its float32 leaf values, the f64 leaves rounded once,
+        as the JAX package's host values cast to float32); a linear one
+        through Tree.predict_by_bins on the host in float64 over the
+        dataset's bin representative values, then rounded to float32."""
+        if tree.is_linear:
+            vals = tree.predict_by_bins(
+                self.dataset.traversal_bins(),
+                self.dataset.bin_value_table()).astype(np.float32)
+            self.score[curr_class].add_(
+                torch.from_numpy(vals).to(self.device), alpha=sign)
+            return
+        delta = self.deltas_by_stacked_device_trees(
+            stack_host_trees([tree], self.device), 1.0)[0]
+        self.score[curr_class].add_(delta, alpha=sign)
+
+    def sub_score_by_tree(self, tree, curr_class):
+        self.add_score_by_tree(tree, curr_class, sign=-1.0)
+
     def add_score_by_device_tree(self, out, depth, scale, curr_class):
         """Valid-set scoring: the builder's output dict as a one-tree
         stack (`depth` a host int, known once the tree was fetched)."""
@@ -168,8 +200,12 @@ class ScoreUpdater:
     def add_score_by_trees(self, trees, num_class, sign=1.0):
         """Batched update from many class-major materialized trees: one
         device traversal of all of them. sign=-1 removes them
-        (early-stopping truncation, rollback)."""
-        if trees:
+        (early-stopping truncation, rollback). A list holding a linear
+        tree goes tree by tree in order (add_score_by_tree)."""
+        if any(t.is_linear for t in trees):
+            for i, tree in enumerate(trees):
+                self.add_score_by_tree(tree, i % num_class, sign)
+        elif trees:
             self.add_score_by_stacked_trees(
                 stack_host_trees(trees, self.device), num_class, 1.0, sign)
 

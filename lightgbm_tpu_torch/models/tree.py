@@ -1,9 +1,8 @@
 """Tree model: flat-array binary tree + text serialization.
 
 Copy of lightgbm_tpu/models/tree.py, numpy on the host: the model text
-both packages read and write must stay byte-identical. Reads format
-versions 1 and 2 (linear-leaf coefficient blocks); the port's GBDT
-writes version 1 (it trains constant leaves only).
+both packages read and write must stay byte-identical. Reads and writes
+format versions 1 and 2 (linear-leaf coefficient blocks).
 
 Reference: include/LightGBM/tree.h:18-198, src/io/tree.cpp:24-231.
 Leaves are encoded as `~leaf_index` (negative) in the child arrays.
@@ -16,6 +15,30 @@ import numpy as np
 
 from ..utils import common
 from ..utils.log import Log
+
+
+def linear_leaf_values(x, const, coef, feat, cnt, fallback):
+    """Linear-leaf outputs on raw feature values; host f64. x is (N, F);
+    const, cnt and fallback (N, ...) and coef, feat (N, ..., C) are the
+    leaf models gathered at each row's leaves (one tree: (N,); a
+    stacked forest: (N, T)). A row whose leaf model touches a NaN
+    feature falls back to the leaf's constant value (a missing value
+    has no coordinate to enter the dot product).
+
+    The slots are added left to right (not np.sum): np.sum's pairwise
+    association depends on the axis LENGTH, so a COEF_PAD-padded copy
+    would round differently. In a chain, trailing zero slots are exact
+    no-ops, so a tree's own width and the serving predictor's padded
+    blocks give the same bits."""
+    rows = np.arange(x.shape[0]).reshape((-1,) + (1,) * (feat.ndim - 1))
+    xf = x[rows, feat]                                   # (N, ..., C)
+    valid = np.arange(coef.shape[-1]) < cnt[..., None]
+    live = valid & ~np.isnan(xf)
+    lin = np.array(const, dtype=np.float64)
+    for j in range(coef.shape[-1]):
+        lin += np.where(live[..., j], coef[..., j] * xf[..., j], 0.0)
+    return np.where((cnt > 0) & ~np.any(valid & np.isnan(xf), axis=-1),
+                    lin, fallback)
 
 
 class Tree:
@@ -147,26 +170,59 @@ class Tree:
         return self._linear_values(np.asarray(x, np.float64), leaf, base)
 
     def _linear_values(self, x, leaf, fallback):
-        """Per-row linear-leaf outputs on raw feature values; host f64.
-        Rows whose leaf model touches a NaN feature fall back to the
-        leaf's constant value (a missing value has no coordinate to
-        enter the dot product)."""
+        """Per-row linear-leaf outputs on raw feature values; host f64
+        (linear_leaf_values at each row's leaf)."""
+        return linear_leaf_values(
+            x, self.leaf_const[leaf], self.leaf_coeff[leaf],
+            self.leaf_coeff_feat[leaf], self.leaf_coeff_count[leaf],
+            fallback)
+
+    def get_leaf_by_bins(self, bins):
+        """Leaf lookup on a binned (F, N) matrix in the virtual feature
+        space (CoreDataset.traversal_bins(); tree.h:211-224)."""
+        n = bins.shape[1]
+        if self.num_leaves <= 1:
+            return np.zeros(n, dtype=np.int32)
+        node = np.zeros(n, dtype=np.int32)
+        active = node >= 0
+        for _ in range(self.max_depth + 1):
+            if not active.any():
+                break
+            nd = node[active]
+            feat = self.split_feature[nd]
+            thr = self.threshold_in_bin[nd]
+            dt = self.decision_type[nd]
+            fval = bins[feat, np.nonzero(active)[0]].astype(np.int64)
+            go_left = np.where(dt == self.CATEGORICAL, fval == thr,
+                               fval <= thr)
+            node[active] = np.where(go_left, self.left_child[nd],
+                                    self.right_child[nd])
+            active = node >= 0
+        return (~node).astype(np.int32)
+
+    def predict_by_bins(self, bins, bin_values=None):
+        """Per-row f64 outputs on a binned (F, N) matrix. Linear leaves
+        need `bin_values`, the dataset's (F, max_bin) f64 bin
+        representative table (CoreDataset.bin_value_table()): a dot
+        product needs values, not bin ids. Feature ids here are inner
+        indices (leaf_coeff_feat_inner), as split_feature's are."""
+        leaf = self.get_leaf_by_bins(bins)
+        base = self.leaf_value[leaf]
+        if not self.is_linear:
+            return base
+        if bin_values is None:
+            Log.fatal("scoring a linear tree in bin space needs the "
+                      "dataset's bin_value_table")
         cnt = self.leaf_coeff_count[leaf]                     # (N,)
-        feats = self.leaf_coeff_feat[leaf]                    # (N, C)
+        feats = self.leaf_coeff_feat_inner[leaf]              # (N, C)
         coef = self.leaf_coeff[leaf]                          # (N, C)
-        xf = x[np.arange(x.shape[0])[:, None], feats]         # (N, C)
+        rows = np.arange(leaf.shape[0])
+        ids = np.asarray(bins[feats, rows[:, None]])          # (N, C)
+        xf = bin_values[feats, ids]
         valid = np.arange(coef.shape[1])[None, :] < cnt[:, None]
-        has_nan = np.any(np.isnan(xf) & valid, axis=1)
-        # sequential (not np.sum) accumulation over coefficient slots:
-        # np.sum's pairwise association depends on the axis LENGTH, so
-        # the serving predictor's COEF_PAD-padded copy of this reduce
-        # would round differently. A left-to-right chain makes trailing
-        # zero slots exact no-ops — serving matches bit-for-bit.
-        lin = self.leaf_const[leaf].copy()
-        for j in range(coef.shape[1]):
-            lin += np.where(valid[:, j] & ~np.isnan(xf[:, j]),
-                            coef[:, j] * xf[:, j], 0.0)
-        return np.where((cnt > 0) & ~has_nan, lin, fallback)
+        lin = self.leaf_const[leaf] + np.sum(
+            np.where(valid, coef * xf, 0.0), axis=1)
+        return np.where(cnt > 0, lin, base)
 
     # -------------------------------------------------------- serialization
     def to_string(self):

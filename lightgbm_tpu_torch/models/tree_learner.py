@@ -718,6 +718,18 @@ class SerialTreeLearner:
         return tree_from_host(host, self.train_set, shrink,
                               self._threshold_table)
 
+    def linear_fit_context(self):
+        """(chunks, bin_value_table, fit_chunk) for the linear-leaf fit
+        (models/linear_leaves.py; tree_learner.py:682-696): the whole
+        dataset as one (lo, hi, bins, base) block over the virtual-space
+        traversal bins (a bundled dataset's slots decoded), the
+        dataset's bin representative values (the ones
+        Tree.predict_by_bins dots against), and the fit's chunk grid
+        (device_row_chunk)."""
+        tv = self.train_set.traversal_bins()
+        return ([(0, self.num_data, tv, 0)], self.train_set.bin_value_table(),
+                int(self.config.device_row_chunk))
+
 
 def threshold_table(dataset):
     """(F, max_bin) float64 split-threshold values per (feature, bin):

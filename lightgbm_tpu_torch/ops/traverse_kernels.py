@@ -5,8 +5,11 @@ package runs it as XLA, not Pallas: device_traverse
 (lightgbm_tpu/models/gbdt.py:65) under the jitted kernels of
 lightgbm_tpu/serving/compiled_model.py:76-135. Here:
 
-  tree_leaf  <- _leaf_kernel                       (B, T) int32 leaves
-  tree_raw   <- _raw_kernel / _raw16_kernel        (B, K) float32 sums
+  tree_leaf    <- _leaf_kernel                     (B, T) int32 leaves
+  tree_raw     <- _raw_kernel / _raw16_kernel      (B, K) float32 sums
+  tree_lin_raw <- _linraw_kernel /                 (B, K) float32 sums of
+                  _lintransformed_kernel (:138-192)  linear leaf values,
+                                                   optionally transformed
 
 in lightgbm_tpu_torch/csrc/traverse.cu (design and bound are noted
 there), built at first use by hist_kernels.build (this source alone, so
@@ -40,8 +43,12 @@ launches in `KERNELS[name].launches` under a lock.
 The plain versions are the lockstep walk of models/gbdt.py
 device_traverse and, for tree_raw, f32 adds of the leaf values in tree
 order, the kernel's order: on the same inputs they give the kernel's
-bits. A walk cut short by `depth` (not a valid model) reads leaf 0 in
-tree_raw, in both.
+bits. tree_lin_raw_plain adds each lane's coefficient slots in order
+0..7 (a product rounded before its add, a dead or NaN slot adding 0.0)
+and then the lanes in tree order, and transforms with explicit f32
+operations in the kernel's order, so it too gives the kernel's bits. A
+walk cut short by `depth` (not a valid model) reads leaf 0 in tree_raw
+and tree_lin_raw, in both.
 """
 
 import ctypes
@@ -60,7 +67,7 @@ from . import hist_kernels
 SOURCE = "traverse.cu"
 
 KERNELS = {name: hist_kernels.KernelStats(name)
-           for name in ("tree_leaf", "tree_raw")}
+           for name in ("tree_leaf", "tree_raw", "tree_lin_raw")}
 _COUNT_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 _LIB = None
@@ -70,6 +77,10 @@ _LIB = None
 LOAD_INFO = {}
 
 _CATEGORICAL_BIT = np.int32(-(1 << 31))
+# coefficient slots of a linear leaf (the JAX package's COEF_PAD; kCoefPad)
+COEF_PAD = 8
+# tree_lin_raw's output transforms (csrc/traverse.cu Transform)
+TRANSFORMS = {"raw": 0, "sigmoid": 1, "softmax": 2}
 
 
 def reset_launch_counts():
@@ -106,6 +117,51 @@ class Forest(NamedTuple):
     width: int
     tiles: torch.Tensor
     categorical: bool
+
+
+class LinearLeaves(NamedTuple):
+    """A frozen forest's linear leaves on one device, (T, L) and (T, L,
+    COEF_PAD) like its leaf values: intercepts `const` and coefficients
+    `coef` (float32 or bfloat16, the leaf values' type), the
+    coefficients' feature columns `feat` (int32 real column ids, zero in
+    dead slots), the live count `cnt` (int32, 0 for a constant leaf);
+    `width` the least row width (largest live column + 1)."""
+    const: torch.Tensor
+    coef: torch.Tensor
+    feat: torch.Tensor
+    cnt: torch.Tensor
+    width: int
+
+
+def freeze_linear(const, coef, feat, cnt, dtype, device):
+    """LinearLeaves on `device` from host (T, L) / (T, L, C <= COEF_PAD)
+    arrays, the slot axis zero-padded to COEF_PAD; const and coef stored
+    as `dtype` (torch.float32 or torch.bfloat16; rounded through float32,
+    as the JAX package casts)."""
+    coef = np.asarray(coef)
+    c = coef.shape[2]
+    if c > COEF_PAD:
+        raise ValueError(f"linear leaves have {c} coefficients, the kernel "
+                         f"takes at most COEF_PAD={COEF_PAD}")
+    pad = ((0, 0), (0, 0), (0, COEF_PAD - c))
+    feat = np.asarray(feat, np.int32)
+    cnt = np.asarray(cnt, np.int32)
+    live = np.arange(c)[None, None, :] < cnt[:, :, None]
+    if (feat[live] < 0).any():
+        raise ValueError("linear leaves' feature columns must be "
+                         "non-negative")
+
+    def values(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, np.float64).astype(np.float32))).to(dtype).to(
+                device)
+
+    return LinearLeaves(
+        values(const), values(np.pad(coef, pad)),
+        torch.from_numpy(np.ascontiguousarray(
+            np.pad(np.where(live, feat, 0), pad))).to(device),
+        torch.from_numpy(np.ascontiguousarray(cnt)).to(device),
+        int(feat[live].max()) + 1 if live.any() else 1)
 
 
 def pack_nodes(sf, thr32, is_cat, lc, rc):
@@ -313,6 +369,98 @@ def tree_raw_plain(x, forest, lv, num_class):
     return acc
 
 
+def _check_linear(x, forest, lv, lin):
+    if x.shape[1] < lin.width:
+        raise ValueError(f"tree_lin_raw: rows have {x.shape[1]} features, "
+                         f"a linear leaf reads feature {lin.width - 1}")
+    t, l = lv.shape
+    shapes = {"const": (t, l), "coef": (t, l, COEF_PAD),
+              "feat": (t, l, COEF_PAD), "cnt": (t, l)}
+    for name, want in shapes.items():
+        a = getattr(lin, name)
+        if tuple(a.shape) != want:
+            raise ValueError(f"tree_lin_raw: {name} must be {want}, got "
+                             f"{tuple(a.shape)}")
+        if a.device != lv.device:
+            raise ValueError("tree_lin_raw: linear leaves and trees on "
+                             "different devices")
+    if lin.const.dtype != lv.dtype or lin.coef.dtype != lv.dtype:
+        raise TypeError("tree_lin_raw: intercepts and coefficients must be "
+                        "stored as the leaf values are")
+    if lin.feat.dtype != torch.int32 or lin.cnt.dtype != torch.int32:
+        raise TypeError("tree_lin_raw: feat and cnt must be int32")
+
+
+def linear_leaf_values_plain(x, leaves, lv, lin):
+    """(B, T) float32 value of each (row, tree) lane at its leaf: the
+    linear leaf's const + coefficient slots added in order 0..7 (each
+    product rounded, a dead or NaN slot adding 0.0), or the constant
+    leaf value where cnt is 0 or a live feature is NaN (the JAX
+    package's _linear_leaf_values, in a fixed slot order)."""
+    b, t = leaves.shape
+    t_idx = torch.arange(t, device=x.device)[None, :]
+    base = lv[t_idx, leaves].float()
+    acc = lin.const[t_idx, leaves].float()
+    cn = lin.cnt[t_idx, leaves]
+    co = lin.coef[t_idx, leaves].float()                      # (B, T, C)
+    ft = lin.feat[t_idx, leaves].long()
+    xf = torch.gather(x, 1, ft.reshape(b, -1)).reshape(b, t, COEF_PAD)
+    nan = torch.zeros_like(cn, dtype=torch.bool)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(COEF_PAD):
+        live = cn > j
+        xj = xf[..., j]
+        isnan = torch.isnan(xj)
+        acc = acc + torch.where(live & ~isnan, co[..., j] * xj, zero)
+        nan = nan | (live & isnan)
+    return torch.where((cn > 0) & ~nan, acc, base)
+
+
+def transform_plain(raw, num_class, sigmoid):
+    """The kernel's transform of (B, K) float32 sums: sigmoid 1 / (1 +
+    exp(f32(-2 sigmoid) * raw)) when K == 1 and sigmoid > 0, a softmax
+    (max, exp of the differences, their sum from class 0 up, each exp
+    over the sum) when K > 1, else the sums."""
+    if num_class == 1 and sigmoid > 0:
+        return 1.0 / (1.0 + torch.exp((-2.0 * sigmoid) * raw))
+    if num_class > 1:
+        m = raw[:, 0]
+        for c in range(1, num_class):
+            m = torch.maximum(m, raw[:, c])
+        e = [torch.exp(raw[:, c] - m) for c in range(num_class)]
+        total = e[0]
+        for c in range(1, num_class):
+            total = total + e[c]
+        return torch.stack([ec / total for ec in e], dim=1)
+    return raw
+
+
+def _transform_kind(transform, num_class, sigmoid):
+    if not transform:
+        return "raw"
+    if num_class == 1 and sigmoid > 0:
+        return "sigmoid"
+    return "softmax" if num_class > 1 else "raw"
+
+
+def tree_lin_raw_plain(x, forest, lv, lin, num_class, transform=False,
+                       sigmoid=-1.0):
+    """(B, K) float32: tree t adds its lane's linear leaf value to class
+    t % K in tree order (a walk cut short reads leaf 0), then, with
+    `transform`, transform_plain."""
+    _check_values(forest, lv, num_class)
+    _check_linear(x, forest, lv, lin)
+    leaves = tree_leaf_plain(x, forest).long().clamp(min=0)
+    vals = linear_leaf_values_plain(x, leaves, lv, lin)
+    acc = torch.zeros((x.shape[0], num_class), dtype=torch.float32,
+                      device=x.device)
+    for t in range(vals.shape[1]):
+        acc[:, t % num_class] += vals[:, t]
+    if _transform_kind(transform, num_class, sigmoid) == "raw":
+        return acc
+    return transform_plain(acc, num_class, sigmoid)
+
+
 # ----------------------------------------------------------- CUDA wrappers
 
 def _bind(lib):
@@ -321,6 +469,10 @@ def _bind(lib):
     lib.tree_leaf.restype = i
     for fn in (lib.tree_raw_f32, lib.tree_raw_bf16):
         fn.argtypes = [p, i, i, p, p, i, i, i, p, i, i, p, p, p]
+        fn.restype = i
+    for fn in (lib.tree_lin_raw_f32, lib.tree_lin_raw_bf16):
+        fn.argtypes = [p, i, i, p, p, i, i, i, p, p, p, p, p, i, i, i,
+                       ctypes.c_float, p, p, p]
         fn.restype = i
     lib.traverse_smem_optin.argtypes = [i]
     lib.traverse_smem_optin.restype = i
@@ -375,7 +527,8 @@ def _planned(b, f, t, s, num_class, index, categorical):
 
 def _launch(name, fn, x, forest, num_class, extra, out):
     """Plan and launch one call; `extra` are tree_raw's leaf-value
-    arguments (pointer, L, K)."""
+    arguments (pointer, L, K), or tree_lin_raw's (the value pointers, L,
+    K, transform, -2 sigmoid)."""
     for t in (x, forest.tiles, forest.node0):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
@@ -429,3 +582,32 @@ def tree_raw(x, forest, lv, num_class):
                       device=x.device)
     return _launch("tree_raw", fn, x, forest, int(num_class),
                    (lv.data_ptr(), lv.shape[1], int(num_class)), out)
+
+
+def tree_lin_raw(x, forest, lv, lin, num_class, transform=False,
+                 sigmoid=-1.0):
+    """(B, K) float32 class sums of the linear leaf values each row
+    reaches (`lin`, a LinearLeaves stored as `lv` is, float32 or
+    bfloat16, widened to f32 where read): tree t adds to class t % K, in
+    tree order. With `transform`, the sums go through sigmoid (K == 1,
+    sigmoid > 0) or softmax (K > 1) in the same launch."""
+    if x.device.type == "cpu":
+        return tree_lin_raw_plain(x, forest, lv, lin, num_class, transform,
+                                  sigmoid)
+    _device_ok(x, "tree_lin_raw")
+    _check(x, forest, "tree_lin_raw")
+    _check_values(forest, lv, num_class)
+    _check_linear(x, forest, lv, lin)
+    for a in (lv, lin.const, lin.coef, lin.feat, lin.cnt):
+        if not a.is_contiguous():
+            raise ValueError("tree_lin_raw: leaf arrays must be contiguous")
+    fn = ("tree_lin_raw_f32" if lv.dtype == torch.float32
+          else "tree_lin_raw_bf16")
+    kind = TRANSFORMS[_transform_kind(transform, int(num_class), sigmoid)]
+    out = torch.empty((x.shape[0], int(num_class)), dtype=torch.float32,
+                      device=x.device)
+    return _launch("tree_lin_raw", fn, x, forest, int(num_class),
+                   (lv.data_ptr(), lin.const.data_ptr(),
+                    lin.coef.data_ptr(), lin.feat.data_ptr(),
+                    lin.cnt.data_ptr(), lv.shape[1], int(num_class), kind,
+                    ctypes.c_float(-2.0 * float(sigmoid))), out)

@@ -22,10 +22,13 @@ request. This module freezes the model:
   kernel library (nvcc at first use, so a server's first request never
   pays it) and runs every (kernel, bucket) pair once at load.
 
-The device work is two hand-written CUDA kernels (csrc/traverse.cu):
-tree_leaf for the leaf indices every exact endpoint starts from, and
+The device work is three hand-written CUDA kernels (csrc/traverse.cu):
+tree_leaf for the leaf indices every exact endpoint starts from,
 tree_raw (f32 or bf16 leaf values, f32 sums) for the `_device` variants
-and serving_precision="bf16". On a CPU device their plain versions run.
+and serving_precision="bf16", and tree_lin_raw, the same for linear-leaf
+models (the JAX package's _linraw_kernel / _lintransformed_kernel), whose
+transformed variant applies the sigmoid or softmax in the same launch.
+On a CPU device their plain versions run.
 
 Precision contract, as in the JAX package: traversal decisions are
 exact, so `predict_raw`/`predict` gather the traversed leaf indices and
@@ -35,9 +38,14 @@ whole pipeline on the device in f32 for throughput-bound callers that
 tolerate ~1e-6. bf16 keeps the decisions exact and gathers bf16 leaf
 values with f32 accumulation, within the pinned `accuracy_bound`.
 
-Linear-leaf models (the JAX package's _linraw_kernel and
-_lintransformed_kernel) come with the port's linear-leaf slice: freezing
-one raises NotImplementedError.
+Linear-leaf models freeze their per-leaf coefficient blocks, padded to
+COEF_PAD slots, beside the node arrays (traverse_kernels.LinearLeaves;
+a wider model is refused). The exact path keeps the linear value stage
+on the host in f64 (models.tree.linear_leaf_values, the function
+Tree._linear_values calls, NaN fallback included) and sums each class
+as GBDT's host path does; the `_device` variants and bf16 run tree_lin_raw (bf16 stores the
+intercepts and coefficients in bfloat16 too, and the pinned
+`accuracy_bound` grows a coefficient term).
 """
 
 import os
@@ -48,8 +56,8 @@ import numpy as np
 import torch
 
 from ..io.profile import DatasetProfile, model_profile_path
-from ..models.gbdt import GBDT, f32_safe_thresholds
-from ..models.tree import Tree
+from ..models.gbdt import create_boosting, f32_safe_thresholds
+from ..models.tree import Tree, linear_leaf_values
 from ..ops import traverse_kernels
 from ..telemetry.ledger import LEDGER
 from ..utils import common
@@ -57,6 +65,8 @@ from ..utils.device import resolve_device
 from ..utils.log import Log
 
 DEFAULT_MAX_BATCH_ROWS = 4096
+# coefficient slots a linear leaf model may use in serving
+COEF_PAD = traverse_kernels.COEF_PAD
 # serving_precision values: `f32` is the exact contract (device f32
 # traversal + host f64 reduction, bit-identical to the JAX predictor);
 # `bf16` keeps the traversal DECISIONS exact (f32 compare against
@@ -100,10 +110,6 @@ class CompiledPredictor:
                 f"got {serving_precision!r}")
         self.device = resolve_device(device)
         n_used = booster._num_used_models(num_iteration)
-        if any(booster.models[i].is_linear for i in range(n_used)):
-            raise NotImplementedError(
-                "serving linear-leaf models is a later slice of "
-                "lightgbm_tpu_torch (ROADMAP queue 1 item 3)")
         self.num_class = max(int(booster.num_class), 1)
         self.sigmoid = float(booster.sigmoid)
         self.num_features = int(booster.max_feature_idx) + 1
@@ -141,15 +147,39 @@ class CompiledPredictor:
         # on first use, so the exact and bf16 paths hold one value
         # buffer per model
         self._lv32 = None
+        # linear leaves (gbdt.py _stacked_linear_arrays): host f64 copies
+        # padded to COEF_PAD slots for the exact path, and the device
+        # blocks in the value type of the precision's kernel
+        lin = booster._stacked_linear_arrays(n_used)
+        self.is_linear = lin is not None
+        self._lin_dev = None
+        if self.is_linear:
+            const, coef, cfeat, ccnt = lin
+            if coef.shape[2] > COEF_PAD:
+                raise ValueError(
+                    f"model's widest leaf model has {coef.shape[2]} "
+                    f"coefficients but serving pads to COEF_PAD="
+                    f"{COEF_PAD}; retrain with linear_max_features <= "
+                    f"{COEF_PAD}")
+            pad = ((0, 0), (0, 0), (0, COEF_PAD - coef.shape[2]))
+            self._lin_const64 = np.array(const, dtype=np.float64)
+            self._lin_coef64 = np.pad(np.asarray(coef, np.float64), pad)
+            self._lin_feat = np.pad(np.asarray(cfeat, np.int32), pad)
+            self._lin_cnt = np.array(ccnt, dtype=np.int32)
+            self._lin_dev = traverse_kernels.freeze_linear(
+                const, coef, cfeat, ccnt,
+                torch.bfloat16 if serving_precision == "bf16"
+                else torch.float32, self.device)
         if serving_precision == "bf16":
             self._lv16 = torch.from_numpy(
                 self._lv64.astype(np.float32)).to(torch.bfloat16).to(
                     self.device)
-            self.accuracy_bound = self._pin_accuracy_bound(n_used)
+            self.accuracy_bound = self._pin_accuracy_bound(
+                n_used, np.array(sf), np.array(thr))
         if warmup:
             self.warm_up()
 
-    def _pin_accuracy_bound(self, n_used):
+    def _pin_accuracy_bound(self, n_used, sf=None, thr=None):
         """Worst-case |bf16 output - exact f64 output| over ANY input,
         derived from the frozen leaf values (the JAX package's formula,
         verbatim): traversal decisions are exact, so the only error
@@ -159,10 +189,37 @@ class CompiledPredictor:
         raw error (binary: dp/draw <= sigmoid/2), so the pinned bound
         covers raw AND transformed outputs. A 2x margin absorbs
         rounding-mode asymmetries. The serving skew monitor adopts this
-        as its tolerance (server.build_monitors)."""
+        as its tolerance (server.build_monitors).
+
+        Linear leaves add a coefficient-rounding term (:427-450): per
+        tree, the worst leaf's |const - bf16(const)| + sum_j |coef_j -
+        bf16(coef_j)| * env(feat_j), with env(f) twice the largest
+        |threshold| any split placed on feature f (at least 1.0), and
+        the accumulation slack grows with the largest value a linear
+        lane can add inside that envelope."""
         err_t = np.abs(self._lv64 - _bf16_round(self._lv64)).max(axis=1)
+        if self.is_linear:
+            env = np.ones(self.num_features, np.float64)
+            if sf is not None and sf.size:
+                np.maximum.at(env, sf.reshape(-1),
+                              2.0 * np.abs(thr.reshape(-1)))
+            cerr = (np.abs(self._lin_coef64 - _bf16_round(self._lin_coef64))
+                    * env[self._lin_feat])
+            valid = (np.arange(COEF_PAD)[None, None, :]
+                     < self._lin_cnt[:, :, None])
+            lin_err_t = (np.abs(self._lin_const64
+                                - _bf16_round(self._lin_const64))
+                         + np.where(valid, cerr, 0.0).sum(axis=2)
+                         ).max(axis=1)
+            err_t = np.maximum(err_t, lin_err_t)
         raw_bound = float((err_t @ self._onehot64).max())
         mag_t = np.abs(self._lv64).max(axis=1)
+        if self.is_linear:
+            lin_mag_t = (np.abs(self._lin_const64)
+                         + np.where(valid, np.abs(self._lin_coef64)
+                                    * env[self._lin_feat], 0.0).sum(axis=2)
+                         ).max(axis=1)
+            mag_t = np.maximum(mag_t, lin_mag_t)
         mags = float((mag_t @ self._onehot64).max())
         slack = mags * n_used * float(np.finfo(np.float32).eps)
         factor = 1.0
@@ -183,7 +240,8 @@ class CompiledPredictor:
         `<model>.profile.json` dataset-profile sidecar (io/profile.py)
         when one sits next to the model: `predictor.profile` then
         carries the training baseline the drift monitor needs."""
-        booster = GBDT(device="cpu")   # the host arrays only
+        # the host arrays only, in the class the file's first line names
+        booster = create_boosting("gbdt", "cpu", input_model=path)
         with open(path) as f:
             booster.load_model_from_string(f.read())
         inst = cls(booster, num_iteration=num_iteration, **kw)
@@ -204,9 +262,9 @@ class CompiledPredictor:
         first load on a machine; `stats["compile_cache_hits"]` counts a
         library found already built) and run every (kernel, bucket) pair
         a request can hit once: the leaf kernel that predict, predict_raw
-        and predict_leaf_index dispatch, and with bf16 the bf16 pair (the
-        f32 `_device` variants warm at their first call, as in the JAX
-        package). Each bucket's time lands in the set-up ledger under
+        and predict_leaf_index dispatch, and with bf16 the bf16 pair (of
+        tree_lin_raw for a linear model; the f32 `_device` variants warm
+        at their first call, as in the JAX package). Each bucket's time lands in the set-up ledger under
         `serving_bucket_<rows>`."""
         t0 = time.time()
         if self.device.type == "cuda" and self.num_trees:
@@ -214,7 +272,10 @@ class CompiledPredictor:
             self.stats["compile_cache_hits"] = int(
                 bool(traverse_kernels.LOAD_INFO.get("cache_hit")))
         kinds = [("leaf", self._dispatch_leaf)]
-        if self.serving_precision == "bf16":
+        if self.serving_precision == "bf16" and self.is_linear:
+            kinds += [("linraw", self._dispatch_linraw),
+                      ("lintr", self._dispatch_lintransformed)]
+        elif self.serving_precision == "bf16":
             kinds += [("raw16", self._dispatch_raw16),
                       ("tr16", self._dispatch_transformed16)]
         for b in self.buckets:
@@ -269,6 +330,33 @@ class CompiledPredictor:
 
     def _dispatch_transformed16(self, xb):
         return self._transform(self._dispatch_raw16(xb))
+
+    def _linear_values(self):
+        """The leaf values tree_lin_raw reads: bf16 or f32 as the linear
+        blocks were frozen."""
+        if self.serving_precision == "bf16":
+            return self._lv16
+        return self._f32_values()
+
+    def _dispatch_linraw(self, xb):
+        return traverse_kernels.tree_lin_raw(
+            xb, self._forest, self._linear_values(), self._lin_dev,
+            self.num_class)
+
+    def _dispatch_lintransformed(self, xb):
+        return traverse_kernels.tree_lin_raw(
+            xb, self._forest, self._linear_values(), self._lin_dev,
+            self.num_class, transform=True, sigmoid=self.sigmoid)
+
+    def _linear_host_values(self, x, leaves):
+        """The exact path's value stage of a linear model: (N, T) f64
+        per-tree outputs at the traversed leaves, through the function
+        Tree._linear_values calls (linear_leaf_values)."""
+        t_idx = np.arange(self.num_trees)[None, :]
+        return linear_leaf_values(
+            x.astype(np.float64), self._lin_const64[t_idx, leaves],
+            self._lin_coef64[t_idx, leaves], self._lin_feat[t_idx, leaves],
+            self._lin_cnt[t_idx, leaves], self._lv64[t_idx, leaves])
 
     def _canon(self, x):
         """(N, num_features) f32 view of arbitrary row input: width is
@@ -334,10 +422,22 @@ class CompiledPredictor:
         n = x.shape[0]
         if self.num_trees == 0 or n == 0:
             return np.zeros((n, self.num_class))
+        if self.serving_precision == "bf16" and self.is_linear:
+            return self._blocks(x, self._dispatch_linraw,
+                                "linraw").astype(np.float64)
         if self.serving_precision == "bf16":
             return self._blocks(x, self._dispatch_raw16,
                                 "raw16").astype(np.float64)
         leaves = self._blocks(x, self._dispatch_leaf, "leaf")   # (N, T)
+        if self.is_linear:
+            vals = self._linear_host_values(x, leaves)       # (N, T) f64
+            # GBDT's host path sums each class over its trees (np.sum);
+            # a BLAS product would associate otherwise in the last bit
+            cls = np.arange(self.num_trees) % self.num_class
+            out = np.empty((x.shape[0], self.num_class))
+            for k in range(self.num_class):
+                out[:, k] = vals[:, cls == k].sum(axis=1)
+            return out
         vals = self._lv64[np.arange(self.num_trees)[None, :], leaves]
         return vals @ self._onehot64                         # (N, K) f64
 
@@ -350,6 +450,9 @@ class CompiledPredictor:
             x = self._canon(x)
             if x.shape[0] == 0:
                 return np.zeros((0, self.num_class))
+            if self.is_linear:
+                return self._blocks(x, self._dispatch_lintransformed,
+                                    "lintr").astype(np.float64)
             return self._blocks(x, self._dispatch_transformed16,
                                 "tr16").astype(np.float64)
         raw = self.predict_raw(x)
@@ -360,21 +463,29 @@ class CompiledPredictor:
         return raw
 
     def predict_raw_device(self, x):
-        """All-device f32 raw scores (tree_raw): the throughput path;
-        ~1e-6 of predict_raw."""
+        """All-device f32 raw scores (tree_raw; tree_lin_raw for a linear
+        model, whose bf16 predictor keeps its bf16 blocks and its
+        `accuracy_bound`): the throughput path; ~1e-6 of predict_raw."""
         x = self._canon(x)
         n = x.shape[0]
         if self.num_trees == 0 or n == 0:
             return np.zeros((n, self.num_class))
+        if self.is_linear:
+            return self._blocks(x, self._dispatch_linraw,
+                                "linraw").astype(np.float64)
         return self._blocks(x, self._dispatch_raw32,
                             "raw32").astype(np.float64)
 
     def predict_device(self, x):
-        """All-device f32 transformed predictions; ~1e-6 of predict."""
+        """All-device f32 transformed predictions; ~1e-6 of predict (a
+        linear model's transform runs inside its tree_lin_raw launch)."""
         x = self._canon(x)
         n = x.shape[0]
         if self.num_trees == 0 or n == 0:
             return np.zeros((n, self.num_class))
+        if self.is_linear:
+            return self._blocks(x, self._dispatch_lintransformed,
+                                "lintr").astype(np.float64)
         return self._blocks(x, self._dispatch_transformed32,
                             "tr32").astype(np.float64)
 

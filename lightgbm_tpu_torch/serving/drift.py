@@ -572,8 +572,8 @@ def host_reference_scorer(model_path):
     """Load the model text format into a plain GBDT and return
     `fn(kind, rows)` scoring on the HOST f64 path (device predict
     forced off) — the serving skew monitor's ground truth."""
-    from ..models.gbdt import GBDT
-    booster = GBDT(device="cpu")
+    from ..models.gbdt import create_boosting
+    booster = create_boosting("gbdt", "cpu", input_model=model_path)
     with open(model_path) as f:
         booster.load_model_from_string(f.read())
     # hard host routing: beats even LIGHTGBM_TPU_DEVICE_PREDICT=force,

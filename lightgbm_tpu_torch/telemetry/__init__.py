@@ -12,11 +12,14 @@ part serving reads).
   crash flight recorder.
 - `ledger.LEDGER`: set-up work a process pays before its first answer
   (kernel-library builds, per-bucket warm-up), and `sample_memory`.
+- `quality.tree_coeff_importance`: the "coeff" feature importance of
+  linear-leaf trees.
 
 stdlib and numpy only; importing it touches no device.
 """
 
-from . import disttrace, journal, ledger, prometheus, registry  # noqa: F401
+from . import (disttrace, journal, ledger, prometheus, quality,  # noqa: F401
+               registry)
 from .journal import RunJournal, read_journal  # noqa: F401
 from .ledger import LEDGER, SetupLedger, sample_memory  # noqa: F401
 from .registry import MetricsRegistry  # noqa: F401

@@ -122,8 +122,8 @@ def test_model_text_crosses_packages_byte_for_byte():
 
 
 def test_model_text_v2_reads():
-    """A format-version-2 model (linear leaves) is read; writing it is a
-    later slice and raises."""
+    """A format-version-2 model (linear leaves) is read and written back
+    byte for byte, as the JAX package writes it."""
     booster, _ = _trained()
     text = booster.model_to_string()
     v2 = text.replace("gbdt\n", "gbdt\nformat_version=2\n", 1)
@@ -138,8 +138,10 @@ def test_model_text_v2_reads():
     t = TGBDT(device=CPU)
     t.load_model_from_string(v2)
     assert t.models[0].is_linear and t.models[0].leaf_coeff_count[0] == 1
-    with pytest.raises(NotImplementedError):
-        t.save_model_to_string()
+    assert t.save_model_to_string() == v2
+    j = JGBDT()
+    j.load_model_from_string(v2)
+    assert j.save_model_to_string() == v2
 
 
 def test_convert_dataset_from_jax_arrays():
@@ -194,7 +196,17 @@ def test_convert_trees_from_builder_output():
     {"tree_learner": "data", "num_machines": 2},
     {"tree_learner": "feature", "num_machines": 2}])
 def test_later_slice_settings_raise(params):
+    """The settings of a later slice raise; DART, GOSS and linear leaves
+    are this port's now and train one round."""
     x, y = _matrix(9, n=300)
+    if set(params) <= {"boosting_type", "linear_tree"}:
+        b = lgt.train(dict(params, verbose=-1), lgt.Dataset(x, y), 1,
+                      verbose_eval=False, device=CPU)
+        assert b.current_iteration() == 1
+        assert type(b.gbdt).__name__ == {"dart": "DART", "goss": "GOSS"}.get(
+            params.get("boosting_type"), "GBDT")
+        assert b.gbdt.models[0].is_linear is bool(params.get("linear_tree"))
+        return
     with pytest.raises(NotImplementedError):
         lgt.train(dict(params, verbose=-1), lgt.Dataset(x, y), 1,
                   verbose_eval=False, device=CPU)

@@ -208,7 +208,8 @@ def test_query_bagging_with_one_shared_mask_matches_jax():
     jb = lgj.Booster(params, _datasets(lgj, x, label, counts))
     tb = lgt.Booster(params, _datasets(lgt, x, label, counts), device=CPU)
     jb.gbdt._bagging = lambda it, g=None, h=None: _query_mask(counts, it)
-    tb.gbdt._bagging = lambda it: torch.from_numpy(_query_mask(counts, it))
+    tb.gbdt._bagging = lambda it, g=None, h=None: torch.from_numpy(
+        _query_mask(counts, it))
     _loop(jb, 4)
     _loop(tb, 4)
     _assert_same_model(jb, tb, x)

@@ -261,15 +261,24 @@ def test_warm_up_ledger_and_stats(models):
 
 
 def test_linear_leaf_model_raises():
+    """A linear-leaf model is served (its refusal went): a single-leaf
+    linear tree answers const + coef * x, NaN falls back to the leaf
+    value; an unknown precision still raises."""
     g = GBDT(device=CPU)
     g.load_model_from_string("\n".join([
         "gbdt", "num_class=1", "label_index=0", "max_feature_idx=1",
         "sigmoid=-1", "feature_names=A B", ""]))
     t = Tree(1)
-    t.is_linear = True
+    t.leaf_value[0] = 0.5
+    t.set_linear([0.25], [np.array([2.0])], [True], [[1]])
     g.models = [t]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        CompiledPredictor.from_booster(g, device=CPU)
+    p = CompiledPredictor.from_booster(g, device=CPU, max_batch_rows=4)
+    assert p.is_linear
+    x = np.array([[0.0, 1.5], [3.0, np.nan]], np.float32)
+    np.testing.assert_array_equal(p.predict_raw(x), [[3.25], [0.5]])
+    np.testing.assert_array_equal(p.predict_raw(x),
+                                  g.predict_raw(x.astype(np.float64)))
+    np.testing.assert_array_equal(p.predict_raw_device(x), [[3.25], [0.5]])
     with pytest.raises(ValueError, match="serving_precision"):
         CompiledPredictor.from_booster(g, device=CPU,
                                        serving_precision="fp8")
@@ -383,7 +392,8 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(TypeError):
         tk.tree_raw(torch.zeros(3, 5), forest,
                     torch.zeros(4, 6, dtype=torch.float64), 1)
-    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0}
+    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0,
+                                  "tree_lin_raw": 0}
 
 
 

@@ -166,7 +166,8 @@ def test_cuda_tensor_never_takes_the_plain_route(monkeypatch):
     tk.tree_leaf(x, forest)
     tk.tree_raw(x, forest, torch.from_numpy(lv).to(DEV), 2)
     torch.cuda.synchronize()
-    assert tk.launch_counts() == {"tree_leaf": 1, "tree_raw": 1}
+    assert tk.launch_counts() == {"tree_leaf": 1, "tree_raw": 1,
+                                  "tree_lin_raw": 0}
     with pytest.raises(ValueError):
         tk.tree_leaf(x[:, :2].contiguous(), forest)   # too narrow
 
@@ -379,4 +380,5 @@ def test_a_refused_launch_raises(monkeypatch):
     force(good._replace(group=1, window=1))
     with pytest.raises(RuntimeError, match="unsupported"):
         tk.tree_raw(x, forest, lv32, 1)
-    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0}
+    assert tk.launch_counts() == {"tree_leaf": 0, "tree_raw": 0,
+                                  "tree_lin_raw": 0}
