@@ -11,15 +11,24 @@ is eligible, fused blocks of metric_freq iterations when only metric
 output stands in the way, else the per-iteration loop) and the same
 predict-to-TSV output (predictor.hpp:82-130).
 
+With `snapshot_freq` > 0 the full training state is checkpointed every
+`snapshot_freq` iterations into `snapshot_dir` (default
+`<output_model>.snapshots`; atomic and rotated, utils/checkpoint.py),
+and a rerun of the same command resumes from the newest valid snapshot
+(`snapshot_resume`) to the model file of an uninterrupted run
+(application.py:203-360). The fused paths cut their blocks at the
+snapshot cadence.
+
 `Application(argv, device=None)` runs on the CUDA card; the tests pass
 device="cpu". The command line has no device switch, so
 `python -m lightgbm_tpu_torch` always runs on the card. Settings whose
 code paths are later slices raise NotImplementedError naming their
-ROADMAP item: snapshots and resume (queue 1 item 4), heartbeats,
-collective timeouts and more than one machine (item 6), and the
-training telemetry, the profiler trace and the run history (item 7).
+ROADMAP item: heartbeats, collective timeouts and more than one machine
+(queue 1 item 6), and the training telemetry, the profiler trace and the
+run history (item 7).
 """
 
+import os
 import time
 
 import numpy as np
@@ -94,9 +103,6 @@ class Predictor:
 def _check_slice(cfg):
     """Refuse the CLI settings whose code paths are later slices."""
     later = []
-    if cfg.snapshot_freq > 0:
-        later.append("snapshot_freq > 0 and snapshot_resume (checkpoint "
-                     "and resume, item 4)")
     if (cfg.heartbeat_timeout_s > 0 or cfg.collective_timeout_s > 0
             or cfg.num_machines > 1):
         later.append("heartbeat_timeout_s, collective_timeout_s and "
@@ -201,26 +207,75 @@ class Application:
             self.valid_metrics.append(self._metrics(vd))
         Log.info("Finished loading data in %f seconds", time.time() - start)
 
+    def _snapshots(self):
+        """The snapshot manager (None with snapshot_freq 0), after the
+        resume from the newest valid snapshot when snapshot_resume is on
+        and the directory exists."""
+        cfg = self.config
+        if cfg.snapshot_freq <= 0:
+            return None
+        from .utils.checkpoint import CheckpointManager
+        snap_dir = cfg.snapshot_dir or cfg.output_model + ".snapshots"
+        resume = cfg.snapshot_resume and os.path.isdir(snap_dir)
+        manager = CheckpointManager(snap_dir, keep_last_k=cfg.snapshot_keep)
+        if resume:
+            state, _ = manager.load_latest()
+            if state is not None:
+                self.boosting.restore_training_state(state)
+        return manager
+
     def train(self):
-        """application.cpp:222-238."""
+        """application.cpp:222-238, with snapshots every snapshot_freq
+        iterations when it is set (application.py:203-360)."""
         cfg = self.config
         b = self.boosting
+        manager = self._snapshots()
+        self.last_snapshot_s = None
+
+        def maybe_snapshot():
+            """A snapshot at each cadence point, timed from the capture
+            (the scores' device -> host copies) through the atomic
+            write."""
+            if (manager is None or b.iter <= 0
+                    or b.iter % cfg.snapshot_freq):
+                return
+            t0 = time.perf_counter()
+            manager.save(b.capture_training_state(), b.iter)
+            self.last_snapshot_s = time.perf_counter() - t0
+
+        def snap_clamp(step):
+            """A fused block cut so the next snapshot point is a block
+            boundary."""
+            if manager is None:
+                return step
+            boundary = (b.iter // cfg.snapshot_freq + 1) * cfg.snapshot_freq
+            return min(step, max(1, boundary - b.iter))
+
         start = time.time()
         if b._fused_eligible():
-            # the whole run as fused blocks (gbdt.train_many)
-            b.train_many(cfg.num_iterations - b.iter)
+            # the whole run as fused blocks (gbdt.train_many), cut at the
+            # snapshot cadence when snapshots are on
+            if manager is None:
+                b.train_many(cfg.num_iterations - b.iter)
+            else:
+                stopped = False
+                while b.iter < cfg.num_iterations and not stopped:
+                    stopped = b.train_many(
+                        snap_clamp(cfg.num_iterations - b.iter))
+                    maybe_snapshot()
             Log.info("%f seconds elapsed, finished iteration %d (fused)",
                      time.time() - start, b.iter)
         elif cfg.metric_freq > 0 and b._fused_eligible(
                 ignore_train_metrics=True):
             # metric output is the only blocker: fused blocks of
-            # metric_freq iterations, the metrics printed between them
+            # metric_freq iterations, the metrics printed between them;
+            # each block also ends on the snapshot cadence
             done = b.iter
             while done < cfg.num_iterations:
                 nxt = min((done // cfg.metric_freq + 1) * cfg.metric_freq,
                           cfg.num_iterations)
-                step = nxt - done
-                if step == cfg.metric_freq:
+                step = snap_clamp(nxt - done)
+                if step == cfg.metric_freq or manager is not None:
                     stopped = b.train_many(step, ignore_train_metrics=True)
                 else:
                     # a tail shorter than a block: the per-iteration loop
@@ -240,6 +295,7 @@ class Application:
                     break
                 if stopped:
                     break
+                maybe_snapshot()
         else:
             for it in range(b.iter + 1, cfg.num_iterations + 1):
                 is_finished = b.train_one_iter(is_eval=True)
@@ -247,6 +303,7 @@ class Application:
                          time.time() - start, it)
                 if is_finished:
                     break
+                maybe_snapshot()
         b.save_model_to_file(-1, cfg.output_model)
         Log.info("Finished training")
 

@@ -681,12 +681,11 @@ class Config:
         """Reject settings whose code paths the port does not have yet,
         each naming its item of ROADMAP.md queue 1: training runs the
         serial learner with any of its histogram engines (masked,
-        frontier, gather-compacted; models/tree_learner.py) or the
-        leaf-contiguous builder (partitioned_build=true), with gbdt,
+        frontier, gather-compacted; models/tree_learner.py), the
+        leaf-contiguous builder (partitioned_build=true) or the
+        out-of-core streaming learner (out_of_core=true), with gbdt,
         dart or goss boosting and constant or linear leaves."""
         later = []
-        if self.out_of_core:
-            later.append("out_of_core=true (block-store training, item 5)")
         if self.tree_learner != "serial" or self.num_machines > 1:
             later.append(f"tree_learner={self.tree_learner} "
                          "(parallel learners, item 6)")

@@ -18,7 +18,9 @@
 //      lightgbm_tpu/ops/histogram.py build_histograms_pair (:263-274),
 //      over the chunks [c_first, c_last], and returns the (value,
 //      residual) pair, residual = -comp with a +0.0 for a zero
-//      compensation.
+//      compensation. For one block of an out-of-core pass
+//      (hist.cu hist_pair_fold), kahan_fold_carry folds the block's
+//      chunks into the running (acc, comp) carry instead, in place.
 // The files differ only in a `Rows` policy: where a row's bins come
 // from (uint8/int16 feature rows, int32 words of four uint8 features,
 // or uint8/int16 feature rows gathered through a compacted index
@@ -392,6 +394,43 @@ __global__ void kahan_fold(const float* __restrict__ partials,
   lo[e] = comp == 0.0f ? 0.0f : -comp;  // +0.0 residual, as the CPU path
 }
 
+// The fold of one block of an out-of-core pass: the same chunk-order
+// Kahan arithmetic as kahan_fold over all `chunks` chunk partials, but
+// seeded from the running carry (acc, comp) of the blocks before it
+// (comp in Kahan's sign, the negative residual) and writing the carry
+// back in place, so that folding a pass's blocks in row order walks the
+// chunk sequence of one fold over the whole array.
+template <int kAhead>
+__global__ void kahan_fold_carry(const float* __restrict__ partials,
+                                 int chunks, long cells,
+                                 float* __restrict__ acc_io,
+                                 float* __restrict__ comp_io) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= cells) return;
+  float acc = acc_io[e], comp = comp_io[e];
+  int c = 0;
+  for (; c + kAhead - 1 < chunks; c += kAhead) {
+    float v[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) v[i] = partials[(long)(c + i) * cells + e];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const float y = v[i] - comp;
+      const float t = acc + y;
+      comp = (t - acc) - y;
+      acc = t;
+    }
+  }
+  for (; c < chunks; ++c) {
+    const float y = partials[(long)c * cells + e] - comp;
+    const float t = acc + y;
+    comp = (t - acc) - y;
+    acc = t;
+  }
+  acc_io[e] = acc;
+  comp_io[e] = comp;
+}
+
 // ----------------------------------------------------------------- host
 
 inline int max_shared_bytes() {
@@ -420,17 +459,14 @@ cudaError_t allow_shared(int bytes) {
   return err;
 }
 
-// Launch both passes. A block takes Rows::kFeatureTile features (fewer
-// when there are fewer, shrunk by whole units until the block fits in
-// shared memory, then balanced over the tiles); `bounds` (device [begin,
-// cnt], with count_bounds a device count of compacted rows, or null)
-// picks the chunks the fold reads. The staged inputs must be 16-byte
-// aligned.
+// Launch the chunk partials. A block takes Rows::kFeatureTile features
+// (fewer when there are fewer, shrunk by whole units until the block
+// fits in shared memory, then balanced over the tiles). The staged
+// inputs must be 16-byte aligned.
 template <class Rows>
-int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
-           int num_bins, int num_slots, int num_feat, float* partials,
-           float* hi, float* lo, cudaStream_t stream,
-           bool count_bounds = false) {
+int launch_partials(const Rows& rows, const float* ghc_t, int n,
+                    int num_bins, int num_slots, int num_feat,
+                    float* partials, cudaStream_t stream) {
   constexpr int kU = Rows::kFeatPerUnit;
   static_assert(Rows::kFeatureTile % kU == 0 &&
                     Rows::kFeatureTile <= kMaxWarps,
@@ -464,13 +500,43 @@ int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
   chunk_partials<Rows><<<(unsigned)(chunks * tiles), 32 * ft, smem, stream>>>(
       rows, ghc_t, n, num_bins, num_slots, num_feat, ft, tiles, use_tags,
       partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Launch both passes; `bounds` (device [begin, cnt], with count_bounds a
+// device count of compacted rows, or null) picks the chunks the fold
+// reads.
+template <class Rows>
+int launch(const Rows& rows, const float* ghc_t, const int* bounds, int n,
+           int num_bins, int num_slots, int num_feat, float* partials,
+           float* hi, float* lo, cudaStream_t stream,
+           bool count_bounds = false) {
+  const int status = launch_partials(rows, ghc_t, n, num_bins, num_slots,
+                                     num_feat, partials, stream);
+  if (status != 0) return status;
+  const int chunks = n / kChunk;
   const long cells = (long)num_slots * num_feat * num_bins * 3;
   const int threads = 128;
   kahan_fold<32><<<(unsigned)((cells + threads - 1) / threads), threads, 0,
                   stream>>>(partials, bounds, count_bounds, chunks, cells,
                             hi, lo);
+  return (int)cudaGetLastError();
+}
+
+// Launch the chunk partials of one out-of-core block and their carry
+// fold into (acc, comp), in place.
+template <class Rows>
+int launch_carry(const Rows& rows, const float* ghc_t, int n, int num_bins,
+                 int num_feat, float* partials, float* acc, float* comp,
+                 cudaStream_t stream) {
+  const int status = launch_partials(rows, ghc_t, n, num_bins, 1, num_feat,
+                                     partials, stream);
+  if (status != 0) return status;
+  const long cells = (long)num_feat * num_bins * 3;
+  const int threads = 128;
+  kahan_fold_carry<32><<<(unsigned)((cells + threads - 1) / threads),
+                         threads, 0, stream>>>(partials, n / kChunk, cells,
+                                               acc, comp);
   return (int)cudaGetLastError();
 }
 

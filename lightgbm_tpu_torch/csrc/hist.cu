@@ -4,6 +4,9 @@
 // that carry the masked training path:
 //   _hist_kernel     (pallas_hist.py:62, pallas_call at :130)  -> masked_hist
 //   _frontier_kernel (pallas_hist.py:81, pallas_call at :177)  -> frontier_hist
+// and the out-of-core pass's block fold of lightgbm_tpu/ops/histogram.py
+//   hist_pair_fold_block (:277) / hist_pair_fold_collapse (:324)
+//                                                          -> hist_pair_fold
 //
 // Both compute, for L distinct leaf ids (L = 1 for masked_hist),
 //   hist[l, f, b, :] = sum_c [bins[f, c] == b] * [row_leaf[c] == leaf[l]]
@@ -22,6 +25,16 @@
 // ids (-1 outside the frontier). Rows of a leaf are scattered over the
 // array, so most 32-row steps of a small leaf hold none of its rows and
 // are skipped (kSkipEmptySteps).
+//
+// hist_pair_fold is masked_hist over one row block of an out-of-core
+// pass (data/ooc_learner.py): the block's chunk partials, then their
+// fold seeded from the carry (acc, comp) of the blocks before it and
+// written back in place (chunk_hist.cuh kahan_fold_carry). Blocks hold
+// whole 4096-row chunks, so a pass's blocks folded in row order walk the
+// chunk sequence of masked_hist over the whole array, and the collapse
+// acc + ((-comp) + 0.0) gives its bits. Bound per block: its bins, its
+// ghc_t and row_leaf slices read once, the carry read and written once
+// (2 x 2 x F*B*12 bytes); the partials' round trip comes on top.
 //
 // A block takes every feature up to 32 (kFeatureTile, one warp each):
 // a chunk's g, h, w and row_leaf are then staged once. Smaller tiles
@@ -94,6 +107,16 @@ int run(const void* bins, const float* ghc_t, const int* row_leaf,
                 partials, hi, lo, static_cast<cudaStream_t>(stream));
 }
 
+template <typename BinT>
+int run_carry(const void* bins, const float* ghc_t, const int* row_leaf,
+              const int* leaf_id, int num_feat, int n, int num_bins,
+              float* partials, float* acc, float* comp, void* stream) {
+  LeafRows<BinT> rows{static_cast<const BinT*>(bins), row_leaf, leaf_id, 1,
+                      {}};
+  return launch_carry(rows, ghc_t, n, num_bins, num_feat, partials, acc, comp,
+                      static_cast<cudaStream_t>(stream));
+}
+
 int dispatch(const void* bins, int bin_bytes, const float* ghc_t,
              const int* row_leaf, const int* leaf_ids, int num_leaf,
              int num_feat, int n, int num_bins, float* partials, float* hi,
@@ -129,6 +152,23 @@ int frontier_hist(const void* bins, int bin_bytes, const float* ghc_t,
                   float* hi, float* lo, void* stream) {
   return dispatch(bins, bin_bytes, ghc_t, row_leaf, leaf_ids, num_leaf,
                   num_feat, n, num_bins, partials, hi, lo, stream);
+}
+
+// One out-of-core block of R rows (R % 4096 == 0) folded into the
+// running (F, B, 3) Kahan carry of the rows with row_leaf == *leaf_id:
+// acc and comp are read and written in place. partials: (R/4096)*F*B*3
+// floats of scratch.
+int hist_pair_fold(const void* bins, int bin_bytes, const float* ghc_t,
+                   const int* row_leaf, const int* leaf_id, int num_feat,
+                   int n, int num_bins, float* partials, float* acc,
+                   float* comp, void* stream) {
+  if (bin_bytes == 1)
+    return run_carry<uint8_t>(bins, ghc_t, row_leaf, leaf_id, num_feat, n,
+                              num_bins, partials, acc, comp, stream);
+  if (bin_bytes == 2)
+    return run_carry<int16_t>(bins, ghc_t, row_leaf, leaf_id, num_feat, n,
+                              num_bins, partials, acc, comp, stream);
+  return kBadShape;
 }
 
 const char* hist_status_string(int status) {

@@ -13,7 +13,10 @@ in the JAX package (engine.py:250-330):
 - any user callback, a before-iteration callback (reset_parameter) or
   a custom objective: the per-iteration loop.
 `init_model` (a model file or a Booster) continues training from its
-trees. Resuming from a checkpoint is ROADMAP queue 1 item 4.
+trees. `resume_from` (a directory written by callback.checkpoint)
+restores the newest valid snapshot and trains the remaining rounds
+(engine.py:225-310): the fused paths then run in blocks cut at the
+snapshot cadence, with a snapshot at each block boundary.
 """
 
 import collections
@@ -46,13 +49,19 @@ def _init_predictor(init_model, device):
 
 def _train_blockwise(booster, callbacks_after_iter, init_iteration,
                      num_boost_round, is_valid_contain_train, feval,
-                     early_stopping_rounds):
+                     early_stopping_rounds, ckpt_cbs=(), start_offset=0):
     """Fused blocks with the per-iteration callbacks replayed
     (engine.py:37-127). Each block is one gbdt.train_many_eval; the
     metrics of every iteration inside it come from device score
     snapshots. An early-stop break mid-block drops the overshoot trees
     without touching the scores: the snapshot already is the kept
-    state."""
+    state.
+
+    Checkpoint callbacks (`ckpt_cbs`) fire at block boundaries only
+    (mid-block the model list already holds the block's trees); the
+    block is cut to the snapshot period and its boundaries aligned to
+    the cadence, so every cadence point is a boundary. `start_offset`
+    rounds were trained before a resume."""
     gbdt = booster.gbdt
     end = init_iteration + num_boost_round
     # the overshoot past the true stopping round costs at most block-1
@@ -62,6 +71,17 @@ def _train_blockwise(booster, callbacks_after_iter, init_iteration,
     else:
         block_full = min(num_boost_round,
                          max(5, min(int(early_stopping_rounds), 25)))
+    snap_period = min((cb.period for cb in ckpt_cbs if cb.period > 0),
+                      default=0)
+    if snap_period:
+        block_full = max(1, min(block_full, snap_period))
+
+    def fire_checkpoints(i):
+        for cb in ckpt_cbs:
+            cb(callback.CallbackEnv(
+                model=booster, cvfolds=None, iteration=i,
+                begin_iteration=init_iteration, end_iteration=end,
+                evaluation_result_list=[]))
 
     def run_callbacks(i):
         """One iteration's eval and after-iteration callbacks against the
@@ -80,9 +100,15 @@ def _train_blockwise(booster, callbacks_after_iter, init_iteration,
             return True
         return False
 
-    i = init_iteration
+    i = init_iteration + start_offset
     while i < end:
-        t_eff, snap = gbdt.train_many_eval(min(block_full, end - i))
+        step = min(block_full, end - i)
+        if snap_period:
+            # boundaries on the cadence (a resume starts off-cadence
+            # only where the newest snapshot did)
+            boundary = ((gbdt.iter // snap_period) + 1) * snap_period
+            step = min(step, max(1, boundary - gbdt.iter))
+        t_eff, snap = gbdt.train_many_eval(step)
         for t in range(t_eff):
             snap.set_scores_at(t, with_train=is_valid_contain_train)
             if run_callbacks(i + t):
@@ -106,6 +132,7 @@ def _train_blockwise(booster, callbacks_after_iter, init_iteration,
                 i += 1
             return
         i += t_eff
+        fire_checkpoints(i - 1)
 
 
 def train(params, train_set, num_boost_round=100, valid_sets=None,
@@ -116,11 +143,14 @@ def train(params, train_set, num_boost_round=100, valid_sets=None,
           device=None):
     """Train one booster on `device` (CUDA unless device="cpu"; with no
     card and no device it raises). Returns the Booster with
-    `best_iteration` set."""
-    if resume_from is not None:
-        raise NotImplementedError(
-            "train(resume_from=...): checkpoint resume is not ported yet "
-            "(ROADMAP queue 1 item 4)")
+    `best_iteration` set.
+
+    resume_from: a checkpoint directory (or CheckpointManager) written by
+    `callback.checkpoint(...)`. When it holds a valid snapshot, the full
+    training state (trees, scores, sampling RNG, early-stop trackers,
+    eval history) is restored and training continues from the
+    snapshot's iteration, to the model text of an uninterrupted run with
+    the same params and data. Without one it is a cold start."""
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     predictor = _init_predictor(init_model, device)
@@ -182,28 +212,72 @@ def train(params, train_set, num_boost_round=100, valid_sets=None,
     gbdt = booster.gbdt
     end = init_iteration + num_boost_round
 
+    all_cbs = callbacks_before_iter + callbacks_after_iter
+    ckpt_cbs = [cb for cb in callbacks_after_iter
+                if getattr(cb, "is_checkpoint", False)]
+    for cb in ckpt_cbs:
+        cb.bind_peers(all_cbs)
+    # resume: the newest valid snapshot (trees, scores, RNG streams,
+    # callback state) restored, the rounds it holds skipped
+    start_offset = 0
+    if resume_from is not None:
+        from .utils.checkpoint import CheckpointManager
+        manager = (resume_from if isinstance(resume_from, CheckpointManager)
+                   else CheckpointManager(resume_from))
+        state, _ = manager.load_latest()
+        if state is not None:
+            restorer = (ckpt_cbs[0] if ckpt_cbs
+                        else callback._Checkpoint(manager, 0))
+            restorer.restore_into(booster, state, all_cbs)
+            start_offset = min(gbdt.iter, num_boost_round)
+
     # fast path: nothing needs the round boundary. The default print
-    # callback is exempt: with no valid sets its evaluation list is
-    # empty and it prints nothing.
+    # callback is exempt (with no valid sets its evaluation list is
+    # empty and it prints nothing), and so are checkpoint callbacks:
+    # the run is cut into blocks at their cadence, a snapshot between
+    # blocks (the same trees: a block's length only moves the host
+    # syncs).
     if (not callbacks_before_iter and valid_sets is None and fobj is None
-            and all(cb is default_print_cb for cb in callbacks_after_iter)
+            and all(cb is default_print_cb or cb in ckpt_cbs
+                    for cb in callbacks_after_iter)
             and gbdt._fused_eligible()):
-        gbdt.train_many(num_boost_round)
+        periods = [cb.period for cb in ckpt_cbs if cb.period > 0]
+        if periods:
+            block = min(periods)
+            gbdt.warm_up_fused(min(block, num_boost_round))
+            stopped = False
+            while gbdt.iter < num_boost_round and not stopped:
+                # boundaries on the cadence (a resume may start off it)
+                boundary = ((gbdt.iter // block) + 1) * block
+                stopped = gbdt.train_many(
+                    min(boundary, num_boost_round) - gbdt.iter)
+                for cb in ckpt_cbs:
+                    cb(callback.CallbackEnv(
+                        model=booster, cvfolds=None,
+                        iteration=init_iteration + gbdt.iter - 1,
+                        begin_iteration=init_iteration, end_iteration=end,
+                        evaluation_result_list=[]))
+        elif num_boost_round > start_offset:
+            gbdt.train_many(num_boost_round - start_offset)
         booster.best_iteration = num_boost_round
         return booster
 
-    # blockwise: every callback is one train() made, so the
-    # per-iteration protocol can be replayed after each fused block;
-    # user callbacks may change the booster mid-run and keep the
+    # blockwise: every callback is one train() made (or a checkpoint),
+    # so the per-iteration protocol can be replayed after each fused
+    # block; user callbacks may change the booster mid-run and keep the
     # per-iteration loop
     if (valid_sets is not None and fobj is None and not callbacks_before_iter
-            and all(cb in engine_created for cb in callbacks_after_iter)
+            and all(cb in engine_created or cb in ckpt_cbs
+                    for cb in callbacks_after_iter)
             and gbdt._fused_eligible(ignore_train_metrics=True)):
-        _train_blockwise(booster, callbacks_after_iter, init_iteration,
-                         num_boost_round, is_valid_contain_train, feval,
-                         early_stopping_rounds)
+        _train_blockwise(booster, [cb for cb in callbacks_after_iter
+                                   if cb not in ckpt_cbs],
+                         init_iteration, num_boost_round,
+                         is_valid_contain_train, feval,
+                         early_stopping_rounds, ckpt_cbs=ckpt_cbs,
+                         start_offset=start_offset)
     else:
-        for i in range(init_iteration, end):
+        for i in range(init_iteration + start_offset, end):
             for cb in callbacks_before_iter:
                 cb(callback.CallbackEnv(
                     model=booster, cvfolds=None, iteration=i,

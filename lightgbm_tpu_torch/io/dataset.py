@@ -33,9 +33,14 @@ input, and a loader without a device, takes the host pass
 text load) and categorical columns always take the host pass, as in the
 JAX package. A failed build or launch raises: there is no fallback.
 
-Later slices of the port: out-of-core block stores (ROADMAP queue 1
-item 5), per-rank row partitions (item 6) and the training-time dataset
-profile (item 7).
+With out_of_core=true a file is binned straight into an on-disk block
+store (data/block_store.py load_or_build_block_store, reused across runs
+through its manifest) and a matrix is binned in RAM, then spilled into
+one (spill_anonymous); either way the dataset is an OutOfCoreDataset
+whose bins stay on disk.
+
+Later slices of the port: per-rank row partitions (ROADMAP queue 1 item
+6) and the training-time dataset profile (item 7).
 """
 
 import os
@@ -79,12 +84,6 @@ def bins_dtype(num_bins):
     if num_bins <= 32768:
         return np.int16
     return np.int32
-
-
-def _later_slice(what, item):
-    return NotImplementedError(
-        f"{what} is a later slice of lightgbm_tpu_torch (ROADMAP queue 1 "
-        f"item {item})")
 
 
 class BinaryDatasetError(Exception):
@@ -523,16 +522,25 @@ class DatasetLoader:
         self.predict_fun = predict_fun
         self.device = None if device is None else resolve_device(device)
 
-    def _check_slice(self):
-        if self.config.out_of_core:
-            raise _later_slice("out_of_core (block-store datasets)", 5)
-
     # ----------------------------------------------------------- from file
     def load_from_file(self, filename) -> CoreDataset:
         """A CSV/TSV/LibSVM file or a binary cache (the file itself or
         its `<file>.bin` sibling) -> CoreDataset."""
         cfg = self.config
-        self._check_slice()
+        if cfg.out_of_core:
+            # bin once into the block store next to the data file (or at
+            # ooc_dir), reused while its signature matches; the (F, N)
+            # matrix never exists (io/dataset.py:663-680)
+            if self.predict_fun is not None:
+                Log.fatal("out_of_core does not support continued "
+                          "training (init scores need resident raw "
+                          "values)")
+            if cfg.max_bad_rows > 0:
+                Log.warning("max_bad_rows=%d is not applied on the "
+                            "out-of-core streaming load path: malformed "
+                            "rows still abort the load", cfg.max_bad_rows)
+            from ..data.block_store import load_or_build_block_store
+            return load_or_build_block_store(self, filename)
         bin_path = str(filename) + ".bin"
         # the binary cache stores no raw values, which continued training
         # needs for init scores: take the text path then
@@ -838,8 +846,10 @@ class DatasetLoader:
         `data` may also be a column source (CscColumns): sparse inputs
         bin column by column, never densified. The columns in
         `categorical_features` and in the config's categorical_column
-        (comma-separated indices) bin as categories."""
-        self._check_slice()
+        (comma-separated indices) bin as categories. With out_of_core the
+        binned dataset is spilled into a block store (io/dataset.py
+        :1168-1190): that bounds training's residency, not
+        construction's."""
         if is_column_source(data):
             n = data.n
         else:
@@ -853,7 +863,11 @@ class DatasetLoader:
             return self._bin_with_mappers(data, reference, meta)
         categorical = (set(int(c) for c in categorical_features)
                        | self._categorical_columns())
-        return self._construct(data, None, set(), categorical, meta)
+        ds = self._construct(data, None, set(), categorical, meta)
+        if self.config.out_of_core:
+            from ..data.block_store import spill_anonymous
+            return spill_anonymous(ds, self.config)
+        return ds
 
     def _categorical_columns(self):
         """Column indices of the categorical_column config key; a matrix

@@ -5,8 +5,8 @@ The binary dataset cache is an npz archive whose members np.savez
 stores UNCOMPRESSED (ZIP_STORED), so a member's bytes sit contiguous
 inside the zip and `memmap_npz_member` maps them in place: a warm cache
 load does not materialize a second copy of the bin matrix on the way in
-(io/dataset.py load_binary). The out-of-core block store, the JAX
-module's other user, is a later slice of the port.
+(io/dataset.py load_binary). `crc32_file` is the out-of-core block
+store's digest (data/block_store.py).
 """
 
 import struct
@@ -80,3 +80,15 @@ def memmap_npz_member(path, name):
     except (OSError, ValueError, zipfile.BadZipFile):
         return None
 
+
+def crc32_file(path, chunk_bytes=1 << 22):
+    """zlib.crc32 of a whole file, streamed (block-digest verification;
+    data/block_store.py)."""
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(chunk_bytes)
+            if not chunk:
+                break
+            crc = zlib.crc32(chunk, crc)
+    return crc & 0xFFFFFFFF

@@ -56,13 +56,13 @@ import torch
 
 from ..ops import hist_kernels, traverse_kernels
 from ..telemetry.quality import tree_coeff_importance
-from ..utils import common, guardrails
+from ..utils import common, faults, guardrails
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
 from .score_updater import ScoreUpdater
 from .tree import Tree
-from .tree_learner import (SerialTreeLearner, create_tree_learner,
-                           pack_tree, tree_views, unpack_tree)
+from .tree_learner import (create_tree_learner, pack_tree, tree_views,
+                           unpack_tree)
 
 K_MIN_SCORE = -np.inf
 
@@ -456,6 +456,165 @@ class GBDT:
         self.num_init_iteration += len(other.models) // max(self.num_class, 1)
         self._device_model_cache = None
 
+    # -------------------------------------------------------- checkpointing
+    def _rng_registry(self):
+        """The named host RNG streams a resume must continue: the
+        feature sampler and DART's drop sampler (numpy RandomStates, the
+        JAX package's, so their states are interchangeable). Bagging and
+        GOSS are stateless, keyed on the iteration."""
+        regs = {}
+        learner = self.tree_learner
+        if learner is not None and getattr(learner, "random", None) is not None:
+            regs["feature_sampler"] = learner.random
+        if getattr(self, "_random_for_drop", None) is not None:
+            regs["drop_sampler"] = self._random_for_drop
+        return regs
+
+    def capture_training_state(self):
+        """The full mid-training state for utils/checkpoint.py
+        (gbdt.py:2025-2100), the JAX package's keys: what
+        restore_training_state needs to continue on the same config and
+        data to the model text of an uninterrupted run. The scores are
+        saved as their float32 bits, one device -> host copy each
+        (recomputing them from the trees would change the summation
+        order). The model text keeps real-valued thresholds only, so the
+        bin-space split encoding rides along: each tree's
+        threshold_in_bin and inner split features, and the inner
+        coefficient ids of its linear leaves."""
+        state = {
+            "state_version": 1,
+            "model_str": self.save_model_to_string(-1),
+            "iter": int(self.iter),
+            "num_init_iteration": int(self.num_init_iteration),
+            "num_class": int(self.num_class),
+            "train_score": self.train_score_updater.score.cpu().numpy(),
+            "train_score_layout": "local",
+            "valid_scores": [u.score.cpu().numpy()
+                             for u in self.valid_score_updaters],
+            "best_iter": [list(map(int, x)) for x in self.best_iter],
+            "best_score": [list(map(float, x)) for x in self.best_score],
+            "best_msg": [list(x) for x in self.best_msg],
+        }
+        for name, rng in self._rng_registry().items():
+            algo, keys, pos, has_gauss, cached = rng._rng.get_state()
+            state[f"rng_{name}"] = {"algo": algo, "pos": int(pos),
+                                    "has_gauss": int(has_gauss),
+                                    "cached": float(cached)}
+            state[f"rng_{name}_keys"] = np.asarray(keys)
+        n_splits, tib, sfi, lin_counts, lin_feats = [], [], [], [], []
+        for tree in self.models:
+            ns = tree.num_leaves - 1
+            n_splits.append(ns)
+            if ns > 0:
+                tib.append(np.asarray(tree.threshold_in_bin[:ns], np.int32))
+                sfi.append(np.asarray(tree.split_feature[:ns], np.int32))
+            if tree.is_linear:
+                cnts = np.asarray(tree.leaf_coeff_count, np.int32)
+                lin_counts.append(cnts)
+                lin_feats.append(np.concatenate(
+                    [tree.leaf_coeff_feat_inner[leaf, :cnts[leaf]]
+                     for leaf in range(tree.num_leaves)]
+                    or [np.zeros(0, np.int32)]).astype(np.int32))
+            else:
+                lin_counts.append(np.zeros(ns + 1, np.int32))
+                lin_feats.append(np.zeros(0, np.int32))
+
+        def cat(parts):
+            return np.concatenate(parts) if parts else np.zeros(0, np.int32)
+
+        state["tree_n_splits"] = np.asarray(n_splits, np.int32)
+        state["tree_threshold_in_bin"] = cat(tib)
+        state["tree_split_feature_inner"] = cat(sfi)
+        state["tree_leaf_coeff_counts"] = cat(lin_counts)
+        state["tree_leaf_feat_inner"] = cat(lin_feats)
+        return state
+
+    def restore_training_state(self, state):
+        """Inverse of capture_training_state on a freshly initialized
+        booster bound to the same config and datasets
+        (gbdt.py:2102-2195). The scores are written into the existing
+        device tensors (copy_), so a captured fused graph keeps updating
+        the score this booster reads. The bagging window, the prediction
+        caches and the stacked-tree caches describe the pre-restore state
+        and go; bagging and GOSS need nothing else (their draws are
+        functions of the iteration)."""
+        if int(state.get("state_version", 0)) != 1:
+            Log.fatal("Unsupported checkpoint state version %s",
+                      state.get("state_version"))
+        if int(state["num_class"]) != self.num_class:
+            Log.fatal("Checkpoint num_class %d does not match booster "
+                      "num_class %d", int(state["num_class"]), self.num_class)
+        n_valid = len(state.get("valid_scores", []))
+        if n_valid != len(self.valid_score_updaters):
+            Log.fatal("Checkpoint has %d valid-set scores but booster has "
+                      "%d valid sets bound", n_valid,
+                      len(self.valid_score_updaters))
+        self.load_model_from_string(state["model_str"])
+        n_splits = np.asarray(state.get("tree_n_splits", []), np.int32)
+        if len(n_splits) == len(self.models):
+            offsets = np.concatenate([[0], np.cumsum(n_splits)])
+            tib = np.asarray(state["tree_threshold_in_bin"], np.int32)
+            sfi = np.asarray(state["tree_split_feature_inner"], np.int32)
+            lin_counts = np.asarray(
+                state.get("tree_leaf_coeff_counts", []), np.int32)
+            lin_feats = np.asarray(
+                state.get("tree_leaf_feat_inner", []), np.int32)
+            leaf_off = np.concatenate([[0], np.cumsum(n_splits + 1)])
+            feat_pos = 0
+            for idx, tree in enumerate(self.models):
+                lo, hi = offsets[idx], offsets[idx + 1]
+                if hi > lo:
+                    tree.threshold_in_bin = tib[lo:hi].copy()
+                    tree.split_feature = sfi[lo:hi].copy()
+                if len(lin_counts) != leaf_off[-1]:
+                    continue  # a checkpoint without linear-leaf ids
+                cnts = lin_counts[leaf_off[idx]:leaf_off[idx + 1]]
+                if tree.is_linear:
+                    for leaf in range(tree.num_leaves):
+                        k = int(cnts[leaf])
+                        tree.leaf_coeff_feat_inner[leaf, :k] = \
+                            lin_feats[feat_pos:feat_pos + k]
+                        feat_pos += k
+                else:
+                    feat_pos += int(cnts.sum())
+        # load_model_from_string readies the trees for prediction (all
+        # init trees); a resume continues training
+        self.num_init_iteration = int(state["num_init_iteration"])
+        self.num_iteration_for_pred = 0
+        self.iter = int(state["iter"])
+        train_score = np.asarray(state["train_score"], dtype=np.float32)
+        score = self.train_score_updater.score
+        if train_score.shape != tuple(score.shape):
+            Log.fatal("Checkpoint train-score shape %s does not match "
+                      "dataset shape %s (different training data?)",
+                      train_score.shape, tuple(score.shape))
+        score.copy_(torch.from_numpy(train_score))
+        for updater, vs in zip(self.valid_score_updaters,
+                               state["valid_scores"]):
+            vs = np.asarray(vs, dtype=np.float32)
+            if vs.shape != tuple(updater.score.shape):
+                Log.fatal("Checkpoint valid-score shape %s does not match "
+                          "the valid set's %s", vs.shape,
+                          tuple(updater.score.shape))
+            updater.score.copy_(torch.from_numpy(vs))
+        self.best_iter = [list(x) for x in state.get("best_iter", [])]
+        self.best_score = [list(x) for x in state.get("best_score", [])]
+        self.best_msg = [list(x) for x in state.get("best_msg", [])]
+        for name, rng in self._rng_registry().items():
+            meta = state.get(f"rng_{name}")
+            keys = state.get(f"rng_{name}_keys")
+            if meta is None or keys is None:
+                continue
+            rng._rng.set_state((meta["algo"],
+                                np.asarray(keys, dtype=np.uint32),
+                                int(meta["pos"]), int(meta["has_gauss"]),
+                                float(meta["cached"])))
+        self._bag_rows = None
+        self._bag_window = None
+        self._device_model_cache = None
+        Log.info("Restored training state at iteration %d (%d trees)",
+                 self.iter, len(self.models))
+
     # --------------------------------------------------------------- bagging
     def _bagging(self, it, gradients=None, hessians=None):
         """gbdt.cpp:150-201: the (N,) float32 in-bag mask on the device,
@@ -497,6 +656,7 @@ class GBDT:
     # -------------------------------------------------------------- training
     def train_one_iter(self, gradients=None, hessians=None, is_eval=True):
         """gbdt.cpp:210-245. Returns True if training should stop."""
+        faults.crash_if_reached(self.iter)
         if gradients is None or hessians is None:
             if self.objective is None:
                 Log.fatal("No object function provided")
@@ -656,7 +816,7 @@ class GBDT:
                      or ignore_train_metrics)
                 and self.early_stopping_round <= 0
                 and not bool(getattr(cfg, "linear_tree", False))
-                and isinstance(self.tree_learner, SerialTreeLearner))
+                and getattr(self.tree_learner, "fused_capable", False))
 
     def _get_fused_fn(self, num_iters):
         """The block runner for this booster's learner, objective and
@@ -691,6 +851,9 @@ class GBDT:
         transfer and append the kept ones (gbdt.py:1184-1260). The
         train score is left at the block's final value (at a natural
         stop it still holds the discarded trees: callers fix that)."""
+        # a block is one device program: a preemption anywhere inside it
+        # loses the whole block, which crashing at its start models
+        faults.crash_if_reached(self.iter, num_iters)
         runner = self._get_fused_fn(num_iters)
         learner = self.tree_learner
         k = self.num_class

@@ -181,7 +181,20 @@ class ScoreUpdater:
 
     def deltas_by_stacked_device_trees(self, stk, scale):
         """(M, N) scaled deltas of M stacked trees (stacked_deltas) on
-        this dataset's device bins. No host sync."""
+        this dataset's device bins. No host sync. An out-of-core dataset
+        has no device bins: its rows' leaves come from a host walk over
+        the blocks (OutOfCoreDataset.stacked_leaves), and the same
+        float32 gather and scale follow on the device."""
+        if getattr(self.dataset, "block_store", None) is not None:
+            host = {k: stk[k].cpu().numpy() for k in (
+                "split_feature", "split_threshold_bin", "left_child",
+                "right_child", "n_splits")}
+            leaf = self.dataset.stacked_leaves(
+                host["split_feature"], host["split_threshold_bin"],
+                host["left_child"], host["right_child"], host["n_splits"],
+                stk["depth"])
+            return scale * torch.gather(stk["leaf_value"], 1,
+                                        torch.from_numpy(leaf).to(self.device))
         return stacked_deltas(self.dataset.device_bins(self.device),
                               self._is_cat(), stk, scale, self._decode())
 

@@ -512,6 +512,10 @@ class SerialTreeLearner:
     """Host-side driver of the device builder (tree_learner.h:19-71)."""
 
     name = "serial"
+    # the fused trainer may capture this learner's build (GBDT.
+    # _fused_eligible); the out-of-core learner's host drives every pass
+    fused_capable = True
+    streams_blocks = False
 
     def __init__(self, config, device=None):
         self.config = config
@@ -520,6 +524,11 @@ class SerialTreeLearner:
         self.train_set = None
 
     def init(self, train_set):
+        if (getattr(train_set, "block_store", None) is not None
+                and not self.streams_blocks):
+            Log.fatal("the training data is an out-of-core block store "
+                      "but out_of_core=false; set out_of_core=true (or "
+                      "rebuild the dataset in-RAM)")
         self.train_set = train_set
         cfg = self.config
         self.num_features = train_set.num_features
@@ -536,7 +545,7 @@ class SerialTreeLearner:
         # stored rows the builder streams (features, or bundle slots),
         # padded to whole packed words for the partitioned builder; the
         # virtual per-feature arrays pad with them only when unbundled
-        self.s_pad = self._pad_feature_count(train_set.bins.shape[0])
+        self.s_pad = self._pad_feature_count(self._stored_rows(train_set))
         self.f_pad = self.s_pad if plan is None else self.num_features
         extra = self.f_pad - self.num_features
         if extra:
@@ -606,6 +615,12 @@ class SerialTreeLearner:
         """Rows pad to a HIST_CHUNK multiple, as on the TPU: the kernels
         grid over whole 4096-row chunks."""
         return ((n + HIST_CHUNK - 1) // HIST_CHUNK) * HIST_CHUNK
+
+    @staticmethod
+    def _stored_rows(train_set):
+        """Stored rows of the dataset's bin matrix (features, or bundle
+        slots)."""
+        return train_set.bins.shape[0]
 
     def _pad_feature_count(self, f):
         if self.use_partitioned:
@@ -775,7 +790,12 @@ def tree_from_host(host, dataset, shrink=1.0, table=None) -> Tree:
 
 def create_tree_learner(learner_type, config, device=None):
     """Factory (src/treelearner/tree_learner.cpp:8-19): the serial
-    learner only, in this slice (Config.check_slice rejects the rest)."""
+    learner, or with out_of_core=true the block-store streaming learner
+    (data/ooc_learner.py; tree_learner.py:929-945). The parallel learners
+    are a later slice (Config.check_slice rejects them)."""
+    if getattr(config, "out_of_core", False) and learner_type == "serial":
+        from ..data.ooc_learner import OutOfCoreTreeLearner
+        return OutOfCoreTreeLearner(config, device)
     if learner_type != "serial":
         raise NotImplementedError(
             f"tree_learner={learner_type} is a later slice of "

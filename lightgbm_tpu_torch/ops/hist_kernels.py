@@ -6,6 +6,11 @@ Port of the three Pallas kernels of the JAX package:
   frontier_hist  <- _frontier_kernel (lightgbm_tpu/ops/pallas_hist.py:81, :177)
   seg_hist       <- _seg_hist_kernel (lightgbm_tpu/ops/ordered_hist.py:123, :156)
 
+of the out-of-core pass's block fold, an XLA program there:
+
+  hist_pair_fold <- hist_pair_fold_block / hist_pair_fold_collapse
+                    (lightgbm_tpu/ops/histogram.py:277, :324)
+
 and of the gather-compacted engine, an XLA program there:
 
   compact_rows   <- compact_gather_indices (lightgbm_tpu/ops/partition.py:44)
@@ -39,7 +44,9 @@ HIST_CHUNK-row chunk, a float32 partial accumulated in row order
 lightgbm_tpu/ops/histogram.py build_histograms_pair, returning the
 (value, residual) pair; seg_hist folds only the chunks that cover its
 segment, compacted_hist the max(ceil(count / HIST_CHUNK), 1) chunks of
-the compacted buffer. On the CPU they equal the kernels bit for bit;
+the compacted buffer, and hist_pair_fold one row block's chunks into a
+running (acc, comp) carry (hist_pair_collapse ends the pass with
+masked_hist's bits). On the CPU they equal the kernels bit for bit;
 on a CUDA tensor index_add_ adds in an arbitrary order, so there they
 agree to float32 rounding. The CPU tests use them; chip_smoke.py holds
 each kernel against them. Nothing on the training path calls them when
@@ -83,11 +90,12 @@ class KernelStats:
 
 
 # every kernel a CUDA graph of the trainer may capture: the histogram
-# kernels and the LambdaRank pair gradients (ops/rank_kernels.py)
+# kernels and the LambdaRank pair gradients (ops/rank_kernels.py); and
+# the out-of-core block fold, which runs outside any graph
 KERNELS = {name: KernelStats(name)
            for name in ("masked_hist", "frontier_hist", "seg_hist",
                         "compact_rows", "compacted_hist",
-                        "lambdarank_pairs")}
+                        "lambdarank_pairs", "hist_pair_fold")}
 # the launches recorded into the graph being captured (CapturedGraph)
 _CAPTURED = None
 
@@ -211,6 +219,8 @@ def _bind_hist(lib):
     lib.frontier_hist.restype = i
     lib.hist_status_string.argtypes = [i]
     lib.hist_status_string.restype = ctypes.c_char_p
+    lib.hist_pair_fold.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
+    lib.hist_pair_fold.restype = i
     lib.hist_max_leaves.argtypes = []
     lib.hist_max_leaves.restype = i
     lib.max_leaves = lib.hist_max_leaves()
@@ -343,6 +353,27 @@ def kahan_fold(partials, first=None, last=None):
     return acc, (-comp) + 0.0
 
 
+def fold_carry(partials, acc, comp):
+    """kahan_fold's chunk-order arithmetic over all (chunks, ...)
+    partials, seeded from the running carry (acc, comp) (comp in Kahan's
+    sign, the negative residual) -> the new carry: what
+    lightgbm_tpu/ops/histogram.py hist_pair_fold_block computes after
+    its chunk partials."""
+    for c in range(partials.shape[0]):
+        y = partials[c] - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc, comp
+
+
+def hist_pair_collapse(acc, comp):
+    """The histogram of a finished out-of-core pass: acc + ((-comp) +
+    0.0), the bits of masked_hist's value + residual over the whole
+    array (hist_pair_fold_collapse)."""
+    return acc + ((-comp) + 0.0)
+
+
 def _check_shapes(bins, ghc_t, row_leaf, leaf_ids, num_bins):
     if bins.dim() != 2:
         raise ValueError(f"bins must be (F, N), got {tuple(bins.shape)}")
@@ -378,6 +409,30 @@ def masked_hist_plain(bins, ghc_t, row_leaf, leaf_id, num_bins):
     hi, lo = frontier_hist_plain(bins, ghc_t, row_leaf,
                                  leaf_id.reshape(1), num_bins)
     return hi[0], lo[0]
+
+
+def _check_carry(acc, comp, bins, num_bins):
+    want = (bins.shape[0], int(num_bins), 3)
+    for name, t in (("acc", acc), ("comp", comp)):
+        if (tuple(t.shape) != want or t.dtype != torch.float32
+                or t.device != bins.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (F, B, 3) "
+                             f"float32 tensor {want} on {bins.device}")
+
+
+def hist_pair_fold_plain(acc, comp, bins, ghc_t, row_leaf, leaf_id,
+                         num_bins):
+    """Plain version of hist_pair_fold: the block's row-order chunk
+    partials of the rows with row_leaf == leaf_id, folded into the carry
+    (fold_carry), written into acc and comp, which it returns."""
+    _check_shapes(bins, ghc_t, row_leaf, leaf_id, num_bins)
+    _check_carry(acc, comp, bins, num_bins)
+    slot = leaf_slots(row_leaf, leaf_id.reshape(1))
+    parts = chunk_partials_plain(bins, ghc_t, slot, 1, int(num_bins))[:, 0]
+    new_acc, new_comp = fold_carry(parts, acc, comp)
+    acc.copy_(new_acc)
+    comp.copy_(new_comp)
+    return acc, comp
 
 
 def unpack_words(words):
@@ -565,6 +620,49 @@ def frontier_hist(bins, ghc_t, row_leaf, leaf_ids, num_bins):
         raise ValueError(f"frontier_hist: unsupported device {bins.device}")
     return _launch("frontier_hist", bins, ghc_t, row_leaf, leaf_ids,
                    num_bins)
+
+
+def hist_pair_fold(acc, comp, bins, ghc_t, row_leaf, leaf_id, num_bins,
+                   partials=None):
+    """Fold one out-of-core row block into the running Kahan carry of
+    the rows with row_leaf == leaf_id, in place; returns (acc, comp).
+
+    acc, comp (F, B, 3) float32, the carry of the pass's blocks before
+    this one (zeros at the start of a pass; comp the negative residual);
+    bins (F, R) uint8/int16, the block's bins, R % HIST_CHUNK == 0;
+    ghc_t (3, R) float32 and row_leaf (R,) int32, the block's slices;
+    leaf_id a (1,) int32 device tensor (no host sync). `partials`,
+    (R / HIST_CHUNK) * F * B * 3 floats, is the kernel's scratch (made
+    for the call without it). hist_pair_collapse ends the pass."""
+    if bins.device.type == "cpu":
+        return hist_pair_fold_plain(acc, comp, bins, ghc_t, row_leaf,
+                                    leaf_id, num_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(f"hist_pair_fold: unsupported device {bins.device}")
+    _check_shapes(bins, ghc_t, row_leaf, leaf_id, num_bins)
+    _check_carry(acc, comp, bins, num_bins)
+    for t in (bins, ghc_t, row_leaf, leaf_id):
+        if not t.is_contiguous():
+            raise ValueError("hist_pair_fold: inputs must be contiguous")
+    lib = _library("hist.cu")
+    f, n = bins.shape
+    b = int(num_bins)
+    dev = bins.device
+    need = (n // HIST_CHUNK) * f * b * 3
+    if partials is None:
+        partials = torch.empty(need, dtype=torch.float32, device=dev)
+    _scratch_tensor("hist_pair_fold partials", partials, torch.float32,
+                    need, dev)
+    status = lib.hist_pair_fold(bins.data_ptr(), _BIN_BYTES[bins.dtype],
+                                ghc_t.data_ptr(), row_leaf.data_ptr(),
+                                leaf_id.data_ptr(), f, n, b,
+                                partials.data_ptr(), acc.data_ptr(),
+                                comp.data_ptr(), _stream(dev))
+    if status != 0:
+        raise RuntimeError("hist_pair_fold launch failed: "
+                           f"{lib.hist_status_string(status).decode()}")
+    _count("hist_pair_fold")
+    return acc, comp
 
 
 def compact_scratch_ints(n):

@@ -1,5 +1,6 @@
-"""Fault injection for the serving path (the serving chaos hooks of
-lightgbm_tpu/utils/faults.py).
+"""Fault injection (port of lightgbm_tpu/utils/faults.py): the training
+fire points of the checkpoint and out-of-core paths, and the serving
+chaos hooks.
 
 Activation is env- or API-driven:
 
@@ -25,13 +26,43 @@ global still applies to every server that has no override:
   work until the fault clears — the queue grows and admission control
   must shed; clearing the fault un-wedges without a restart.
 
-The training faults (crashes, checkpoint corruption, rank faults) come
-with the port's fault-tolerance slice.
+Training faults (models/gbdt.py, utils/checkpoint.py,
+data/prefetch.py, data/block_store.py):
+
+- ``crash_at_iteration`` (iteration index): raise `InjectedFault`, or
+  `os._exit(43)` when ``hard_crash`` is also set, just before boosting
+  iteration k trains (a fused block containing iteration k crashes at
+  its start: the whole block is one device program).
+- ``hard_crash`` (flag): escalate `crash_at_iteration` to
+  `os._exit(43)`, a kill with no cleanup.
+- ``truncate_checkpoint`` (count): the next k checkpoint saves write
+  only the first half of the file's bytes.
+- ``corrupt_digest`` (count): the next k checkpoint saves flip a
+  payload byte after the digest was computed.
+- ``crash_in_checkpoint_write`` (count): the next k checkpoint saves
+  write half the payload to the sibling tmp file and `os._exit(43)`
+  before the atomic rename.
+- ``rank_crash_in_prefetch`` (rank index; -1 = every rank; the port
+  runs one process, rank 0): `os._exit(43)` from the block-prefetch
+  producer thread right after a block read lands in its staging ring.
+- ``bitrot_block_on_restart`` (block index): on a restarted attempt
+  (LIGHTGBM_TPU_RESTART_ATTEMPT > 0) flip one byte of that block's file
+  before the re-verification pass (BlockStore.reverify).
+
+The one-shot kills are disarmed on a restarted attempt.
 """
 
 import os
 
 ENV_VAR = "LIGHTGBM_TPU_FAULTS"
+
+# exit code of a hard_crash kill; tests assert on it
+HARD_CRASH_EXIT_CODE = 43
+
+
+class InjectedFault(RuntimeError):
+    """Raised by an armed injection point (soft crash mode)."""
+
 
 _active = {}
 
@@ -151,6 +182,90 @@ def error_rate_fires(state, rate):
         state["fired"] = should_have_fired
         return True
     return False
+
+
+# --------------------------------------------------------- training faults
+
+def _is_restarted_attempt():
+    """True inside a relaunch (LIGHTGBM_TPU_RESTART_ATTEMPT > 0): one-shot
+    faults must not fire again after the restart they provoke."""
+    return os.environ.get("LIGHTGBM_TPU_RESTART_ATTEMPT", "0") not in ("", "0")
+
+
+def crash_if_reached(first_iteration, num_iterations=1):
+    """Crash when `crash_at_iteration` falls inside [first_iteration,
+    first_iteration + num_iterations): called at the start of every
+    boosting iteration and of every fused block."""
+    k = _active.get("crash_at_iteration")
+    if not isinstance(k, int):
+        return
+    if first_iteration <= k < first_iteration + num_iterations:
+        if _active.get("hard_crash"):
+            os._exit(HARD_CRASH_EXIT_CODE)
+        raise InjectedFault(f"injected crash at boosting iteration {k}")
+
+
+def rank_crash_in_prefetch_if_reached():
+    """`rank_crash_in_prefetch`: hard-kill this process from the
+    prefetch producer thread (data/prefetch.py calls this right after a
+    block read lands in the staging ring). The port trains in one
+    process, rank 0: the value 0 or -1 fires."""
+    if _is_restarted_attempt():
+        return
+    value = _active.get("rank_crash_in_prefetch")
+    try:
+        value = int(value)
+    except (TypeError, ValueError):
+        return
+    if value in (-1, 0):
+        os._exit(HARD_CRASH_EXIT_CODE)
+
+
+def crash_in_checkpoint_write_if_armed(tmp_path, blob):
+    """`crash_in_checkpoint_write`: write half of `blob` to `tmp_path`
+    and hard-exit, a kill mid-write: the caller's atomic rename never
+    runs, so the previous checkpoint survives and the tmp file is the
+    debris a resume must ignore."""
+    if _is_restarted_attempt():
+        return
+    if not consume("crash_in_checkpoint_write"):
+        return
+    with open(tmp_path, "wb") as f:
+        f.write(blob[:max(1, len(blob) // 2)])
+        f.flush()
+        os.fsync(f.fileno())
+    os._exit(HARD_CRASH_EXIT_CODE)
+
+
+def bitrot_block_if_armed(block_path_of, lo, hi):
+    """`bitrot_block_on_restart`: on a restarted attempt, flip the last
+    byte of the armed block's file (value = block index) when it lies in
+    [lo, hi). `block_path_of` maps a block index to its file path.
+    Consumed once."""
+    if not _is_restarted_attempt():
+        return
+    target = _active.get("bitrot_block_on_restart")
+    if not isinstance(target, int) or not (lo <= target < hi):
+        return
+    if not consume("bitrot_block_on_restart"):
+        return
+    path = block_path_of(target)
+    with open(path, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def mangle_checkpoint_blob(blob):
+    """Apply `truncate_checkpoint` / `corrupt_digest` to the final
+    checkpoint file bytes. Returns the (possibly mangled) bytes."""
+    if consume("truncate_checkpoint"):
+        blob = blob[:max(1, len(blob) // 2)]
+    if consume("corrupt_digest"):
+        flip = len(blob) - 1  # payload tail: past header and digest
+        blob = blob[:flip] + bytes([blob[flip] ^ 0xFF])
+    return blob
 
 
 reload_from_env()

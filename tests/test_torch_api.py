@@ -313,27 +313,43 @@ def test_wide_libsvm_bundling_trains_as_jax():
 
 
 def _train_dart():
-    return lgt.train(dict(BASE, boosting_type="dart"),
-                     lgt.Dataset(*_data(n=300)), 1, device=CPU)
+    b = lgt.train(dict(BASE, boosting_type="dart"),
+                  lgt.Dataset(*_data(n=300)), 1, device=CPU)
+    assert type(b.gbdt).__name__ == "DART"
+    assert b.current_iteration() == 1
+
+
+def _cli_snapshots():
+    app = Application(["task=train", "snapshot_freq=2"], device=CPU)
+    assert app.config.snapshot_freq == 2
+
+
+def _resume_from():
+    with tempfile.TemporaryDirectory() as d:
+        b = lgt.train(BASE, lgt.Dataset(*_data(n=300)), 1, device=CPU,
+                      resume_from=d)     # no snapshot: a cold start
+    assert b.current_iteration() == 1
+
+
+def _train_out_of_core():
+    params = dict(BASE, out_of_core=True)
+    b = lgt.train(params, lgt.Dataset(*_data(n=300), params=params), 1,
+                  device=CPU)
+    assert b.gbdt.tree_learner.name == "out_of_core"
+    assert b.current_iteration() == 1
 
 
 @pytest.mark.parametrize("call", [
-    lambda: Application(["task=train", "snapshot_freq=2"], device=CPU),
-    lambda: lgt.train(BASE, lgt.Dataset(*_data(n=300)), 1, device=CPU,
-                      resume_from="ckpt"),
-    _train_dart,
-    lambda: lgt.train(dict(BASE, out_of_core=True),
-                      lgt.Dataset(*_data(n=300)), 1, device=CPU),
+    _cli_snapshots, _resume_from, _train_dart, _train_out_of_core,
     lambda: lgt.train(dict(BASE, tree_learner="data", num_machines=2),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
 ], ids=["cli_snapshots", "resume_from", "dart",
         "out_of_core", "parallel"])
 def test_remaining_refusals_name_their_roadmap_item(call):
-    if call is _train_dart:
-        # DART is the port's now: it trains (its refusal went)
-        b = call()
-        assert type(b.gbdt).__name__ == "DART"
-        assert b.current_iteration() == 1
+    if call in (_cli_snapshots, _resume_from, _train_dart,
+                _train_out_of_core):
+        # the port's now: each runs (its refusal went)
+        call()
         return
     with pytest.raises(NotImplementedError) as err:
         call()

@@ -21,6 +21,8 @@ t_eff, snapshots, natural stop, truncation) is the card's.
 - the guards and the fused eligibility answer as the JAX package's.
 """
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -433,7 +435,7 @@ def test_fused_eligible_matches_jax(extra, with_valid, ignore):
 def test_train_routes():
     """No callbacks: train_many; valid sets: the blockwise replay; a
     user callback or a custom objective: the per-iteration loop;
-    resume_from: a later slice (ROADMAP queue 1 item 4)."""
+    resume_from an empty directory: a cold start on the fast path."""
     x, y = _data(seed=2, n=1000)
     params = dict(BASE, objective="binary", metric="auc")
     calls = []
@@ -465,6 +467,13 @@ def test_train_routes():
     finally:
         type(gbdt_cls).train_many = orig_many
         type(gbdt_cls).train_many_eval = orig_eval
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        lgt.train(params, lgt.Dataset(x, y), 1, verbose_eval=False,
-                  device=CPU, resume_from="ckpt")
+    calls.clear()
+    with tempfile.TemporaryDirectory() as d:
+        type(gbdt_cls).train_many = lambda self, n, *a: calls.append(
+            ("many", n)) or orig_many(self, n, *a)
+        try:
+            b = lgt.train(dict(params, metric_freq=0), lgt.Dataset(x, y), 1,
+                          verbose_eval=False, device=CPU, resume_from=d)
+        finally:
+            type(gbdt_cls).train_many = orig_many
+    assert calls == [("many", 1)] and b.current_iteration() == 1

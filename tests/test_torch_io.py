@@ -196,9 +196,16 @@ def test_convert_trees_from_builder_output():
     {"tree_learner": "data", "num_machines": 2},
     {"tree_learner": "feature", "num_machines": 2}])
 def test_later_slice_settings_raise(params):
-    """The settings of a later slice raise; DART, GOSS and linear leaves
-    are this port's now and train one round."""
+    """The settings of a later slice raise; DART, GOSS, linear leaves and
+    out_of_core are this port's now and train one round."""
     x, y = _matrix(9, n=300)
+    if "out_of_core" in params:
+        p = dict(params, verbose=-1)
+        b = lgt.train(p, lgt.Dataset(x, y, params=p), 1,
+                      verbose_eval=False, device=CPU)
+        assert b.current_iteration() == 1
+        assert b.gbdt.tree_learner.name == "out_of_core"
+        return
     if set(params) <= {"boosting_type", "linear_tree"}:
         b = lgt.train(dict(params, verbose=-1), lgt.Dataset(x, y), 1,
                       verbose_eval=False, device=CPU)
