@@ -21,8 +21,8 @@ stages, same answers).
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
    kernels from lightgbm_tpu_torch/csrc with nvcc, all sources at once
-   (hist.cu, seg_hist.cu, compact.cu, compact_hist.cu, bin.cu, rank.cu
-   and traverse.cu);
+   (hist.cu, with the out-of-core hist_pair_fold, seg_hist.cu,
+   compact.cu, compact_hist.cu, bin.cu, rank.cu and traverse.cu);
 2. kernel checks: masked_hist and frontier_hist on the card at the
    training path's shapes (1M rows x 28 features, uint8, 255 bins; an
    int16 case with 300 bins; frontier with L = 1 at the root, every row
@@ -74,6 +74,9 @@ Phases (any failure exits non-zero and prints no result line):
    LibSVM file of the same columns, the result file line for line
    Booster.predict's values written as Predictor.predict_file writes
    them ({v:g}); the rest of the run trains on the card-built dataset;
+   the TSV then trains 5 rounds out of core through the file route
+   (binned straight into a block store beside it), model text equal
+   to the in-RAM load's;
 4. the masked main path at full width: the bench workload (1,000,000 x
    28 binary, 63 leaves, 255 bins, learning rate 0.1, 5 rounds)
    through lightgbm_tpu_torch.train, with launch counts read from zero;
@@ -144,6 +147,28 @@ Phases (any failure exits non-zero and prints no result line):
    (exact when the model text is equal, else within 1e-5 relative);
    once with the held-out labels (no stop) and once with labels drawn
    at random, where the stop breaks inside a block;
+9b. checkpoint and resume: on each path a run crashed in process
+   (InjectedFault) and resumed from its snapshot directory into a fresh
+   booster writes the uninterrupted run's model text byte for byte:
+   fused (10 rounds, snapshots every 4, crash at 6; the resumed graph
+   updates the booster's own score), blockwise (the 100k-row valid set,
+   early stopping: history and best iteration equal), per-iteration,
+   GOSS fused and DART; each snapshot's checkpoint_write_s and bytes,
+   the fused snapshot's decode and restore seconds;
+9c. out of core: hist_pair_fold (csrc/hist.cu) on one block of 262,144
+   and of 65,536 rows with a carry in flight, bit for bit its plain
+   version on the CPU, two launches equal, timed (L2 flushed) beside
+   its bound, its plain version, masked_hist over the same rows and one
+   index_add_ over the block's leaf rows; the blocks of a 1M-row pass
+   folded and collapsed bit-equal to masked_hist over the whole array;
+   the bench matrix spilled at both block sizes (4 and 16 blocks) and
+   trained 3 rounds, launch counts read from zero (one hist_pair_fold a
+   block a pass, no in-RAM histogram kernel), model text byte-equal to
+   the in-RAM masked run's, round times beside it, each pass's time
+   beside a pinned host-to-device copy of the same bytes, the
+   prefetcher's overlap_pct and wait_s, peak device memory beside the
+   in-RAM run's; a crash and resume of the 4-block run byte-equal to
+   its uninterrupted text;
 10. multiclass: the bench matrix with its logit cut at the quintiles (5
    classes), 10 rounds (50 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
@@ -234,8 +259,8 @@ Phases (any failure exits non-zero and prints no result line):
     traversal kernels from the serving main path and the multiclass
     serving, for bin_dense from the bench's construction, for
     lambdarank_pairs from the fused lambdarank run, for tree_lin_raw
-    from the linear phase's serving), the card line, and the result
-    line.
+    from the linear phase's serving, for hist_pair_fold from the
+    out-of-core runs), the card line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -3503,7 +3528,11 @@ def phase_goss(torch, lgt, hk, ds, comp_fused, timer):
         round_ms_median=float(np.median(block_ms[1:])) / GOSS_ROUNDS,
         profile=prof,
         weights_ms=timer(lambda: tg._goss_weights(it_dev, g, h), 20),
-        sort_ms=timer(lambda: torch.sort(score), 20))
+        sort_ms=timer(lambda: torch.sort(score), 20),
+        # the (K, N) gradients and hessians read and the (N,) weights
+        # written, over HBM bandwidth; the sort apart (sort_ms)
+        weights_bound_ms=1e3 * (2 * g.numel() + tg.num_data) * 4
+        / PEAK_BYTES_PER_S, weights_bound_by="bytes")
     fr = res["fused"]
     res["fused_vs_gbdt_round"] = {
         "goss_fused_ms": fr["round_ms_median"],
@@ -3517,7 +3546,8 @@ def phase_goss(torch, lgt, hk, ds, comp_fused, timer):
     log(f"goss fused blocks of {GOSS_ROUNDS} "
         f"{[round(v, 1) for v in block_ms]} ms (sampled blocks' round "
         f"{fr['round_ms_median']:.2f} ms); weights {fr['weights_ms']:.3f} ms "
-        f"(sort {fr['sort_ms']:.3f} ms) at {tg.num_data} rows; a replay: "
+        f"(sort {fr['sort_ms']:.3f} ms; bound without the sort "
+        f"{fr['weights_bound_ms']:.5f} ms) at {tg.num_data} rows; a replay: "
         f"busy {prof['device_busy_ms']} ms, histograms "
         f"{prof['hist_ms']:.2f} ms, idle share {prof['device_idle_share']}; "
         f"against gbdt (this run): {res['fused_vs_gbdt_round']}")
@@ -4077,8 +4107,10 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
     and int16 at max_bin 1023 and 3000); the bench's own construction
     (Dataset(X).construct() on the card, launches counted from zero)
     against device="cpu" and the host pass; the bench matrix through a
-    TSV file, the binary cache and training from both; the CLI. Returns
-    (the card-built dataset, report, kernel cases)."""
+    TSV file (left in `work` for the out-of-core file route, its path in
+    report["tsv"] and the model trained from it in
+    report["text_model"]), the binary cache and training from both; the
+    CLI. Returns (the card-built dataset, report, kernel cases)."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.io.dataset import CoreDataset, DatasetLoader
     from lightgbm_tpu_torch.io.parser import parse_text_file
@@ -4178,6 +4210,7 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
         booster = lgt.train(BENCH_PARAMS, d, N_ROUNDS, verbose_eval=False)
         texts.append(booster.model_to_string())
     res["model_text_equal"] = texts[0] == texts[1]
+    res["tsv"], res["text_model"] = tsv, texts[0]
     log(f"ingest files: TSV {res['tsv_bytes'] / 1e6:.0f} MB written in "
         f"{res['tsv_write_s']:.1f}s; parse {res['parse_s']:.2f}s, "
         f"Dataset(path) {res['text_load_s']:.2f}s (host binning of the "
@@ -4196,10 +4229,399 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
     check(res["model_text_equal"], "training from the cache gave another "
           "model than training from the text")
     del from_text, from_cache
-    os.remove(tsv)
     os.remove(cache)
     res["cli"] = cli_phase(torch, lgt, x, y, work)
     return ds, res, cases
+
+
+# ----------------------------------------------- checkpoint and resume
+
+RESUME_ROUNDS = 10
+RESUME_PERIOD = 4
+
+
+def crash_and_resume(torch, lgt, params, ds, rounds, period, crash_at, work,
+                     valid=None, per_iteration=False):
+    """An uninterrupted run; a run writing snapshots every `period`
+    rounds, crashed in process (InjectedFault) at iteration `crash_at`;
+    and a fresh booster resumed from the newest snapshot. The resumed
+    model text must equal the uninterrupted one byte for byte (with a
+    valid set, the eval history and best iteration too)."""
+    from lightgbm_tpu_torch import callback
+    from lightgbm_tpu_torch.utils import faults
+    from lightgbm_tpu_torch.utils.checkpoint import CheckpointManager
+    d = tempfile.mkdtemp(prefix="ckpt_", dir=work)
+
+    def run(ckpt=False, crash=None, resume=False):
+        cbs = [lambda env: None] if per_iteration else []
+        ck = callback.checkpoint(d, period=period) if ckpt else None
+        if ck is not None:
+            cbs.append(ck)
+        ev = {}
+        kw = ({} if valid is None else
+              {"valid_sets": [valid], "early_stopping_rounds": 5,
+               "evals_result": ev})
+        if crash is not None:
+            faults.set_fault("crash_at_iteration", crash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            b = lgt.train(dict(params), ds, rounds, verbose_eval=False,
+                          callbacks=cbs or None,
+                          resume_from=d if resume else None, **kw)
+            torch.cuda.synchronize()
+        except faults.InjectedFault:
+            b = None
+        finally:
+            faults.clear_faults()
+        return b, ev, ck, time.perf_counter() - t0
+
+    ref, ref_ev, _, ref_s = run()
+    crashed, _, ck, crash_s = run(ckpt=True, crash=crash_at)
+    snaps = CheckpointManager(d).checkpoints()
+    got, got_ev, _, resume_s = run(ckpt=True, resume=True)
+    res = {"rounds": rounds, "period": period, "crash_at": crash_at,
+           "crashed": crashed is None,
+           "snapshots_at_crash": [it for it, _ in snaps],
+           "snapshot_bytes": os.path.getsize(snaps[-1][1]) if snaps else 0,
+           "checkpoint_write_s": ck.last_write_s,
+           "uninterrupted_s": ref_s, "crashed_run_s": crash_s,
+           "resumed_run_s": resume_s,
+           "model_text_equal": (got is not None and got.model_to_string()
+                                == ref.model_to_string())}
+    if valid is not None:
+        res["history_equal"] = got_ev == ref_ev
+        res["best_iteration_equal"] = got.best_iteration == ref.best_iteration
+    if got is not None and got.gbdt._fused_cache:
+        runner = fused_runner(got)
+        res["fused_graph"] = runner.graph is not None
+        res["graph_score_is_booster_score"] = (
+            runner.score is got.gbdt.train_score_updater.score)
+    res["dir"] = d
+    return res
+
+
+def phase_resume(torch, lgt, ds, seed):
+    """Checkpoint and resume at full width: on each training path a run
+    crashed in process mid-run and resumed from its snapshot directory
+    into a fresh booster writes the uninterrupted run's model text byte
+    for byte: the fused fast path (RESUME_ROUNDS rounds, snapshots every
+    RESUME_PERIOD, the resumed graph updating the booster's own score),
+    the blockwise path (a 100k-row valid set, early stopping: history
+    and best iteration equal), the per-iteration path, GOSS fused and
+    DART. Each snapshot's write seconds (checkpoint_write_s) and bytes;
+    the fused case's restore timed apart (decode, then
+    restore_training_state into a fresh booster)."""
+    from lightgbm_tpu_torch.utils.checkpoint import CheckpointManager
+    res = {}
+    xv, yv = make_valid(100_000, seed)
+    cases = {
+        "fused": dict(params=BENCH_PARAMS, rounds=RESUME_ROUNDS,
+                      period=RESUME_PERIOD, crash_at=6),
+        "blockwise": dict(params=dict(BENCH_PARAMS, metric="auc"),
+                          rounds=RESUME_ROUNDS, period=RESUME_PERIOD,
+                          crash_at=6,
+                          valid=lgt.Dataset(xv, yv, reference=ds)),
+        "per_iteration": dict(params=BENCH_PARAMS, rounds=6, period=2,
+                              crash_at=5, per_iteration=True),
+        "goss_fused": dict(params=GOSS_PARAMS, rounds=GOSS_ROUNDS,
+                           period=RESUME_PERIOD, crash_at=6),
+        "dart": dict(params=DART_PARAMS, rounds=6, period=2, crash_at=5),
+    }
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as work:
+        for name, kw in cases.items():
+            r = res[name] = crash_and_resume(torch, lgt, ds=ds, work=work,
+                                             **kw)
+            log(f"resume {name}: crashed at {r['crash_at']} "
+                f"(snapshots {r['snapshots_at_crash']}, newest "
+                f"{r['snapshot_bytes'] / 1e6:.2f} MB, checkpoint_write_s "
+                f"{r['checkpoint_write_s']:.3f}); runs uninterrupted "
+                f"{r['uninterrupted_s']:.2f} s, crashed "
+                f"{r['crashed_run_s']:.2f} s, resumed "
+                f"{r['resumed_run_s']:.2f} s; model text equal "
+                f"{r['model_text_equal']}"
+                + "".join(f", {k} {r[k]}" for k in (
+                    "history_equal", "best_iteration_equal", "fused_graph",
+                    "graph_score_is_booster_score") if k in r))
+            check(r["crashed"], f"resume {name}: the injected crash did "
+                  "not fire")
+            check(r["model_text_equal"], f"resume {name}: the resumed model "
+                  "differs from the uninterrupted one")
+            for k in ("history_equal", "best_iteration_equal", "fused_graph",
+                      "graph_score_is_booster_score"):
+                check(r.get(k, True), f"resume {name}: {k} is false")
+        d = res["fused"].pop("dir")
+        t0 = time.perf_counter()
+        state, _ = CheckpointManager(d).load_latest()
+        decode_s = time.perf_counter() - t0
+        booster = lgt.Booster(dict(BENCH_PARAMS), ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster.gbdt.restore_training_state(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        res["fused"].update(decode_s=decode_s, restore_s=restore_s)
+        for r in res.values():
+            r.pop("dir", None)
+        log(f"resume: the fused case's newest snapshot decoded in "
+            f"{decode_s:.3f} s, restored into a fresh booster in "
+            f"{restore_s:.3f} s")
+        del booster, state
+    return res
+
+
+# ---------------------------------------------------------- out of core
+
+OOC_ROUNDS = 3
+OOC_BLOCK_ROWS = (262_144, 65_536)
+
+
+def fold_bound_ms(f, rows, bin_bytes, b, in_rows):
+    """Least time for one hist_pair_fold call: the block's bins, g/h/w
+    and row_leaf and the leaf id read once, the (F, B, 3) carry pair
+    read and written once, over HBM bandwidth; against three float32
+    adds per (leaf row, feature) over the float32 rate. Returns (ms,
+    bound_by)."""
+    nbytes = f * rows * bin_bytes + 16 * rows + 4 + 2 * 2 * f * b * 3 * 4
+    ops = 3.0 * f * in_rows
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fold_inputs(torch, rng, rows):
+    """(bins, ghc_t, row_leaf, leaf id) on the host: the bench shape's
+    (28, rows) uint8 bins at 255 bins, rows over 63 leaves, leaf 5."""
+    inbag = (rng.rand(rows) < 0.8).astype(np.float32)
+    return [torch.from_numpy(a) for a in (
+        rng.randint(0, MAX_BIN, size=(N_FEATURES, rows)).astype(np.uint8),
+        np.stack([rng.randn(rows).astype(np.float32) * inbag,
+                  rng.rand(rows).astype(np.float32) * inbag, inbag]),
+        rng.randint(0, 63, size=rows).astype(np.int32),
+        np.array([5], np.int32))]
+
+
+def fold_kernel_case(torch, hk, timer, rng, rows):
+    """hist_pair_fold on one out-of-core block of `rows` rows, seeded
+    with a carry in flight: bit for bit its plain version on the CPU,
+    two launches equal; timed (L2 flushed) beside its bound, the plain
+    version on the card, masked_hist over the same rows and one
+    index_add_ over the block's rows of the leaf."""
+    f, b = N_FEATURES, MAX_BIN
+    host = fold_inputs(torch, rng, rows)
+    dev = [t.to(DEVICE) for t in host]
+    acc0 = torch.from_numpy(rng.randn(f, b, 3).astype(np.float32))
+    comp0 = torch.from_numpy((rng.randn(f, b, 3) * 1e-7).astype(np.float32))
+    want = hk.hist_pair_fold_plain(acc0.clone(), comp0.clone(), *host, b)
+    outs = []
+    for _ in range(2):
+        acc, comp = acc0.to(DEVICE).clone(), comp0.to(DEVICE).clone()
+        hk.hist_pair_fold(acc, comp, *dev, b)
+        outs.append([t.cpu().clone() for t in (acc, comp)])
+    bitwise = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                  for g, w in zip(outs[0], want))
+    deterministic = all(torch.equal(g, h) for g, h in zip(*outs))
+    err = float((hk.hist_pair_collapse(*outs[0])
+                 - hk.hist_pair_collapse(*want)).abs().max())
+    acc, comp = acc0.to(DEVICE).clone(), comp0.to(DEVICE).clone()
+    acc_p, comp_p = acc0.to(DEVICE).clone(), comp0.to(DEVICE).clone()
+    partials = torch.empty((rows // hk.HIST_CHUNK) * f * b * 3,
+                           dtype=torch.float32, device=DEVICE)
+    in_leaf = (dev[2] == 5).nonzero()[:, 0]
+    keys = (torch.arange(f, device=DEVICE)[:, None] * b
+            + dev[0][:, in_leaf].long()).reshape(-1)
+    src = dev[1][:, in_leaf].t()[None].expand(f, -1, 3).reshape(-1, 3) \
+        .contiguous()
+    res = {"name": "hist_pair_fold",
+           "shape": {"F": f, "R": rows, "B": b, "bins": "uint8",
+                     "leaf_rows": int(in_leaf.numel())},
+           "max_abs_err": err, "bitwise_vs_cpu_plain": bitwise,
+           "deterministic": deterministic,
+           "ms": timer(lambda: hk.hist_pair_fold(acc, comp, *dev, b,
+                                                 partials=partials), 20),
+           "plain_ms": timer(lambda: hk.hist_pair_fold_plain(
+               acc_p, comp_p, *dev, b), 3),
+           "masked_hist_ms": timer(lambda: hk.masked_hist(*dev, b), 20),
+           "library_ms": timer(lambda: torch.zeros(
+               f * b, 3, device=DEVICE).index_add_(0, keys, src), 5)}
+    res["bound_ms"], res["bound_by"] = fold_bound_ms(
+        f, rows, 1, b, int(in_leaf.numel()))
+    log(f"hist_pair_fold {res['shape']}: bitwise vs CPU plain {bitwise}, "
+        f"deterministic {deterministic}, ms {res['ms']:.4f} (masked_hist "
+        f"on the same rows {res['masked_hist_ms']:.4f}) bound "
+        f"{res['bound_ms']:.4f} plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.4f}")
+    check(bitwise, "hist_pair_fold differs in bits from its plain version "
+          "on the CPU")
+    check(deterministic, "hist_pair_fold: two launches gave different bits")
+    del keys, src, partials
+    return res
+
+
+def block_fold_equals_masked(torch, hk, rng, n=1 << 20):
+    """The blocks of a pass over n rows folded on the card at each
+    OOC_BLOCK_ROWS, collapsed: masked_hist over the whole array, bit for
+    bit."""
+    dev = [t.to(DEVICE) for t in fold_inputs(torch, rng, n)]
+    hi, lo = hk.masked_hist(*dev, MAX_BIN)
+    want = (hi + lo).view(torch.int32)
+    out = {}
+    for rows in OOC_BLOCK_ROWS:
+        acc = torch.zeros(hi.shape, dtype=torch.float32, device=DEVICE)
+        comp = torch.zeros_like(acc)
+        for s in range(0, n, rows):
+            hk.hist_pair_fold(acc, comp, dev[0][:, s:s + rows].contiguous(),
+                              dev[1][:, s:s + rows].contiguous(),
+                              dev[2][s:s + rows], dev[3], MAX_BIN)
+        out[str(rows)] = bool(torch.equal(
+            hk.hist_pair_collapse(acc, comp).view(torch.int32), want))
+    log(f"block folds over {n} rows equal masked_hist bit for bit: {out}")
+    check(all(out.values()), "a blockwise fold differs from masked_hist")
+    return out
+
+
+def ooc_run(torch, lgt, x, y, block_rows):
+    """OOC_ROUNDS rounds out of core: the bench matrix binned on the card
+    and spilled at `block_rows`, then trained (round times, peak device
+    memory above the start, the prefetcher's counters). Returns (booster,
+    report, the out-of-core Dataset)."""
+    params = dict(BENCH_PARAMS, out_of_core=True, block_rows=block_rows)
+    t0 = time.time()
+    dso = lgt.Dataset(x, y, params=params).construct(device=DEVICE)
+    spill_s = time.time() - t0
+    mem0 = memory_mark(torch)
+    booster, round_ms = train_rounds(torch, lgt, params, dso, OOC_ROUNDS)
+    memory = memory_peak(torch, mem0)
+    learner = booster.gbdt.tree_learner
+    st = learner.stats()
+    passes = learner.prefetcher.passes
+    res = {"block_rows": block_rows,
+           "blocks": learner.train_set.block_store.num_blocks,
+           "spill_s": spill_s, "round_ms": round_ms,
+           "round_ms_median": float(np.median(round_ms)), "memory": memory,
+           "passes": passes, "pass_ms": 1e3 * st["prefetch_wall_s"] / passes,
+           **st}
+    return booster, res, dso
+
+
+def phase_ooc(torch, lgt, hk, timer, ds, x, y, seed):
+    """Out-of-core training at full width. hist_pair_fold at both block
+    sizes against its plain version and bound (fold_kernel_case), and the
+    blockwise fold against masked_hist over a 1M-row array; the in-RAM
+    masked run (OOC_ROUNDS rounds per iteration on the card-built
+    dataset); the bench matrix spilled at each OOC_BLOCK_ROWS (4 and 16
+    blocks) and trained OOC_ROUNDS rounds, launches counted from zero,
+    model text byte-equal to the in-RAM run's, round times, each pass's
+    time beside a pinned host-to-device copy of the same bytes, the
+    prefetcher's overlap_pct and wait_s, and peak device memory against
+    the in-RAM run's; then a crash and resume of the 4-block run."""
+    from lightgbm_tpu_torch import callback
+    from lightgbm_tpu_torch.utils import faults
+    rng = np.random.RandomState(seed + 14)
+    res = {"kernel_cases": [fold_kernel_case(torch, hk, timer, rng, rows)
+                            for rows in OOC_BLOCK_ROWS],
+           "block_fold_equal": block_fold_equals_masked(torch, hk, rng)}
+    mem0 = memory_mark(torch)
+    ref, ref_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds, OOC_ROUNDS)
+    res["in_ram"] = {"round_ms": ref_ms,
+                     "round_ms_median": float(np.median(ref_ms)),
+                     "memory": memory_peak(torch, mem0),
+                     "resident_bins_bytes": int(ds._core.bins.nbytes)}
+    want = ref.model_to_string()
+    n_pad = -(-N_ROWS // hk.HIST_CHUNK) * hk.HIST_CHUNK
+    pinned = torch.empty(N_FEATURES * n_pad, dtype=torch.uint8,
+                         pin_memory=True)
+    on_card = torch.empty_like(pinned, device=DEVICE)
+    res["pinned_h2d_ms"] = timer(
+        lambda: on_card.copy_(pinned, non_blocking=True), 10)
+    res["pinned_h2d_bytes"] = pinned.numel()
+    del pinned, on_card
+    hk.reset_launch_counts()
+    runs = {}
+    for rows in OOC_BLOCK_ROWS:
+        booster, r, dso = ooc_run(torch, lgt, x, y, rows)
+        r["model_text_equal"] = booster.model_to_string() == want
+        runs[rows] = (booster, dso)
+        res[f"blocks_{r['blocks']}"] = r
+        log(f"ooc {r['blocks']} blocks of {rows}: spill {r['spill_s']:.2f} "
+            f"s, round ms {[round(v, 1) for v in r['round_ms']]} (in RAM "
+            f"{[round(v, 1) for v in ref_ms]}), {r['passes']} passes of "
+            f"{r['pass_ms']:.2f} ms (pinned copy of the bytes "
+            f"{res['pinned_h2d_ms']:.3f} ms), overlap "
+            f"{r['prefetch_overlap_pct']}%, wait {r['prefetch_wait_s']:.3f}"
+            f" s, read {r['prefetch_read_s']:.3f} s; peak above start "
+            f"{r['memory']['peak_above_start_bytes'] / 1e6:.1f} MB (in RAM "
+            f"{res['in_ram']['memory']['peak_above_start_bytes'] / 1e6:.1f}"
+            f" MB + {res['in_ram']['resident_bins_bytes'] / 1e6:.1f} MB "
+            f"resident bins); model text equal {r['model_text_equal']}")
+        check(r["model_text_equal"], f"ooc {rows}: model text differs from "
+              "the in-RAM masked run's")
+    res["launches"] = hk.launch_counts()
+    # one launch a block of every pass (a pass folds one leaf)
+    want_folds = sum(res[f"blocks_{runs[r][1]._core.block_store.num_blocks}"]
+                     ["passes"] * runs[r][1]._core.block_store.num_blocks
+                     for r in OOC_BLOCK_ROWS)
+    check(res["launches"]["hist_pair_fold"] == want_folds
+          and want_folds >= OOC_ROUNDS * 63 * 20,
+          f"ooc: hist_pair_fold launched {res['launches']['hist_pair_fold']}"
+          f" times, not {want_folds}")
+    check(res["launches"]["masked_hist"] == 0
+          and res["launches"]["frontier_hist"] == 0,
+          f"ooc: an in-RAM kernel ran: {res['launches']}")
+
+    # crash at 2 with snapshots every 2, resume: the uninterrupted
+    # 4-block run's text
+    rows = OOC_BLOCK_ROWS[0]
+    params = dict(BENCH_PARAMS, out_of_core=True, block_rows=rows)
+    uninterrupted, dso = runs.pop(rows)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_") as d:
+        faults.set_fault("crash_at_iteration", 2)
+        try:
+            lgt.train(params, dso, OOC_ROUNDS, verbose_eval=False,
+                      callbacks=[callback.checkpoint(d, period=2)])
+            crashed = False
+        except faults.InjectedFault:
+            crashed = True
+        finally:
+            faults.clear_faults()
+        t0 = time.perf_counter()
+        got = lgt.train(params, dso, OOC_ROUNDS, verbose_eval=False,
+                        callbacks=[callback.checkpoint(d, period=2)],
+                        resume_from=d)
+        torch.cuda.synchronize()
+        res["resume"] = {"crashed": crashed,
+                         "resumed_s": time.perf_counter() - t0,
+                         "model_text_equal": got.model_to_string()
+                         == uninterrupted.model_to_string()}
+        del dso, got, uninterrupted, runs
+    log(f"ooc crash and resume: {res['resume']}")
+    check(res["resume"]["crashed"] and res["resume"]["model_text_equal"],
+          "ooc: the resumed run differs from the uninterrupted one")
+    return res
+
+
+def phase_ooc_file(torch, lgt, hk, tsv, want_text):
+    """The ingestion phase's 1M-row TSV trained out of core through the
+    file route (binned straight into a block store beside it, never a
+    matrix): the model text of the in-RAM load of the same file."""
+    params = dict(BENCH_PARAMS, has_header=True, out_of_core=True)
+    before = hk.KERNELS["hist_pair_fold"].launches
+    t0 = time.time()
+    dso = lgt.Dataset(tsv, params=params).construct(device=DEVICE)
+    load_s = time.time() - t0
+    t0 = time.time()
+    booster = lgt.train(params, dso, N_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    res = {"load_s": load_s, "train_s": time.time() - t0,
+           "blocks": dso._core.block_store.num_blocks,
+           "launches": hk.KERNELS["hist_pair_fold"].launches - before,
+           "model_text_equal": booster.model_to_string() == want_text}
+    log(f"ooc file route: block store built in {load_s:.2f} s "
+        f"({res['blocks']} blocks), {N_ROUNDS} rounds in "
+        f"{res['train_s']:.2f} s, model text equal to the in-RAM load's "
+        f"{res['model_text_equal']}")
+    check(res["model_text_equal"], "ooc file route: model text differs")
+    return res
 
 
 def kernel_line(case, launches, source, replaces):
@@ -4299,7 +4721,12 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             ds, report["ingest"], bin_cases = phase_ingest(
                 torch, lgt, timer, x, y, args.seed, work)
-        report["ingest"]["phase_s"] = time.time() - t0
+            report["ingest"]["phase_s"] = time.time() - t0
+            t0 = time.time()
+            report["ooc_file"] = phase_ooc_file(
+                torch, lgt, hk, report["ingest"].pop("tsv"),
+                report["ingest"].pop("text_model"))
+            report["ooc_file"]["phase_s"] = time.time() - t0
         booster, report["main"] = phase_main(torch, lgt, hk, ds, y)
         report["plain_tree"] = phase_plain_tree(torch, hk, booster)
         report["predict"] = phase_predict(torch, booster, x)
@@ -4325,6 +4752,15 @@ def main():
                                               booster, report["fused"])
         report["compacted"]["phase_s"] = time.time() - t0
         report["blockwise"] = phase_blockwise(torch, lgt, ds, args.seed)
+        t0 = time.time()
+        report["resume"] = phase_resume(torch, lgt, ds, args.seed)
+        report["resume"]["phase_s"] = time.time() - t0
+        log(f"resume phase: {report['resume']['phase_s']:.1f} s")
+        t0 = time.time()
+        report["ooc"] = phase_ooc(torch, lgt, hk, timer, ds, x, y, args.seed)
+        report["ooc"]["phase_s"] = time.time() - t0
+        log(f"ooc phase: {report['ooc']['phase_s']:.1f} s (file route "
+            f"{report['ooc_file']['phase_s']:.1f} s)")
         del booster, part
         t0 = time.time()
         report["multiclass"] = phase_multiclass(torch, lgt, hk, ds, x,
@@ -4438,6 +4874,14 @@ def main():
         "lightgbm_tpu_torch/csrc/rank.cu",
         "lightgbm_tpu/objectives/rank_device.py:54 (XLA "
         "make_lambdarank_gradfn, no Pallas counterpart)"))
+    # the out-of-core block fold at the 4-block run's block size, launches
+    # from the spilled runs (4 and 16 blocks) and the file route
+    kernels.append(kernel_line(
+        report["ooc"]["kernel_cases"][0],
+        report["ooc"]["launches"]["hist_pair_fold"]
+        + report["ooc_file"]["launches"], hist_src,
+        "lightgbm_tpu/ops/histogram.py:277 (XLA hist_pair_fold_block, and "
+        "hist_pair_fold_collapse :324; no Pallas counterpart)"))
     report["kernels"] = kernels
     _write(args.out, report)
     print(json.dumps({"kernels": kernels}))

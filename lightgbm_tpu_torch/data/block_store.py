@@ -295,10 +295,36 @@ class BlockStore:
 
     def read_block_into(self, i, out):
         """Copy block i into `out[:, :rows]` (the prefetcher's staging
-        buffers); returns the row count."""
-        mm = self.read_block(i)
-        rows = mm.shape[1]
-        out[:, :rows] = mm
+        buffers); returns the row count. When `out` is exactly the
+        block's C-contiguous (num_stored, rows) array, the file's data
+        is read straight into it (one read, no page-by-page copy out of
+        a mapping); otherwise through the memmap."""
+        rows = self.block_rows_of(i)
+        if (out.shape != (self.num_stored, rows) or out.dtype != self.dtype
+                or not out.flags.c_contiguous):
+            mm = self.read_block(i)
+            out[:, :mm.shape[1]] = mm
+            return mm.shape[1]
+        self._verify_block(i)
+        name = self.blocks[i]["file"]
+        try:
+            with open(self._block_path(i), "rb") as f:
+                version = np.lib.format.read_magic(f)
+                read_header = (np.lib.format.read_array_header_1_0
+                               if version == (1, 0) else
+                               np.lib.format.read_array_header_2_0)
+                shape, fortran, dtype = read_header(f)
+                if (shape != out.shape or fortran
+                        or np.dtype(dtype) != self.dtype):
+                    raise BlockStoreError(
+                        f"{name} holds {dtype}{shape}, manifest says "
+                        f"{self.dtype}{out.shape} — stale manifest")
+                got = f.readinto(memoryview(out).cast("B"))
+        except (OSError, ValueError) as e:
+            raise BlockStoreError(f"{name} is unreadable ({e})")
+        if got != out.nbytes:
+            raise BlockStoreError(f"{name} is truncated ({got} of "
+                                  f"{out.nbytes} data bytes)")
         return rows
 
     def feature_rows(self, i, feat):

@@ -28,7 +28,7 @@ blocking read too), which times the pass for the prefetcher's overlap.
 
 Bagging, GOSS and multiclass reach it through the same `inbag` and
 per-class builds; the feature sampler is the only host RNG (captured by
-GBDT._rng_registry). The fused trainer stays off (fused_capable): the
+GBDT._rng_registry). The fused trainer stays off (streams_blocks): the
 host drives every pass. Linear leaves stream the blocks through the fit
 (_BlockChunks).
 """
@@ -76,7 +76,6 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
     """SerialTreeLearner whose bin matrix stays on disk."""
 
     name = "out_of_core"
-    fused_capable = False
     streams_blocks = True
 
     def init(self, train_set):

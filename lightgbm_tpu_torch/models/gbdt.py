@@ -10,7 +10,9 @@ _fit_linear_tree refits each leaf on the host in float64, :961-994),
 continued training (merge_from), parameter resets, metric output with
 early stopping, prediction and the model text (save_model_to_string /
 load_model_from_string :1837-1945; format version 2 when a tree is
-linear).
+linear), and the training state of a checkpoint
+(capture_training_state / restore_training_state :1969-2195; a
+crash point at every iteration and fused block, utils/faults.py).
 
 Prediction routes as the JAX package's does (predict_raw and
 _use_device_predict :1679-1760): below DEVICE_PREDICT_CELLS rows x
@@ -61,8 +63,8 @@ from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
 from .score_updater import ScoreUpdater
 from .tree import Tree
-from .tree_learner import (create_tree_learner, pack_tree, tree_views,
-                           unpack_tree)
+from .tree_learner import (SerialTreeLearner, create_tree_learner,
+                           pack_tree, tree_views, unpack_tree)
 
 K_MIN_SCORE = -np.inf
 
@@ -816,7 +818,8 @@ class GBDT:
                      or ignore_train_metrics)
                 and self.early_stopping_round <= 0
                 and not bool(getattr(cfg, "linear_tree", False))
-                and getattr(self.tree_learner, "fused_capable", False))
+                and isinstance(self.tree_learner, SerialTreeLearner)
+                and not self.tree_learner.streams_blocks)
 
     def _get_fused_fn(self, num_iters):
         """The block runner for this booster's learner, objective and

@@ -512,9 +512,8 @@ class SerialTreeLearner:
     """Host-side driver of the device builder (tree_learner.h:19-71)."""
 
     name = "serial"
-    # the fused trainer may capture this learner's build (GBDT.
-    # _fused_eligible); the out-of-core learner's host drives every pass
-    fused_capable = True
+    # the out-of-core learner streams its bins from a block store; its
+    # host drives every pass, so it stays off the fused trainer
     streams_blocks = False
 
     def __init__(self, config, device=None):

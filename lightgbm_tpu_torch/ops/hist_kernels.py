@@ -340,16 +340,15 @@ def kahan_fold(partials, first=None, last=None):
     host read: a trailing zero chunk would still change the bits."""
     acc = torch.zeros_like(partials[0])
     comp = torch.zeros_like(partials[0])
+    if first is None:
+        acc, comp = fold_carry(partials, acc, comp)
+        return acc, (-comp) + 0.0
     for c in range(partials.shape[0]):
         y = partials[c] - comp
         t = acc + y
-        new_comp = (t - acc) - y
-        if first is None:
-            acc, comp = t, new_comp
-        else:
-            take = (first <= c) & (c <= last)
-            acc = torch.where(take, t, acc)
-            comp = torch.where(take, new_comp, comp)
+        take = (first <= c) & (c <= last)
+        comp = torch.where(take, (t - acc) - y, comp)
+        acc = torch.where(take, t, acc)
     return acc, (-comp) + 0.0
 
 

@@ -125,7 +125,6 @@ def test_resume_restores_eval_history_and_early_stopping(tmp_path):
     """The evals_result history and the early-stop trackers ride inside
     the snapshot: the histories are equal element for element (the
     reference writes snapshots at the same cadence)."""
-    (x, y), (xv, yv) = _data()
     ref, er_ref = _train(ckpt_dir=str(tmp_path / "ref"), early_stopping=6)
     d = str(tmp_path / "ck")
     crashed, _ = _train(ckpt_dir=d, crash_at=11, early_stopping=6)
