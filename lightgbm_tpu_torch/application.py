@@ -230,18 +230,12 @@ class Application:
         cfg = self.config
         b = self.boosting
         manager = self._snapshots()
-        self.last_snapshot_s = None
 
         def maybe_snapshot():
-            """A snapshot at each cadence point, timed from the capture
-            (the scores' device -> host copies) through the atomic
-            write."""
-            if (manager is None or b.iter <= 0
-                    or b.iter % cfg.snapshot_freq):
-                return
-            t0 = time.perf_counter()
-            manager.save(b.capture_training_state(), b.iter)
-            self.last_snapshot_s = time.perf_counter() - t0
+            """A snapshot at each cadence point."""
+            if manager is not None and b.iter > 0 \
+                    and b.iter % cfg.snapshot_freq == 0:
+                manager.save(b.capture_training_state(), b.iter)
 
         def snap_clamp(step):
             """A fused block cut so the next snapshot point is a block

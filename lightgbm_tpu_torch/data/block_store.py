@@ -12,9 +12,10 @@ Layout (one directory per store), the JAX package's, so either package
 reads a store the other wrote:
 
 - ``block-%05d.npy``: one (num_stored, rows) C-order packed-bin array
-  per block (uint8 up to 256 bins, int16 above), read through
-  `np.load(mmap_mode="r")`, a feature's row sliced without touching the
-  rest of the block.
+  per block (uint8 up to 256 bins, int16 above). A pass reads a whole
+  block, and a split a feature's row, with one read from the file into
+  its buffer; the host traversal and the linear fit map the block
+  (`np.load(mmap_mode="r")`).
 - ``sidecar.npz``: everything else a CoreDataset carries (bin mappers,
   metadata, feature names and maps), the binary cache's entry set.
 - ``manifest.json``: format version, dtype, per-block row ranges and
@@ -41,6 +42,7 @@ from ..io.metadata import Metadata
 from ..io.mmap_io import crc32_file
 from ..ops.hist_kernels import HIST_CHUNK
 from ..utils import faults
+from ..utils.checkpoint import atomic_open, atomic_write_bytes
 from ..utils.log import Log
 
 MANIFEST_NAME = "manifest.json"
@@ -56,24 +58,6 @@ class BlockStoreError(Exception):
 
 def _block_name(i):
     return f"block-{i:05d}.npy"
-
-
-def _atomic_write_bytes(path, blob):
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(blob)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
-def _atomic_save_npy(path, arr):
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.save(f, arr)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 def source_signature(filename):
@@ -128,7 +112,8 @@ class BlockStoreWriter:
         i = len(self._blocks)
         name = _block_name(i)
         path = os.path.join(self.directory, name)
-        _atomic_save_npy(path, np.ascontiguousarray(self._buf[:, :self._fill]))
+        with atomic_open(path) as f:
+            np.save(f, np.ascontiguousarray(self._buf[:, :self._fill]))
         self._blocks.append({
             "file": name,
             "rows": int(self._fill),
@@ -149,7 +134,7 @@ class BlockStoreWriter:
         sidecar_path = os.path.join(self.directory, SIDECAR_NAME)
         buf = io.BytesIO()
         np.savez(buf, **sidecar_arrays)
-        _atomic_write_bytes(sidecar_path, buf.getvalue())
+        atomic_write_bytes(sidecar_path, buf.getvalue())
         manifest = {
             "magic": BLOCK_MAGIC,
             "format_version": FORMAT_VERSION,
@@ -164,9 +149,8 @@ class BlockStoreWriter:
             "binning": binning,
             "build_count": int(build_count),
         }
-        _atomic_write_bytes(
-            os.path.join(self.directory, MANIFEST_NAME),
-            json.dumps(manifest, indent=1).encode())
+        atomic_write_bytes(os.path.join(self.directory, MANIFEST_NAME),
+                           json.dumps(manifest, indent=1).encode())
         return manifest
 
 
@@ -293,20 +277,14 @@ class BlockStore:
                 f"manifest says {self.dtype}{want} — stale manifest")
         return mm
 
-    def read_block_into(self, i, out):
-        """Copy block i into `out[:, :rows]` (the prefetcher's staging
-        buffers); returns the row count. When `out` is exactly the
-        block's C-contiguous (num_stored, rows) array, the file's data
-        is read straight into it (one read, no page-by-page copy out of
-        a mapping); otherwise through the memmap."""
-        rows = self.block_rows_of(i)
-        if (out.shape != (self.num_stored, rows) or out.dtype != self.dtype
-                or not out.flags.c_contiguous):
-            mm = self.read_block(i)
-            out[:, :mm.shape[1]] = mm
-            return mm.shape[1]
+    def _read_data(self, i, out, offset=0):
+        """Read bytes of block i's array, from element `offset` on,
+        straight from the file into the C-contiguous `out` (one read, no
+        page-by-page copy out of a mapping); the .npy header is checked
+        against the manifest first."""
         self._verify_block(i)
         name = self.blocks[i]["file"]
+        want = (self.num_stored, self.block_rows_of(i))
         try:
             with open(self._block_path(i), "rb") as f:
                 version = np.lib.format.read_magic(f)
@@ -314,23 +292,39 @@ class BlockStore:
                                if version == (1, 0) else
                                np.lib.format.read_array_header_2_0)
                 shape, fortran, dtype = read_header(f)
-                if (shape != out.shape or fortran
-                        or np.dtype(dtype) != self.dtype):
+                if shape != want or fortran or np.dtype(dtype) != self.dtype:
                     raise BlockStoreError(
                         f"{name} holds {dtype}{shape}, manifest says "
-                        f"{self.dtype}{out.shape} — stale manifest")
+                        f"{self.dtype}{want} — stale manifest")
+                f.seek(offset * self.dtype.itemsize, os.SEEK_CUR)
                 got = f.readinto(memoryview(out).cast("B"))
         except (OSError, ValueError) as e:
             raise BlockStoreError(f"{name} is unreadable ({e})")
         if got != out.nbytes:
             raise BlockStoreError(f"{name} is truncated ({got} of "
                                   f"{out.nbytes} data bytes)")
+        return out
+
+    def read_block_into(self, i, out):
+        """Copy block i into `out[:, :rows]` (the prefetcher's staging
+        buffers); returns the row count. A C-contiguous `out` of exactly
+        the block's shape is filled by one read from the file; otherwise
+        through the memmap."""
+        rows = self.block_rows_of(i)
+        if (out.shape == (self.num_stored, rows) and out.dtype == self.dtype
+                and out.flags.c_contiguous):
+            self._read_data(i, out)
+            return rows
+        mm = self.read_block(i)
+        out[:, :rows] = mm
         return rows
 
     def feature_rows(self, i, feat):
-        """One stored feature's row of block i (one contiguous read
-        through the memmap: the per-split partition update's path)."""
-        return np.array(self.read_block(i)[int(feat)])
+        """One stored feature's row of block i: one contiguous read from
+        the file (the per-split partition update's path)."""
+        rows = self.block_rows_of(i)
+        return self._read_data(i, np.empty(rows, self.dtype),
+                               int(feat) * rows)
 
     def load_sidecar(self):
         path = os.path.join(self.directory, SIDECAR_NAME)

@@ -20,7 +20,7 @@ subtraction are the masked engine's by construction:
   and its collapse gives masked_hist's bits;
 - the split column is read from the store: the split feature's id comes
   to the host (the one host read of a split), then its row of every
-  block is read through the memmaps and copied to the device.
+  block is read from the block files and copied to the device.
 So the trees equal the serial learner's with the masked engine
 (hist_compaction=false) bit for bit, on the CPU and on the card. Each
 pass also waits for its last fold (the JAX learner's collapse is a

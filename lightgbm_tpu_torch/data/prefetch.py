@@ -2,8 +2,8 @@
 lightgbm_tpu/data/prefetch.py :31-210, rebuilt for the card).
 
 The pipeline the out-of-core learner drives for every histogram pass
-(data/ooc_learner.py): a reader thread copies the next blocks out of the
-store's memmaps into a ring of `depth` pinned host buffers and issues
+(data/ooc_learner.py): a reader thread reads the next blocks from the
+store's files into a ring of `depth` pinned host buffers and issues
 each one's host -> device copy on a copy stream of its own, into a ring
 of `depth + 1` device buffers, while the compute stream folds the
 previous block into the histogram carry.

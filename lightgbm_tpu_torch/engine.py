@@ -244,7 +244,6 @@ def train(params, train_set, num_boost_round=100, valid_sets=None,
         periods = [cb.period for cb in ckpt_cbs if cb.period > 0]
         if periods:
             block = min(periods)
-            gbdt.warm_up_fused(min(block, num_boost_round))
             stopped = False
             while gbdt.iter < num_boost_round and not stopped:
                 # boundaries on the cadence (a resume may start off it)

@@ -111,6 +111,30 @@ def test_atomic_write_leaves_no_tmp_and_survives_existing(tmp_path):
     assert os.listdir(tmp_path) == ["model.txt"]
 
 
+def test_kill_mid_write_keeps_the_previous_snapshot(tmp_path):
+    """crash_in_checkpoint_write: half the file lands in the tmp sibling
+    and the process exits 43 before the rename; the previous snapshot
+    survives and is the newest valid one."""
+    import subprocess
+    import sys
+    d = str(tmp_path)
+    CheckpointManager(d).save({"state_version": 1, "tag": "good"}, 5)
+    code = ("import sys; from lightgbm_tpu_torch.utils import faults; "
+            "from lightgbm_tpu_torch.utils.checkpoint import "
+            "CheckpointManager; faults.set_fault("
+            "'crash_in_checkpoint_write', 1); CheckpointManager(sys.argv[1])"
+            ".save({'state_version': 1, 'tag': 'torn'}, 10)")
+    r = subprocess.run([sys.executable, "-c", code, d], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
+    assert r.returncode == faults.HARD_CRASH_EXIT_CODE, r.stderr
+    names = os.listdir(d)
+    assert any(".tmp." in n for n in names)           # the debris
+    state, path = CheckpointManager(d).load_latest()
+    assert state["tag"] == "good" and path.endswith("iter00000005.ckpt")
+
+
 def test_fire_points():
     with faults.injected_faults(crash_at_iteration=7):
         faults.crash_if_reached(3, 4)      # iterations 3..6

@@ -21,7 +21,6 @@ The oracle of the training cases is the port's own in-RAM run.
 import json
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -143,6 +142,21 @@ def test_corrupt_block_detected_on_first_read(tmp_path):
     with pytest.raises(BlockStoreError, match="corrupt"):
         BlockStore.open(str(d), verify=False).reverify(0, 1)
     assert BlockStore.open(str(d), verify=False).read_block(0) is not None
+
+
+def test_bitrot_between_attempts_caught_by_reverify(tmp_path, monkeypatch):
+    """faults.bitrot_block_on_restart flips a block's byte on a
+    restarted attempt only; the re-verification names the block."""
+    from lightgbm_tpu_torch.utils import faults
+    d = tmp_path / "st"
+    _tiny_store(d)
+    store = BlockStore.open(str(d))
+    with faults.injected_faults(bitrot_block_on_restart=1):
+        store.reverify(0, 4)                  # first attempt: no rot
+        monkeypatch.setenv("LIGHTGBM_TPU_RESTART_ATTEMPT", "1")
+        with pytest.raises(BlockStoreError, match="block-00001.npy is "
+                           "corrupt"):
+            store.reverify(0, 4)
 
 
 def test_interrupted_build_leaves_no_manifest(tmp_path):
@@ -340,6 +354,7 @@ def test_block_fold_matches_jax_hist_pair_fold_block(b, dtype):
     does: bit for bit in the segment formulation (float32 row-order
     sums, callbacks_disabled), rtol 1e-6 in the default CPU one, on
     non-negative statistics."""
+    import jax.numpy as jnp
     from lightgbm_tpu.ops.histogram import (callbacks_disabled,
                                             hist_pair_fold_block,
                                             hist_pair_fold_collapse)
