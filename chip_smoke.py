@@ -170,6 +170,22 @@ Phases (any failure exits non-zero and prints no result line):
    prefetcher's overlap_pct and wait_s, peak device memory beside the
    in-RAM run's; a crash and resume of the 4-block run byte-equal to
    its uninterrupted text;
+9d. the parallel learners on an in-process mesh of 4 shards spread over
+   the process's cards: mesh_fold (csrc/mesh.cu) bit for bit its plain
+   version on the card and on the CPU at K = 8 on (1, 28, 255, 3) (the
+   allgather pair at the root), (7, 255, 3) (reduce-scatter's owned
+   block) and on bfloat16 words (K = 4), two launches equal, timed (L2
+   flushed) beside its bound, its plain version and torch.sum over the
+   stack (other bits); then, launch counts read from zero, 3
+   per-iteration rounds on the bench data of the data learner
+   (reduce-scatter at the default comm_groups=2, which f_loc = 7 cuts
+   to one group, and at comm_groups=7; allgather; partitioned_build=
+   true), the feature learner and the voting learner: data and feature
+   trees equal to the serial masked learner's of the same rounds
+   (splits exact, leaves within rtol 1e-5, atol 1e-6), partitioned data to the
+   serial partitioned learner's (rtol 2e-4), voting train AUC above
+   0.8, every tree's collective bytes (counted by the mesh) equal to its
+   CommPlan; round times beside the serial ones, the mesh's placement;
 10. multiclass: the bench matrix with its logit cut at the quintiles (5
    classes), 10 rounds (50 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
@@ -261,7 +277,8 @@ Phases (any failure exits non-zero and prints no result line):
     serving, for bin_dense from the bench's construction, for
     lambdarank_pairs from the fused lambdarank run, for tree_lin_raw
     from the linear phase's serving, for hist_pair_fold from the
-    out-of-core runs), the card line, and the result line.
+    out-of-core runs, for mesh_fold from the parallel phase's runs),
+    the card line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
 """
@@ -957,10 +974,12 @@ def compact_kernel_cases(torch, hk, timer, rng, n=1 << 20):
 
 # ------------------------------------------------------------------ phases
 
-def train_rounds(torch, lgt, params, ds, rounds, first_score=None):
+def train_rounds(torch, lgt, params, ds, rounds, first_score=None,
+                 callbacks=()):
     """lightgbm_tpu_torch.train for `rounds` rounds, host ms per round
     (each ends in a device sync); `first_score`, a list, receives the
-    train score after the first round."""
+    train score after the first round; `callbacks` run after the timing
+    one."""
     round_ms = []
     marks = [None]
 
@@ -975,7 +994,7 @@ def train_rounds(torch, lgt, params, ds, rounds, first_score=None):
     timing_cb.order = 0
     marks[0] = time.perf_counter()
     booster = lgt.train(params, ds, rounds, verbose_eval=False,
-                        callbacks=[timing_cb])
+                        callbacks=[timing_cb, *callbacks])
     torch.cuda.synchronize()
     return booster, round_ms
 
@@ -4638,6 +4657,203 @@ def phase_ooc_file(torch, lgt, hk, tsv, want_text):
     return res
 
 
+PARALLEL_SHARDS = 4
+PARALLEL_ROUNDS = 3
+# (name, parameters over BENCH_PARAMS); every case at PARALLEL_SHARDS
+PARALLEL_CASES = (
+    ("data_rs", {"tree_learner": "data"}),
+    ("data_rs_groups7", {"tree_learner": "data", "comm_groups": 7}),
+    ("data_allgather", {"tree_learner": "data",
+                        "hist_exchange": "allgather"}),
+    ("feature", {"tree_learner": "feature"}),
+    ("voting", {"tree_learner": "voting"}),
+    ("data_partitioned", {"tree_learner": "data",
+                          "partitioned_build": "true"}),
+)
+
+
+def fold_bound_ms_mesh(k, cells, word_bytes):
+    """Least time for one mesh_fold call: the K components read once and
+    the output written once, over HBM bandwidth; against the fold's four
+    float32 adds per component and cell over the float32 rate. Returns
+    (ms, bound_by)."""
+    nbytes = k * cells * word_bytes + cells * 4
+    ops = 4.0 * k * cells
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mesh_fold_case(torch, mk, timer, rng, k, shape, dtype):
+    """mesh_fold on K components of `shape` (histogram-like words with
+    cancelling pairs and zeros of both signs): bit for bit its plain
+    version on the card and on the CPU, two launches equal; timed (L2
+    flushed) beside its bound, its plain version on the card and one
+    torch.sum over the stack (the library call; other bits)."""
+    host = (rng.randn(k, *shape) * 1e4).astype(np.float32)
+    host[k // 2:] -= host[:k - k // 2][::-1]
+    host += (rng.randn(k, *shape) * 1e-3).astype(np.float32)
+    flat = host.reshape(k, -1)
+    flat[:, 0] = -0.0
+    flat[1:, 1] = 0.0
+    comps = torch.from_numpy(host).to(dtype)
+    dev = comps.to(DEVICE)
+    a, b = mk.mesh_fold(dev), mk.mesh_fold(dev)
+    got = a.cpu().view(torch.int32)
+    bitwise_card = torch.equal(got, mk.mesh_fold_plain(dev).cpu().view(
+        torch.int32))
+    want = mk.mesh_fold_plain(comps)
+    bitwise_cpu = torch.equal(got, want.view(torch.int32))
+    deterministic = torch.equal(a, b)
+    cells = int(np.prod(shape))
+    res = {"name": "mesh_fold",
+           "shape": {"K": k, "cells": list(shape),
+                     "dtype": str(dtype).replace("torch.", "")},
+           "max_abs_err": float((a.cpu() - want).abs().max()),
+           "bitwise_vs_card_plain": bitwise_card,
+           "bitwise_vs_cpu_plain": bitwise_cpu,
+           "deterministic": deterministic,
+           "ms": timer(lambda: mk.mesh_fold(dev), 50),
+           "plain_ms": timer(lambda: mk.mesh_fold_plain(dev), 10),
+           "library_ms": timer(lambda: torch.sum(dev.float(), 0)
+                               if dtype != torch.float32
+                               else torch.sum(dev, 0), 50),
+           "library_bits_equal": torch.equal(
+               torch.sum(dev.float(), 0).cpu().view(torch.int32), got)}
+    res["bound_ms"], res["bound_by"] = fold_bound_ms_mesh(
+        k, cells, dev.element_size())
+    log(f"mesh_fold {res['shape']}: bitwise vs plain on the card "
+        f"{bitwise_card}, on the CPU {bitwise_cpu}, deterministic "
+        f"{deterministic}, ms {res['ms']:.4f} bound {res['bound_ms']:.5f} "
+        f"plain {res['plain_ms']:.4f} torch.sum {res['library_ms']:.4f} "
+        f"(same bits {res['library_bits_equal']})")
+    check(bitwise_card and bitwise_cpu, f"mesh_fold {res['shape']} differs "
+          "in bits from its plain version")
+    check(deterministic, "mesh_fold: two launches gave different bits")
+    return res
+
+
+def phase_parallel(torch, lgt, hk, timer, ds, y, seed):
+    """The data-, feature- and voting-parallel learners on an in-process
+    mesh of PARALLEL_SHARDS shards (see the module doc, 9d). Returns the
+    report and the mesh_fold cases (the first at the default
+    reduce-scatter's owned block)."""
+    from lightgbm_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.RandomState(seed + 15)
+    w = PARALLEL_SHARDS
+    f_loc = N_FEATURES // w
+    cases = [mesh_fold_case(torch, mk, timer, rng, 2 * w, (f_loc, MAX_BIN, 3),
+                            torch.float32),
+             mesh_fold_case(torch, mk, timer, rng, 2 * w,
+                            (1, N_FEATURES, MAX_BIN, 3), torch.float32),
+             mesh_fold_case(torch, mk, timer, rng, w, (f_loc, MAX_BIN, 3),
+                            torch.bfloat16)]
+    res = {"shards": w, "cards": torch.cuda.device_count(),
+           "kernel_cases": cases}
+    serial, ser_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds,
+                                  PARALLEL_ROUNDS)
+    part_params = dict(BENCH_PARAMS, partitioned_build="true")
+    serial_part, part_ms = train_rounds(torch, lgt, part_params, ds,
+                                        PARALLEL_ROUNDS)
+    res["serial"] = {"round_ms": ser_ms,
+                     "round_ms_median": float(np.median(ser_ms))}
+    res["serial_partitioned"] = {"round_ms": part_ms,
+                                 "round_ms_median": float(np.median(part_ms))}
+    hk.reset_launch_counts()
+    for name, extra in PARALLEL_CASES:
+        params = dict(BENCH_PARAMS, num_machines=w, **extra)
+        per_tree = []
+
+        def bytes_cb(env):
+            learner = env.model.gbdt.tree_learner
+            per_tree.append((dict(learner.mesh.collective_bytes),
+                             {k: learner.collective_bytes.get(
+                                 f"collective_bytes_{k}", 0)
+                              for k in learner.mesh.collective_bytes}))
+
+        bytes_cb.order = 1
+        before = hk.launch_counts()
+        t0 = time.time()
+        booster, round_ms = train_rounds(torch, lgt, params, ds,
+                                         PARALLEL_ROUNDS,
+                                         callbacks=[bytes_cb])
+        train_s = time.time() - t0
+        gbdt = booster.gbdt
+        learner = gbdt.tree_learner
+        after = hk.launch_counts()
+        ref = serial_part if name == "data_partitioned" else serial
+        same_splits = all(
+            np.array_equal(a.split_feature, b.split_feature)
+            and np.array_equal(a.threshold_in_bin, b.threshold_in_bin)
+            for a, b in zip(ref.gbdt.models, gbdt.models))
+        rel = max(float(np.max(np.abs(a.leaf_value - b.leaf_value)
+                               / np.maximum(np.abs(a.leaf_value), 1e-12)))
+                  for a, b in zip(ref.gbdt.models, gbdt.models))
+        plan = learner._comm_plan.per_tree(learner.split_iterations)
+        prev = dict.fromkeys(plan, 0)
+        bytes_ok = len(per_tree) == PARALLEL_ROUNDS
+        for counted, planned in per_tree:
+            bytes_ok &= counted == planned and all(
+                counted[k] - prev[k] == plan[k] for k in plan)
+            prev = counted
+        r = {"params": extra, "round_ms": round_ms,
+             "round_ms_median": float(np.median(round_ms)),
+             "train_s": train_s, "placement": learner.mesh.describe(),
+             "use_reduce_scatter": getattr(learner, "use_reduce_scatter",
+                                           None),
+             "comm_groups_effective": getattr(
+                 learner, "comm_groups_effective", None),
+             "use_partitioned": learner.use_partitioned,
+             "trees": len(gbdt.models),
+             "leaves": [t.num_leaves for t in gbdt.models],
+             "same_splits_as_serial": same_splits,
+             "leaf_rel_diff_vs_serial": rel,
+             "train_auc": auc(gbdt.get_training_score(), y),
+             "collective_bytes_per_tree": plan,
+             "collective_bytes_equal_plan": bool(bytes_ok),
+             "launches": {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}}
+        res[name] = r
+        ref_ms = part_ms if name == "data_partitioned" else ser_ms
+        log(f"parallel {name}: round ms {[round(v, 1) for v in round_ms]} "
+            f"(serial {[round(v, 1) for v in ref_ms]}), placement "
+            f"{r['placement']['devices']}, same splits {same_splits}, leaf "
+            f"rel {rel:.2e}, AUC {r['train_auc']:.5f}, bytes a tree {plan} "
+            f"equal to the plan {bytes_ok}, launches {r['launches']}")
+        check(len(gbdt.models) == PARALLEL_ROUNDS,
+              f"parallel {name}: {len(gbdt.models)} trees")
+        check(bytes_ok, f"parallel {name}: collective bytes differ from "
+              "the CommPlan")
+        check(r["launches"].get("seg_hist" if learner.use_partitioned
+                                else "masked_hist", 0)
+              >= w * PARALLEL_ROUNDS * 62,
+              f"parallel {name}: histogram launches {r['launches']}")
+        if name == "voting":
+            check(r["train_auc"] > 0.8, f"parallel voting: train AUC "
+                  f"{r['train_auc']}")
+        elif name == "data_partitioned":
+            check(same_splits and all(np.allclose(
+                a.leaf_value, b.leaf_value, rtol=2e-4, atol=1e-6)
+                for a, b in zip(ref.gbdt.models, gbdt.models)),
+                f"parallel {name}: trees differ from the serial "
+                f"partitioned learner's (rel {rel})")
+        else:
+            # atol: a leaf near zero keeps the float32 error of its
+            # parent's sums (the shards' chunks are not the serial ones)
+            check(same_splits and all(np.allclose(
+                a.leaf_value, b.leaf_value, rtol=1e-5, atol=1e-6)
+                for a, b in zip(ref.gbdt.models, gbdt.models)),
+                f"parallel {name}: trees differ from the serial masked "
+                f"learner's (rel {rel})")
+        if name.startswith("data") and name != "data_partitioned":
+            check(r["launches"].get("mesh_fold", 0) > 0,
+                  f"parallel {name}: mesh_fold never launched")
+        del booster, gbdt, learner
+    res["launches"] = hk.launch_counts()
+    check(res["launches"]["mesh_fold"] > 0, "mesh_fold never launched")
+    return res, cases
+
+
 def kernel_line(case, launches, source, replaces):
     """One entry of the `kernels` JSON line."""
     return {"name": case["name"], "route": "cuda", "source": source,
@@ -4775,6 +4991,11 @@ def main():
         report["ooc"]["phase_s"] = time.time() - t0
         log(f"ooc phase: {report['ooc']['phase_s']:.1f} s (file route "
             f"{report['ooc_file']['phase_s']:.1f} s)")
+        t0 = time.time()
+        report["parallel"], mesh_cases = phase_parallel(
+            torch, lgt, hk, timer, ds, y, args.seed)
+        report["parallel"]["phase_s"] = time.time() - t0
+        log(f"parallel phase: {report['parallel']['phase_s']:.1f} s")
         del booster, part
         t0 = time.time()
         report["multiclass"] = phase_multiclass(torch, lgt, hk, ds, x,
@@ -4896,6 +5117,14 @@ def main():
         + report["ooc_file"]["launches"], hist_src,
         "lightgbm_tpu/ops/histogram.py:277 (XLA hist_pair_fold_block, and "
         "hist_pair_fold_collapse :324; no Pallas counterpart)"))
+    # the mesh's exchange fold at the default reduce-scatter's owned
+    # block, launches from the parallel phase's runs
+    kernels.append(kernel_line(
+        mesh_cases[0], report["parallel"]["launches"]["mesh_fold"],
+        "lightgbm_tpu_torch/csrc/mesh.cu",
+        "lightgbm_tpu/parallel/mesh.py:138 (XLA kahan_fold under "
+        "pair_allreduce :161, pair_reduce_scatter :216 and compressed_* "
+        ":173, :230; no Pallas counterpart)"))
     report["kernels"] = kernels
     _write(args.out, report)
     print(json.dumps({"kernels": kernels}))

@@ -23,8 +23,9 @@ snapshot cadence.
 device="cpu". The command line has no device switch, so
 `python -m lightgbm_tpu_torch` always runs on the card. Settings whose
 code paths are later slices raise NotImplementedError naming their
-ROADMAP item: heartbeats, collective timeouts and more than one machine
-(queue 1 item 6), and the training telemetry, the profiler trace and the
+ROADMAP item: heartbeats, collective timeouts and a machine list (queue
+1 item 6b; num_machines > 1 alone trains the parallel learners on the
+in-process mesh), and the training telemetry, the profiler trace and the
 run history (item 7).
 """
 
@@ -101,12 +102,17 @@ class Predictor:
 
 
 def _check_slice(cfg):
-    """Refuse the CLI settings whose code paths are later slices."""
+    """Refuse the CLI settings whose code paths are later slices.
+    num_machines > 1 without a machine list trains on the in-process
+    mesh, as the JAX CLI does (lightgbm_tpu/application.py:11-14,
+    :138-144); a machine list, heartbeats and collective timeouts are the
+    multi-process runtime (item 6b)."""
     later = []
     if (cfg.heartbeat_timeout_s > 0 or cfg.collective_timeout_s > 0
-            or cfg.num_machines > 1):
+            or cfg.machine_list_file):
         later.append("heartbeat_timeout_s, collective_timeout_s and "
-                     "num_machines > 1 (parallel learners, item 6)")
+                     "machine_list_file (the multi-process runtime, "
+                     "item 6b)")
     if cfg.telemetry or cfg.profile or cfg.run_history:
         later.append("telemetry, profile and run_history (training "
                      "telemetry, item 7)")

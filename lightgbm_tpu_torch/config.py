@@ -684,11 +684,22 @@ class Config:
         frontier, gather-compacted; models/tree_learner.py), the
         leaf-contiguous builder (partitioned_build=true) or the
         out-of-core streaming learner (out_of_core=true), with gbdt,
-        dart or goss boosting and constant or linear leaves."""
+        dart or goss boosting and constant or linear leaves; and the
+        data-, feature- and voting-parallel learners on an in-process
+        mesh of num_machines shards (parallel/learners.py). The
+        multi-process runtime (a machine list, heartbeats, collective
+        timeouts, the out-of-core gang learner) is item 6b."""
         later = []
-        if self.tree_learner != "serial" or self.num_machines > 1:
-            later.append(f"tree_learner={self.tree_learner} "
-                         "(parallel learners, item 6)")
+        if self.machine_list_file:
+            later.append("machine_list_file (multi-process membership: "
+                         "the multi-process runtime, item 6b)")
+        if self.heartbeat_timeout_s > 0 or self.collective_timeout_s > 0:
+            later.append("heartbeat_timeout_s and collective_timeout_s "
+                         "(the multi-process runtime, item 6b)")
+        if self.out_of_core and self.tree_learner != "serial":
+            later.append(f"out_of_core with tree_learner="
+                         f"{self.tree_learner} (the out-of-core gang "
+                         "learner of the multi-process runtime, item 6b)")
         if later:
             raise NotImplementedError(
                 "lightgbm_tpu_torch does not run " + "; ".join(later)

@@ -691,6 +691,10 @@ class GBDT:
                 extra = ((torch.isfinite(gradients[k]).all()
                           & torch.isfinite(hessians[k]).all()),)
             host, extras = learner.fetch(out, extra)   # the tree's one sync
+            if learner.meshed:
+                # the mesh's wire bytes of this tree (parallel/mesh.py
+                # CommPlan), a 0-split tree's root exchange included
+                learner.account_tree_collectives()
             if extra and not extras[0]:
                 guardrails.guard_gradients(gradients.cpu().numpy(),
                                            hessians.cpu().numpy(),
@@ -819,7 +823,8 @@ class GBDT:
                 and self.early_stopping_round <= 0
                 and not bool(getattr(cfg, "linear_tree", False))
                 and isinstance(self.tree_learner, SerialTreeLearner)
-                and not self.tree_learner.streams_blocks)
+                and not self.tree_learner.streams_blocks
+                and not self.tree_learner.meshed)
 
     def _get_fused_fn(self, num_iters):
         """The block runner for this booster's learner, objective and

@@ -67,7 +67,9 @@ def _partition_segment(words, ghc, perm, seg_b, seg_c, feat, thr, cat,
 def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
                            num_bin_pf, is_cat, *, num_leaves, max_bin,
                            params: SplitParams, max_depth, cache_hists=True,
-                           expand_fn=_identity, decode_fn=unpack_feature):
+                           expand_fn=_identity, decode_fn=unpack_feature,
+                           hist_reduce_fn=_identity, evaluate_fn=None,
+                           sum_psum_fn=_identity):
     """Grow one leaf-wise tree over the packed-word layout on
     `words.device`. No host synchronization.
 
@@ -85,6 +87,11 @@ def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
         split scan (BundleMaps.expand when bundled).
       decode_fn: (words, feature) -> (N_pad,) int32 bins of the split
         feature (BundleMaps.decode when bundled).
+      hist_reduce_fn, evaluate_fn, sum_psum_fn: the parallel learners'
+        hooks (the JAX builder's, partitioned.py:110-116).
+        hist_reduce_fn reduces every segment histogram across row shards
+        (the data-parallel learner's psum; by default the identity);
+        evaluate_fn and sum_psum_fn are build_tree_device's.
 
     Returns the same output dict as build_tree_device; its row_leaf is
     in original row order.
@@ -95,12 +102,17 @@ def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
     b = int(max_bin)
     i32 = torch.int32
 
+    if evaluate_fn is None:
+        def evaluate_fn(hist3, sum_g, sum_h, cnt):
+            return find_best_split(hist3, sum_g, sum_h, cnt, num_bin_pf,
+                                   is_cat, feature_mask, params)
+
     def scan(hist3, sum_g, sum_h, cnt):
-        return find_best_split(expand_fn(hist3), sum_g, sum_h, cnt,
-                               num_bin_pf, is_cat, feature_mask, params)
+        return evaluate_fn(expand_fn(hist3), sum_g, sum_h, cnt)
 
     def leaf_histogram(words_c, ghc_c, bounds):
-        return _collapse(segment_histograms(words_c, ghc_c, bounds, b))
+        return hist_reduce_fn(_collapse(segment_histograms(words_c, ghc_c,
+                                                           bounds, b)))
 
     ghc = torch.stack([grad * inbag, hess * inbag, inbag])  # (3, N_pad)
     # segment table: [begin, cnt] per leaf; FULL row counts (in-bag +
@@ -110,7 +122,7 @@ def build_tree_partitioned(words, grad, hess, inbag, feature_mask,
 
     # ---- root
     hist_root = leaf_histogram(words, ghc, seg[0])
-    root_g, root_h, root_c = root_sums(hist_root)
+    root_g, root_h, root_c = (sum_psum_fn(s) for s in root_sums(hist_root))
     st = LeafState(l, scan(hist_root, root_g, root_h, root_c), root_c, dev)
     perm = torch.arange(n_pad, dtype=i32, device=dev)  # position -> row
     pos = torch.arange(n_pad, dtype=i32, device=dev)

@@ -389,7 +389,9 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
                       masked_fn=masked_histograms,
                       frontier_fn=frontier_histograms,
                       compacted_fn=compacted_histograms,
-                      expand_fn=_identity, split_col_fn=None):
+                      expand_fn=_identity, split_col_fn=None,
+                      hist_psum_fn=_collapse, sum_psum_fn=_identity,
+                      evaluate_fn=None):
     """Grow one leaf-wise tree on `bins.device`. No host synchronization.
 
     Args:
@@ -417,18 +419,34 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
       split_col_fn: (bins, feature (int64 (1,))) -> (N_pad,) int32 bin
         column of the split feature (BundleMaps.split_col for a bundled
         dataset; by default the feature's row).
+      hist_psum_fn, sum_psum_fn, evaluate_fn: the hooks of the parallel
+        learners (parallel/learners.py; the JAX builder's, :187-330).
+        hist_psum_fn turns every (value, residual) pair an engine gives
+        into the histogram the builder uses (by default `hi + lo`); a
+        data-parallel shard exchanges it with its peers, and under
+        reduce-scatter gets back only its owned (f_loc, B, 3) block, in
+        which the cache and the subtraction then stay. sum_psum_fn
+        reduces each scalar root sum across row shards (by default the
+        identity). evaluate_fn (hist3, sum_g, sum_h, cnt) -> SplitInfo
+        replaces the split scan over the expanded histogram; it is
+        called on the root and on both children at once (a leading
+        batch axis of 2).
 
     Returns a dict of device tensors: the tree arrays, n_splits and the
     final (N_pad,) row -> leaf partition.
     """
     dev = bins.device
-    f, n_pad = bins.shape
+    n_pad = bins.shape[1]
     l = int(num_leaves)
     b = int(max_bin)
 
+    if evaluate_fn is None:
+        def evaluate_fn(hist3, sum_g, sum_h, cnt):
+            return find_best_split(hist3, sum_g, sum_h, cnt, num_bin_pf,
+                                   is_cat, feature_mask, params)
+
     def scan(hist3, sum_g, sum_h, cnt):
-        return find_best_split(expand_fn(hist3), sum_g, sum_h, cnt,
-                               num_bin_pf, is_cat, feature_mask, params)
+        return evaluate_fn(expand_fn(hist3), sum_g, sum_h, cnt)
 
     if split_col_fn is None:
         def split_col_fn(bins, feat):
@@ -442,14 +460,16 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
     row_leaf = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     root_id = torch.zeros(1, dtype=torch.int32, device=dev)
     if use_frontier:
-        hist_root = _collapse(frontier_fn(bins, ghc_t, row_leaf, root_id,
-                                          b))[0]
+        hist_root = hist_psum_fn(frontier_fn(bins, ghc_t, row_leaf, root_id,
+                                             b))[0]
     else:
-        hist_root = _collapse(masked_fn(bins, ghc_t, row_leaf, root_id, b))
-    root_g, root_h, root_c = root_sums(hist_root)
+        hist_root = hist_psum_fn(masked_fn(bins, ghc_t, row_leaf, root_id, b))
+    root_g, root_h, root_c = (sum_psum_fn(s) for s in root_sums(hist_root))
     st = LeafState(l, scan(hist_root, root_g, root_h, root_c), root_c, dev)
     if cache_hists:
-        hist_cache = torch.zeros((l, f, b, 3), dtype=torch.float32,
+        # in the histogram space of hist_psum_fn (a reduce-scatter
+        # shard's owned block)
+        hist_cache = torch.zeros((l, *hist_root.shape), dtype=torch.float32,
                                  device=dev)
         hist_cache[0] = hist_root
 
@@ -466,19 +486,19 @@ def build_tree_device(bins, grad, hess, inbag, feature_mask,
         if cache_hists:
             # smaller child by in-bag count, larger by parent subtraction
             left_is_small, small_leaf = st.small_child(sp)
-            hist_small = _collapse(leaf_fn(bins, ghc_t, row_leaf,
-                                           small_leaf.reshape(1), b))
+            hist_small = hist_psum_fn(leaf_fn(bins, ghc_t, row_leaf,
+                                              small_leaf.reshape(1), b))
             both = st.cache_children(hist_cache, sp, left_is_small,
                                      hist_small)
         elif use_frontier and not compact_hist:
             # memory-bounded: both children from ONE frontier pass
-            both = _collapse(frontier_fn(bins, ghc_t, row_leaf,
-                                         sp.pair.to(torch.int32), b))
+            both = hist_psum_fn(frontier_fn(bins, ghc_t, row_leaf,
+                                            sp.pair.to(torch.int32), b))
         else:
             # memory-bounded: both children recomputed, one pass each
             pair32 = sp.pair.to(torch.int32)
-            both = torch.stack([_collapse(leaf_fn(bins, ghc_t, row_leaf,
-                                                  pair32[j:j + 1], b))
+            both = torch.stack([hist_psum_fn(leaf_fn(bins, ghc_t, row_leaf,
+                                                     pair32[j:j + 1], b))
                                 for j in range(2)])
         st.set_children(sp, both, scan, max_depth)
 
@@ -515,6 +535,9 @@ class SerialTreeLearner:
     # the out-of-core learner streams its bins from a block store; its
     # host drives every pass, so it stays off the fused trainer
     streams_blocks = False
+    # the parallel learners (parallel/learners.py) build each tree on a
+    # shard mesh, off the fused trainer too
+    meshed = False
 
     def __init__(self, config, device=None):
         self.config = config
@@ -545,7 +568,8 @@ class SerialTreeLearner:
         # padded to whole packed words for the partitioned builder; the
         # virtual per-feature arrays pad with them only when unbundled
         self.s_pad = self._pad_feature_count(self._stored_rows(train_set))
-        self.f_pad = self.s_pad if plan is None else self.num_features
+        self.f_pad = (self.s_pad if plan is None
+                      else self._pad_virtual_count(self.num_features))
         extra = self.f_pad - self.num_features
         if extra:
             # pad features: all rows in bin 0, one bin, never split
@@ -554,7 +578,8 @@ class SerialTreeLearner:
         dev = self.device
         self.bins = self._place_bins(train_set)
         self.bundle = (None if plan is None else BundleMaps(
-            plan, num_bin_pf, train_set.max_num_bin, dev))
+            plan, num_bin_pf[:self.num_features], train_set.max_num_bin,
+            dev))
         # the feature_fraction mask of the tree being built: every tree
         # reads this one buffer, so a captured CUDA graph reads it too
         self.fmask = torch.ones(self.f_pad, dtype=torch.bool, device=dev)
@@ -573,16 +598,22 @@ class SerialTreeLearner:
         # kernels' scratch (look-back flags, chunk partials, fold
         # counters), once per learner: a captured graph reads the same
         # addresses on every replay, and no two learners share a counter
-        self.compacted_fn = None
-        if self.use_compact:
-            self.compacted_fn = functools.partial(
-                compacted_histograms,
-                src=torch.empty(self.n_pad, dtype=torch.int32, device=dev),
-                cnt=torch.zeros(1, dtype=torch.int32, device=dev),
-                scratch=(CompactScratch(self.bins, self.max_bin)
-                         if dev.type == "cuda" else None))
+        self.compacted_fn = (self._compacted_engine(self.bins)
+                             if self.use_compact else None)
         Log.info("Number of data: %d, number of features: %d",
                  self.num_data, self.num_features)
+
+    def _compacted_engine(self, bins):
+        """The gather-compacted engine over `bins` with buffers of its
+        own: the compaction's index buffer and count and, on the card,
+        the kernels' scratch (CompactScratch)."""
+        dev = bins.device
+        return functools.partial(
+            compacted_histograms,
+            src=torch.empty(bins.shape[1], dtype=torch.int32, device=dev),
+            cnt=torch.zeros(1, dtype=torch.int32, device=dev),
+            scratch=(CompactScratch(bins, self.max_bin)
+                     if dev.type == "cuda" else None))
 
     def _partitioned_enabled(self, cfg):
         """Leaf-contiguous builder (models/partitioned.py): "true" turns
@@ -624,6 +655,11 @@ class SerialTreeLearner:
     def _pad_feature_count(self, f):
         if self.use_partitioned:
             return ((f + 3) // 4) * 4  # packed words hold 4 features
+        return f
+
+    def _pad_virtual_count(self, f):
+        """Virtual features of a bundled dataset, as the builder sees
+        them (the feature-parallel learner pads them to whole shards)."""
         return f
 
     def _place_bins(self, train_set):
@@ -788,15 +824,24 @@ def tree_from_host(host, dataset, shrink=1.0, table=None) -> Tree:
 
 
 def create_tree_learner(learner_type, config, device=None):
-    """Factory (src/treelearner/tree_learner.cpp:8-19): the serial
-    learner, or with out_of_core=true the block-store streaming learner
-    (data/ooc_learner.py; tree_learner.py:929-945). The parallel learners
-    are a later slice (Config.check_slice rejects them)."""
+    """Factory (src/treelearner/tree_learner.cpp:8-19;
+    tree_learner.py:929-962): the serial learner, with out_of_core=true
+    the block-store streaming learner (data/ooc_learner.py), or the data-,
+    feature- and voting-parallel learners on an in-process shard mesh
+    (parallel/learners.py). The out-of-core gang learner of
+    tree_learner=data is a later slice (Config.check_slice refuses
+    it)."""
     if getattr(config, "out_of_core", False) and learner_type == "serial":
         from ..data.ooc_learner import OutOfCoreTreeLearner
         return OutOfCoreTreeLearner(config, device)
-    if learner_type != "serial":
-        raise NotImplementedError(
-            f"tree_learner={learner_type} is a later slice of "
-            "lightgbm_tpu_torch (ROADMAP queue 1 item 6)")
-    return SerialTreeLearner(config, device)
+    if learner_type == "serial":
+        return SerialTreeLearner(config, device)
+    from ..parallel.learners import (DataParallelTreeLearner,
+                                     FeatureParallelTreeLearner,
+                                     VotingParallelTreeLearner)
+    learners = {"data": DataParallelTreeLearner,
+                "feature": FeatureParallelTreeLearner,
+                "voting": VotingParallelTreeLearner}
+    if learner_type not in learners:
+        Log.fatal("Unknown tree learner type %s", learner_type)
+    return learners[learner_type](config, device)

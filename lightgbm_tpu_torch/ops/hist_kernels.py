@@ -21,9 +21,10 @@ The kernels live in lightgbm_tpu_torch/csrc/hist.cu, csrc/seg_hist.cu and
 csrc/compact_hist.cu, on the chunk accumulator they share in
 csrc/chunk_hist.cuh, and csrc/compact.cu (design and bound are noted
 there). They are compiled, with the dataset's binning
-kernel csrc/bin.cu (ops/bin_kernels.py) and the LambdaRank pair
-gradients csrc/rank.cu (ops/rank_kernels.py), with nvcc for sm_90a at first
-use into csrc/build/ (one shared library with a C interface per source,
+kernel csrc/bin.cu (ops/bin_kernels.py), the LambdaRank pair
+gradients csrc/rank.cu (ops/rank_kernels.py) and the parallel learners'
+exchange fold csrc/mesh.cu (ops/mesh_kernels.py), with nvcc for sm_90a
+at first use into csrc/build/ (one shared library with a C interface per source,
 loaded with ctypes; its name hashes the source, the headers it includes
 and the flags) and launched on PyTorch's current stream. Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs and
@@ -60,6 +61,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -69,7 +71,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 SOURCES = ("hist.cu", "seg_hist.cu", "compact.cu", "compact_hist.cu",
-           "bin.cu", "rank.cu")
+           "bin.cu", "rank.cu", "mesh.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # nvcc's output for each source this process built: ptxas's registers
@@ -91,13 +93,17 @@ class KernelStats:
 
 # every kernel a CUDA graph of the trainer may capture: the histogram
 # kernels and the LambdaRank pair gradients (ops/rank_kernels.py); and
-# the out-of-core block fold, which runs outside any graph
+# the out-of-core block fold and the mesh's exchange fold
+# (ops/mesh_kernels.py), which run outside any graph
 KERNELS = {name: KernelStats(name)
            for name in ("masked_hist", "frontier_hist", "seg_hist",
                         "compact_rows", "compacted_hist",
-                        "lambdarank_pairs", "hist_pair_fold")}
+                        "lambdarank_pairs", "hist_pair_fold", "mesh_fold")}
 # the launches recorded into the graph being captured (CapturedGraph)
 _CAPTURED = None
+# the shards of a parallel learner launch from threads of their own
+# (parallel/mesh.py): counts and the first build are taken under a lock
+_LOCK = threading.Lock()
 
 
 def reset_launch_counts():
@@ -119,7 +125,8 @@ def _count(name):
                                "would not be counted")
         _CAPTURED[name] += 1
     else:
-        KERNELS[name].launches += 1
+        with _LOCK:
+            KERNELS[name].launches += 1
 
 
 class CapturedGraph:
@@ -281,21 +288,30 @@ def _bind_rank(lib):
     lib.rank_status_string.restype = ctypes.c_char_p
 
 
+def _bind_mesh(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mesh_fold.argtypes = [p, i, i, ctypes.c_longlong, p, p]
+    lib.mesh_fold.restype = i
+    lib.mesh_status_string.argtypes = [i]
+    lib.mesh_status_string.restype = ctypes.c_char_p
+
+
 _BINDERS = {"hist.cu": _bind_hist, "seg_hist.cu": _bind_seg_hist,
             "compact.cu": _bind_compact,
             "compact_hist.cu": _bind_compact_hist, "bin.cu": _bind_bin,
-            "rank.cu": _bind_rank}
+            "rank.cu": _bind_rank, "mesh.cu": _bind_mesh}
 _LOADED = {}
 
 
 def _library(source):
     """The loaded library of one source (built and loaded once per
     process; every source is built together on the first call)."""
-    if source not in _LOADED:
-        lib = ctypes.CDLL(build()[source])
-        _BINDERS[source](lib)
-        _LOADED[source] = lib
-    return _LOADED[source]
+    with _LOCK:
+        if source not in _LOADED:
+            lib = ctypes.CDLL(build()[source])
+            _BINDERS[source](lib)
+            _LOADED[source] = lib
+        return _LOADED[source]
 
 
 # ------------------------------------------------------------- plain path

@@ -341,7 +341,10 @@ def _train_out_of_core():
 
 @pytest.mark.parametrize("call", [
     _cli_snapshots, _resume_from, _train_dart, _train_out_of_core,
-    lambda: lgt.train(dict(BASE, tree_learner="data", num_machines=2),
+    # the in-process mesh trains (tests/test_torch_parallel.py); a
+    # machine list is the multi-process runtime's
+    lambda: lgt.train(dict(BASE, tree_learner="data", num_machines=2,
+                           machine_list_file="mlist.txt"),
                       lgt.Dataset(*_data(n=300)), 1, device=CPU),
 ], ids=["cli_snapshots", "resume_from", "dart",
         "out_of_core", "parallel"])

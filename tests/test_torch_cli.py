@@ -182,7 +182,8 @@ def test_command_line_overrides_config_file(run):
 
 @pytest.mark.parametrize("argv,item", [
     (["heartbeat_timeout_s=5"], "item 6"),
-    (["num_machines=2", "tree_learner=data"], "item 6"),
+    (["num_machines=2", "tree_learner=data", "machine_list_file=ml.txt"],
+     "item 6b"),
     (["telemetry=true"], "item 7"),
 ], ids=["heartbeat", "machines", "telemetry"])
 def test_later_slice_settings_name_their_item(argv, item):

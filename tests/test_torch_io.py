@@ -196,9 +196,17 @@ def test_convert_trees_from_builder_output():
     {"tree_learner": "data", "num_machines": 2},
     {"tree_learner": "feature", "num_machines": 2}])
 def test_later_slice_settings_raise(params):
-    """The settings of a later slice raise; DART, GOSS, linear leaves and
-    out_of_core are this port's now and train one round."""
+    """The settings of a later slice raise; DART, GOSS, linear leaves,
+    out_of_core and the parallel learners (on the in-process mesh) are
+    this port's now and train one round."""
     x, y = _matrix(9, n=300)
+    if "tree_learner" in params:
+        b = lgt.train(dict(params, verbose=-1), lgt.Dataset(x, y), 1,
+                      verbose_eval=False, device=CPU)
+        assert b.current_iteration() == 1
+        assert b.gbdt.tree_learner.name == params["tree_learner"]
+        assert b.gbdt.tree_learner.mesh.n_shards == 2
+        return
     if "out_of_core" in params:
         p = dict(params, verbose=-1)
         b = lgt.train(p, lgt.Dataset(x, y, params=p), 1,
