@@ -157,10 +157,13 @@ Phases (any failure exits non-zero and prints no result line):
    GOSS fused and DART; each snapshot's checkpoint_write_s and bytes,
    the fused snapshot's decode and restore seconds;
 9c. out of core: hist_pair_fold (csrc/hist.cu) on one block of 262,144
-   and of 65,536 rows with a carry in flight, bit for bit its plain
-   version on the CPU, two launches equal, timed (L2 flushed) beside
-   its bound, its plain version, masked_hist over the same rows and one
-   index_add_ over the block's leaf rows; the blocks of a 1M-row pass
+   and of 65,536 rows with a carry in flight, for leaf 5 of rows spread
+   over 63 leaves and for leaves of 50% and 100% of the rows, bit for
+   bit its plain version on the CPU, two launches equal, its counters
+   left zero, timed (L2 flushed) beside its bound, its plain version,
+   masked_hist over the same rows and one index_add_ over the block's
+   leaf rows, its plan printed; three calls profiled in a fresh process
+   (one device kernel each); the blocks of a 1M-row pass
    folded and collapsed bit-equal to masked_hist over the whole array;
    the bench matrix spilled at both block sizes (4 and 16 blocks) and
    trained 3 rounds, launch counts read from zero (one hist_pair_fold a
@@ -2439,29 +2442,51 @@ def phase_multiclass(torch, lgt, hk, ds_bench, x, logit, timer):
 RANK_CALL_OPS = {"aten::empty", "aten::empty_strided", "aten::reshape",
                  "aten::view", "aten::_reshape_alias"}
 RANK_PROFILED_CALLS = 3
-# Profiles RANK_PROFILED_CALLS pair-gradient calls on the inputs saved at
-# argv[1] and prints their device events as JSON. It runs in a process
-# of its own: late in chip_smoke's run the profiler records no device
-# event of an eager call (not even a device sleep) and no pair kernel
-# in a replay, though it records the histogram kernels there.
-RANK_PROFILE_SRC = """
-import json, sys, torch
+# A profiling script's end: `call()` run once, then argv[2] times under
+# the profiler; their device events printed as JSON. Such a script runs
+# in a process of its own (fresh_process_profile): late in chip_smoke's
+# run the profiler records no device event of an eager call (not even a
+# device sleep) and no pair kernel in a replay, though it records the
+# histogram kernels there.
+PROFILE_TAIL = """
 from torch.profiler import ProfilerActivity, profile
-from lightgbm_tpu_torch.ops import rank_kernels as rk
-a = torch.load(sys.argv[1])
-score = a.pop("score").cuda()
-args = {k: v.cuda() if torch.is_tensor(v) else v for k, v in a.items()}
-rk.lambdarank_pairs(score, **args)
+call()
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CUDA]) as prof:
     for _ in range(int(sys.argv[2])):
-        rk.lambdarank_pairs(score, **args)
+        call()
     torch.cuda.synchronize()
 ev = [e for e in prof.events()
       if e.device_type == torch.autograd.DeviceType.CUDA]
 print(json.dumps({"names": [e.name for e in ev],
                   "device_ms": [e.device_time_total / 1e3 for e in ev]}))
 """
+# pair-gradient calls on the inputs saved at argv[1]
+RANK_PROFILE_SRC = """
+import json, sys, torch
+from lightgbm_tpu_torch.ops import rank_kernels as rk
+a = torch.load(sys.argv[1])
+score = a.pop("score").cuda()
+args = {k: v.cuda() if torch.is_tensor(v) else v for k, v in a.items()}
+def call():
+    rk.lambdarank_pairs(score, **args)
+""" + PROFILE_TAIL
+
+
+def fresh_process_profile(torch, src, saved, calls, what):
+    """The device events of `calls` calls of a profiling script `src`
+    (one that ends with PROFILE_TAIL) on `saved` (torch.save'd for it),
+    run in a fresh process."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(saved, path)
+        proc = subprocess.run(
+            [sys.executable, "-c", src, path, str(calls)],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"{what}: the profiling process failed:"
+          f"\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def rank_device_profile(torch, score, args):
@@ -2470,16 +2495,8 @@ def rank_device_profile(torch, score, args):
     saved = {k: v.cpu() if torch.is_tensor(v) else v
              for k, v in args.items()}
     saved["score"] = score.cpu()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as tmp:
-        path = os.path.join(tmp, "inputs.pt")
-        torch.save(saved, path)
-        proc = subprocess.run(
-            [sys.executable, "-c", RANK_PROFILE_SRC, path,
-             str(RANK_PROFILED_CALLS)], capture_output=True, text=True,
-            timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
-    check(proc.returncode == 0, "lambdarank gradients: the profiling "
-          f"process failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return fresh_process_profile(torch, RANK_PROFILE_SRC, saved,
+                                 RANK_PROFILED_CALLS, "lambdarank gradients")
 
 
 def rank_pairs_needed(qb, gain):
@@ -4409,47 +4426,71 @@ OOC_ROUNDS = 3
 OOC_BLOCK_ROWS = (262_144, 65_536)
 
 
+# the leaves hist_pair_fold is timed at: leaf 5 of rows spread over 63
+# leaves (about 1.6%, the share of a tree's typical leaf), and leaves of
+# 50% and 100% of the rows
+FOLD_SHARES = (None, 0.5, 1.0)
+FOLD_PROFILED_CALLS = 3
+# hist_pair_fold calls on the inputs saved at argv[1], one scratch
+FOLD_PROFILE_SRC = """
+import json, sys, torch
+from lightgbm_tpu_torch.ops import hist_kernels as hk
+a = [t.cuda() for t in torch.load(sys.argv[1])]
+acc, comp, bins = a[0], a[1], a[2]
+scratch = hk.FoldScratch(bins.shape[1], bins.shape[0], acc.shape[1], "cuda")
+def call():
+    hk.hist_pair_fold(*a, acc.shape[1], scratch=scratch)
+""" + PROFILE_TAIL
+
+
 def fold_bound_ms(f, rows, bin_bytes, b, in_rows):
-    """Least time for one hist_pair_fold call: the block's bins, g/h/w
-    and row_leaf and the leaf id read once, the (F, B, 3) carry pair
-    read and written once, over HBM bandwidth; against three float32
-    adds per (leaf row, feature) over the float32 rate. Returns (ms,
-    bound_by)."""
-    nbytes = f * rows * bin_bytes + 16 * rows + 4 + 2 * 2 * f * b * 3 * 4
+    """Least time for one hist_pair_fold call: the block's row_leaf and
+    the leaf id read once, the leaf's rows' bins and g/h/w read once
+    (what this run's leaf needs), the (F, B, 3) carry pair read and
+    written once, over HBM bandwidth; against three float32 adds per
+    (leaf row, feature) over the float32 rate. Returns (ms, bound_by)."""
+    nbytes = (4 * rows + 4 + in_rows * (f * bin_bytes + 12)
+              + 2 * 2 * f * b * 3 * 4)
     ops = 3.0 * f * in_rows
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def fold_inputs(torch, rng, rows):
+def fold_inputs(torch, rng, rows, share=None):
     """(bins, ghc_t, row_leaf, leaf id) on the host: the bench shape's
-    (28, rows) uint8 bins at 255 bins, rows over 63 leaves, leaf 5."""
+    (28, rows) uint8 bins at 255 bins, leaf 5; with share None the rows
+    spread over 63 leaves, else that share of them in leaf 5."""
     inbag = (rng.rand(rows) < 0.8).astype(np.float32)
+    row_leaf = rng.randint(0, 63, size=rows).astype(np.int32)
+    if share is not None:
+        row_leaf = np.where(rng.rand(rows) < share, 5,
+                            row_leaf % 5).astype(np.int32)
     return [torch.from_numpy(a) for a in (
         rng.randint(0, MAX_BIN, size=(N_FEATURES, rows)).astype(np.uint8),
         np.stack([rng.randn(rows).astype(np.float32) * inbag,
                   rng.rand(rows).astype(np.float32) * inbag, inbag]),
-        rng.randint(0, 63, size=rows).astype(np.int32),
-        np.array([5], np.int32))]
+        row_leaf, np.array([5], np.int32))]
 
 
-def fold_kernel_case(torch, hk, timer, rng, rows):
-    """hist_pair_fold on one out-of-core block of `rows` rows, seeded
-    with a carry in flight: bit for bit its plain version on the CPU,
-    two launches equal; timed (L2 flushed) beside its bound, the plain
-    version on the card, masked_hist over the same rows and one
-    index_add_ over the block's rows of the leaf."""
+def fold_kernel_case(torch, hk, timer, rng, rows, share=None):
+    """hist_pair_fold on one out-of-core block of `rows` rows (a leaf of
+    `share` of them, fold_inputs), seeded with a carry in flight: bit for
+    bit its plain version on the CPU, two launches equal; timed (L2
+    flushed) beside its bound, the plain version on the card, masked_hist
+    over the same rows and one index_add_ over the block's rows of the
+    leaf; its plan (hk.fold_plan)."""
     f, b = N_FEATURES, MAX_BIN
-    host = fold_inputs(torch, rng, rows)
+    host = fold_inputs(torch, rng, rows, share)
     dev = [t.to(DEVICE) for t in host]
     acc0 = torch.from_numpy(rng.randn(f, b, 3).astype(np.float32))
     comp0 = torch.from_numpy((rng.randn(f, b, 3) * 1e-7).astype(np.float32))
     want = hk.hist_pair_fold_plain(acc0.clone(), comp0.clone(), *host, b)
+    scratch = hk.FoldScratch(rows, f, b, DEVICE)
     outs = []
     for _ in range(2):
         acc, comp = acc0.to(DEVICE).clone(), comp0.to(DEVICE).clone()
-        hk.hist_pair_fold(acc, comp, *dev, b)
+        hk.hist_pair_fold(acc, comp, *dev, b, scratch=scratch)
         outs.append([t.cpu().clone() for t in (acc, comp)])
     bitwise = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                   for g, w in zip(outs[0], want))
@@ -4458,8 +4499,6 @@ def fold_kernel_case(torch, hk, timer, rng, rows):
                  - hk.hist_pair_collapse(*want)).abs().max())
     acc, comp = acc0.to(DEVICE).clone(), comp0.to(DEVICE).clone()
     acc_p, comp_p = acc0.to(DEVICE).clone(), comp0.to(DEVICE).clone()
-    partials = torch.empty((rows // hk.HIST_CHUNK) * f * b * 3,
-                           dtype=torch.float32, device=DEVICE)
     in_leaf = (dev[2] == 5).nonzero()[:, 0]
     keys = (torch.arange(f, device=DEVICE)[:, None] * b
             + dev[0][:, in_leaf].long()).reshape(-1)
@@ -4467,11 +4506,13 @@ def fold_kernel_case(torch, hk, timer, rng, rows):
         .contiguous()
     res = {"name": "hist_pair_fold",
            "shape": {"F": f, "R": rows, "B": b, "bins": "uint8",
+                     "leaf": "5 of 63" if share is None else share,
                      "leaf_rows": int(in_leaf.numel())},
+           "plan": hk.fold_plan(rows, f, b),
            "max_abs_err": err, "bitwise_vs_cpu_plain": bitwise,
            "deterministic": deterministic,
            "ms": timer(lambda: hk.hist_pair_fold(acc, comp, *dev, b,
-                                                 partials=partials), 20),
+                                                 scratch=scratch), 20),
            "plain_ms": timer(lambda: hk.hist_pair_fold_plain(
                acc_p, comp_p, *dev, b), 3),
            "masked_hist_ms": timer(lambda: hk.masked_hist(*dev, b), 20),
@@ -4479,15 +4520,26 @@ def fold_kernel_case(torch, hk, timer, rng, rows):
                f * b, 3, device=DEVICE).index_add_(0, keys, src), 5)}
     res["bound_ms"], res["bound_by"] = fold_bound_ms(
         f, rows, 1, b, int(in_leaf.numel()))
-    log(f"hist_pair_fold {res['shape']}: bitwise vs CPU plain {bitwise}, "
-        f"deterministic {deterministic}, ms {res['ms']:.4f} (masked_hist "
+    log(f"hist_pair_fold {res['shape']} plan {res['plan']}: bitwise vs CPU "
+        f"plain {bitwise}, deterministic {deterministic}, ms "
+        f"{res['ms']:.4f} (index_add_ {res['library_ms']:.4f}, masked_hist "
         f"on the same rows {res['masked_hist_ms']:.4f}) bound "
-        f"{res['bound_ms']:.4f} plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f}")
+        f"{res['bound_ms']:.4f} plain {res['plain_ms']:.3f}")
     check(bitwise, "hist_pair_fold differs in bits from its plain version "
           "on the CPU")
     check(deterministic, "hist_pair_fold: two launches gave different bits")
-    del keys, src, partials
+    check(not scratch.counters.any(), "hist_pair_fold left a counter set")
+    if rows == OOC_BLOCK_ROWS[0] and share is None:
+        prof = fresh_process_profile(
+            torch, FOLD_PROFILE_SRC, [t.cpu() for t in (acc0, comp0, *dev)],
+            FOLD_PROFILED_CALLS, "hist_pair_fold")
+        res["device_events"] = prof
+        log(f"hist_pair_fold: {FOLD_PROFILED_CALLS} calls profiled in a "
+            f"fresh process: device events {prof['names']}")
+        check(len(prof["names"]) == FOLD_PROFILED_CALLS
+              and all("pair_fold_kernel" in nm for nm in prof["names"]),
+              "hist_pair_fold: not one device launch a call")
+    del keys, src, scratch
     return res
 
 
@@ -4539,7 +4591,9 @@ def ooc_run(torch, lgt, x, y, block_rows):
 
 def phase_ooc(torch, lgt, hk, timer, ds, x, y, seed):
     """Out-of-core training at full width. hist_pair_fold at both block
-    sizes against its plain version and bound (fold_kernel_case), and the
+    sizes and each of FOLD_SHARES against its plain version and bound
+    (fold_kernel_case; the first, 262,144 rows and leaf 5 of 63, is the
+    kernels line's and is profiled for its device launches), and the
     blockwise fold against masked_hist over a 1M-row array; the in-RAM
     masked run (OOC_ROUNDS rounds per iteration on the card-built
     dataset); the bench matrix spilled at each OOC_BLOCK_ROWS (4 and 16
@@ -4551,8 +4605,10 @@ def phase_ooc(torch, lgt, hk, timer, ds, x, y, seed):
     from lightgbm_tpu_torch import callback
     from lightgbm_tpu_torch.utils import faults
     rng = np.random.RandomState(seed + 14)
-    res = {"kernel_cases": [fold_kernel_case(torch, hk, timer, rng, rows)
-                            for rows in OOC_BLOCK_ROWS],
+    res = {"kernel_cases": [fold_kernel_case(torch, hk, timer, rng, rows,
+                                             share)
+                            for rows in OOC_BLOCK_ROWS
+                            for share in FOLD_SHARES],
            "block_fold_equal": block_fold_equals_masked(torch, hk, rng)}
     mem0 = memory_mark(torch)
     ref, ref_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds, OOC_ROUNDS)

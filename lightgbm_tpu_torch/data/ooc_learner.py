@@ -113,11 +113,11 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
         self.prefetcher = BlockPrefetcher(
             store, spans, depth=int(cfg.prefetch_depth),
             cache_blocks=int(cfg.block_cache_blocks), device=self.device)
-        self._partials = None
+        self._fold_scratch = None
         if self.device.type == "cuda":
-            self._partials = torch.empty(
-                (store.block_rows // HIST_CHUNK) * self.num_features
-                * self.max_bin * 3, dtype=torch.float32, device=self.device)
+            self._fold_scratch = hist_kernels.FoldScratch(
+                store.block_rows, self.num_features, self.max_bin,
+                self.device)
         self._ghc_src = None
         self._ghc_spans = None
         Log.info("Out-of-core: %d blocks x %d rows (%s), resident bin "
@@ -165,7 +165,7 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
             for j in range(num_leaf):
                 hist_kernels.hist_pair_fold(acc[j], comp[j], blk, ghc[i], rl,
                                             leaf_ids[j:j + 1], b,
-                                            partials=self._partials)
+                                            scratch=self._fold_scratch)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self.prefetcher.note_pass_wall(time.perf_counter() - t0)

@@ -28,8 +28,9 @@ at first use into csrc/build/ (one shared library with a C interface per source,
 loaded with ctypes; its name hashes the source, the headers it includes
 and the flags) and launched on PyTorch's current stream. Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs and
-scratch with torch.empty (the compaction kernels take their scratch from
-the caller where it has one, CompactScratch), raises when the launch
+scratch with torch.empty (the compaction kernels and the block fold take
+their scratch from the caller where it has one, CompactScratch and
+FoldScratch), raises when the launch
 reports an error, and counts its launches in `KERNELS[name].launches`.
 A launch made while the current stream captures a CUDA graph
 (CapturedGraph) runs nothing yet: it is counted into the graph, and
@@ -226,8 +227,10 @@ def _bind_hist(lib):
     lib.frontier_hist.restype = i
     lib.hist_status_string.argtypes = [i]
     lib.hist_status_string.restype = ctypes.c_char_p
-    lib.hist_pair_fold.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p]
+    lib.hist_pair_fold.argtypes = [p, i, p, p, p, i, i, i, p, p, p, p, p]
     lib.hist_pair_fold.restype = i
+    lib.hist_pair_fold_plan.argtypes = [i, i, i, p]
+    lib.hist_pair_fold_plan.restype = i
     lib.hist_max_leaves.argtypes = []
     lib.hist_max_leaves.restype = i
     lib.max_leaves = lib.hist_max_leaves()
@@ -637,8 +640,62 @@ def frontier_hist(bins, ghc_t, row_leaf, leaf_ids, num_bins):
                    num_bins)
 
 
+def fold_partials_floats(rows, num_feat, num_bins):
+    """float32 words of hist_pair_fold's chunk partials for blocks of
+    `rows` rows (csrc/hist.cu hist_pair_fold): a (chunk, feature) row of
+    3 * num_bins cells padded to whole float4s."""
+    return ((int(rows) // HIST_CHUNK) * int(num_feat)
+            * ((3 * int(num_bins) + 3) // 4 * 4))
+
+
+def fold_counter_ints(num_feat):
+    """int32 words of hist_pair_fold's counters (csrc/hist.cu
+    hist_pair_fold): two a feature tile (its blocks that counted their
+    partial, and those that are done), at most a tile a feature."""
+    return 2 * int(num_feat)
+
+
+class FoldScratch:
+    """Device buffers of hist_pair_fold for blocks of up to `rows` rows
+    of `num_feat` features at num_bins, made once: the chunk partials
+    (`partials`, fold_partials_floats) and the counters (`counters`,
+    fold_counter_ints int32, zeroed here; every call leaves them zero).
+    Calls that share one must run in order on one stream."""
+
+    def __init__(self, rows, num_feat, num_bins, device):
+        self.partials = torch.empty(
+            fold_partials_floats(rows, num_feat, num_bins),
+            dtype=torch.float32, device=device)
+        self.counters = torch.zeros(fold_counter_ints(num_feat),
+                                    dtype=torch.int32, device=device)
+
+
+def _check_fold_scratch(scratch, bins, num_bins):
+    f, n = bins.shape
+    _scratch_tensor("hist_pair_fold partials", scratch.partials,
+                    torch.float32, fold_partials_floats(n, f, num_bins),
+                    bins.device)
+    _scratch_tensor("hist_pair_fold counters", scratch.counters, torch.int32,
+                    fold_counter_ints(f), bins.device)
+
+
+def fold_plan(rows, num_feat, num_bins):
+    """hist_pair_fold's launch on the current card for blocks of `rows`
+    rows (csrc/hist.cu fold_plan): {"tile": features a block, "blocks":
+    rows / HIST_CHUNK x tiles, "slices": fold slices a feature, "slice":
+    float4 groups a slice, "smem": shared-memory bytes a block}."""
+    lib = _library("hist.cu")
+    out = (ctypes.c_int * 5)()
+    status = lib.hist_pair_fold_plan(int(rows), int(num_feat), int(num_bins),
+                                     out)
+    if status != 0:
+        raise RuntimeError("hist_pair_fold plan failed: "
+                           f"{lib.hist_status_string(status).decode()}")
+    return dict(zip(("tile", "blocks", "slices", "slice", "smem"), out))
+
+
 def hist_pair_fold(acc, comp, bins, ghc_t, row_leaf, leaf_id, num_bins,
-                   partials=None):
+                   scratch=None):
     """Fold one out-of-core row block into the running Kahan carry of
     the rows with row_leaf == leaf_id, in place; returns (acc, comp).
 
@@ -646,33 +703,34 @@ def hist_pair_fold(acc, comp, bins, ghc_t, row_leaf, leaf_id, num_bins,
     this one (zeros at the start of a pass; comp the negative residual);
     bins (F, R) uint8/int16, the block's bins, R % HIST_CHUNK == 0;
     ghc_t (3, R) float32 and row_leaf (R,) int32, the block's slices;
-    leaf_id a (1,) int32 device tensor (no host sync). `partials`,
-    (R / HIST_CHUNK) * F * B * 3 floats, is the kernel's scratch (made
-    for the call without it). hist_pair_collapse ends the pass."""
+    leaf_id a (1,) int32 device tensor (no host sync). `scratch`, a
+    FoldScratch for at least R rows, holds the kernel's partials and
+    arrival counters (made for the call without it); it is checked on
+    every device. On the card the call is one launch.
+    hist_pair_collapse ends the pass."""
+    _check_shapes(bins, ghc_t, row_leaf, leaf_id, num_bins)
+    _check_carry(acc, comp, bins, num_bins)
+    if scratch is not None:
+        _check_fold_scratch(scratch, bins, num_bins)
     if bins.device.type == "cpu":
         return hist_pair_fold_plain(acc, comp, bins, ghc_t, row_leaf,
                                     leaf_id, num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"hist_pair_fold: unsupported device {bins.device}")
-    _check_shapes(bins, ghc_t, row_leaf, leaf_id, num_bins)
-    _check_carry(acc, comp, bins, num_bins)
     for t in (bins, ghc_t, row_leaf, leaf_id):
         if not t.is_contiguous():
             raise ValueError("hist_pair_fold: inputs must be contiguous")
     lib = _library("hist.cu")
     f, n = bins.shape
     b = int(num_bins)
-    dev = bins.device
-    need = (n // HIST_CHUNK) * f * b * 3
-    if partials is None:
-        partials = torch.empty(need, dtype=torch.float32, device=dev)
-    _scratch_tensor("hist_pair_fold partials", partials, torch.float32,
-                    need, dev)
+    if scratch is None:
+        scratch = FoldScratch(n, f, b, bins.device)
     status = lib.hist_pair_fold(bins.data_ptr(), _BIN_BYTES[bins.dtype],
                                 ghc_t.data_ptr(), row_leaf.data_ptr(),
                                 leaf_id.data_ptr(), f, n, b,
-                                partials.data_ptr(), acc.data_ptr(),
-                                comp.data_ptr(), _stream(dev))
+                                scratch.partials.data_ptr(),
+                                scratch.counters.data_ptr(), acc.data_ptr(),
+                                comp.data_ptr(), _stream(bins.device))
     if status != 0:
         raise RuntimeError("hist_pair_fold launch failed: "
                            f"{lib.hist_status_string(status).decode()}")

@@ -12,7 +12,11 @@
   2 and 3 blocks, and matches the JAX package's hist_pair_fold_block +
   hist_pair_fold_collapse bit for bit in its segment formulation and to
   rtol 1e-6 in its default CPU one (the tolerance
-  tests/test_torch_histogram.py holds the masked pair to);
+  tests/test_torch_histogram.py holds the masked pair to); on the
+  adversarial inputs the card's kernel is held to (-0.0 and sums that
+  cancel, an empty leaf, rows only in the last chunk, a dominant bin,
+  dropped bins) its carry bit for bit the JAX function's; a scratch
+  that is too small raises;
 - training: out-of-core model text equals the port's in-RAM masked
   model text (hist_compaction=false) byte for byte, on several blocks.
 The oracle of the training cases is the port's own in-RAM run.
@@ -378,6 +382,112 @@ def test_block_fold_matches_jax_hist_pair_fold_block(b, dtype):
     with callbacks_disabled():
         np.testing.assert_array_equal(got, jax_fold())
     np.testing.assert_allclose(got, jax_fold(), rtol=1e-6)
+
+
+ADVERSARIAL = ("signed_zero", "empty_leaf", "last_chunk_only",
+               "dominant_bin", "dropped_bins")
+
+
+def adversarial_fold_case(kind, b, dtype, seed, n_chunks=3, f=5, leaf=2):
+    """Inputs of one adversarial block fold (numpy): bins, ghc_t,
+    row_leaf, the leaf id and a carry in flight. signed_zero: g, h, w
+    drawn from exact values whose sums cancel to zero and from -0.0;
+    empty_leaf: no row of the leaf; last_chunk_only: its rows in the
+    last chunk only; dominant_bin: every row of the leaf in bin 3;
+    dropped_bins: bins below 0 (int16) and at num_bins or above."""
+    rng = np.random.RandomState(seed)
+    n = n_chunks * hk.HIST_CHUNK
+    lo, hi = (-50, b + 100) if kind == "dropped_bins" else (0, b)
+    if np.dtype(dtype) == np.uint8:
+        lo, hi = max(lo, 0), min(hi, 256)
+    bins = rng.randint(lo, hi, size=(f, n)).astype(dtype)
+    row_leaf = np.where(rng.rand(n) < 0.3, leaf,
+                        rng.randint(0, leaf, size=n)).astype(np.int32)
+    if kind == "signed_zero":
+        ghc = rng.choice(np.array([-1.0, 1.0, -0.0, 0.0, 0.5, -0.5],
+                                  np.float32), size=(3, n))
+    else:
+        inbag = (rng.rand(n) < 0.8).astype(np.float32)
+        ghc = np.stack([rng.randn(n).astype(np.float32) * inbag,
+                        rng.rand(n).astype(np.float32) * inbag, inbag])
+    if kind == "empty_leaf":
+        row_leaf[row_leaf == leaf] = leaf + 1
+    elif kind == "last_chunk_only":
+        row_leaf[:n - hk.HIST_CHUNK][row_leaf[:n - hk.HIST_CHUNK] == leaf] = 0
+    elif kind == "dominant_bin":
+        bins[:, row_leaf == leaf] = 3
+    acc = rng.randn(f, b, 3).astype(np.float32)
+    comp = (rng.randn(f, b, 3) * 1e-7).astype(np.float32)
+    return bins, ghc.astype(np.float32), row_leaf, leaf, acc, comp
+
+
+ADV_CASES = [pytest.param(200, np.uint8, id="uint8-B200"),
+             pytest.param(300, np.int16, id="int16-B300")]
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("b,dtype", ADV_CASES)
+def test_adversarial_fold_matches_jax_hist_pair_fold_block(kind, b, dtype):
+    """The inputs the card's kernel is held to (tests/
+    test_torch_ooc_card.py) through hist_pair_fold_plain, against
+    lightgbm_tpu.ops.histogram hist_pair_fold_block (row_chunk=4096,
+    the leaf mask folded into the statistics) on the same carry: acc and
+    comp bit for bit in the segment formulation, -0.0 and the dropped
+    bins included."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.histogram import (callbacks_disabled,
+                                            hist_pair_fold_block)
+    bins, ghc, rl, leaf, acc0, comp0 = adversarial_fold_case(kind, b, dtype,
+                                                             11)
+    got = hk.hist_pair_fold_plain(
+        torch.from_numpy(acc0.copy()), torch.from_numpy(comp0.copy()),
+        *(torch.from_numpy(a) for a in (bins, ghc, rl)),
+        torch.tensor([leaf], dtype=torch.int32), b)
+    mask = (rl == leaf).astype(np.float32)
+    with callbacks_disabled():
+        want = hist_pair_fold_block(jnp.asarray(acc0), jnp.asarray(comp0),
+                                    jnp.asarray(bins),
+                                    jnp.asarray((ghc * mask).T), b,
+                                    row_chunk=hk.HIST_CHUNK)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32))
+    if kind == "empty_leaf":
+        # a fold of zero partials still moves a carry whose comp is not 0
+        assert not np.array_equal(got[0].numpy(), acc0)
+
+
+def test_fold_scratch_checks():
+    """hist_pair_fold checks a scratch it is given on every device: too
+    few partials, too few counters or a wrong dtype raise before the
+    plain version runs; a FoldScratch of the block's size passes."""
+    bins, ghc, rl, leaf, acc0, comp0 = adversarial_fold_case(
+        "dominant_bin", 200, np.uint8, 3)
+    f, n = bins.shape
+    args = [torch.from_numpy(a) for a in (bins, ghc, rl)]
+    lid = torch.tensor([leaf], dtype=torch.int32)
+    assert hk.fold_partials_floats(n, f, 200) == 3 * f * 600
+    good = hk.FoldScratch(n, f, 200, "cpu")
+    assert good.counters.dtype == torch.int32 and not good.counters.any()
+    acc, comp = torch.from_numpy(acc0.copy()), torch.from_numpy(comp0.copy())
+    hk.hist_pair_fold(acc, comp, *args, lid, 200, scratch=good)
+    want = hk.hist_pair_fold_plain(torch.from_numpy(acc0.copy()),
+                                   torch.from_numpy(comp0.copy()), *args,
+                                   lid, 200)
+    assert torch.equal(acc, want[0]) and torch.equal(comp, want[1])
+    small = hk.FoldScratch(n - hk.HIST_CHUNK, f, 200, "cpu")
+    assert hk.fold_counter_ints(f) == 2 * f
+    few = hk.FoldScratch(n, f, 200, "cpu")
+    few.counters = few.counters[:-1]
+    wrong = hk.FoldScratch(n, f, 200, "cpu")
+    wrong.counters = wrong.counters.float()
+    for bad, match in ((small, "partials"), (few, "counters"),
+                       (wrong, "counters")):
+        acc = torch.from_numpy(acc0.copy())
+        with pytest.raises(ValueError, match=match):
+            hk.hist_pair_fold(acc, torch.from_numpy(comp0.copy()), *args,
+                              lid, 200, scratch=bad)
+        assert torch.equal(acc, torch.from_numpy(acc0))   # nothing folded
 
 
 # ===================================================== training parity

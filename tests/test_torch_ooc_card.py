@@ -3,8 +3,11 @@
 - CUDA hist_pair_fold (csrc/hist.cu) equals its plain version run on
   the CPU bit for bit (the kernel sums each chunk in row order, as the
   CPU's index_add_ does), carry included, at uint8 / 255 bins and
-  int16 / 1,023 bins, for a leaf of 1%, 50% and 100% of the rows; two
-  launches agree;
+  int16 / 1,023 bins, for a leaf of 1%, 50% and 100% of the rows, and
+  on adversarial inputs (-0.0 and sums that cancel, an empty leaf, rows
+  only in the last chunk, a dominant bin, dropped bins); two launches
+  agree; blocks folded in turn through one scratch leave its arrival
+  counters zero after every call;
 - the blocks of a pass folded on the card and collapsed equal CUDA
   masked_hist over the whole array bit for bit;
 - the prefetcher at depth 1 and 3 behind a reader slowed by a sleep
@@ -31,6 +34,7 @@ from lightgbm_tpu_torch import callback
 from lightgbm_tpu_torch.data.block_store import BlockStore
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.utils import faults
+from test_torch_ooc import ADVERSARIAL, adversarial_fold_case
 
 CHUNK = hk.HIST_CHUNK
 BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,
@@ -104,6 +108,74 @@ def test_block_fold_equals_masked_hist_on_the_card():
                               ghc[:, s:e].contiguous(), rl[s:e], lid, 255)
         got = hk.hist_pair_collapse(acc, comp)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("b,dtype", [(200, np.uint8), (300, np.int16)],
+                         ids=["uint8-200", "int16-300"])
+def test_adversarial_kernel_equals_plain_version(kind, b, dtype):
+    """-0.0 and sums that cancel, an empty leaf, rows only in the last
+    chunk, a dominant bin and dropped bins: acc and comp bit for bit the
+    plain version's on the CPU (the inputs tests/test_torch_ooc.py holds
+    the plain version to the JAX package with)."""
+    bins, ghc, rl, leaf, acc0, comp0 = adversarial_fold_case(kind, b, dtype,
+                                                             11)
+    host = [torch.from_numpy(a) for a in (bins, ghc, rl)]
+    lid = torch.tensor([leaf], dtype=torch.int32)
+    want = hk.hist_pair_fold_plain(torch.from_numpy(acc0.copy()),
+                                   torch.from_numpy(comp0.copy()), *host,
+                                   lid, b)
+    dev = torch.device("cuda")
+    acc, comp = torch.from_numpy(acc0).to(dev), torch.from_numpy(comp0).to(dev)
+    hk.hist_pair_fold(acc, comp, *(t.to(dev) for t in host), lid.to(dev), b)
+    for g, w in zip((acc.cpu(), comp.cpu()), want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("chunks,f", [(3, 6), (16, 28), (64, 28)])
+def test_shared_scratch_counters_reset(chunks, f):
+    """Two blocks folded in turn through one FoldScratch (the counters
+    the first call's last blocks set back to zero are the second call's
+    start) at three plans (hk.fold_plan): the plain version's chained
+    carry bit for bit, the counters zero after each call, and a third
+    call on the first block's inputs equal to the first."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(chunks)
+    n, b = chunks * CHUNK, 255
+    blocks = []
+    for _ in range(2):
+        inbag = (rng.rand(n) < 0.8).astype(np.float32)
+        blocks.append([torch.from_numpy(a) for a in (
+            rng.randint(0, b, size=(f, n)).astype(np.uint8),
+            np.stack([rng.randn(n).astype(np.float32) * inbag,
+                      rng.rand(n).astype(np.float32) * inbag, inbag]),
+            rng.randint(0, 63, size=n).astype(np.int32))])
+    lid = torch.tensor([5], dtype=torch.int32)
+    plan = hk.fold_plan(n, f, b)
+    assert 1 <= plan["tile"] <= f and plan["blocks"] == chunks * -(
+        -f // plan["tile"])
+    acc_p = torch.zeros((f, b, 3))
+    comp_p = torch.zeros((f, b, 3))
+    scratch = hk.FoldScratch(n, f, b, dev)
+    acc = acc_p.to(dev)
+    comp = comp_p.to(dev)
+    firsts = []
+    for blk in blocks + blocks[:1]:
+        hk.hist_pair_fold_plain(acc_p, comp_p, *blk, lid, b)
+        before = [acc.clone(), comp.clone()]
+        hk.hist_pair_fold(acc, comp, *(t.to(dev) for t in blk), lid.to(dev),
+                          b, scratch=scratch)
+        assert not scratch.counters.any()
+        for g, w in zip((acc.cpu(), comp.cpu()), (acc_p, comp_p)):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        firsts.append(before)
+    # the third call starts from the second's carry: folding the first
+    # block again from zeros gives the first call's result
+    a0 = torch.zeros_like(acc)
+    c0 = torch.zeros_like(comp)
+    hk.hist_pair_fold(a0, c0, *(t.to(dev) for t in blocks[0]), lid.to(dev),
+                      b, scratch=scratch)
+    assert torch.equal(a0, firsts[1][0]) and torch.equal(c0, firsts[1][1])
 
 
 def _data(n=6 * CHUNK + 123, f=8, seed=3):
