@@ -57,6 +57,7 @@ its tensors are on the card.
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import re
@@ -141,15 +142,23 @@ class CapturedGraph:
     @contextlib.contextmanager
     def capture(self, pool=None):
         """Capture the block's work on a side stream (torch.cuda.graph);
-        raises when the capture fails."""
+        raises when the capture fails. Python's cycle collector is run
+        first and held off during the capture: a dead cycle that holds a
+        pinned host tensor, freed mid-capture, queries CUDA events,
+        which invalidates the capture."""
         global _CAPTURED
         _CAPTURED = dict.fromkeys(KERNELS, 0)
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 yield self
             self.launches = {k: v for k, v in _CAPTURED.items() if v}
         finally:
             _CAPTURED = None
+            if collecting:
+                gc.enable()
 
     def replay(self):
         self.graph.replay()
