@@ -605,9 +605,8 @@ int frontier_hist(const void* bins, int bin_bytes, const float* ghc_t,
 // acc and comp are read and written in place, in one launch.
 // partials: (R / 4096) * F * pad floats of scratch, pad = 3B rounded up
 // to a multiple of 4 (16-byte aligned); words: 2F int32 (two a feature
-// tile), zero before the first
-// call and left zero by every call. Calls that share the scratch run in
-// stream order.
+// tile), zero before the first call and left zero by every call. Calls
+// that share the scratch run in stream order.
 int hist_pair_fold(const void* bins, int bin_bytes, const float* ghc_t,
                    const int* row_leaf, const int* leaf_id, int num_feat,
                    int n, int num_bins, float* partials, int* words,
