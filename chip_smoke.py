@@ -16,7 +16,10 @@ LambdaRank pair gradients (DIR's function on the same score, within
 1e-5, timed; DIR's package trains the fused lambdarank workload beside
 this one's); the serving phase also runs DIR's CompiledPredictor on the
 same model file in turns with this one (single-row latency, predict's
-stages, same answers).
+stages, same answers); the parallel phase profiles DIR's exchanges in a
+process of their own on the same inputs (same results, device kernels
+and times), and the linear phase times DIR's tree_lin_raw in turns with
+this one's (same bits).
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi); build the CUDA
@@ -174,12 +177,22 @@ Phases (any failure exits non-zero and prints no result line):
    in-RAM run's; a crash and resume of the 4-block run byte-equal to
    its uninterrupted text;
 9d. the parallel learners on an in-process mesh of 4 shards spread over
-   the process's cards: mesh_fold (csrc/mesh.cu) bit for bit its plain
-   version on the card and on the CPU at K = 8 on (1, 28, 255, 3) (the
-   allgather pair at the root), (7, 255, 3) (reduce-scatter's owned
-   block) and on bfloat16 words (K = 4), two launches equal, timed (L2
-   flushed) beside its bound, its plain version and torch.sum over the
-   stack (other bits); then, launch counts read from zero, 3
+   the process's cards: the exchange fold (csrc/mesh.cu) as the
+   exchanges give it, a gather-fold of descriptors into 4 shards' own
+   (28, 255, 3) words: K = 8 on the last shard's owned block of 7
+   features (reduce-scatter), K = 8 on a whole (1, 28, 255, 3) root
+   histogram (the allgather pair) and K = 4 bfloat16 words on the owned
+   block; and mesh_fold on K = 8 stacked (7, 255, 3) components; each
+   bit for bit its plain version on the card and on the CPU, two
+   launches equal, timed (L2 flushed) beside its bound, its plain
+   version and torch.sum over the stacked components (other bits); one
+   exchange of each kind (pair allgather, pair reduce-scatter at
+   comm_groups 1, 2 and 7, bf16 reduce-scatter at 7) on a 4-shard mesh
+   on the card profiled in a fresh process: device kernels a shard an
+   exchange (one gather-fold for the pair ones), device ms and host us
+   an exchange (with --baseline the other checkout's exchanges on the
+   same inputs in a process of their own, their results bit-equal);
+   then, launch counts read from zero, 3
    per-iteration rounds on the bench data of the data learner
    (reduce-scatter at the default comm_groups=2, which f_loc = 7 cuts
    to one group, and at comm_groups=7; allgather; partitioned_build=
@@ -236,8 +249,11 @@ Phases (any failure exits non-zero and prints no result line):
    the card and across two launches, within the class-sum bound of the
    host f64 path (bf16: the pinned accuracy bound), timed with L2
    flushed beside its bound, its plain version and tree_raw on the same
-   forest, ptxas's registers and spills; then the serving main path
-   (device variants and bf16 predict) with launch counts from zero;
+   forest, ptxas's registers and spills (with --baseline the other
+   checkout's tree_lin_raw on the same model and on 100 random linear
+   trees, in its own leaf layout: same bits, timed in turns at 4096 rows
+   and 1 row); then the serving main path (device variants and bf16
+   predict) with launch counts from zero;
 12. categorical features: the bench matrix plus 4 integer columns of 32
    categories that enter the label's logit, declared categorical, 2
    rounds with each builder: categorical splits, the same first tree,
@@ -3717,8 +3733,10 @@ def lin_bound_ms(x, forest, leaves, lv, lin, num_class):
     t = forest.sf.shape[0]
     t_idx = np.broadcast_to(np.arange(leaves.shape[1])[None, :],
                             leaves.shape)
+    from lightgbm_tpu_torch.ops.traverse_kernels import unpack_linear
     steps, nodes, reached = walk_reads(forest, leaves)
-    cnt, feat = lin.cnt.cpu().numpy(), lin.feat.cpu().numpy()
+    _, _, feat, cnt, _ = (a.cpu().numpy() for a in unpack_linear(lin))
+    word = lin.dtype.itemsize
     lane_cnt = np.maximum(cnt[t_idx, leaves], 0)               # (B, T)
     xf = x.cpu().numpy()[np.arange(b)[:, None, None],
                          feat[t_idx, leaves]]                  # (B, T, C)
@@ -3729,8 +3747,8 @@ def lin_bound_ms(x, forest, leaves, lv, lin, num_class):
     r_cnt = np.maximum(cnt[reached], 0)
     nbytes = (b * f * 4 + nodes * 16 + t * 4 + b * num_class * 4
               + r_cnt.size * 4
-              + int((r_cnt > 0).sum()) * lin.const.element_size()
-              + int(r_cnt.sum()) * (lin.coef.element_size() + 4)
+              + int((r_cnt > 0).sum()) * word
+              + int(r_cnt.sum()) * (word + 4)
               + int(lv_leaves.sum()) * lv.element_size())
     ops = (steps + 2 * float(lane_cnt.sum()) + float((lane_cnt > 0).sum())
            + b * t)
@@ -3816,7 +3834,7 @@ def lin_forest_case(torch, tk, timer, rng, rows):
     forest = tk.freeze(*arrays, DEVICE)
     const, coef, feat, cnt = random_linear_blocks(rng, *lv.shape,
                                                   N_FEATURES)
-    lin = tk.freeze_linear(const, coef, feat, cnt, torch.float32, DEVICE)
+    lin = tk.freeze_linear(const, coef, feat, cnt, lv, torch.float32, DEVICE)
     lv32 = torch.from_numpy(lv).to(DEVICE)
     x = torch.from_numpy(np.ascontiguousarray(rows)).to(DEVICE)
     got = tk.tree_lin_raw(x, forest, lv32, lin, 1)
@@ -3831,14 +3849,47 @@ def lin_forest_case(torch, tk, timer, rng, rows):
     res["bound_ms"], res["bound_by"] = lin_bound_ms(x, forest, leaves, lv32,
                                                     lin, 1)
     res["ms"] = timer(lambda: tk.tree_lin_raw(x, forest, lv32, lin, 1), 50)
+    res["ms_1_row"] = timer(lambda: tk.tree_lin_raw(x[:1], forest, lv32, lin,
+                                                    1), 50)
     res["tree_raw_ms"] = timer(lambda: tk.tree_raw(x, forest, lv32, 1), 50)
     res["plain_ms"] = timer(lambda: tk.tree_lin_raw_plain(x, forest, lv32,
                                                           lin, 1), 5)
+    lin_baseline(torch, tk, timer, res, x, forest, lv32, lin,
+                 (const, coef, feat, cnt), got)
     log(f"tree_lin_raw on 100 random trees of 63 leaves, {len(rows)} rows: "
         f"{res}")
     check(res["bitwise_vs_plain"], "tree_lin_raw, 100 trees: differs from "
           "its plain version")
     return res
+
+
+def lin_baseline(torch, tk, timer, res, x, forest, lv, lin, blocks, got,
+                 k=1):
+    """With --baseline: the other checkout's tree_lin_raw on the same
+    forest, rows and linear blocks (frozen in its own layout from the host
+    `blocks`): the same bits as `got`, timed at the bucket and at 1 row in
+    turns with this checkout's (this, the other, the other, this; the
+    median of each's two)."""
+    if BASELINE is None:
+        return
+    btk = BASELINE.traverse_kernels
+    bfr = baseline_forest(forest)
+    blin = btk.freeze_linear(*blocks, lv.dtype, DEVICE)
+    res["baseline_same_bits"] = bool(torch.equal(
+        btk.tree_lin_raw(x, bfr, lv, blin, k).view(torch.int32),
+        got.view(torch.int32)))
+    for rows, key in ((x, ""), (x[:1], "_1_row")):
+        calls = (lambda: tk.tree_lin_raw(rows, forest, lv, lin, k),
+                 lambda: btk.tree_lin_raw(rows, bfr, lv, blin, k))
+        turns = [timer(calls[i], 50) for i in (0, 1, 1, 0)]
+        res["turns" + key] = turns
+        res["this_ms" + key] = float(np.median([turns[0], turns[3]]))
+        res["baseline_ms" + key] = float(np.median([turns[1], turns[2]]))
+    log(f"  baseline tree_lin_raw: same bits {res['baseline_same_bits']}, "
+        f"ms {res['baseline_ms']:.4f} (this {res['this_ms']:.4f}), 1 row "
+        f"{res['baseline_ms_1_row']:.4f} (this {res['this_ms_1_row']:.4f})")
+    check(res["baseline_same_bits"], "tree_lin_raw: the baseline gave other "
+          "bits")
 
 
 def phase_linear(torch, lgt, ds, x, timer, seed, ptxas):
@@ -3931,6 +3982,11 @@ def phase_linear(torch, lgt, ds, x, timer, seed, ptxas):
         xb, pred._forest, lv, pred.num_class), 50)
     case["ms_1_row"] = timer(lambda: tk.tree_lin_raw(
         xb[:1], pred._forest, lv, lin, pred.num_class), 50)
+    lin_baseline(torch, tk, timer, case, xb, pred._forest, lv, lin,
+                 (pred._lin_const64, pred._lin_coef64, pred._lin_feat,
+                  pred._lin_cnt),
+                 tk.tree_lin_raw(xb, pred._forest, lv, lin, pred.num_class),
+                 pred.num_class)
     case["ptxas"] = [r for r in ptxas.get(tk.SOURCE, [])
                      if "Lb1EEEv" in r["kernel"]]
     res["kernel_case"] = case
@@ -3942,8 +3998,8 @@ def phase_linear(torch, lgt, ds, x, timer, seed, ptxas):
         + "; ".join(f"{r['registers']} registers, spills "
                     f"{r['spill_stores']}/{r['spill_loads']}"
                     for r in case["ptxas"]))
-    check(len(case["ptxas"]) == 8, "linear: ptxas lists "
-          f"{len(case['ptxas'])} tree_lin_raw instantiations, not 8")
+    check(len(case["ptxas"]) == 4, "linear: ptxas lists "
+          f"{len(case['ptxas'])} tree_lin_raw instantiations, not 4")
     res["forest_100"] = lin_forest_case(torch, tk, timer, rng,
                                         rows[:SERVE_BUCKET])
 
@@ -4741,8 +4797,8 @@ def fold_bound_ms_mesh(k, cells, word_bytes):
 
 
 def mesh_fold_case(torch, mk, timer, rng, k, shape, dtype):
-    """mesh_fold on K components of `shape` (histogram-like words with
-    cancelling pairs and zeros of both signs): bit for bit its plain
+    """mesh_fold on K stacked components of `shape` (histogram-like words
+    with cancelling pairs and zeros of both signs): bit for bit its plain
     version on the card and on the CPU, two launches equal; timed (L2
     flushed) beside its bound, its plain version on the card and one
     torch.sum over the stack (the library call; other bits)."""
@@ -4789,23 +4845,269 @@ def mesh_fold_case(torch, mk, timer, rng, k, shape, dtype):
     return res
 
 
+def exchange_words(rng, w, shape, words=2, dtype=None):
+    """`words` lists of W contiguous host tensors of `shape`, one a shard
+    (the shards' hi and lo, or their collapsed word): histogram-like
+    values with cancelling pairs and zeros of both signs."""
+    import torch
+    out = []
+    for i in range(words):
+        host = (rng.randn(w, *shape) * (1e4 if i == 0 else 1e-3)).astype(
+            np.float32)
+        if i == 0:
+            host[w // 2:] -= host[:w - w // 2][::-1]
+            host.reshape(w, -1)[:, 0] = -0.0
+            host.reshape(w, -1)[1:, 1] = 0.0
+        t = torch.from_numpy(host)
+        out.append([(t[j].to(dtype) if dtype else t[j]).contiguous()
+                    for j in range(w)])
+    return out
+
+
+def gather_fold_case(torch, mk, timer, rng, w, shape, dtype, scatter,
+                     words=2):
+    """The gather-fold as an exchange gives it (LocalMesh.fold_exchange):
+    K = words x W descriptors into W shards' own (..., F, B, 3) word
+    tensors on the card, for the last shard's owned block of F / W
+    features (`scatter`) or the whole histogram: bit for bit its plain
+    version on the card and on the CPU, two launches equal; timed (L2
+    flushed) beside its bound, its plain version on the card and one
+    torch.sum over the stacked components (made before the timer; the
+    library call, other bits)."""
+    lead, (f, b, s) = shape[:-3], shape[-3:]
+    n_lead = int(np.prod(lead, dtype=np.int64))
+    f_out = f // w if scatter else f
+    run, row = f_out * b * s, f * b * s
+    off = (w - 1) * run if scatter else 0
+    host = [t for ws in exchange_words(rng, w, shape, words, dtype)
+            for t in ws]
+    hcomps = [(t, off, row) for t in host]
+    dcomps = [(t.to(DEVICE), off, row) for t in host]
+    out_shape = (*lead, f_out, b, s)
+
+    def kern():
+        return mk.gather_fold(dcomps, n_lead, run, torch.empty(
+            out_shape, device=DEVICE))
+
+    a, b2 = kern(), kern()
+    got = a.cpu().view(torch.int32)
+    want_card = mk.gather_fold_plain(dcomps, n_lead, run, torch.empty(
+        out_shape, device=DEVICE))
+    want = mk.gather_fold_plain(hcomps, n_lead, run, torch.empty(out_shape))
+    bitwise_card = torch.equal(got, want_card.cpu().view(torch.int32))
+    bitwise_cpu = torch.equal(got, want.view(torch.int32))
+    deterministic = torch.equal(a, b2)
+    stack = torch.stack([t.narrow(-3, off // (b * s), f_out).float()
+                         for t, _, _ in dcomps])
+    k = len(dcomps)
+    res = {"name": "mesh_fold", "route": "gather_fold",
+           "shape": {"K": k, "words": list(shape), "out": list(out_shape),
+                     "owned_block": bool(scatter),
+                     "dtype": str(host[0].dtype).replace("torch.", "")},
+           "max_abs_err": float((a.cpu() - want).abs().max()),
+           "bitwise_vs_card_plain": bitwise_card,
+           "bitwise_vs_cpu_plain": bitwise_cpu,
+           "deterministic": deterministic,
+           "ms": timer(kern, 50),
+           "host_us": host_us(torch, kern),
+           "plain_ms": timer(lambda: mk.gather_fold_plain(
+               dcomps, n_lead, run, torch.empty(out_shape, device=DEVICE)),
+               10),
+           "library_ms": timer(lambda: torch.sum(stack, 0), 50),
+           "library_bits_equal": torch.equal(
+               torch.sum(stack, 0).cpu().view(torch.int32), got)}
+    res["bound_ms"], res["bound_by"] = fold_bound_ms_mesh(
+        k, n_lead * run, host[0].element_size())
+    log(f"gather-fold {res['shape']}: bitwise vs plain on the card "
+        f"{bitwise_card}, on the CPU {bitwise_cpu}, deterministic "
+        f"{deterministic}, ms {res['ms']:.4f} (host_us "
+        f"{res['host_us']:.1f}) bound {res['bound_ms']:.5f} plain "
+        f"{res['plain_ms']:.4f} torch.sum {res['library_ms']:.4f} (same "
+        f"bits {res['library_bits_equal']})")
+    check(bitwise_card and bitwise_cpu, f"gather-fold {res['shape']} "
+          "differs in bits from its plain version")
+    check(deterministic, "gather-fold: two launches gave different bits")
+    return res
+
+
+# the exchanges profiled in a fresh process: (name, exchange, groups,
+# features, precision); the reduce-scatter's comm_groups 2 on 56
+# features (F / W = 14), since 2 does not tile the bench's 7
+EXCHANGE_CASES = (
+    ("pair_allgather", "allgather", 1, N_FEATURES, "pair"),
+    ("pair_rs_groups1", "reduce_scatter", 1, N_FEATURES, "pair"),
+    ("pair_rs_groups2", "reduce_scatter", 2, 2 * N_FEATURES, "pair"),
+    ("pair_rs_groups7", "reduce_scatter", 7, N_FEATURES, "pair"),
+    ("bf16_rs_groups7", "reduce_scatter", 7, N_FEATURES, "bf16"),
+)
+EXCHANGE_PROFILED = 3     # exchanges a shard in the profiled run
+EXCHANGE_TIMED = 50       # exchanges a shard in the host-timed run
+# the exchanges of EXCHANGE_CASES in a fresh process, on the inputs
+# saved at argv[1] ({name: (hi list, lo list)}), by the checkout at
+# argv[3] (this one when empty): for each, a W-shard mesh on the card
+# runs one exchange a shard (warm-up), then EXCHANGE_PROFILED under the
+# profiler (its device events), then EXCHANGE_TIMED, three times, on the
+# host clock: each shard's time in its exchange calls less its time in
+# the mesh's barriers (the host work of an exchange, every shard's), and
+# the loop's wall time with the barriers' hand-overs; the shards'
+# results of the first exchange go to argv[2]
+EXCHANGE_PROFILE_SRC = """
+import json, sys, threading, time, torch
+if sys.argv[3]:
+    sys.path.insert(0, sys.argv[3])
+from torch.profiler import ProfilerActivity, profile
+from lightgbm_tpu_torch.parallel import mesh as pm
+a = torch.load(sys.argv[1])
+cases, inputs = a["cases"], a["inputs"]
+out, results = {}, {}
+waited = threading.local()
+wait = pm.LocalMesh._wait
+def timed_wait(self, tag):
+    t0 = time.perf_counter()
+    try:
+        return wait(self, tag)
+    finally:
+        waited.s = getattr(waited, "s", 0.0) + time.perf_counter() - t0
+pm.LocalMesh._wait = timed_wait
+for name, exchange, groups, f, precision in cases:
+    hi, lo = ([t.cuda() for t in ws] for ws in inputs[name])
+    w = len(hi)
+    mesh = pm.LocalMesh(w, "cuda")
+    own = []
+    def one(r):
+        pair = (hi[r], lo[r])
+        w0, t0 = getattr(waited, "s", 0.0), time.perf_counter()
+        if exchange == "allgather":
+            fn = (pm.pair_allreduce(pair, mesh) if precision == "pair"
+                  else pm.compressed_allreduce(pair, mesh, precision))
+        elif precision == "pair":
+            fn = pm.pair_reduce_scatter(pair, mesh, w, groups)
+        else:
+            fn = pm.compressed_reduce_scatter(pair, mesh, w, groups,
+                                              precision)
+        own.append(time.perf_counter() - t0 - (waited.s - w0))
+        return fn
+    def many(n):
+        return mesh.run(lambda r: [one(r) for _ in range(n)])
+    results[name] = [o[0].cpu() for o in many(1)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        many(%d)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    host, wall = [], []
+    for _ in range(3):
+        spans = []
+        for n in (0, %d):
+            del own[:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            many(n)
+            spans.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        host.append(sum(own) / %d)
+        wall.append((spans[1] - spans[0]) / %d)
+    out[name] = {"names": sorted({e.name for e in ev}),
+                 "device_events": len(ev),
+                 "device_ms": sum(e.device_time_total for e in ev) / 1e3,
+                 "host_s": sorted(host)[1], "wall_s": sorted(wall)[1]}
+torch.save(results, sys.argv[2])
+print(json.dumps(out))
+""" % (EXCHANGE_PROFILED, EXCHANGE_TIMED, EXCHANGE_TIMED, EXCHANGE_TIMED)
+
+
+def exchange_profile(torch, inputs, root=""):
+    """EXCHANGE_PROFILE_SRC in a fresh process (the checkout at `root`,
+    or this one) on `inputs`: for each exchange its device kernels a
+    shard an exchange, device ms an exchange (every shard's kernels),
+    host us an exchange (every shard's own host work, barriers taken
+    out; the median of three runs) and wall us an exchange (with the
+    barriers' hand-overs), and the shards' results."""
+    w = PARALLEL_SHARDS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exchange_") as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({"cases": EXCHANGE_CASES, "inputs": inputs}, path)
+        proc = subprocess.run(
+            [sys.executable, "-c", EXCHANGE_PROFILE_SRC, path,
+             path + ".out", root], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0, "exchange profile: the profiling "
+              f"process failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        results = torch.load(path + ".out")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {}
+    for name, p in prof.items():
+        n = EXCHANGE_PROFILED
+        out[name] = {"device_kernel_names": p["names"],
+                     "kernels_a_shard_exchange": p["device_events"] / (n * w),
+                     "device_ms_an_exchange": p["device_ms"] / n,
+                     "host_us_an_exchange": 1e6 * p["host_s"],
+                     "wall_us_an_exchange": 1e6 * p["wall_s"]}
+    return out, results
+
+
+def exchange_cases(torch, rng):
+    """Each exchange of EXCHANGE_CASES profiled in a fresh process
+    (exchange_profile; a late in-process profiler records no eager device
+    event), one device kernel a shard an exchange required of the pair
+    ones; with --baseline the other checkout's exchanges on the same
+    inputs in a process of their own, their results bit-equal."""
+    w = PARALLEL_SHARDS
+    inputs = {name: exchange_words(rng, w, (f, MAX_BIN, 3))
+              for name, _, _, f, _ in EXCHANGE_CASES}
+    res, results = exchange_profile(torch, inputs)
+    for name, r in res.items():
+        log(f"exchange {name} ({w} shards, one card): "
+            f"{r['kernels_a_shard_exchange']:.2f} device kernels a shard "
+            f"({r['device_kernel_names']}), device ms "
+            f"{r['device_ms_an_exchange']:.4f}, host us "
+            f"{r['host_us_an_exchange']:.1f} (wall "
+            f"{r['wall_us_an_exchange']:.1f}) an exchange")
+        if name.startswith("pair"):
+            check(r["kernels_a_shard_exchange"] == 1.0
+                  and all("gather_fold" in k
+                          for k in r["device_kernel_names"]),
+                  f"exchange {name}: not one gather-fold a shard")
+    if BASELINE is not None:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            BASELINE.__file__)))
+        base, base_results = exchange_profile(torch, inputs, root)
+        for name, r in res.items():
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(results[name], base_results[name]))
+            r["baseline"] = dict(base[name], same_bits=same)
+            log(f"  baseline {name}: "
+                f"{base[name]['kernels_a_shard_exchange']:.2f} device "
+                f"kernels a shard ({base[name]['device_kernel_names']}), "
+                f"device ms {base[name]['device_ms_an_exchange']:.4f}, host "
+                f"us {base[name]['host_us_an_exchange']:.1f} (wall "
+                f"{base[name]['wall_us_an_exchange']:.1f}); same bits "
+                f"{same}")
+            check(same, f"exchange {name}: the baseline gave other bits")
+    return res
+
+
 def phase_parallel(torch, lgt, hk, timer, ds, y, seed):
     """The data-, feature- and voting-parallel learners on an in-process
     mesh of PARALLEL_SHARDS shards (see the module doc, 9d). Returns the
-    report and the mesh_fold cases (the first at the default
-    reduce-scatter's owned block)."""
+    report and the mesh_fold cases (the first the gather-fold of the
+    default reduce-scatter's owned block)."""
     from lightgbm_tpu_torch.ops import mesh_kernels as mk
     rng = np.random.RandomState(seed + 15)
     w = PARALLEL_SHARDS
     f_loc = N_FEATURES // w
-    cases = [mesh_fold_case(torch, mk, timer, rng, 2 * w, (f_loc, MAX_BIN, 3),
-                            torch.float32),
-             mesh_fold_case(torch, mk, timer, rng, 2 * w,
-                            (1, N_FEATURES, MAX_BIN, 3), torch.float32),
-             mesh_fold_case(torch, mk, timer, rng, w, (f_loc, MAX_BIN, 3),
-                            torch.bfloat16)]
+    full = (N_FEATURES, MAX_BIN, 3)
+    cases = [gather_fold_case(torch, mk, timer, rng, w, full, None, True),
+             gather_fold_case(torch, mk, timer, rng, w, (1, *full), None,
+                              False),
+             gather_fold_case(torch, mk, timer, rng, w, full, torch.bfloat16,
+                              True, words=1),
+             mesh_fold_case(torch, mk, timer, rng, 2 * w, (f_loc, MAX_BIN, 3),
+                            torch.float32)]
     res = {"shards": w, "cards": torch.cuda.device_count(),
-           "kernel_cases": cases}
+           "kernel_cases": cases,
+           "exchanges": exchange_cases(torch, rng)}
     serial, ser_ms = train_rounds(torch, lgt, BENCH_PARAMS, ds,
                                   PARALLEL_ROUNDS)
     part_params = dict(BENCH_PARAMS, partitioned_build="true")

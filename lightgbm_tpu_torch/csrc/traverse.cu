@@ -78,14 +78,24 @@
 //    A block's rows shrink until their (rows, K) sums fit in shared
 //    memory (one row holds K of about 50,000).
 // 5. Linear leaves (tree_lin_raw) are tree_raw's walk with another value
-//    stage: a lane that reached its leaf reads the leaf's block (cnt,
-//    const, 8 coefficients, 8 feature columns: 72 bytes in f32) from
-//    device memory, where L2 keeps the forest's blocks, and dots it
-//    against the row, which is already staged in shared memory; the
-//    value goes into the window's values as the leaf value does in
-//    tree_raw, so the class sums keep tree order. The bound moves from
-//    the walk's chain to that chain plus one dependent load of the block
-//    and up to 8 feature loads a lane.
+//    stage: a lane that reached its leaf reads the leaf's 64-byte record
+//    (LinRecord: intercept, 8 coefficients, 8 column ids of 20 bits, the
+//    leaf's constant value and the live count; f32, which holds a bf16
+//    model's values exactly) as four 16-byte loads issued together, then
+//    the row's 8 values (staged in shared memory) together, and dots
+//    them in slot order; the value goes into the window's values as the
+//    leaf value does in tree_raw, so the class sums keep tree order. A
+//    lane's chain is the walk, one round trip for the record and one
+//    shared-memory round for the row. Where the intercepts,
+//    coefficients, columns, counts and leaf values were five arrays, a
+//    lane's loads came back one after another: the count, then the
+//    block, then the row, then the leaf value, which the compiler sank
+//    to its use (on the H100 the value stage took about 2.5 us a lane
+//    against the walk's 0.9, bench/lin_profile.py; PERF.md, PR 17).
+//    Loading the leaf's value from its own array beside the record cost
+//    0.5 us of a 4096-row call's 18; overlapping a lane's value stage
+//    with its next walk, an L2 prefetch of the records and two blocks an
+//    SM were each measured no faster.
 // The launch plan (rows, tiles a block and a window, slots, staged rows,
 // threads) is made by traverse_kernels.plan; this file checks it, lays
 // out shared memory (layout()) and opts each kernel in to the card's
@@ -152,48 +162,86 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The linear leaves of tree_lin_raw (ops/traverse_kernels.py
-// LinearLeaves), indexed by tree * L + leaf: the intercept, kCoefPad
-// coefficients and their feature columns (real column ids, a byte
-// offset of 4 each in a row) and the live count; the output transform
-// and, for the sigmoid, -2 * sigmoid rounded to f32.
-template <typename V>
+// A linear leaf's record (ops/traverse_kernels.py pack_linear), 16
+// 32-bit words: 0 the intercept and 1..8 the coefficients (f32 bits;
+// bf16 storage widened, which is exact), 9..12 the low 16 bits of the 8
+// column ids (two a word, slot 2q in the low half), 13 their bits 16..19
+// (a nibble a slot, slot j at bit 4j), 14 the leaf's constant value (f32
+// bits, widened likewise), 15 the live count.
+struct LinRecord {
+  int4 w[4];
+};
+
+// The linear leaves of tree_lin_raw, indexed by tree * L + leaf; the
+// output transform and, for the sigmoid, -2 * sigmoid rounded to f32.
 struct Lin {
-  const V* cst;
-  const V* coef;
-  const int* feat;
-  const int* cnt;
+  const LinRecord* rec;
   int xform;
   float neg2sig;
 };
 
-// One lane's linear leaf value at (tree, leaf) index li for the row at
-// xr (shared or device memory): the plain version's arithmetic, every
-// slot added in order (a dead or NaN slot adds 0.0), each product
-// rounded before its add, and the constant leaf value `base` where the
-// leaf is constant or a live feature is NaN.
-template <typename V>
-__device__ __forceinline__ float linear_value(const Lin<V>& lin, size_t li,
-                                              const float* xr, float base) {
-  const int cn = __ldg(lin.cnt + li);
+// the record's four 16-byte loads, issued together where they stand (a
+// volatile asm is not moved below the count's test or into a later
+// iteration)
+__device__ __forceinline__ LinRecord load_record(const LinRecord* p) {
+  LinRecord r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r.w[i].x), "=r"(r.w[i].y), "=r"(r.w[i].z),
+                   "=r"(r.w[i].w)
+                 : "l"(reinterpret_cast<const int4*>(p) + i));
+  return r;
+}
+
+// word k of a record (k a constant once the loops are unrolled)
+__device__ __forceinline__ unsigned rec_word(const LinRecord& r, int k) {
+  const int4 v = r.w[k >> 2];
+  const int c = k & 3;
+  return static_cast<unsigned>(c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z
+                                                                   : v.w);
+}
+
+// slot j's column
+__device__ __forceinline__ unsigned rec_col(const LinRecord& r, int j) {
+  return ((rec_word(r, 9 + (j >> 1)) >> ((j & 1) * 16)) & 0xffffu) |
+         (((rec_word(r, 13) >> (4 * j)) & 0xfu) << 16);
+}
+
+// One lane's linear leaf value from its leaf's record for the row at xr
+// (shared or device memory): the plain version's arithmetic, every slot
+// added in order (a dead or NaN slot adds 0.0), each product rounded
+// before its add, and the leaf's constant value where the leaf is
+// constant or a live feature is NaN.
+__device__ __forceinline__ float lin_dot(const LinRecord& rec,
+                                         const float* xr) {
+  const int cn = static_cast<int>(rec_word(rec, 15));
+  const float base = __uint_as_float(rec_word(rec, 14));
   if (cn <= 0) return base;
-  const V* co = lin.coef + li * kCoefPad;
-  const int* ft = lin.feat + li * kCoefPad;
-  float a = widen(lin.cst[li]);
+  // the row's 8 values loaded together, before any is tested (a dead
+  // slot's column is 0, a valid one)
+  float xv[kCoefPad];
+#pragma unroll
+  for (int j = 0; j < kCoefPad; ++j) xv[j] = xr[rec_col(rec, j)];
+  float a = __uint_as_float(rec_word(rec, 0));
   bool nan = false;
 #pragma unroll
   for (int j = 0; j < kCoefPad; ++j) {
-    float prod = 0.0f;
-    if (j < cn) {
-      const float xv = xr[__ldg(ft + j)];
-      if (xv != xv)
-        nan = true;
-      else
-        prod = __fmul_rn(widen(co[j]), xv);
-    }
-    a = __fadd_rn(a, prod);
+    const bool live = j < cn, missing = xv[j] != xv[j];
+    nan |= live && missing;
+    a = __fadd_rn(a, live && !missing
+                         ? __fmul_rn(__uint_as_float(rec_word(rec, 1 + j)),
+                                     xv[j])
+                         : 0.0f);
   }
   return nan ? base : a;
+}
+
+// the same at (tree, leaf) index li, the record loaded here
+__device__ __forceinline__ float linear_value(const Lin& lin, size_t li,
+                                              const float* xr) {
+  const LinRecord rec = load_record(lin.rec + li);
+  return lin_dot(rec, xr);
 }
 
 // ------------------------------------------------- mbarrier and TMA copy
@@ -348,13 +396,15 @@ __device__ __forceinline__ int walk(int node, const char* tree,
 // group, the whole forest) the class sums to out (B, K) f32, of the leaf
 // values or, kLin, of the linear leaf values (transformed as lin.xform
 // says). kFast: the records and rows are both in shared memory, so
-// every load of the walk is a shared one.
+// every load of the walk is a shared one. kLin's bounds aim at one
+// block an SM: its record takes 16 registers, and under two blocks' cap
+// of 32 registers it spilled and ran slower.
 template <bool kRaw, typename V, bool kFast, bool kCat, bool kLin>
-__global__ void __launch_bounds__(kMaxThreads, 2)
+__global__ void __launch_bounds__(kMaxThreads, kLin ? 1 : 2)
 walk_kernel(const float* __restrict__ x, int b, int f,
             const int4* __restrict__ tiles, const int* __restrict__ node0,
             int t, int s, int depth, const V* __restrict__ lv, int l, int k,
-            Lin<V> lin, Plan p, Layout lay, void* __restrict__ out) {
+            Lin lin, Plan p, Layout lay, void* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int4* buf = reinterpret_cast<int4*>(smem + lay.tiles);
@@ -407,7 +457,7 @@ walk_kernel(const float* __restrict__ x, int b, int f,
   }
   if (kRaw) {
     for (int q = tid; q < nrows * k; q += nthreads) acc[q] = 0.0f;
-    prefetch_values(lv, l, g0, min(win_trees, gn));
+    if (!kLin) prefetch_values(lv, l, g0, min(win_trees, gn));
   }
   __syncthreads();
   const char* xbase = reinterpret_cast<const char*>(staged ? xs : xg);
@@ -421,7 +471,7 @@ walk_kernel(const float* __restrict__ x, int b, int f,
     const int slot = ring ? wi % p.slots : 0;
     const int* wroots = roots + (two ? (wi & 1) * win_trees : 0);
     float* wvals = vals + (two ? (wi & 1) * p.rows * pitch : 0);
-    if (kRaw && wi + 1 < nwin)
+    if (kRaw && !kLin && wi + 1 < nwin)
       prefetch_values(lv, l, g0 + next, min(win_trees, gn - next));
     if (ring) bar_wait(bars + slot, (wi / p.slots) & 1);
     const int4* wbuf = ring ? buf + slot * win_recs
@@ -443,12 +493,13 @@ walk_kernel(const float* __restrict__ x, int b, int f,
       const int tree = g0 + wtrees0 + jw;    // in the forest
       if (kRaw) {
         const size_t li = (size_t)tree * l + (node < 0 ? ~node : 0);
-        float v = widen(lv[li]);
-        if (kLin)
+        float v;
+        if constexpr (kLin)
           v = linear_value(lin, li,
                            reinterpret_cast<const float*>(
-                               xbase + (size_t)r * xstride * 4),
-                           v);
+                               xbase + (size_t)r * xstride * 4));
+        else
+          v = widen(lv[li]);
         wvals[r * pitch + jw] = v;
       } else
         static_cast<int*>(out)[(size_t)(row0 + r) * t + tree] = ~node;
@@ -554,7 +605,7 @@ template <bool kRaw, typename V, bool kFast, bool kCat, bool kLin>
 int launch_one(dim3 grid, const Layout& lay, cudaStream_t stream, int device,
                const float* x, int b, int f, const void* nodes,
                const int* node0, int t, int s, int depth, const V* lv, int l,
-               int k, const Lin<V>& lin, const Plan& p, void* out) {
+               int k, const Lin& lin, const Plan& p, void* out) {
   const int status = opt_in<kRaw, V, kFast, kCat, kLin>(device);
   if (status != 0) return status;
   walk_kernel<kRaw, V, kFast, kCat, kLin>
@@ -567,7 +618,7 @@ int launch_one(dim3 grid, const Layout& lay, cudaStream_t stream, int device,
 template <bool kRaw, typename V, bool kLin>
 int launch_walk(const float* x, int b, int f, const void* nodes,
                 const int* node0, int t, int s, int depth, const V* lv,
-                int l, int k, const Lin<V>& lin, const int* plan, void* out,
+                int l, int k, const Lin& lin, const int* plan, void* out,
                 void* stream) {
   if (b < 0 || f < 1 || t < 1 || s < 1 || depth < 0 || l < 1 || k < 1)
     return kBadShape;
@@ -587,7 +638,8 @@ int launch_walk(const float* x, int b, int f, const void* nodes,
     return kBadShape;
   if (p.slots > 0 && (reinterpret_cast<uintptr_t>(nodes) & 15))
     return kBadShape;  // TMA copies need 16-byte-aligned records
-  if (kLin && (lin.xform < kRawSums || lin.xform > kSoftmax))
+  if (kLin && (lin.xform < kRawSums || lin.xform > kSoftmax ||
+               (reinterpret_cast<uintptr_t>(lin.rec) & 15)))
     return kBadShape;
   const Layout lay = layout(p, f, s, k, kRaw);
   int device = 0, limit = 0;
@@ -615,19 +667,6 @@ int launch_walk(const float* x, int b, int f, const void* nodes,
                                                  lv, l, k, lin, p, out);
 }
 
-template <typename V>
-int launch_lin(const float* x, int b, int f, const void* nodes,
-               const int* node0, int t, int s, int depth, const void* lv,
-               const void* cst, const void* coef, const int* feat,
-               const int* cnt, int l, int k, int xform, float neg2sig,
-               const int* plan, float* out, void* stream) {
-  const Lin<V> lin{static_cast<const V*>(cst), static_cast<const V*>(coef),
-                   feat, cnt, xform, neg2sig};
-  return launch_walk<true, V, true>(x, b, f, nodes, node0, t, s, depth,
-                                    static_cast<const V*>(lv), l, k, lin,
-                                    plan, out, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -640,8 +679,8 @@ int tree_leaf(const float* x, int b, int f, const void* nodes,
               const int* node0, int t, int s, int depth, const int* plan,
               int* out, void* stream) {
   return launch_walk<false, float, false>(x, b, f, nodes, node0, t, s, depth,
-                                          nullptr, 1, 1, Lin<float>{}, plan,
-                                          out, stream);
+                                          nullptr, 1, 1, Lin{}, plan, out,
+                                          stream);
 }
 
 // (B, K) f32 class sums of the T trees' leaf values, lv (T, L) float32:
@@ -650,8 +689,7 @@ int tree_raw_f32(const float* x, int b, int f, const void* nodes,
                  const int* node0, int t, int s, int depth, const float* lv,
                  int l, int k, const int* plan, float* out, void* stream) {
   return launch_walk<true, float, false>(x, b, f, nodes, node0, t, s, depth,
-                                         lv, l, k, Lin<float>{}, plan, out,
-                                         stream);
+                                         lv, l, k, Lin{}, plan, out, stream);
 }
 
 // The same with bfloat16 leaf values, accumulated in f32.
@@ -660,36 +698,22 @@ int tree_raw_bf16(const float* x, int b, int f, const void* nodes,
                   int l, int k, const int* plan, float* out, void* stream) {
   return launch_walk<true, __nv_bfloat16, false>(
       x, b, f, nodes, node0, t, s, depth,
-      static_cast<const __nv_bfloat16*>(lv), l, k, Lin<__nv_bfloat16>{}, plan,
-      out, stream);
+      static_cast<const __nv_bfloat16*>(lv), l, k, Lin{}, plan, out, stream);
 }
 
 // (B, K) f32 class sums of the T trees' linear leaf values (tree_raw's
 // order), transformed by xform (0 none, 1 sigmoid with neg2sig = -2 *
-// sigmoid, 2 softmax over the K sums): lv and cst (T, L), coef (T, L, 8)
-// float32, feat (T, L, 8) and cnt (T, L) int32.
-int tree_lin_raw_f32(const float* x, int b, int f, const void* nodes,
-                     const int* node0, int t, int s, int depth,
-                     const void* lv, const void* cst, const void* coef,
-                     const int* feat, const int* cnt, int l, int k,
-                     int xform, float neg2sig, const int* plan, float* out,
-                     void* stream) {
-  return launch_lin<float>(x, b, f, nodes, node0, t, s, depth, lv, cst, coef,
-                           feat, cnt, l, k, xform, neg2sig, plan, out,
-                           stream);
-}
-
-// The same with bfloat16 leaf values, intercepts and coefficients,
-// widened to f32 where they are read.
-int tree_lin_raw_bf16(const float* x, int b, int f, const void* nodes,
-                      const int* node0, int t, int s, int depth,
-                      const void* lv, const void* cst, const void* coef,
-                      const int* feat, const int* cnt, int l, int k,
-                      int xform, float neg2sig, const int* plan, float* out,
-                      void* stream) {
-  return launch_lin<__nv_bfloat16>(x, b, f, nodes, node0, t, s, depth, lv,
-                                   cst, coef, feat, cnt, l, k, xform, neg2sig,
-                                   plan, out, stream);
+// sigmoid, 2 softmax over the K sums): rec the (T, L) 64-byte records
+// (LinRecord), 16-byte aligned, which hold every value the sums read
+// (float32, or a bfloat16 model's values widened).
+int tree_lin_raw(const float* x, int b, int f, const void* nodes,
+                 const int* node0, int t, int s, int depth, const void* rec,
+                 int l, int k, int xform, float neg2sig, const int* plan,
+                 float* out, void* stream) {
+  const Lin lin{static_cast<const LinRecord*>(rec), xform, neg2sig};
+  return launch_walk<true, float, true>(x, b, f, nodes, node0, t, s, depth,
+                                        nullptr, l, k, lin, plan, out,
+                                        stream);
 }
 
 // The dynamic shared memory a block may opt in to on `device` (bytes), or

@@ -302,8 +302,11 @@ def _bind_rank(lib):
 
 def _bind_mesh(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mesh_fold.argtypes = [p, i, i, ctypes.c_longlong, p, p]
-    lib.mesh_fold.restype = i
+    ll = ctypes.c_longlong
+    lib.gather_fold.argtypes = [p, i, i, ll, ll, p, ll, p, p]
+    lib.gather_fold.restype = i
+    lib.gather_fold_max_comps.argtypes = []
+    lib.gather_fold_max_comps.restype = i
     lib.mesh_status_string.argtypes = [i]
     lib.mesh_status_string.restype = ctypes.c_char_p
 

@@ -17,7 +17,9 @@ a server does not wait for the histogram kernels) and loaded with
 ctypes. A frozen model is a `Forest`: the (T, S) node
 arrays the plain walk reads, and the same nodes packed into one 16-byte
 record each (pack_nodes) and interleaved into tiles of 32 trees
-(interleave), which is what the kernels read.
+(interleave), which is what the kernels read. A linear model's leaves
+are `LinearLeaves`: one 64-byte record a leaf (pack_linear), which both
+tree_lin_raw and its plain version read.
 
 The kernels walk their trees from shared memory: a tile of 32 trees
 copied in by TMA, a warp walking one row through a tile with lane j on
@@ -79,6 +81,10 @@ LOAD_INFO = {}
 _CATEGORICAL_BIT = np.int32(-(1 << 31))
 # coefficient slots of a linear leaf (the JAX package's COEF_PAD; kCoefPad)
 COEF_PAD = 8
+# 32-bit words of a linear leaf's record (pack_linear; LinRecord), and
+# the columns a record's 20-bit ids reach
+REC_WORDS = 16
+MAX_COLUMNS = 1 << 20
 # tree_lin_raw's output transforms (csrc/traverse.cu Transform)
 TRANSFORMS = {"raw": 0, "sigmoid": 1, "softmax": 2}
 
@@ -120,24 +126,66 @@ class Forest(NamedTuple):
 
 
 class LinearLeaves(NamedTuple):
-    """A frozen forest's linear leaves on one device, (T, L) and (T, L,
-    COEF_PAD) like its leaf values: intercepts `const` and coefficients
-    `coef` (float32 or bfloat16, the leaf values' type), the
-    coefficients' feature columns `feat` (int32 real column ids, zero in
-    dead slots), the live count `cnt` (int32, 0 for a constant leaf);
-    `width` the least row width (largest live column + 1)."""
-    const: torch.Tensor
-    coef: torch.Tensor
-    feat: torch.Tensor
-    cnt: torch.Tensor
+    """A frozen forest's linear leaves on one device: `rec`, the (T, L,
+    REC_WORDS) int32 records (pack_linear), one a (tree, leaf) like the
+    leaf values; `dtype` the type their intercepts, coefficients and leaf
+    values were rounded to (float32 or bfloat16, the serving precision's;
+    a record holds them widened to float32, which is exact); `width` the
+    least row width (largest live column + 1)."""
+    rec: torch.Tensor
+    dtype: torch.dtype
     width: int
 
 
-def freeze_linear(const, coef, feat, cnt, dtype, device):
+def pack_linear(const, coef, feat, cnt, values):
+    """(T, L, REC_WORDS) int32 records of linear leaves from (T, L)
+    float32 intercepts, (T, L, COEF_PAD) float32 coefficients and int32
+    columns (below 2^20, zero in dead slots), (T, L) int32 live counts
+    and (T, L) float32 leaf values: one 64-byte record a leaf, which the
+    kernel reads as four 16-byte loads (csrc/traverse.cu LinRecord): word
+    0 the intercept's bits, 1..8 the coefficients', 9..12 the columns'
+    low 16 bits (two a word, the even slot low), 13 their bits 16..19 (a
+    nibble a slot, slot j at bit 4j), 14 the leaf value's bits (what a
+    constant lane returns), 15 the count."""
+    t, l = cnt.shape
+    rec = np.zeros((t, l, REC_WORDS), np.uint32)
+    rec[..., 0] = np.ascontiguousarray(const, np.float32).view(np.uint32)
+    rec[..., 1:9] = np.ascontiguousarray(coef, np.float32).view(np.uint32)
+    col = np.asarray(feat, np.int64).astype(np.uint32)
+    low = col & 0xFFFF
+    rec[..., 9:13] = low[..., 0::2] | (low[..., 1::2] << 16)
+    rec[..., 13] = np.bitwise_or.reduce(
+        ((col >> 16) & 0xF) << (4 * np.arange(COEF_PAD, dtype=np.uint32)),
+        axis=-1)
+    rec[..., 14] = np.ascontiguousarray(values, np.float32).view(np.uint32)
+    rec[..., 15] = np.asarray(cnt, np.int32).view(np.uint32)
+    return rec.view(np.int32)
+
+
+def unpack_linear(lin):
+    """(const, coef, feat, cnt, values) of LinearLeaves as tensors on its
+    device, decoded from the records: (T, L) and (T, L, COEF_PAD) float32
+    (the stored values widened), int32 columns, (T, L) int32 counts and
+    (T, L) float32 leaf values."""
+    rec = lin.rec
+    words = rec.to(torch.int64) & 0xFFFFFFFF
+    low = torch.stack([words[..., 9 + j // 2] >> (16 * (j % 2))
+                       for j in range(COEF_PAD)], dim=-1) & 0xFFFF
+    high = torch.stack([words[..., 13] >> (4 * j)
+                        for j in range(COEF_PAD)], dim=-1) & 0xF
+    return (rec[..., 0].view(torch.float32), rec[..., 1:9].view(torch.float32),
+            (low | (high << 16)).to(torch.int32), rec[..., 15],
+            rec[..., 14].view(torch.float32))
+
+
+def freeze_linear(const, coef, feat, cnt, values, dtype, device):
     """LinearLeaves on `device` from host (T, L) / (T, L, C <= COEF_PAD)
-    arrays, the slot axis zero-padded to COEF_PAD; const and coef stored
-    as `dtype` (torch.float32 or torch.bfloat16; rounded through float32,
-    as the JAX package casts)."""
+    arrays and the (T, L) leaf values, the slot axis zero-padded to
+    COEF_PAD; intercepts, coefficients and leaf values rounded to `dtype`
+    (torch.float32 or torch.bfloat16; through float32, as the JAX package
+    casts) and packed with the live columns and counts into records
+    (pack_linear). Columns are 20-bit in a record: a live column of 2^20
+    or more raises."""
     coef = np.asarray(coef)
     c = coef.shape[2]
     if c > COEF_PAD:
@@ -150,18 +198,21 @@ def freeze_linear(const, coef, feat, cnt, dtype, device):
     if (feat[live] < 0).any():
         raise ValueError("linear leaves' feature columns must be "
                          "non-negative")
+    width = int(feat[live].max()) + 1 if live.any() else 1
+    if width > MAX_COLUMNS:
+        raise ValueError(f"linear leaves read column {width - 1}; a linear "
+                         "record holds columns below 2^20")
 
-    def values(a):
+    def stored(a):
+        # rounded to the storage type, widened back exactly
         return torch.from_numpy(np.ascontiguousarray(
             np.asarray(a, np.float64).astype(np.float32))).to(dtype).to(
-                device)
+                torch.float32).numpy()
 
-    return LinearLeaves(
-        values(const), values(np.pad(coef, pad)),
-        torch.from_numpy(np.ascontiguousarray(
-            np.pad(np.where(live, feat, 0), pad))).to(device),
-        torch.from_numpy(np.ascontiguousarray(cnt)).to(device),
-        int(feat[live].max()) + 1 if live.any() else 1)
+    rec = pack_linear(stored(const), stored(np.pad(coef, pad)),
+                      np.pad(np.where(live, feat, 0), pad), cnt,
+                      stored(values))
+    return LinearLeaves(torch.from_numpy(rec).to(device), dtype, width)
 
 
 def pack_nodes(sf, thr32, is_cat, lc, rc):
@@ -373,37 +424,32 @@ def _check_linear(x, forest, lv, lin):
     if x.shape[1] < lin.width:
         raise ValueError(f"tree_lin_raw: rows have {x.shape[1]} features, "
                          f"a linear leaf reads feature {lin.width - 1}")
-    t, l = lv.shape
-    shapes = {"const": (t, l), "coef": (t, l, COEF_PAD),
-              "feat": (t, l, COEF_PAD), "cnt": (t, l)}
-    for name, want in shapes.items():
-        a = getattr(lin, name)
-        if tuple(a.shape) != want:
-            raise ValueError(f"tree_lin_raw: {name} must be {want}, got "
-                             f"{tuple(a.shape)}")
-        if a.device != lv.device:
-            raise ValueError("tree_lin_raw: linear leaves and trees on "
-                             "different devices")
-    if lin.const.dtype != lv.dtype or lin.coef.dtype != lv.dtype:
+    want = (*lv.shape, REC_WORDS)
+    if tuple(lin.rec.shape) != want or lin.rec.dtype != torch.int32:
+        raise ValueError(f"tree_lin_raw: records must be {want} int32, got "
+                         f"{tuple(lin.rec.shape)} {lin.rec.dtype}")
+    if lin.rec.device != lv.device:
+        raise ValueError("tree_lin_raw: linear leaves and trees on "
+                         "different devices")
+    if lin.dtype != lv.dtype:
         raise TypeError("tree_lin_raw: intercepts and coefficients must be "
                         "stored as the leaf values are")
-    if lin.feat.dtype != torch.int32 or lin.cnt.dtype != torch.int32:
-        raise TypeError("tree_lin_raw: feat and cnt must be int32")
 
 
-def linear_leaf_values_plain(x, leaves, lv, lin):
-    """(B, T) float32 value of each (row, tree) lane at its leaf: the
-    linear leaf's const + coefficient slots added in order 0..7 (each
-    product rounded, a dead or NaN slot adding 0.0), or the constant
-    leaf value where cnt is 0 or a live feature is NaN (the JAX
-    package's _linear_leaf_values, in a fixed slot order)."""
+def linear_leaf_values_plain(x, leaves, lin):
+    """(B, T) float32 value of each (row, tree) lane at its leaf, from
+    the records: the linear leaf's const + coefficient slots added in
+    order 0..7 (each product rounded, a dead or NaN slot adding 0.0), or
+    the constant leaf value where cnt is 0 or a live feature is NaN (the
+    JAX package's _linear_leaf_values, in a fixed slot order)."""
     b, t = leaves.shape
     t_idx = torch.arange(t, device=x.device)[None, :]
-    base = lv[t_idx, leaves].float()
-    acc = lin.const[t_idx, leaves].float()
-    cn = lin.cnt[t_idx, leaves]
-    co = lin.coef[t_idx, leaves].float()                      # (B, T, C)
-    ft = lin.feat[t_idx, leaves].long()
+    const, coef, feat, cnt, values = unpack_linear(lin)
+    base = values[t_idx, leaves]
+    acc = const[t_idx, leaves]
+    cn = cnt[t_idx, leaves]
+    co = coef[t_idx, leaves]                                  # (B, T, C)
+    ft = feat[t_idx, leaves].long()
     xf = torch.gather(x, 1, ft.reshape(b, -1)).reshape(b, t, COEF_PAD)
     nan = torch.zeros_like(cn, dtype=torch.bool)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -445,13 +491,14 @@ def _transform_kind(transform, num_class, sigmoid):
 
 def tree_lin_raw_plain(x, forest, lv, lin, num_class, transform=False,
                        sigmoid=-1.0):
-    """(B, K) float32: tree t adds its lane's linear leaf value to class
-    t % K in tree order (a walk cut short reads leaf 0), then, with
-    `transform`, transform_plain."""
+    """(B, K) float32: tree t adds its lane's linear leaf value (from
+    the records, as the kernel reads them) to class t % K in tree order
+    (a walk cut short reads leaf 0), then, with `transform`,
+    transform_plain."""
     _check_values(forest, lv, num_class)
     _check_linear(x, forest, lv, lin)
     leaves = tree_leaf_plain(x, forest).long().clamp(min=0)
-    vals = linear_leaf_values_plain(x, leaves, lv, lin)
+    vals = linear_leaf_values_plain(x, leaves, lin)
     acc = torch.zeros((x.shape[0], num_class), dtype=torch.float32,
                       device=x.device)
     for t in range(vals.shape[1]):
@@ -470,10 +517,9 @@ def _bind(lib):
     for fn in (lib.tree_raw_f32, lib.tree_raw_bf16):
         fn.argtypes = [p, i, i, p, p, i, i, i, p, i, i, p, p, p]
         fn.restype = i
-    for fn in (lib.tree_lin_raw_f32, lib.tree_lin_raw_bf16):
-        fn.argtypes = [p, i, i, p, p, i, i, i, p, p, p, p, p, i, i, i,
-                       ctypes.c_float, p, p, p]
-        fn.restype = i
+    lib.tree_lin_raw.argtypes = [p, i, i, p, p, i, i, i, p, i, i, i,
+                                 ctypes.c_float, p, p, p]
+    lib.tree_lin_raw.restype = i
     lib.traverse_smem_optin.argtypes = [i]
     lib.traverse_smem_optin.restype = i
     lib.traverse_status_string.argtypes = [i]
@@ -527,8 +573,8 @@ def _planned(b, f, t, s, num_class, index, categorical):
 
 def _launch(name, fn, x, forest, num_class, extra, out):
     """Plan and launch one call; `extra` are tree_raw's leaf-value
-    arguments (pointer, L, K), or tree_lin_raw's (the value pointers, L,
-    K, transform, -2 sigmoid)."""
+    arguments (pointer, L, K), or tree_lin_raw's (the records' pointer,
+    L, K, transform, -2 sigmoid)."""
     for t in (x, forest.tiles, forest.node0):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
@@ -587,10 +633,12 @@ def tree_raw(x, forest, lv, num_class):
 def tree_lin_raw(x, forest, lv, lin, num_class, transform=False,
                  sigmoid=-1.0):
     """(B, K) float32 class sums of the linear leaf values each row
-    reaches (`lin`, a LinearLeaves stored as `lv` is, float32 or
-    bfloat16, widened to f32 where read): tree t adds to class t % K, in
-    tree order. With `transform`, the sums go through sigmoid (K == 1,
-    sigmoid > 0) or softmax (K > 1) in the same launch."""
+    reaches (`lin`, the LinearLeaves frozen with the leaf values `lv`
+    and rounded as `lv` is stored, float32 or bfloat16, widened to f32;
+    the records hold every value the sums read, `lv` is checked against
+    their type and shape): tree t adds to class t % K, in tree order.
+    With `transform`, the sums go through sigmoid (K == 1, sigmoid > 0)
+    or softmax (K > 1) in the same launch."""
     if x.device.type == "cpu":
         return tree_lin_raw_plain(x, forest, lv, lin, num_class, transform,
                                   sigmoid)
@@ -598,16 +646,14 @@ def tree_lin_raw(x, forest, lv, lin, num_class, transform=False,
     _check(x, forest, "tree_lin_raw")
     _check_values(forest, lv, num_class)
     _check_linear(x, forest, lv, lin)
-    for a in (lv, lin.const, lin.coef, lin.feat, lin.cnt):
+    for a in (lv, lin.rec):
         if not a.is_contiguous():
             raise ValueError("tree_lin_raw: leaf arrays must be contiguous")
-    fn = ("tree_lin_raw_f32" if lv.dtype == torch.float32
-          else "tree_lin_raw_bf16")
     kind = TRANSFORMS[_transform_kind(transform, int(num_class), sigmoid)]
     out = torch.empty((x.shape[0], int(num_class)), dtype=torch.float32,
                       device=x.device)
-    return _launch("tree_lin_raw", fn, x, forest, int(num_class),
-                   (lv.data_ptr(), lin.const.data_ptr(),
-                    lin.coef.data_ptr(), lin.feat.data_ptr(),
-                    lin.cnt.data_ptr(), lv.shape[1], int(num_class), kind,
-                    ctypes.c_float(-2.0 * float(sigmoid))), out)
+    return _launch("tree_lin_raw", "tree_lin_raw", x, forest,
+                   int(num_class), (lin.rec.data_ptr(), lv.shape[1],
+                                    int(num_class), kind,
+                                    ctypes.c_float(-2.0 * float(sigmoid))),
+                   out)

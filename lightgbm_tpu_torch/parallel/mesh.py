@@ -17,7 +17,8 @@ runs its learners' per-shard bodies under `shard_map` over a device mesh
   itself); the device work they enqueue runs as it would from one
   thread.
 - the collectives are mesh methods called from inside fn: `all_gather`,
-  `all_to_all` (tiled) and `psum`. Every shard calls the same sequence;
+  `all_to_all` (tiled), `psum` and `fold_exchange` (every shard's words
+  folded where they lie, below). Every shard calls the same sequence;
   a call waits for all W shards' contributions, reads them and waits
   again before any shard goes on, so no contribution is freed or
   overwritten before every consumer has read it. A shard that raises
@@ -26,27 +27,41 @@ runs its learners' per-shard bodies under `shard_map` over a device mesh
   the caller. Each call carries the collective's name, and a shard that
   reaches another collective than its peers fails the same way (a
   lockstep fault, never a hang).
-- the exchange algorithms of the JAX module over those collectives
-  (`pair_allreduce`, `pair_reduce_scatter`, `compressed_allreduce`,
-  `compressed_reduce_scatter`, `compressed_psum`), every fold of
-  received components through the CUDA kernel `mesh_fold`
-  (ops/mesh_kernels.py, csrc/mesh.cu; its plain version on the CPU);
+- the exchange algorithms of the JAX module (`pair_allreduce`,
+  `pair_reduce_scatter`, `compressed_allreduce`,
+  `compressed_reduce_scatter`, `compressed_psum`). The four histogram
+  exchanges are one `fold_exchange` each: a shard posts its Kahan words
+  (or its collapsed word) and, in the collective's read step, folds its
+  peers' words with one launch of the CUDA gather-fold
+  (ops/mesh_kernels.py gather_fold, csrc/mesh.cu), whose descriptors
+  point into the peers' own tensors: the whole histogram for the
+  allgather exchanges, this shard's owned feature block for the
+  reduce-scatter ones (every feature group of it at once, since the
+  groups tile the block). The fold's order is the JAX package's:
+  every shard's value word in shard order, then every residual word.
+  Nothing is stacked or copied on one card; on the CPU the plain
+  version stacks the same views;
 - what each collective costs (the `*_recv_bytes` wire models, CommPlan)
   and the topology view of the learners (MeshTopology). The mesh counts
   the bytes its collectives receive per shard under the same models, so
   a learner's declared plan can be held against what ran.
 
 On one card all shards enqueue on its default stream: the barrier orders
-a contribution's kernels before its consumers' copies. Across cards, or
-on another stream, a contribution is recorded with a CUDA event that its
-consumer's stream waits on.
+a contribution's kernels before its consumers' reads, and a consumer's
+reads before anything its producer enqueues after the second barrier
+(which may reuse the memory of a contribution it dropped). Across cards,
+or on another stream, a contribution is recorded with a CUDA event that
+its consumer's stream waits on; a fold_exchange then reads a copy on the
+consumer's card (across cards) or marks the peer's tensors used on its
+own stream (record_stream), so that their memory outlives the fold.
 """
 
+import math
 import threading
 
 import torch
 
-from ..ops.mesh_kernels import mesh_fold
+from ..ops.mesh_kernels import gather_fold
 from ..utils.log import Log
 from .machines import partition_blocks, partition_features
 
@@ -169,11 +184,12 @@ class LocalMesh:
         all have read it."""
         r = self.rank()
         event = None
-        if isinstance(x, torch.Tensor) and x.is_cuda and (
-                self.multi_device or torch.cuda.current_stream(x.device)
-                != torch.cuda.default_stream(x.device)):
+        t = x[0] if isinstance(x, tuple) else x
+        if isinstance(t, torch.Tensor) and t.is_cuda and (
+                self.multi_device or torch.cuda.current_stream(t.device)
+                != torch.cuda.default_stream(t.device)):
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(x.device))
+            event.record(torch.cuda.current_stream(t.device))
         self._slots[r] = (tag, x, event)
         self._wait(tag)
         slots = list(self._slots)
@@ -240,6 +256,57 @@ class LocalMesh:
 
         return self._collect("psum", x, total)
 
+    def fold_exchange(self, words, scatter=False, kind=None, recv_bytes=()):
+        """The fixed-order compensated fold of every shard's `words`,
+        one gather-fold launch on the caller's device: `words` is this
+        shard's tuple of word tensors ((hi, lo), or the collapsed word
+        alone), each a contiguous (..., F, B, 3) float32 or bfloat16
+        tensor of the same shape on every shard. The components are word
+        0 of shards 0 .. W-1, then word 1 of shards 0 .. W-1 (the JAX
+        exchanges' order). Returns the (..., F, B, 3) float32 fold or,
+        with `scatter`, that of this shard's owned feature block [r *
+        F / W, (r + 1) * F / W): (..., F / W, B, 3). `recv_bytes` are
+        accounted under `kind`, one entry a collective of the wire model
+        the exchange stands for."""
+        r = self.rank()
+        w = self.n_shards
+        dev = self.devices[r]
+        for n in recv_bytes:
+            self._account(kind, n)
+        lead = words[0].shape[:-3]
+        f, b, s = words[0].shape[-3:]
+        if scatter and f % w:
+            raise ValueError(f"fold_exchange: {f} features do not split "
+                             f"into {w} owned blocks")
+        f_out = f // w if scatter else f
+        run, row = f_out * b * s, f * b * s
+        off = r * run if scatter else 0
+
+        def fold(vals):
+            # a shard failed after the rendezvous: enqueue nothing
+            if self._barrier.broken:
+                raise MeshAborted("mesh collective 'fold_exchange' "
+                                  "aborted: another shard failed")
+            out = torch.empty((*lead, f_out, b, s), dtype=torch.float32,
+                              device=dev)
+            if self.multi_device:
+                # a peer on another card: its part copied to this one
+                comps = [((v[i].narrow(-3, off // (b * s), f_out)
+                           if scatter else v[i]).to(dev).contiguous(), 0,
+                          run) for i in range(len(words)) for v in vals]
+            else:
+                if dev.type == "cuda" and torch.cuda.current_stream(dev) \
+                        != torch.cuda.default_stream(dev):
+                    stream = torch.cuda.current_stream(dev)
+                    for v in vals:
+                        for t in v:
+                            t.record_stream(stream)
+                comps = [(v[i], off, row) for i in range(len(words))
+                         for v in vals]
+            return gather_fold(comps, math.prod(lead), run, out)
+
+        return self._collect("fold_exchange", tuple(words), fold)
+
 
 def _nbytes(x):
     return x.numel() * x.element_size()
@@ -271,102 +338,82 @@ def resolve_hist_exchange(config):
     return e
 
 
-# ------------------------------------------------- deterministic kahan
-
-def kahan_fold(components):
-    """Fold stacked components (K, ...) in FIXED index order with
-    compensated summation (mesh_fold) — the reduction whose independence
-    from shard count and topology carries the serial == data-parallel
-    contract. Every exchange path shares this fold."""
-    return mesh_fold(components)
-
-
 # ------------------------------------------------- exchange algorithms
 #
 # All operate on per-shard histograms of shape (..., F, B, 3) — the
 # feature axis sits at ndim-3 (leading axes are frontier leaf batches).
-# The two Kahan words travel stacked in one collective; the fold sees
-# them in the JAX package's order: every shard's value word, then every
-# shard's residual word.
+# Each is one fold_exchange, whose fixed-order compensated fold (the JAX
+# package's kahan_fold) carries the serial == data-parallel contract;
+# the bytes it accounts are those of the JAX exchange's collectives
+# under the wire models below: one all_gather of the stacked pair (or
+# the word), or one all_to_all of it a feature group.
 
-def _words_first(g):
-    """(W, 2, ...) gathered pairs -> (2W, ...): values, then residuals."""
-    return g.transpose(0, 1).reshape(-1, *g.shape[2:])
+def _group_recv_bytes(word, mesh, n_shards, groups, words=1):
+    """The all_to_all bytes of each feature group of `words` stacked
+    words shaped like `word` (the JAX package's _scatter_feature_groups:
+    a group sends its (..., W * fg, B, 3) block)."""
+    w = mesh.n_shards
+    if n_shards != w:
+        raise ValueError(f"n_shards={n_shards} on a mesh of {w} shards")
+    f_loc = word.shape[-3] // w
+    if groups < 1 or f_loc % groups:
+        raise ValueError(f"{groups} feature groups do not tile the owned "
+                         f"block of {f_loc} features")
+    block = words * word.numel() // groups * word.element_size()
+    return [alltoall_recv_bytes(block, w)] * groups
 
 
 def pair_allreduce(pair, mesh, kind="hist_reduce"):
-    """Allgather-pair exchange: all_gather BOTH compensated words, fold
-    the 2W components in fixed order on every shard. Every shard ends
+    """Allgather-pair exchange: every shard's BOTH compensated words, the
+    2W components folded in fixed order on every shard. Every shard ends
     with the identical FULL global histogram (`hist_exchange=allgather`,
     and bundled datasets)."""
+    hi, lo = (t.contiguous() for t in pair)
+    return mesh.fold_exchange((hi, lo), kind=kind, recv_bytes=[
+        allgather_recv_bytes(2 * _nbytes(hi), mesh.n_shards)])
+
+
+def _word(pair, precision):
+    """The collapsed word a reduced-precision exchange sends."""
     hi, lo = pair
-    return kahan_fold(_words_first(mesh.all_gather(torch.stack([hi, lo]),
-                                                   kind)))
+    word = hi + lo
+    if precision == "bf16":
+        word = word.to(torch.bfloat16)
+    return word.contiguous()
 
 
 def compressed_allreduce(pair, mesh, precision="f32", kind="hist_reduce"):
     """Allgather exchange at reduced precision: collapse the pair to one
     word per shard (half the bytes), optionally bf16 on the wire
-    (quarter), fold the W received words in fixed order."""
-    hi, lo = pair
-    word = hi + lo
-    if precision == "bf16":
-        word = word.to(torch.bfloat16)
-    return kahan_fold(mesh.all_gather(word, kind))
-
-
-def _scatter_feature_groups(x, mesh, n_shards, fg_count,
-                            kind="hist_reduce"):
-    """Split `x` (..., F, B, 3) into `fg_count` feature-shard groups and
-    all_to_all each group. Returns a list of (W, ..., fg, B, 3) received
-    stacks — group g holds every source shard's contribution for THIS
-    shard's g-th owned sub-slice, stacked in source-shard order (the
-    fixed fold order). Ownership stays contiguous: shard r owns
-    [r*f_loc, (r+1)*f_loc), and group g covers its [g*fg, (g+1)*fg)
-    sub-slice."""
-    lead = x.shape[:-3]
-    f, b, s = x.shape[-3:]
-    w = n_shards
-    f_loc = f // w
-    fg = f_loc // fg_count
-    ax = len(lead)
-    xw = x.reshape(*lead, w, f_loc, b, s)
-    outs = []
-    for g in range(fg_count):
-        blk = xw[..., :, g * fg:(g + 1) * fg, :, :]
-        blk = blk.reshape(*lead, w * fg, b, s)
-        recv = mesh.all_to_all(blk, ax, kind)
-        recv = recv.reshape(*lead, w, fg, b, s)
-        outs.append(torch.movedim(recv, ax, 0))      # (W, ..., fg, B, 3)
-    return outs
+    (quarter), fold the W words in fixed order."""
+    word = _word(pair, precision)
+    return mesh.fold_exchange((word,), kind=kind, recv_bytes=[
+        allgather_recv_bytes(_nbytes(word), mesh.n_shards)])
 
 
 def pair_reduce_scatter(pair, mesh, n_shards, groups=1, kind="hist_reduce"):
-    """Reduce-scatter exchange at `comm_precision=pair`: one all_to_all
-    per group (both words stacked), then the fixed-order Kahan fold of
-    the 2W received components — bit-identical per owned feature to what
-    `pair_allreduce` computes for that feature, at 1/W of the wire
-    bytes. Returns this shard's OWNED (..., f_loc, B, 3) block."""
-    hi, lo = pair
-    parts = [kahan_fold(_words_first(recv))
-             for recv in _scatter_feature_groups(torch.stack([hi, lo]), mesh,
-                                                 n_shards, groups, kind=kind)]
-    return torch.cat(parts, dim=-3)
+    """Reduce-scatter exchange at `comm_precision=pair`: the fixed-order
+    Kahan fold of the 2W components of this shard's owned features —
+    bit-identical per owned feature to what `pair_allreduce` computes
+    for that feature, at 1/W of the wire bytes (one all_to_all of both
+    words a feature group). Returns this shard's OWNED (..., f_loc, B,
+    3) block."""
+    hi, lo = (t.contiguous() for t in pair)
+    return mesh.fold_exchange((hi, lo), scatter=True, kind=kind,
+                              recv_bytes=_group_recv_bytes(
+                                  hi, mesh, n_shards, groups, words=2))
 
 
 def compressed_reduce_scatter(pair, mesh, n_shards, groups=1,
                               precision="f32", kind="hist_reduce"):
     """Reduce-scatter at reduced precision: collapse the pair locally
     (half the pair bytes), optionally bf16 on the wire (quarter), fold
-    the W received words per group in fixed source order (still
+    the W words of the owned features in fixed source order (still
     deterministic, no longer serial-bit-parity)."""
-    hi, lo = pair
-    word = hi + lo
-    if precision == "bf16":
-        word = word.to(torch.bfloat16)
-    parts = [kahan_fold(recv) for recv in _scatter_feature_groups(
-        word, mesh, n_shards, groups, kind=kind)]
-    return torch.cat(parts, dim=-3)
+    word = _word(pair, precision)
+    return mesh.fold_exchange((word,), scatter=True, kind=kind,
+                              recv_bytes=_group_recv_bytes(
+                                  word, mesh, n_shards, groups))
 
 
 def compressed_psum(x, mesh, precision="pair", kind="hist_reduce"):

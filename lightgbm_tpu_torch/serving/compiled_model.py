@@ -39,8 +39,9 @@ tolerate ~1e-6. bf16 keeps the decisions exact and gathers bf16 leaf
 values with f32 accumulation, within the pinned `accuracy_bound`.
 
 Linear-leaf models freeze their per-leaf coefficient blocks, padded to
-COEF_PAD slots, beside the node arrays (traverse_kernels.LinearLeaves;
-a wider model is refused). The exact path keeps the linear value stage
+COEF_PAD slots, beside the node arrays as one 64-byte record a leaf
+(traverse_kernels.LinearLeaves, pack_linear; a wider model is
+refused). The exact path keeps the linear value stage
 on the host in f64 (models.tree.linear_leaf_values, the function
 Tree._linear_values calls, NaN fallback included) and sums each class
 as GBDT's host path does; the `_device` variants and bf16 run tree_lin_raw (bf16 stores the
@@ -167,7 +168,7 @@ class CompiledPredictor:
             self._lin_feat = np.pad(np.asarray(cfeat, np.int32), pad)
             self._lin_cnt = np.array(ccnt, dtype=np.int32)
             self._lin_dev = traverse_kernels.freeze_linear(
-                const, coef, cfeat, ccnt,
+                const, coef, cfeat, ccnt, self._lv64,
                 torch.bfloat16 if serving_precision == "bf16"
                 else torch.float32, self.device)
         if serving_precision == "bf16":
@@ -332,8 +333,8 @@ class CompiledPredictor:
         return self._transform(self._dispatch_raw16(xb))
 
     def _linear_values(self):
-        """The leaf values tree_lin_raw reads: bf16 or f32 as the linear
-        blocks were frozen."""
+        """The leaf values tree_lin_raw is given: bf16 or f32 as the
+        linear records were frozen (which hold them too)."""
         if self.serving_precision == "bf16":
             return self._lv16
         return self._f32_values()

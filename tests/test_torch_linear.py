@@ -307,7 +307,7 @@ def test_serving_refuses_overwide_leaf_models(trained):
         CompiledPredictor.from_booster(g2, device=CPU)
     with pytest.raises(ValueError, match="COEF_PAD"):
         tk.freeze_linear(const, np.pad(coef, pad), np.pad(cfeat, pad), ccnt,
-                         torch.float32, CPU)
+                         np.zeros(ccnt.shape), torch.float32, CPU)
 
 
 def test_lin_raw_plain_against_jax_kernel(jax_text):

@@ -8,7 +8,8 @@ in bits (the plain version adds the slots and the trees in the kernel's
 order, each product rounded before its add, and transforms with the
 kernel's f32 operations), each stable across launches, at the shapes
 that take the kernel's other plans: one row, rows too wide to stage,
-forests larger than shared memory. A CUDA tensor never takes the plain
+forests larger than shared memory, columns past 16 bits up to the records'
+20-bit column ids. A CUDA tensor never takes the plain
 route, and a CompiledPredictor serving a linear model trained on the
 card answers its exact path with the host's bits.
 
@@ -66,13 +67,15 @@ def _case(seed, t_cnt, max_leaves, f, n, num_class):
 
 @pytest.mark.parametrize("num_class,t_cnt,max_leaves,f,n", [
     (1, 112, 63, 28, 4096), (1, 100, 63, 28, 1), (3, 96, 31, 28, 257),
-    (3, 1500, 16, 28, 300), (1, 40, 15, 3000, 64)],
-    ids=["bucket", "one-row", "3-class", "larger-than-smem", "wide-rows"])
+    (3, 1500, 16, 28, 300), (1, 40, 15, 3000, 64),
+    (3, 40, 15, 1 << 20, 4)],
+    ids=["bucket", "one-row", "3-class", "larger-than-smem", "wide-rows",
+         "columns-past-16-bits"])
 def test_kernel_bit_equal_to_plain(num_class, t_cnt, max_leaves, f, n):
     forest, x, lv, blocks = _case(t_cnt + n, t_cnt, max_leaves, f, n,
                                   num_class)
     for dtype in (torch.float32, torch.bfloat16):
-        lin = tk.freeze_linear(*blocks, dtype, DEV)
+        lin = tk.freeze_linear(*blocks, lv, dtype, DEV)
         vals = torch.from_numpy(lv).to(dtype).to(DEV)
         for transform in (False, True):
             tk.reset_launch_counts()
@@ -92,7 +95,7 @@ def test_kernel_bit_equal_to_plain(num_class, t_cnt, max_leaves, f, n):
 def test_constant_blocks_give_tree_raw():
     """With every leaf constant the value stage is tree_raw's."""
     forest, x, lv, (const, coef, feat, cnt) = _case(5, 96, 63, 28, 1024, 3)
-    lin = tk.freeze_linear(const, coef, feat, np.zeros_like(cnt),
+    lin = tk.freeze_linear(const, coef, feat, np.zeros_like(cnt), lv,
                            torch.float32, DEV)
     vals = torch.from_numpy(lv).to(DEV)
     assert torch.equal(tk.tree_lin_raw(x, forest, vals, lin, 3),
@@ -101,7 +104,7 @@ def test_constant_blocks_give_tree_raw():
 
 def test_cuda_tensor_never_takes_the_plain_route(monkeypatch):
     forest, x, lv, blocks = _case(9, 40, 15, 28, 64, 1)
-    lin = tk.freeze_linear(*blocks, torch.float32, DEV)
+    lin = tk.freeze_linear(*blocks, lv, torch.float32, DEV)
 
     def boom(*a, **k):
         raise AssertionError("plain route on a CUDA tensor")

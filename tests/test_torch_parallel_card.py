@@ -6,6 +6,16 @@
   (1, F, B, 3) histogram and a reduce-scatter shard's (f_loc, B, 3)
   block) and bfloat16 words (comm_precision=bf16), with zeros of both
   signs; two launches agree and each counts one launch;
+- the gather-fold (gather_fold, the same kernel on descriptors into
+  separate tensors) equals its plain version bit for bit on strided
+  views: K = 2W for W = 1, 2, 4, 8, 64 and 65 (past the launch's 128
+  descriptors: two passes, two launches), each shard's owned block or
+  the whole histogram, with and without a frontier axis, float32 and
+  bfloat16, into a strided destination;
+- the exchanges on a 4-shard mesh sharing the card (pair allgather, pair
+  reduce-scatter at comm_groups 1, 2 and 7, the compressed ones) give
+  the CPU mesh's bits, with one mesh_fold launch a shard an exchange,
+  also when the shards enqueue on a stream of their own;
 - the data-parallel learner (reduce-scatter and allgather, 2 and 4
   shards sharing the card) grows the serial masked learner's trees on
   the card (same split features and thresholds, leaf values within rtol
@@ -32,6 +42,7 @@ import torch
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops import mesh_kernels as mk
+from lightgbm_tpu_torch.parallel import mesh
 
 BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 10,
         "verbose": -1, "hist_compaction": "false"}
@@ -76,6 +87,101 @@ def test_mesh_fold_is_its_plain_version(k, shape, dtype):
         assert torch.equal(a.cpu().view(torch.int32),
                            want.view(torch.int32))
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_max_comps_is_the_kernels():
+    _need_card()
+    assert hk._library("mesh.cu").gather_fold_max_comps() == mk.MAX_COMPS
+
+
+def _words(w, lead, f, b, seed, dtype):
+    """(hi, lo) of W shards, each a list of W contiguous (*lead, f, b, 3)
+    tensors: cancelling values, small residuals, zeros of both signs."""
+    g = torch.Generator().manual_seed(seed)
+    hi = torch.randn((w, *lead, f, b, 3), generator=g) * 1e4
+    hi[w // 2:] -= hi[:w - w // 2].flip(0)
+    hi = hi + torch.randn((w, *lead, f, b, 3), generator=g) * 1e-3
+    hi.reshape(w, -1)[:, 0] = -0.0
+    hi.reshape(w, -1)[1:, 1] = 0.0
+    lo = torch.randn((w, *lead, f, b, 3), generator=g) * 1e-4
+    return ([t.to(dtype).contiguous() for t in hi],
+            [t.to(dtype).contiguous() for t in lo])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["leaf", "frontier"])
+@pytest.mark.parametrize("scatter", [False, True], ids=["full", "owned"])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 64, 65])
+def test_gather_fold_is_its_plain_version(w, scatter, lead, dtype):
+    _need_card()
+    f, b = 2 * w, 17
+    hi, lo = _words(w, lead, f, b, seed=w, dtype=dtype)
+    n_lead = 3 if lead else 1
+    row = f * b * 3
+    r = w - 1                                   # the last shard's block
+    run, off = (2 * b * 3, r * 2 * b * 3) if scatter else (row, 0)
+    host = [(t, off, row) for t in hi + lo]
+    dev = [(t.cuda(), off, row) for t in hi + lo]
+    out_stride = run + 5                        # a strided destination
+    passes = -(-2 * w // mk.MAX_COMPS)
+    before = hk.KERNELS["mesh_fold"].launches
+    outs = [torch.full((n_lead * out_stride,), 3.0, device="cuda")
+            for _ in range(2)]
+    for out in outs:
+        mk.gather_fold(dev, n_lead, run, out, out_stride)
+    assert hk.KERNELS["mesh_fold"].launches == before + 2 * passes
+    want_card = mk.gather_fold_plain(dev, n_lead, run, torch.full_like(
+        outs[0], 3.0), out_stride)
+    want_cpu = mk.gather_fold_plain(host, n_lead, run, torch.full(
+        (n_lead * out_stride,), 3.0), out_stride)
+    for want in (want_card.cpu(), want_cpu):
+        assert torch.equal(outs[0].cpu().view(torch.int32),
+                           want.view(torch.int32))
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+
+
+EXCHANGES = {
+    "pair_allgather": lambda m, p: mesh.pair_allreduce(p, m),
+    "pair_rs_1": lambda m, p: mesh.pair_reduce_scatter(p, m, 4, groups=1),
+    "pair_rs_2": lambda m, p: mesh.pair_reduce_scatter(p, m, 4, groups=2),
+    "pair_rs_7": lambda m, p: mesh.pair_reduce_scatter(p, m, 4, groups=7),
+    "f32_allgather": lambda m, p: mesh.compressed_allreduce(p, m, "f32"),
+    "bf16_rs_7": lambda m, p: mesh.compressed_reduce_scatter(
+        p, m, 4, groups=7, precision="bf16"),
+}
+
+
+@pytest.mark.parametrize("side_stream", [False, True],
+                         ids=["default_stream", "side_stream"])
+@pytest.mark.parametrize("name", list(EXCHANGES))
+def test_exchanges_on_one_card_are_the_cpu_ones(name, side_stream):
+    _need_card()
+    w, fn = 4, EXCHANGES[name]
+    hi, lo = _words(w, (1,), 56, 255, seed=7, dtype=torch.float32)
+    cpu = mesh.LocalMesh(w, "cpu")
+    want = cpu.run(lambda r: fn(cpu, (hi[r], lo[r])))
+    card = mesh.LocalMesh(w, "cuda")
+    dev = [(a.cuda(), b.cuda()) for a, b in zip(hi, lo)]
+    streams = [torch.cuda.Stream() for _ in range(w)]
+
+    def shard(r):
+        if not side_stream:
+            return fn(card, dev[r])
+        with torch.cuda.stream(streams[r]):
+            streams[r].wait_stream(torch.cuda.default_stream())
+            out = fn(card, dev[r])
+        torch.cuda.default_stream().wait_stream(streams[r])
+        return out
+
+    before = hk.KERNELS["mesh_fold"].launches
+    got = card.run(shard)
+    torch.cuda.synchronize()
+    assert hk.KERNELS["mesh_fold"].launches == before + w
+    for g, want_r in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32),
+                           want_r.view(torch.int32))
+    assert card.collective_bytes == cpu.collective_bytes
 
 
 def _data(n=20000, f=10, seed=0):
