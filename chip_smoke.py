@@ -2463,17 +2463,28 @@ RANK_PROFILED_CALLS = 3
 # in a process of its own (fresh_process_profile): late in chip_smoke's
 # run the profiler records no device event of an eager call (not even a
 # device sleep) and no pair kernel in a replay, though it records the
-# histogram kernels there.
-PROFILE_TAIL = """
+# histogram kernels there. A device sleep opens and closes the profiled
+# window and is not counted: a window that began and ended with the
+# calls' own kernels once lost one of three (run 10 of PR 17).
+PROFILE_PAD = """
+def pad():
+    torch.cuda._sleep(100000)
+def counted(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
+"""
+PROFILE_TAIL = PROFILE_PAD + """
 from torch.profiler import ProfilerActivity, profile
 call()
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    pad()
     for _ in range(int(sys.argv[2])):
         call()
+    pad()
     torch.cuda.synchronize()
-ev = [e for e in prof.events()
-      if e.device_type == torch.autograd.DeviceType.CUDA]
+ev = counted(prof)
 print(json.dumps({"names": [e.name for e in ev],
                   "device_ms": [e.device_time_total / 1e3 for e in ev]}))
 """
@@ -4946,7 +4957,8 @@ EXCHANGE_TIMED = 50       # exchanges a shard in the host-timed run
 # saved at argv[1] ({name: (hi list, lo list)}), by the checkout at
 # argv[3] (this one when empty): for each, a W-shard mesh on the card
 # runs one exchange a shard (warm-up), then EXCHANGE_PROFILED under the
-# profiler (its device events), then EXCHANGE_TIMED, three times, on the
+# profiler (its device events, the window padded as PROFILE_TAIL's), then
+# EXCHANGE_TIMED, three times, on the
 # host clock: each shard's time in its exchange calls less its time in
 # the mesh's barriers (the host work of an exchange, every shard's), and
 # the loop's wall time with the barriers' hand-overs; the shards'
@@ -4992,10 +5004,11 @@ for name, exchange, groups, f, precision in cases:
     results[name] = [o[0].cpu() for o in many(1)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad()
         many(%d)
+        pad()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = counted(prof)
     host, wall = [], []
     for _ in range(3):
         spans = []
@@ -5015,6 +5028,7 @@ for name, exchange, groups, f, precision in cases:
 torch.save(results, sys.argv[2])
 print(json.dumps(out))
 """ % (EXCHANGE_PROFILED, EXCHANGE_TIMED, EXCHANGE_TIMED, EXCHANGE_TIMED)
+EXCHANGE_PROFILE_SRC = PROFILE_PAD + EXCHANGE_PROFILE_SRC
 
 
 def exchange_profile(torch, inputs, root=""):

@@ -146,11 +146,11 @@ LANE = [
 # 8 have arrived (lin_dot takes the stamps from linear_value)
 X_LOADS = [
     ("__device__ __forceinline__ float lin_dot(const LinRecord& rec,\n"
-     "                                         const float* xr, float base)",
+     "                                         const float* xr)",
      "__device__ __forceinline__ float lin_dot(const LinRecord& rec,\n"
-     "                                         const float* xr, float base,"
+     "                                         const float* xr,"
      " long long* lp_ta)"),
-    ("  return lin_dot(rec, xr, base);", "  return lin_dot(rec, xr, base, lp_ta);"),
+    ("  return lin_dot(rec, xr);", "  return lin_dot(rec, xr, lp_ta);"),
     ("  for (int j = 0; j < kCoefPad; ++j) xv[j] = xr[rec_col(rec, j)];\n",
      "  for (int j = 0; j < kCoefPad; ++j) xv[j] = xr[rec_col(rec, j)];\n"
      "  {\n    unsigned lp_x = 0;\n"
@@ -180,8 +180,9 @@ def instrumented_source(csrc, work):
     text, n = head.subn(r"\1, long long* lp_ta) {", text, count=1)
     if n != 1:
         raise RuntimeError("linear_value's signature not found")
-    for anchor, stamped in X_LOADS:
-        text = text.replace(anchor, stamped, 1)
+    if all(anchor in text for anchor, _ in X_LOADS):
+        for anchor, stamped in X_LOADS:
+            text = text.replace(anchor, stamped, 1)
     for line, dep in FIRST_LOAD:
         if line in text:
             text = text.replace(line, line + f"  lp_ta[0] = lp_ta[1] = "
@@ -222,9 +223,11 @@ def build(hk, work, name):
     instantiations' (registers, spill stores, spill loads)."""
     path = os.path.join(work, name)
     proc = subprocess.run([hk._nvcc(), *hk.NVCC_FLAGS, "-o", path,
-                           os.path.join(work, "traverse.cu")], check=True,
+                           os.path.join(work, "traverse.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
     return ctypes.CDLL(path), lin_ptxas(proc.stdout)
 
 
