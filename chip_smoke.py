@@ -2465,7 +2465,7 @@ RANK_PROFILED_CALLS = 3
 # device sleep) and no pair kernel in a replay, though it records the
 # histogram kernels there. A device sleep opens and closes the profiled
 # window and is not counted: a window that began and ended with the
-# calls' own kernels once lost one of three (run 10 of PR 17).
+# calls' own kernels once lost one of three.
 PROFILE_PAD = """
 def pad():
     torch.cuda._sleep(100000)

@@ -91,7 +91,7 @@
 //    lane's loads came back one after another: the count, then the
 //    block, then the row, then the leaf value, which the compiler sank
 //    to its use (on the H100 the value stage took about 2.5 us a lane
-//    against the walk's 0.9, bench/lin_profile.py; PERF.md, PR 17).
+//    against the walk's 0.9, bench/lin_profile.py; PERF.md).
 //    Loading the leaf's value from its own array beside the record cost
 //    0.5 us of a 4096-row call's 18; overlapping a lane's value stage
 //    with its next walk, an L2 prefetch of the records and two blocks an
