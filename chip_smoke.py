@@ -192,7 +192,7 @@ Phases (any failure exits non-zero and prints no result line):
    exchange (one gather-fold for the pair ones), device ms and host us
    an exchange (with --baseline the other checkout's exchanges on the
    same inputs in a process of their own, their results bit-equal);
-   then, launch counts read from zero, 3
+   then, launch counts read from zero, 2
    per-iteration rounds on the bench data of the data learner
    (reduce-scatter at the default comm_groups=2, which f_loc = 7 cuts
    to one group, and at comm_groups=7; allgather; partitioned_build=
@@ -202,6 +202,30 @@ Phases (any failure exits non-zero and prints no result line):
    serial partitioned learner's (rtol 2e-4), voting train AUC above
    0.8, every tree's collective bytes (counted by the mesh) equal to its
    CommPlan; round times beside the serial ones, the mesh's placement;
+9e. the multi-process runtime (parallel/distributed.py, the ProcessMesh):
+   gangs of real processes, `python -m lightgbm_tpu_torch` with a
+   machine list of localhost entries and LIGHTGBM_TPU_RANK, one process
+   a rank, each training the bench rows 3 rounds from the ingestion
+   phase's binary cache: 2 ranks sharing card 0 (CUDA_VISIBLE_DEVICES=0)
+   over gloo with pinned host copies, and where there are two cards or
+   more also min(cards, 4) ranks over NCCL (a line says which ran and
+   why); the data learner (reduce-scatter at comm_groups 1 and 7,
+   allgather, partitioned_build=true), the feature learner and the
+   voting learner (top_k 20); rank 0's model text byte-equal to the
+   in-process mesh's at the same W on the same rows (lightgbm_tpu_torch.
+   train from the cache), every rank's model equal to rank 0's (the
+   ranks' digests, logged), the histogram and mesh_fold launches the
+   ranks log; round ms (median of rounds 2-3) beside the in-process
+   mesh's. One exchange of each kind (pair allgather, pair
+   reduce-scatter at comm_groups 1, 2 and 7, bf16 reduce-scatter at 7)
+   on a gang of rank processes: the rank's device kernels (one
+   gather_fold an exchange; the transport's own copies and kernels
+   listed apart), device ms, host us (the mesh's own work), transport
+   us and wall us an exchange, the counted collective bytes against the
+   learner's CommPlan unit, the results bit-equal to an in-process
+   LocalMesh's. The kill case: rank 1 hard-crashes before round 2;
+   rank 0 must exit with 117 within collective_timeout_s (30 s) + 10 s,
+   its log naming the collective, the iteration and the rank;
 10. multiclass: the bench matrix with its logit cut at the quintiles (5
    classes), 10 rounds (50 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
@@ -296,7 +320,8 @@ Phases (any failure exits non-zero and prints no result line):
     serving, for bin_dense from the bench's construction, for
     lambdarank_pairs from the fused lambdarank run, for tree_lin_raw
     from the linear phase's serving, for hist_pair_fold from the
-    out-of-core runs, for mesh_fold from the parallel phase's runs),
+    out-of-core runs, for mesh_fold from the parallel phase's runs and
+    the distributed phase's rank processes),
     the card line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
@@ -305,6 +330,7 @@ Everything measured here is written to <out>/chip_smoke.json too.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4219,7 +4245,9 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
     a TSV file (left in `work` for the out-of-core file route, its path in
     report["tsv"] and the model trained from it in
     report["text_model"]), the binary cache and training from both; the
-    CLI. Returns (the card-built dataset, report, kernel cases)."""
+    CLI. Returns (the card-built dataset, report, kernel cases); the
+    binary cache stays in `work` for the distributed phase (its path in
+    report["cache"])."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.io.dataset import CoreDataset, DatasetLoader
     from lightgbm_tpu_torch.io.parser import parse_text_file
@@ -4346,7 +4374,8 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
     check(res["model_text_equal"], "training from the cache gave another "
           "model than training from the text")
     del from_text, from_cache
-    os.remove(cache)
+    # the distributed phase's gangs load their rows from the cache
+    res["cache"] = cache
     res["cli"] = cli_phase(torch, lgt, x, y, work)
     return ds, res, cases
 
@@ -4781,7 +4810,8 @@ def phase_ooc_file(torch, lgt, hk, tsv, want_text):
 
 
 PARALLEL_SHARDS = 4
-PARALLEL_ROUNDS = 3
+# 2 rounds (3 before the distributed phase came): the run's time limit
+PARALLEL_ROUNDS = 2
 # (name, parameters over BENCH_PARAMS); every case at PARALLEL_SHARDS
 PARALLEL_CASES = (
     ("data_rs", {"tree_learner": "data"}),
@@ -5226,6 +5256,404 @@ def phase_parallel(torch, lgt, hk, timer, ds, y, seed):
     return res, cases
 
 
+DIST_SHARDS = 2          # ranks of the gangs on one card
+DIST_ROUNDS = 3
+DIST_KILL_TIMEOUT_S = 30  # collective_timeout_s of the kill case
+DIST_KILL_MARGIN_S = 10
+# (name, parameters over BENCH_PARAMS); each a gang of its own
+DIST_CASES = (
+    ("data_rs", {"tree_learner": "data"}),
+    ("data_rs_groups7", {"tree_learner": "data", "comm_groups": 7}),
+    ("data_allgather", {"tree_learner": "data",
+                        "hist_exchange": "allgather"}),
+    ("data_partitioned", {"tree_learner": "data",
+                          "partitioned_build": "true"}),
+    ("feature", {"tree_learner": "feature"}),
+    ("voting", {"tree_learner": "voting", "top_k": 20}),
+)
+# the cases that also run over NCCL where there are two cards or more
+DIST_NCCL_CASES = ("data_rs", "voting")
+# the exchanges profiled in the ranks: EXCHANGE_CASES (comm_groups 2 on
+# 56 features, which tile the owned block at W = 2 and 4)
+DIST_EXCHANGE_CASES = EXCHANGE_CASES
+# one rank of the exchange profile: the machine list at argv[1], the
+# inputs at argv[2] ({"cases", "inputs": {name: (hi list, lo list)}}), the
+# results to argv[3] + rank. The rank joins the process group from the
+# machine list (init_from_config, the transport by the topology), then
+# for each exchange on a ProcessMesh: one exchange (its result saved, its
+# counted bytes beside the learner's CommPlan unit), EXCHANGE_PROFILED
+# under the profiler (the device events), and EXCHANGE_TIMED, three
+# times, on the host clock: the loop's wall time, the time inside the
+# transport (the backend collective with its pinned copies and syncs) and
+# the rest, the mesh's own host work
+DIST_EXCHANGE_SRC = PROFILE_PAD + """
+import json, os, sys, time, torch
+from torch.profiler import ProfilerActivity, profile
+from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.ops import hist_kernels as hk
+from lightgbm_tpu_torch.parallel import distributed as pd, mesh as pm
+rank = int(os.environ["LIGHTGBM_TPU_RANK"])
+a = torch.load(sys.argv[2])
+cases, inputs = a["cases"], a["inputs"]
+w = len(next(iter(inputs.values()))[0])
+pd.init_from_config(Config.from_params({
+    "num_machines": w, "tree_learner": "data",
+    "machine_list_file": sys.argv[1]}), "cuda")
+mesh = pm.ProcessMesh(torch.device("cuda", torch.cuda.current_device()))
+spent = [0.0]
+transfer = mesh._transfer
+def timed_transfer(*args):
+    t0 = time.perf_counter()
+    try:
+        return transfer(*args)
+    finally:
+        spent[0] += time.perf_counter() - t0
+mesh._transfer = timed_transfer
+out, results = {"transport": mesh.transport}, {}
+for name, exchange, groups, _, precision in cases:
+    hi, lo = (ws[rank].cuda() for ws in inputs[name])
+    f, b = hi.shape[0], hi.shape[1]
+    words = f * b * 3 * 4
+    def one():
+        pair = (hi, lo)
+        if exchange == "allgather":
+            return (pm.pair_allreduce(pair, mesh) if precision == "pair"
+                    else pm.compressed_allreduce(pair, mesh, precision))
+        if precision == "pair":
+            return pm.pair_reduce_scatter(pair, mesh, w, groups)
+        return pm.compressed_reduce_scatter(pair, mesh, w, groups,
+                                            precision)
+    def many(n):
+        return mesh.run(lambda r: [one() for _ in range(n)])[rank]
+    before = mesh.collective_bytes["hist_reduce"]
+    hk.reset_launch_counts()
+    results[name] = many(1)[0].cpu()
+    folds = hk.launch_counts()["mesh_fold"]
+    moved_bytes = mesh.collective_bytes["hist_reduce"] - before
+    unit = words // (2 if precision == "bf16" else 1)
+    if exchange == "allgather":
+        plan = (2 if precision == "pair" else 1) * pm.allgather_recv_bytes(
+            unit, w)
+    else:
+        plan = (2 if precision == "pair" else 1) * pm.alltoall_recv_bytes(
+            unit, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad()
+        many(%d)
+        pad()
+        torch.cuda.synchronize()
+    ev = counted(prof)
+    host, wall, trans = [], [], []
+    for _ in range(3):
+        spans, moved = [], []
+        for n in (0, %d):
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            many(n)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t0)
+            moved.append(spent[0])
+        per = (spans[1] - spans[0]) / %d
+        tr = (moved[1] - moved[0]) / %d
+        wall.append(per)
+        trans.append(tr)
+        host.append(per - tr)
+    fold = [e for e in ev if "gather_fold" in e.name]
+    rest = {}
+    for e in ev:
+        if "gather_fold" not in e.name:
+            k = rest.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.device_time_total / 1e3
+    out[name] = {"fold_names": sorted({e.name for e in fold}),
+                 "fold_events": len(fold),
+                 "fold_device_ms": sum(e.device_time_total
+                                       for e in fold) / 1e3,
+                 "transport_events": rest,
+                 "device_ms": sum(e.device_time_total for e in ev) / 1e3,
+                 "mesh_fold_launches_first": folds,
+                 "host_s": sorted(host)[1], "wall_s": sorted(wall)[1],
+                 "transport_s": sorted(trans)[1],
+                 "counted_bytes": moved_bytes, "plan_bytes": plan}
+torch.save(results, sys.argv[3] + str(rank))
+print("DIST_EXCHANGES " + json.dumps(out), flush=True)
+""" % (EXCHANGE_PROFILED, EXCHANGE_TIMED, EXCHANGE_TIMED, EXCHANGE_TIMED)
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def write_machine_list(path, w):
+    """W localhost entries on free ports; the first is the store."""
+    port = free_port()
+    with open(path, "w") as f:
+        f.write("".join(f"127.0.0.1 {port + r}\n" for r in range(w)))
+    return path
+
+
+def run_gang(cmd, w, work, tag, env=None, timeout=240):
+    """`cmd` (argv after the interpreter) on W rank processes started
+    together, LIGHTGBM_TPU_RANK=r each, with `env` ({rank: {var: value}}
+    and None for every rank): [(exit code, log text, exit time)] in rank
+    order and the start time. A rank still running at `timeout` is
+    killed; none outlives the call."""
+    procs, logs = [], []
+    t_start = time.monotonic()
+    try:
+        for r in range(w):
+            e = dict(os.environ, LIGHTGBM_TPU_RANK=str(r))
+            e.pop("LIGHTGBM_TPU_FAULTS", None)
+            e.update((env or {}).get(None, {}))
+            e.update((env or {}).get(r, {}))
+            logs.append(open(os.path.join(work, f"{tag}.rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable] + cmd, env=e, stdout=logs[-1],
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        done = {}
+        while len(done) < w and time.monotonic() - t_start < timeout:
+            for r, p in enumerate(procs):
+                if r not in done and p.poll() is not None:
+                    done[r] = time.monotonic()
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = []
+    for r, p in enumerate(procs):
+        logs[r].seek(0)
+        out.append((p.returncode, logs[r].read(),
+                    done.get(r, time.monotonic())))
+        logs[r].close()
+    return out, t_start
+
+
+def gang_round_ms(text):
+    """Round ms of a CLI rank's log ("... seconds elapsed, finished
+    iteration k", per iteration)."""
+    import re
+    marks = [float(m.group(1)) for m in re.finditer(
+        r"([0-9.]+) seconds elapsed, finished iteration \d+", text)]
+    return [1e3 * (b - a) for a, b in zip([0.0] + marks, marks)]
+
+
+def gang_launches(text):
+    """The kernel launches a CLI rank logs at the end of its run."""
+    import ast
+    line = [ln for ln in text.splitlines()
+            if "kernel launches in this process:" in ln]
+    check(line, "a rank logged no kernel launches")
+    return ast.literal_eval(line[-1].split("kernel launches in this "
+                                           "process:", 1)[1].strip())
+
+
+def dist_cli_gang(lgt, w, cache, work, tag, extra, env=None):
+    """One CLI gang (python -m lightgbm_tpu_torch on W ranks) training
+    the bench rows from the binary cache; returns its record."""
+    params = dict({k: v for k, v in BENCH_PARAMS.items() if k != "verbose"},
+                  **extra)
+    model = os.path.join(work, f"{tag}.model.txt")
+    mlist = write_machine_list(os.path.join(work, f"{tag}.mlist"), w)
+    # a hung collective ends the gang well inside the run's time limit
+    argv = (["-m", "lightgbm_tpu_torch", "task=train", f"data={cache}",
+             f"num_trees={DIST_ROUNDS}", f"num_machines={w}",
+             f"machine_list_file={mlist}", f"output_model={model}",
+             "verbose=1", "metric_freq=0", "collective_timeout_s=120"]
+            + [f"{k}={v}" for k, v in params.items()])
+    t0 = time.time()
+    ranks, _ = run_gang(argv, w, work, tag, env=env)
+    res = {"wall_s": time.time() - t0,
+           "exit_codes": [rc for rc, _, _ in ranks]}
+    for r, (rc, text, _) in enumerate(ranks):
+        check(rc == 0, f"distributed {tag}: rank {r} exited {rc}:\n"
+              f"{text[-3000:]}")
+        check(f"[rank {r}]" in text and "ranks hold the same model" in text,
+              f"distributed {tag}: rank {r} did not agree on the model")
+    text0 = ranks[0][1]
+    res["transport"] = text0.split("transport=", 1)[1].split()[0].rstrip(",")
+    res["round_ms"] = gang_round_ms(text0)
+    res["round_ms_median_2_3"] = float(np.median(res["round_ms"][1:3]))
+    res["launches"] = [gang_launches(t) for _, t, _ in ranks]
+    with open(model) as f:
+        res["model_text"] = f.read()
+    return res
+
+
+def dist_exchange_profile(torch, w, work, env):
+    """DIST_EXCHANGE_SRC on a gang of W ranks, each exchange's results
+    held bit for bit against an in-process LocalMesh of W shards on the
+    card over the same inputs; returns the profile of rank 0 (rank 1's
+    bits checked too)."""
+    from lightgbm_tpu_torch.parallel import mesh as pm
+    rng = np.random.RandomState(w + 71)
+    inputs = {name: exchange_words(rng, w, (f, MAX_BIN, 3))
+              for name, _, _, f, _ in DIST_EXCHANGE_CASES}
+    path = os.path.join(work, f"exchange_inputs_{w}.pt")
+    torch.save({"cases": DIST_EXCHANGE_CASES, "inputs": inputs}, path)
+    mlist = write_machine_list(os.path.join(work, f"exchange_{w}.mlist"), w)
+    ranks, _ = run_gang(["-c", DIST_EXCHANGE_SRC, mlist, path,
+                         path + ".out"], w, work, f"exchange_{w}", env=env)
+    for r, (rc, text, _) in enumerate(ranks):
+        check(rc == 0, f"distributed exchange profile: rank {r} exited "
+              f"{rc}:\n{text[-3000:]}")
+    prof = json.loads([ln for ln in ranks[0][1].splitlines()
+                       if ln.startswith("DIST_EXCHANGES ")][-1].split(
+                           " ", 1)[1])
+    local = pm.LocalMesh(w, "cuda")
+    for name, exchange, groups, _, precision in DIST_EXCHANGE_CASES:
+        hi, lo = ([t.to(DEVICE) for t in ws] for ws in inputs[name])
+
+        def one(r):
+            pair = (hi[r], lo[r])
+            if exchange == "allgather":
+                return pm.pair_allreduce(pair, local)
+            if precision == "pair":
+                return pm.pair_reduce_scatter(pair, local, w, groups)
+            return pm.compressed_reduce_scatter(pair, local, w, groups,
+                                                precision)
+
+        want = [t.cpu() for t in local.run(one)]
+        same = all(torch.equal(
+            torch.load(path + f".out{r}")[name].view(torch.int32),
+            want[r].view(torch.int32)) for r in range(w))
+        p = prof[name]
+        p["bits_equal_local_mesh"] = same
+        n = EXCHANGE_PROFILED
+        log(f"distributed exchange {name} ({w} ranks, {prof['transport']}):"
+            f" {p['fold_events'] / n:.2f} gather_fold a rank an exchange "
+            f"({p['fold_device_ms'] / n:.4f} device ms), the transport's "
+            f"own {{name: [events, ms]}} {p['transport_events']} over {n} "
+            f"exchanges, device ms {p['device_ms'] / n:.4f}, host us "
+            f"{1e6 * p['host_s']:.1f}, transport us "
+            f"{1e6 * p['transport_s']:.1f}, wall us {1e6 * p['wall_s']:.1f}"
+            f" an exchange; bytes {p['counted_bytes']} (plan "
+            f"{p['plan_bytes']}); bits = LocalMesh {same}")
+        check(same, f"distributed exchange {name}: other bits than the "
+              "in-process mesh")
+        check(p["fold_events"] == n and p["mesh_fold_launches_first"] == 1,
+              f"distributed exchange {name}: not one gather_fold a rank "
+              "an exchange")
+        check(p["counted_bytes"] == p["plan_bytes"],
+              f"distributed exchange {name}: counted bytes "
+              f"{p['counted_bytes']} differ from the plan's "
+              f"{p['plan_bytes']}")
+    return prof
+
+
+def dist_kill_case(work, cache, w, env):
+    """Rank 1 hard-crashes just before round 2 (rank_crash_at_iteration);
+    rank 0 must exit with the watchdog's 117 within
+    DIST_KILL_TIMEOUT_S + DIST_KILL_MARGIN_S of rank 1's death, its log
+    naming the collective, the iteration and the rank."""
+    mlist = write_machine_list(os.path.join(work, "kill.mlist"), w)
+    params = {k: v for k, v in BENCH_PARAMS.items() if k != "verbose"}
+    argv = (["-m", "lightgbm_tpu_torch", "task=train", f"data={cache}",
+             f"num_trees={DIST_ROUNDS}", f"num_machines={w}",
+             "tree_learner=data", f"machine_list_file={mlist}",
+             f"output_model={os.path.join(work, 'kill.model.txt')}",
+             f"collective_timeout_s={DIST_KILL_TIMEOUT_S}", "verbose=0"]
+            + [f"{k}={v}" for k, v in params.items()])
+    env = dict(env or {})
+    env[1] = {"LIGHTGBM_TPU_FAULTS": "rank_crash_at_iteration=1:2"}
+    ranks, _ = run_gang(argv, w, work, "kill", env=env,
+                        timeout=DIST_KILL_TIMEOUT_S + 120)
+    (rc0, text0, t0), (rc1, _, t1) = ranks[0], ranks[1]
+    line = ([ln for ln in text0.splitlines() if "collective watchdog" in ln]
+            or [""])[-1]
+    res = {"exit_codes": [rc for rc, _, _ in ranks],
+           "rank0_after_rank1_s": t0 - t1, "line": line[:400],
+           "timeout_s": DIST_KILL_TIMEOUT_S, "margin_s": DIST_KILL_MARGIN_S}
+    log(f"distributed kill case: exit codes {res['exit_codes']}, rank 0 "
+        f"ended {res['rank0_after_rank1_s']:.2f} s after rank 1 "
+        f"(collective_timeout_s {DIST_KILL_TIMEOUT_S}): {line[:300]}")
+    check(rc1 == 43 and rc0 == 117, f"distributed kill case: exit codes "
+          f"{res['exit_codes']}, want [117, 43]:\n{text0[-2000:]}")
+    check(t0 - t1 < DIST_KILL_TIMEOUT_S + DIST_KILL_MARGIN_S,
+          f"distributed kill case: rank 0 took {t0 - t1:.1f} s")
+    check("rank 0" in line and "tree_build" in line
+          and "iteration 2" in line, f"distributed kill case: the log "
+          f"line does not name the rank, collective and iteration: {line}")
+    return res
+
+
+def phase_distributed(torch, lgt, cache, work):
+    """The multi-process runtime (see the module doc, 9e): CLI gangs of
+    DIST_SHARDS ranks sharing the card over gloo with pinned host copies
+    (and over NCCL where there are two cards or more), each learner's
+    model byte-equal to the in-process mesh's at the same W on the same
+    rows, the exchange profile and the kill case. Returns the report and
+    the mesh_fold launches of the gangs' ranks."""
+    cards = torch.cuda.device_count()
+    gangs = [("gloo+pinned", DIST_SHARDS,
+              {None: {"CUDA_VISIBLE_DEVICES": "0"}}, DIST_CASES)]
+    if cards >= 2:
+        gangs.append(("nccl", min(cards, 4), None,
+                      [c for c in DIST_CASES if c[0] in DIST_NCCL_CASES]))
+        why = (f"{cards} cards: the ranks share card 0 over gloo with "
+               f"pinned host copies, and {min(cards, 4)} ranks take a card "
+               "each over NCCL")
+    else:
+        why = ("one card: NCCL refuses two ranks on one device, so the "
+               "ranks share it over gloo with pinned host copies; no NCCL "
+               "run")
+    log(f"distributed: {why}")
+    res = {"cards": cards, "transports_why": why, "gangs": {}}
+    params = dict(BENCH_PARAMS)
+    ds = lgt.Dataset(cache, params=params)
+    fold_launches = 0
+    for transport, w, env, cases in gangs:
+        for name, extra in cases:
+            tag = f"{name}_{transport.replace('+', '_')}_{w}"
+            gang = dist_cli_gang(lgt, w, cache, work, tag, extra, env=env)
+            local, local_ms = train_rounds(
+                torch, lgt, dict(params, num_machines=w, **extra), ds,
+                DIST_ROUNDS)
+            same = local.model_to_string() == gang.pop("model_text")
+            gang["in_process_round_ms"] = local_ms
+            gang["in_process_round_ms_median_2_3"] = float(
+                np.median(local_ms[1:3]))
+            gang["model_byte_equal_in_process"] = same
+            folds = sum(c.get("mesh_fold", 0) for c in gang["launches"])
+            hists = sum(c.get("seg_hist" if "partitioned" in name
+                              else "masked_hist", 0)
+                        for c in gang["launches"])
+            fold_launches += folds
+            res["gangs"][tag] = gang
+            log(f"distributed {tag}: transport {gang['transport']}, round "
+                f"ms {[round(v, 1) for v in gang['round_ms']]} (median of "
+                f"2-3 {gang['round_ms_median_2_3']:.1f}; in-process mesh "
+                f"at W={w} {[round(v, 1) for v in local_ms]}, median "
+                f"{gang['in_process_round_ms_median_2_3']:.1f}), model "
+                f"byte-equal to the in-process mesh {same}, launches a "
+                f"rank {gang['launches']}")
+            check(gang["transport"] == transport,
+                  f"distributed {tag}: transport {gang['transport']}")
+            check(same, f"distributed {tag}: the gang's model differs from "
+                  "the in-process mesh's")
+            check(hists >= w * DIST_ROUNDS * 62,
+                  f"distributed {tag}: histogram launches "
+                  f"{gang['launches']}")
+            if name.startswith("data") and name != "data_partitioned":
+                check(folds >= w * DIST_ROUNDS * 63,
+                      f"distributed {tag}: mesh_fold launches {folds}")
+            del local
+        res[f"exchanges_{transport}"] = dist_exchange_profile(
+            torch, w, work, env)
+    res["kill"] = dist_kill_case(work, cache, DIST_SHARDS, gangs[0][2])
+    res["mesh_fold_launches"] = fold_launches
+    return res
+
+
 def kernel_line(case, launches, source, replaces):
     """One entry of the `kernels` JSON line."""
     return {"name": case["name"], "route": "cuda", "source": source,
@@ -5268,6 +5696,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    dist_work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
         t0 = time.time()
         # every kernel source at once: the histogram kernels' and the
@@ -5329,6 +5758,10 @@ def main():
                 torch, lgt, hk, report["ingest"].pop("tsv"),
                 report["ingest"].pop("text_model"))
             report["ooc_file"]["phase_s"] = time.time() - t0
+            # the bench rows' binary cache outlives the TSV's directory:
+            # the distributed phase's gangs load it
+            cache = os.path.join(dist_work, "bench.bin")
+            os.replace(report["ingest"].pop("cache"), cache)
         booster, report["main"] = phase_main(torch, lgt, hk, ds, y)
         report["plain_tree"] = phase_plain_tree(torch, hk, booster)
         report["predict"] = phase_predict(torch, booster, x)
@@ -5368,6 +5801,11 @@ def main():
             torch, lgt, hk, timer, ds, y, args.seed)
         report["parallel"]["phase_s"] = time.time() - t0
         log(f"parallel phase: {report['parallel']['phase_s']:.1f} s")
+        t0 = time.time()
+        report["distributed"] = phase_distributed(torch, lgt, cache,
+                                                  dist_work)
+        report["distributed"]["phase_s"] = time.time() - t0
+        log(f"distributed phase: {report['distributed']['phase_s']:.1f} s")
         del booster, part
         t0 = time.time()
         report["multiclass"] = phase_multiclass(torch, lgt, hk, ds, x,
@@ -5398,6 +5836,8 @@ def main():
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         _write(args.out, report)
         return 1
+    finally:
+        shutil.rmtree(dist_work, ignore_errors=True)
     report["total_s"] = time.time() - t_start
     log(f"all phases passed in {report['total_s']:.1f}s")
 
@@ -5490,9 +5930,11 @@ def main():
         "lightgbm_tpu/ops/histogram.py:277 (XLA hist_pair_fold_block, and "
         "hist_pair_fold_collapse :324; no Pallas counterpart)"))
     # the mesh's exchange fold at the default reduce-scatter's owned
-    # block, launches from the parallel phase's runs
+    # block, launches from the parallel phase's runs and the distributed
+    # phase's rank processes
     kernels.append(kernel_line(
-        mesh_cases[0], report["parallel"]["launches"]["mesh_fold"],
+        mesh_cases[0], report["parallel"]["launches"]["mesh_fold"]
+        + report["distributed"]["mesh_fold_launches"],
         "lightgbm_tpu_torch/csrc/mesh.cu",
         "lightgbm_tpu/parallel/mesh.py:138 (XLA kahan_fold under "
         "pair_allreduce :161, pair_reduce_scatter :216 and compressed_* "

@@ -21,14 +21,26 @@ snapshot cadence.
 
 `Application(argv, device=None)` runs on the CUDA card; the tests pass
 device="cpu". The command line has no device switch, so
-`python -m lightgbm_tpu_torch` always runs on the card. Settings whose
-code paths are later slices raise NotImplementedError naming their
-ROADMAP item: heartbeats, collective timeouts and a machine list (queue
-1 item 6b; num_machines > 1 alone trains the parallel learners on the
-in-process mesh), and the training telemetry, the profiler trace and the
-run history (item 7).
+`python -m lightgbm_tpu_torch` always runs on the card.
+
+Parallel training (application.py:138-144, :178, :219-275): with
+num_machines > 1 and a machine list, each process is one rank of a
+torch.distributed process group (parallel/distributed.py; the rank from
+LIGHTGBM_TPU_RANK or the list), loads its row block, and trains on the
+process mesh; without a machine list the parallel learners run on the
+in-process mesh. `heartbeat_timeout_s` and `collective_timeout_s`
+configure the heartbeats and the collective watchdog
+(parallel/heartbeat.py, beats in the snapshot directory). The ranks agree
+on the resume point before and after a restore, every rank captures at a
+snapshot point (the global train score is a gather), only rank 0
+writes snapshots and the model, and at the end the ranks check that they
+hold the same model (a digest of its text on every rank) and log the
+kernel launches of their process. The training telemetry, the profiler
+trace and the run history are a later slice and raise
+NotImplementedError naming ROADMAP queue 1 item 7.
 """
 
+import hashlib
 import os
 import time
 
@@ -40,6 +52,7 @@ from .io.parser import iter_text_file_chunks
 from .metrics import create_metric
 from .models.gbdt import create_boosting
 from .objectives import create_objective
+from .parallel import distributed, heartbeat
 from .utils.log import Log
 
 
@@ -102,17 +115,9 @@ class Predictor:
 
 
 def _check_slice(cfg):
-    """Refuse the CLI settings whose code paths are later slices.
-    num_machines > 1 without a machine list trains on the in-process
-    mesh, as the JAX CLI does (lightgbm_tpu/application.py:11-14,
-    :138-144); a machine list, heartbeats and collective timeouts are the
-    multi-process runtime (item 6b)."""
+    """Refuse the CLI settings whose code paths are later slices: the
+    training telemetry (item 7)."""
     later = []
-    if (cfg.heartbeat_timeout_s > 0 or cfg.collective_timeout_s > 0
-            or cfg.machine_list_file):
-        later.append("heartbeat_timeout_s, collective_timeout_s and "
-                     "machine_list_file (the multi-process runtime, "
-                     "item 6b)")
     if cfg.telemetry or cfg.profile or cfg.run_history:
         later.append("telemetry, profile and run_history (training "
                      "telemetry, item 7)")
@@ -166,6 +171,13 @@ class Application:
     # -------------------------------------------------------------- training
     def init_train(self):
         cfg = self.config
+        if cfg.is_parallel:
+            # multi-process membership (the reference's Network::Init,
+            # application.cpp:189); a no-op without a machine list
+            distributed.init_from_config(cfg, self.device)
+            Log.info("Parallel training over %d shards (tree_learner=%s, "
+                     "%d process(es))", cfg.num_machines, cfg.tree_learner,
+                     distributed.num_processes())
         self.boosting = create_boosting(cfg.boosting_type, self.device,
                                         cfg.input_model)
         self.objective = create_objective(cfg.objective, cfg)
@@ -201,7 +213,9 @@ class Application:
                                     is_raw_score=True).init_score_fun()
         loader = DatasetLoader(cfg, predict_fun=predict_fun,
                                device=self.boosting.device)
-        self.train_data = loader.load_from_file(cfg.data)
+        self.train_data = loader.load_from_file(
+            cfg.data, rank=distributed.process_rank(),
+            num_machines=cfg.num_machines)
         if cfg.is_training_metric:
             self.train_metrics = self._metrics(self.train_data)
         self.valid_datas = []
@@ -213,21 +227,42 @@ class Application:
             self.valid_metrics.append(self._metrics(vd))
         Log.info("Finished loading data in %f seconds", time.time() - start)
 
-    def _snapshots(self):
-        """The snapshot manager (None with snapshot_freq 0), after the
-        resume from the newest valid snapshot when snapshot_resume is on
-        and the directory exists."""
+    def _agree(self, what, value, snap_dir):
+        """Every rank's `value` (an iteration) must be the same: a rank
+        that cannot see the snapshot directory would desync the
+        exchanged histograms (application.py:233-275)."""
+        with heartbeat.collective_guard(f"resume_{what}_agreement"):
+            found = distributed.host_allgather(
+                np.asarray([value], np.int64)).reshape(-1)
+        if len({int(v) for v in found}) != 1:
+            Log.fatal("snapshot resume desync: ranks %s different "
+                      "snapshots (iterations %s); snapshot_dir (%s) must "
+                      "be shared storage visible to every rank", what,
+                      sorted(int(v) for v in found), snap_dir)
+
+    def _snapshots(self, snap_dir):
+        """The snapshot manager (None with snapshot_freq 0; every rank
+        reads through it, rank 0 alone writes), after the resume from
+        the newest valid snapshot when snapshot_resume is on and the
+        directory exists. Under a process group the ranks agree on the
+        resume point before the restore (the restore itself gathers) and
+        on the restored iteration after."""
         cfg = self.config
         if cfg.snapshot_freq <= 0:
             return None
         from .utils.checkpoint import CheckpointManager
-        snap_dir = cfg.snapshot_dir or cfg.output_model + ".snapshots"
-        resume = cfg.snapshot_resume and os.path.isdir(snap_dir)
         manager = CheckpointManager(snap_dir, keep_last_k=cfg.snapshot_keep)
-        if resume:
+        state = None
+        if cfg.snapshot_resume and os.path.isdir(snap_dir):
             state, _ = manager.load_latest()
-            if state is not None:
-                self.boosting.restore_training_state(state)
+        multi = distributed.is_multi_host()
+        if multi:
+            self._agree("found", -1 if state is None else state["iter"],
+                        snap_dir)
+        if state is not None:
+            self.boosting.restore_training_state(state)
+        if multi:
+            self._agree("restored", self.boosting.iter, snap_dir)
         return manager
 
     def train(self):
@@ -235,13 +270,32 @@ class Application:
         iterations when it is set (application.py:203-360)."""
         cfg = self.config
         b = self.boosting
-        manager = self._snapshots()
+        rank = distributed.process_rank()
+        multi = distributed.is_multi_host()
+        # the shared run directory: snapshots, heartbeats, watchdog
+        # markers
+        snap_dir = cfg.snapshot_dir or cfg.output_model + ".snapshots"
+        if cfg.heartbeat_timeout_s > 0 or cfg.collective_timeout_s > 0:
+            heartbeat.configure(cfg, snap_dir, rank,
+                                distributed.num_processes(),
+                                iteration_fn=lambda: b.iter)
+        manager = self._snapshots(snap_dir)
 
         def maybe_snapshot():
-            """A snapshot at each cadence point."""
-            if manager is not None and b.iter > 0 \
-                    and b.iter % cfg.snapshot_freq == 0:
-                manager.save(b.capture_training_state(), b.iter)
+            """A snapshot at each cadence point: every rank captures (the
+            global train score is a gather), rank 0 writes, and the ranks
+            wait for the write under a guard that names it."""
+            if manager is None or b.iter <= 0 \
+                    or b.iter % cfg.snapshot_freq:
+                return
+            state = b.capture_training_state()
+            if rank == 0:
+                path = manager.save(state, b.iter)
+                heartbeat.notify_checkpoint(b.iter, path)
+            if multi:
+                with heartbeat.collective_guard("snapshot_write_barrier"):
+                    distributed.host_allgather(np.asarray([b.iter],
+                                                          np.int64))
 
         def snap_clamp(step):
             """A fused block cut so the next snapshot point is a block
@@ -304,8 +358,28 @@ class Application:
                 if is_finished:
                     break
                 maybe_snapshot()
-        b.save_model_to_file(-1, cfg.output_model)
+        if multi:
+            self._agree_on_model()
+        if rank == 0:   # every rank holds the same model
+            b.save_model_to_file(-1, cfg.output_model)
+        heartbeat.shutdown()
         Log.info("Finished training")
+
+    def _agree_on_model(self):
+        """Every rank must hold the same trees: a rank out of step would
+        otherwise go unseen, since only rank 0 writes the model. Logs
+        the digest and this process's kernel launches."""
+        from .ops import hist_kernels
+        text = self.boosting.save_model_to_string(-1).encode()
+        digest = np.frombuffer(hashlib.sha256(text).digest()[:8], np.int64)
+        with heartbeat.collective_guard("model_agreement"):
+            every = distributed.host_allgather(digest).reshape(-1)
+        if len(set(every.tolist())) != 1:
+            Log.fatal("ranks hold different models (digests %s)",
+                      [f"{int(d) & (2**64 - 1):016x}" for d in every])
+        Log.info("all %d ranks hold the same model (digest %016x); kernel "
+                 "launches in this process: %s", len(every),
+                 int(every[0]) & (2**64 - 1), hist_kernels.launch_counts())
 
     # ------------------------------------------------------------ prediction
     def init_predict(self):

@@ -39,8 +39,17 @@ through its manifest) and a matrix is binned in RAM, then spilled into
 one (spill_anonymous); either way the dataset is an OutOfCoreDataset
 whose bins stay on disk.
 
-Later slices of the port: per-rank row partitions (ROADMAP queue 1 item
-6) and the training-time dataset profile (item 7).
+Under a process group (parallel/distributed.py) `load_from_file(filename,
+rank, num_machines)` keeps this rank's contiguous, query-aligned row
+block (_apply_rank_partition; dataset_loader.cpp:505-550): the bin
+mappers are built from the whole file before the cut, so every rank has
+the same mappers, and the dataset records `global_num_data` and
+`local_rows_max` (the longest rank block, which every rank pads to).
+The two-round load stores only the rank's rows. Pre-partitioned files
+(is_pre_partition) and tree_learner=feature keep every row.
+
+A later slice of the port: the training-time dataset profile (ROADMAP
+queue 1 item 7).
 """
 
 import os
@@ -301,6 +310,10 @@ class CoreDataset:
         self.metadata = Metadata()
         self.bundle_plan = None       # io/bundling.py BundlePlan or None
         self.raw_data = None          # (N, C) raw values for init scores
+        # set by a per-rank load: the whole file's rows and the longest
+        # rank block
+        self.global_num_data = None
+        self.local_rows_max = None
         self._device_bins = {}
         self._bin_value_cache = None
 
@@ -523,9 +536,40 @@ class DatasetLoader:
         self.device = None if device is None else resolve_device(device)
 
     # ----------------------------------------------------------- from file
-    def load_from_file(self, filename) -> CoreDataset:
+    def _apply_rank_partition(self, ds, rank, num_machines):
+        """This rank's row block of a process group's training set
+        (io/dataset.py:622-655, dataset_loader.cpp:505-550): contiguous
+        query-aligned blocks; the bin mappers stay the whole file's
+        (built before the cut), so CheckAlign holds across ranks. Only
+        active under a process group of num_machines ranks."""
+        from ..parallel import distributed
+        if (num_machines <= 1 or distributed.num_processes() <= 1
+                or self.config.is_pre_partition
+                # feature-parallel keeps every row on every machine
+                # (config.cpp:173-176, application.cpp:125-131)
+                or self.config.tree_learner == "feature"):
+            return ds
+        if distributed.num_processes() != num_machines:
+            Log.fatal("num_machines=%d but %d processes are running; the "
+                      "row partition would drop data", num_machines,
+                      distributed.num_processes())
+        if rank >= num_machines:
+            Log.fatal("rank %d out of range for num_machines=%d", rank,
+                      num_machines)
+        n = ds.num_data
+        qb = ds.metadata.query_boundaries
+        lo, hi = distributed.partition_rows(n, rank, num_machines, qb)
+        out = ds.subset(np.arange(lo, hi))
+        out.global_num_data = n
+        out.local_rows_max = distributed.rows_max(n, num_machines, qb)
+        Log.info("Rank %d/%d holds rows [%d, %d) of %d", rank, num_machines,
+                 lo, hi, n)
+        return out
+
+    def load_from_file(self, filename, rank=0, num_machines=1) -> CoreDataset:
         """A CSV/TSV/LibSVM file or a binary cache (the file itself or
-        its `<file>.bin` sibling) -> CoreDataset."""
+        its `<file>.bin` sibling) -> CoreDataset; under a process group
+        of num_machines ranks, this rank's row block of it."""
         cfg = self.config
         if cfg.out_of_core:
             # bin once into the block store next to the data file (or at
@@ -576,7 +620,7 @@ class DatasetLoader:
                     break
                 Log.info("Loaded binary dataset %s", cand)
                 self._attach_init_score(ds)
-                return ds
+                return self._apply_rank_partition(ds, rank, num_machines)
 
         # two-round streaming path: peak memory O(block), the full float
         # matrix never materializes (dataset_loader.cpp:505-610). Wide
@@ -591,10 +635,16 @@ class DatasetLoader:
                 Log.warning("max_bad_rows=%d is not applied on the "
                             "two-round/streaming load path: malformed "
                             "rows still abort the load", cfg.max_bad_rows)
-            ds = self._load_two_round(filename)
-            if cfg.is_save_binary_file and not cache_incompatible:
-                ds.save_binary(bin_path)
-            return ds
+            ds = self._load_two_round(filename, rank, num_machines)
+            if ds.global_num_data is not None:
+                if cfg.is_save_binary_file:
+                    Log.warning("is_save_binary_file ignored: rank-"
+                                "filtered datasets hold only a row block")
+                return ds  # filtered to this rank's rows in the stream
+            if cfg.is_save_binary_file and rank == 0 \
+                    and not cache_incompatible:
+                ds.save_binary(bin_path)  # one writer on shared storage
+            return self._apply_rank_partition(ds, rank, num_machines)
 
         label, feats, names, _, label_idx = parse_text_file(
             filename, has_header=cfg.has_header, label_column=cfg.label_column,
@@ -618,9 +668,9 @@ class DatasetLoader:
         if self.predict_fun is not None:
             ds.raw_data = feats  # continued training needs raw values
         self._attach_init_score(ds)
-        if cfg.is_save_binary_file and not cache_incompatible:
-            ds.save_binary(bin_path)
-        return ds
+        if cfg.is_save_binary_file and rank == 0 and not cache_incompatible:
+            ds.save_binary(bin_path)  # one writer on shared storage
+        return self._apply_rank_partition(ds, rank, num_machines)
 
     def load_from_file_align_with_other_dataset(self, filename,
                                                 train_ds) -> CoreDataset:
@@ -652,9 +702,14 @@ class DatasetLoader:
         return ds
 
     # ------------------------------------------------- two-round streaming
-    def _load_two_round(self, filename) -> CoreDataset:
+    def _load_two_round(self, filename, rank=0,
+                        num_machines=1) -> CoreDataset:
         """Sample pass -> mappers -> binning pass (dataset_loader.cpp:
-        505-610; io/streaming.py)."""
+        505-610; io/streaming.py). Under a process group round two is
+        rank-filtered (io/dataset.py:901-1010): every rank streams the
+        file but stores only its contiguous row block; the mappers come
+        from the whole file's sample (the shared data_random_seed), so
+        every rank derives the same ones with no network."""
         from .streaming import (collect_sample_csc, collect_sample_rows,
                                 iter_blocks, prefetch_blocks, scan_file)
         cfg = self.config
@@ -707,37 +762,62 @@ class DatasetLoader:
         plan = self._plan(mappers,
                           lambda u: sample_feat_col(real_idx[u]))
 
+        # rank filtering: only this rank's contiguous row block is stored
+        # (query-grouped data and side files need the whole file: those
+        # are cut after the load, in _apply_rank_partition)
+        from ..parallel import distributed
+        from .metadata import SIDE_FILE_EXTS
+        side_files = any(os.path.exists(str(filename) + ext)
+                         for ext in SIDE_FILE_EXTS)
+        rank_filter = (num_machines > 1
+                       and distributed.num_processes() == num_machines
+                       and rank < num_machines
+                       and not cfg.is_pre_partition
+                       and cfg.tree_learner != "feature"
+                       and group_idx < 0 and not side_files)
+        lo, hi = (distributed.partition_rows(n, rank, num_machines)
+                  if rank_filter else (0, n))
+        n_local = hi - lo
+
         # round two: stream blocks, pushing binned values + metadata columns
         weights = qid = None
         if sparse_route:
-            bins, label = self._stream_sparse_libsvm(filename, mappers,
-                                                     used_map, plan, n)
+            bins, label = self._stream_sparse_libsvm(
+                filename, mappers, used_map, plan, n_local, lo)
         else:
-            dtype, bins = self._alloc_bins(mappers, plan, n,
+            dtype, bins = self._alloc_bins(mappers, plan, n_local,
                                            "streaming load")
             conflicts = 0
-            label = np.empty(n, dtype=np.float32)
-            weights = (np.empty(n, dtype=np.float32)
+            label = np.empty(n_local, dtype=np.float32)
+            weights = (np.empty(n_local, dtype=np.float32)
                        if weight_idx >= 0 else None)
-            qid = np.empty(n, dtype=np.float64) if group_idx >= 0 else None
+            qid = (np.empty(n_local, dtype=np.float64)
+                   if group_idx >= 0 else None)
             # double-buffered: the prefetch thread parses block k+1 while
             # this loop bins block k (pipeline_reader.h:18-70)
             for start, block in prefetch_blocks(
                     iter_blocks(filename, fmt, cfg.has_header, num_cols)):
                 end = start + len(block)
-                label[start:end] = block[:, label_idx]
+                if start >= hi:
+                    break  # past this rank's rows: skip the rest
+                s0, e0 = max(start, lo), min(end, hi)
+                if e0 <= s0:
+                    continue  # a block before this rank's rows
+                block = block[s0 - start:e0 - start]
+                ls, le = s0 - lo, e0 - lo   # local write positions
+                label[ls:le] = block[:, label_idx]
                 feats_block = block[:, feat_cols]
                 if weights is not None:
-                    weights[start:end] = feats_block[:, weight_idx]
+                    weights[ls:le] = feats_block[:, weight_idx]
                 if qid is not None:
-                    qid[start:end] = feats_block[:, group_idx]
+                    qid[ls:le] = feats_block[:, group_idx]
                 for u, j in enumerate(real_idx):
                     col = mappers[u].value_to_bin(feats_block[:, j])
                     if plan is None:
-                        bins[u, start:end] = col.astype(dtype)
+                        bins[u, ls:le] = col.astype(dtype)
                     else:
                         conflicts += write_member(
-                            bins[plan.feat_slot[u], start:end], col,
+                            bins[plan.feat_slot[u], ls:le], col,
                             plan.feat_offset[u], dtype)
             log_conflicts(conflicts)
 
@@ -751,7 +831,7 @@ class DatasetLoader:
         ds.used_feature_map = used_map
         ds.real_feature_idx = np.asarray(real_idx, dtype=np.int32)
         ds.label_idx = label_idx
-        meta = Metadata(n)
+        meta = Metadata(n_local)
         meta.set_label(label)
         if weights is not None:
             meta.set_weights(weights)
@@ -759,18 +839,25 @@ class DatasetLoader:
             meta.set_query(_qid_to_counts(qid))
         meta.load_side_files(filename)
         ds.metadata = meta
+        if rank_filter:
+            ds.global_num_data = n
+            ds.local_rows_max = distributed.rows_max(n, num_machines)
+            Log.info("Rank %d/%d streamed rows [%d, %d) of %d (two-round)",
+                     rank, num_machines, lo, hi, n)
         Log.info("Number of data: %d, number of features: %d (two-round)",
-                 n, len(mappers))
+                 n_local, len(mappers))
         return ds
 
-    def _stream_sparse_libsvm(self, filename, mappers, used_map, plan, n):
+    def _stream_sparse_libsvm(self, filename, mappers, used_map, plan, n,
+                              lo=0):
         """Round two over LibSVM triplet blocks: O(block nnz) transient
         memory, and the only (rows x cols) allocation is the stored bin
         matrix itself, (slots, N) when bundling engaged. A feature alone
         in its row is pre-filled with its zero bin (a bundle member's is
         0 by the plan's candidate rule), so only nonzero entries are
         binned (the reference's sparse_bin.hpp:17-331 storage,
-        densified)."""
+        densified). Only the file's rows [lo, lo + n) are stored (a
+        rank's block)."""
         from .streaming import iter_sparse_blocks, prefetch_blocks
         cfg = self.config
         dtype, bins = self._alloc_bins(mappers, plan, n,
@@ -784,10 +871,19 @@ class DatasetLoader:
                 bins[slot[u], :] = b0
         label = np.empty(n, dtype=np.float32)
         conflicts = 0
+        hi = lo + n
         for start, lab, rows, cols, vals in prefetch_blocks(
                 iter_sparse_blocks(filename, cfg.has_header)):
-            label[start:start + len(lab)] = lab
-            r = rows + start
+            end = start + len(lab)
+            if start >= hi:
+                break  # past this rank's rows: skip the rest
+            s0, e0 = max(start, lo), min(end, hi)
+            if e0 <= s0:
+                continue  # a block before this rank's rows
+            label[s0 - lo:e0 - lo] = lab[s0 - start:e0 - start]
+            keep = (rows >= s0 - start) & (rows < e0 - start)
+            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+            r = rows + start - lo
             # aligned (valid) files may mention feature ids past the
             # train set's feature space: those are simply unused
             u_arr = np.where(cols < len(used_map),

@@ -14,6 +14,16 @@ linear), and the training state of a checkpoint
 (capture_training_state / restore_training_state :1969-2195; a
 crash point at every iteration and fused block, utils/faults.py).
 
+Under a process group (parallel/distributed.py) a row-sharded learner's
+ranks each hold their row block: the train score, the gradients and the
+bag cover the local rows, and every rank grows the same trees. A
+snapshot stores the global train score, gathered in rank order
+(_gather_global_train_score; layout "global_rows"), and a restore
+re-slices it to the rank's block. The rank faults fire at every
+iteration, and the tree's fetch, where a dead peer's collective shows
+on the card, is armed with the collective watchdog
+(parallel/heartbeat.py).
+
 Prediction routes as the JAX package's does (predict_raw and
 _use_device_predict :1679-1760): below DEVICE_PREDICT_CELLS rows x
 trees the host float64 traversal (_traverse_host) with per-class
@@ -57,6 +67,7 @@ import numpy as np
 import torch
 
 from ..ops import hist_kernels, traverse_kernels
+from ..parallel import heartbeat
 from ..telemetry.quality import tree_coeff_importance
 from ..utils import common, faults, guardrails
 from ..utils.device import resolve_device
@@ -472,6 +483,39 @@ class GBDT:
             regs["drop_sampler"] = self._random_for_drop
         return regs
 
+    def _multihost_row_sharded(self):
+        """True when the training rows are partitioned across processes:
+        each rank's train score covers its row block only."""
+        learner = self.tree_learner
+        return (learner is not None
+                and getattr(learner, "n_proc", 1) > 1
+                and getattr(learner, "shard_rows", False))
+
+    def _allgather_row_counts(self):
+        """(P,) local row counts in rank order. Collective: every rank
+        calls it at the same point (watchdog-armed)."""
+        from ..parallel.distributed import host_allgather
+        n_local = int(self.train_score_updater.score.shape[-1])
+        with heartbeat.collective_guard("snapshot_counts_gather"):
+            return host_allgather(np.asarray([n_local],
+                                             np.int64)).reshape(-1)
+
+    def _gather_global_train_score(self):
+        """The global (num_class, N) train score from every rank's block
+        (contiguous row ranges in rank order, distributed.partition_rows).
+        Collective, so every rank captures at a snapshot point even
+        though only rank 0 writes the file."""
+        from ..parallel.distributed import host_allgather
+        local = self.train_score_updater.score.cpu().numpy().astype(
+            np.float32, copy=False)
+        counts = self._allgather_row_counts()
+        padded = np.zeros((local.shape[0], int(counts.max())), np.float32)
+        padded[:, :local.shape[1]] = local
+        with heartbeat.collective_guard("snapshot_score_gather"):
+            blocks = host_allgather(padded)
+        return np.concatenate([blocks[r][:, :int(c)]
+                               for r, c in enumerate(counts)], axis=1)
+
     def capture_training_state(self):
         """The full mid-training state for utils/checkpoint.py
         (gbdt.py:2025-2100), the JAX package's keys: what
@@ -479,18 +523,25 @@ class GBDT:
         data to the model text of an uninterrupted run. The scores are
         saved as their float32 bits, one device -> host copy each
         (recomputing them from the trees would change the summation
-        order). The model text keeps real-valued thresholds only, so the
+        order); under a process group the global score (see the module
+        doc). The model text keeps real-valued thresholds only, so the
         bin-space split encoding rides along: each tree's
         threshold_in_bin and inner split features, and the inner
         coefficient ids of its linear leaves."""
+        if self._multihost_row_sharded():
+            train_score = self._gather_global_train_score()
+            score_layout = "global_rows"
+        else:
+            train_score = self.train_score_updater.score.cpu().numpy()
+            score_layout = "local"
         state = {
             "state_version": 1,
             "model_str": self.save_model_to_string(-1),
             "iter": int(self.iter),
             "num_init_iteration": int(self.num_init_iteration),
             "num_class": int(self.num_class),
-            "train_score": self.train_score_updater.score.cpu().numpy(),
-            "train_score_layout": "local",
+            "train_score": train_score,
+            "train_score_layout": score_layout,
             "valid_scores": [u.score.cpu().numpy()
                              for u in self.valid_score_updaters],
             "best_iter": [list(map(int, x)) for x in self.best_iter],
@@ -585,6 +636,19 @@ class GBDT:
         self.num_iteration_for_pred = 0
         self.iter = int(state["iter"])
         train_score = np.asarray(state["train_score"], dtype=np.float32)
+        if (state.get("train_score_layout") == "global_rows"
+                and self._multihost_row_sharded()):
+            # the global capture -> this rank's block: contiguous
+            # rank-order slices
+            from ..parallel.distributed import process_rank
+            counts = self._allgather_row_counts()
+            if int(counts.sum()) != train_score.shape[-1]:
+                Log.fatal("Checkpoint global train score has %d rows but "
+                          "the ranks hold %d (different training data?)",
+                          train_score.shape[-1], int(counts.sum()))
+            rank = process_rank()
+            offset = int(counts[:rank].sum())
+            train_score = train_score[:, offset:offset + int(counts[rank])]
         score = self.train_score_updater.score
         if train_score.shape != tuple(score.shape):
             Log.fatal("Checkpoint train-score shape %s does not match "
@@ -659,6 +723,9 @@ class GBDT:
     def train_one_iter(self, gradients=None, hessians=None, is_eval=True):
         """gbdt.cpp:210-245. Returns True if training should stop."""
         faults.crash_if_reached(self.iter)
+        faults.rank_crash_if_reached(self.iter)
+        faults.rank_hang_if_reached(self.iter)
+        heartbeat.WATCHDOG.set_iteration(self.iter)
         if gradients is None or hessians is None:
             if self.objective is None:
                 Log.fatal("No object function provided")
@@ -690,7 +757,8 @@ class GBDT:
                 # the guard's flag rides on the tree's one transfer
                 extra = ((torch.isfinite(gradients[k]).all()
                           & torch.isfinite(hessians[k]).all()),)
-            host, extras = learner.fetch(out, extra)   # the tree's one sync
+            with heartbeat.collective_guard("leaf_count_sync"):
+                host, extras = learner.fetch(out, extra)  # the one sync
             if learner.meshed:
                 # the mesh's wire bytes of this tree (parallel/mesh.py
                 # CommPlan), a 0-split tree's root exchange included
@@ -862,6 +930,9 @@ class GBDT:
         # a block is one device program: a preemption anywhere inside it
         # loses the whole block, which crashing at its start models
         faults.crash_if_reached(self.iter, num_iters)
+        faults.rank_crash_if_reached(self.iter, num_iters)
+        faults.rank_hang_if_reached(self.iter, num_iters)
+        heartbeat.WATCHDOG.set_iteration(self.iter)
         runner = self._get_fused_fn(num_iters)
         learner = self.tree_learner
         k = self.num_class

@@ -1,17 +1,27 @@
-"""Parallel tree learners on an in-process shard mesh.
+"""Parallel tree learners on a shard mesh.
 
 Port of lightgbm_tpu/parallel/learners.py (_MeshedTreeLearner :76,
 DataParallelTreeLearner :334, FeatureParallelTreeLearner :534,
-VotingParallelTreeLearner :744) for one process. Reference:
+VotingParallelTreeLearner :744). Reference:
 src/treelearner/parallel_tree_learner.h and
 {feature,data,voting}_parallel_tree_learner.cpp.
 
 The JAX learners run the serial builder under `shard_map`, with
 collectives at the reference's sync points. Here each tree runs the same
 builders (models/tree_learner.py build_tree_device,
-models/partitioned.py build_tree_partitioned) once per shard, on W
-threads of a LocalMesh in lockstep (parallel/mesh.py), with the JAX
-learners' hooks:
+models/partitioned.py build_tree_partitioned) once per shard, with the
+JAX learners' hooks, on a mesh (parallel/mesh.py make_mesh): W threads
+of a LocalMesh in lockstep, or, when this process is a rank of a
+torch.distributed process group (parallel/distributed.py), a
+ProcessMesh whose one local shard is the rank. The learner loops over
+the mesh's `local_shards` only. Under a process mesh a row-sharded
+learner's rows are the loader's rank block (io/dataset.py
+_apply_rank_partition), padded to the longest rank block
+(`local_rows_max`) so every rank's collectives have the same shapes, and
+`train_device` returns this rank's row -> leaf map (the JAX learner's
+local_row_leaf :253); the feature learner keeps every row on every rank.
+Each tree's `mesh.run` is armed with the collective watchdog
+(parallel/heartbeat.py collective_guard):
 
 - **Data parallel**: rows sharded, each shard's (S, N_loc) bins on its
   device. The default exchange is the reference's REDUCE-SCATTER: each
@@ -55,9 +65,10 @@ from ..ops.reduce_order import ordered_sum
 from ..ops.split import (K_MIN_SCORE, SplitInfo, find_best_split,
                          per_feature_best, split_info_at)
 from ..utils.log import Log
-from .mesh import (CommPlan, LocalMesh, MeshTopology, allgather_recv_bytes,
+from .heartbeat import collective_guard
+from .mesh import (CommPlan, MeshTopology, allgather_recv_bytes,
                    alltoall_recv_bytes, compressed_allreduce,
-                   compressed_psum, compressed_reduce_scatter,
+                   compressed_psum, compressed_reduce_scatter, make_mesh,
                    pair_allreduce, pair_reduce_scatter, psum_recv_bytes,
                    resolve_hist_exchange, shard_rows)
 
@@ -103,8 +114,8 @@ def _stack_splits(splits):
 
 
 class _MeshedTreeLearner(SerialTreeLearner):
-    """Common mesh plumbing: the mesh and its topology, per-shard inputs
-    on each shard's device, one tree a `mesh.run`, the byte ledger."""
+    """Common mesh plumbing: the mesh and its topology, the local shards'
+    inputs on their devices, one tree a `mesh.run`, the byte ledger."""
 
     meshed = True
     # rows sharded (else features, over all rows)
@@ -115,24 +126,48 @@ class _MeshedTreeLearner(SerialTreeLearner):
     def init(self, train_set):
         cfg = self.config
         self.n_shards = max(int(cfg.num_machines), 1)
-        self.mesh = LocalMesh(self.n_shards, self.device)
+        self.mesh = make_mesh(self.n_shards, self.device)
+        self.n_proc = self.mesh.n_proc
         self.topology = MeshTopology(self.mesh, cfg)
         self._comm_plan = CommPlan()
         # collective_bytes{_kind} counters of the trees built (CommPlan)
         self.collective_bytes = {}
-        self._rows = shard_rows(train_set.num_data, self.n_shards)
+        self._rows = self._local_rows(train_set)
         self._dev_state = {}
         super().init(train_set)
         self._replicate()
         self._make_build_core(cfg)
-        Log.info("%s tree learner on %d shards over %s", self.name,
-                 self.n_shards, ", ".join(sorted(set(
-                     str(d) for d in self.mesh.devices))))
+        Log.info("%s tree learner on %d shards (%d process(es)) over %s",
+                 self.name, self.n_shards, self.n_proc, ", ".join(sorted({
+                     str(self.mesh.devices[r])
+                     for r in self.mesh.local_shards})))
         d = self.topology.describe(self.f_pad)
-        Log.info("mesh: %d shard(s), f_pad=%d%s, hist_exchange=%s, "
-                 "comm_precision=%s", d["shards"], d["f_pad"],
+        Log.info("mesh: %d shard(s) x %d process(es), f_pad=%d%s, "
+                 "hist_exchange=%s, comm_precision=%s%s", d["shards"],
+                 d["processes"], d["f_pad"],
                  f" (f_loc={d['f_loc']})" if "f_loc" in d else "",
-                 d["exchange"], d["precision"])
+                 d["exchange"], d["precision"],
+                 f", transport={self.mesh.transport}"
+                 if self.n_proc > 1 else "")
+
+    def _local_rows(self, train_set):
+        """{shard: (lo, hi)}: the rows of the dataset each local shard
+        holds. In one process every shard's block of shard_rows; under a
+        process mesh the rank's one shard holds the whole local dataset
+        (the loader's rank block, or every row for the feature learner),
+        and `_rows_max`, the longest rank block, sets the padding."""
+        n = train_set.num_data
+        if self.n_proc == 1:
+            return dict(enumerate(shard_rows(n, self.n_shards)))
+        if self.shard_rows:
+            from .distributed import host_allgather
+            n_max = getattr(train_set, "local_rows_max", None)
+            if n_max is None:
+                # not partitioned by the loader (pre-partitioned files):
+                # the ranks' counts decide
+                n_max = int(host_allgather(np.asarray([n], np.int64)).max())
+            self._rows_max = max(int(n_max), n)
+        return {r: (0, n) for r in self.mesh.local_shards}
 
     # SerialTreeLearner.init calls these hooks ----------------------------
     def _partitioned_enabled(self, cfg):
@@ -157,48 +192,53 @@ class _MeshedTreeLearner(SerialTreeLearner):
         return super()._compaction_enabled(cfg)
 
     def _pad_rows(self, n):
-        """Row-sharded: each shard's rows padded to whole HIST_CHUNKs
-        (the length of every shard's arrays); feature-sharded: all rows,
-        as the serial learner pads them."""
+        """Row-sharded: each shard's rows padded to whole HIST_CHUNKs of
+        the longest shard (the length of every shard's arrays, on every
+        rank); feature-sharded: all rows, as the serial learner pads
+        them."""
         if not self.shard_rows:
             return super()._pad_rows(n)
-        n_loc = max(hi - lo for lo, hi in self._rows)
+        n_loc = (self._rows_max if self.n_proc > 1
+                 else max(hi - lo for lo, hi in self._rows.values()))
         return max(-(-n_loc // HIST_CHUNK), 1) * HIST_CHUNK
 
     def _place_bins(self, train_set):
-        """Each row shard's (s_pad, n_pad) bins (or packed words) on its
-        device, its rows zero-padded."""
+        """{shard: bins}: each local row shard's (s_pad, n_pad) bins (or
+        packed words) on its device, its rows zero-padded."""
         if not self.shard_rows:
             return super()._place_bins(train_set)
         f = train_set.bins.shape[0]
-        out = []
+        out = {}
         if self.use_partitioned:
-            for (lo, hi), dev in zip(self._rows, self.mesh.devices):
+            for r in self.mesh.local_shards:
+                lo, hi = self._rows[r]
                 bins = np.zeros((self.s_pad, self.n_pad),
                                 dtype=train_set.bins.dtype)
                 bins[:f, :hi - lo] = train_set.bins[:, lo:hi]
-                out.append(torch.from_numpy(pack_feature_words(bins)).to(dev))
+                out[r] = torch.from_numpy(pack_feature_words(bins)).to(
+                    self.mesh.devices[r])
             return out
         src = train_set.device_bins(self.device)
-        for (lo, hi), dev in zip(self._rows, self.mesh.devices):
+        for r in self.mesh.local_shards:
+            lo, hi = self._rows[r]
+            dev = self.mesh.devices[r]
             bins = torch.zeros((self.s_pad, self.n_pad), dtype=src.dtype,
                                device=dev)
             bins[:f, :hi - lo] = src[:, lo:hi].to(dev)
-            out.append(bins)
+            out[r] = bins
         return out
 
     def _compacted_engine(self, bins):
-        """One compacted engine a shard, on its bins (its own buffers)."""
-        engines = []
-        for b in bins:
-            engines.append(super()._compacted_engine(b))
-        return engines
+        """One compacted engine a local shard, on its bins (its own
+        buffers)."""
+        return {r: super(_MeshedTreeLearner, self)._compacted_engine(b)
+                for r, b in bins.items()}
 
     def _replicate(self):
         """The per-feature tables, the feature mask buffer and the bundle
-        maps on every device of the mesh (the learner's own on its
+        maps on the device of every local shard (the learner's own on its
         device)."""
-        for dev in self.mesh.devices:
+        for dev in (self.mesh.devices[r] for r in self.mesh.local_shards):
             if dev in self._dev_state:
                 continue
             if dev == self.device:
@@ -243,11 +283,12 @@ class _MeshedTreeLearner(SerialTreeLearner):
         return torch.nn.functional.pad(part, (0, self.n_pad - (hi - lo)))
 
     def train_device(self, grad, hess, inbag=None, fmask=None, **engines):
-        """Grow one tree on the mesh; returns the output dict of shard 0
-        (every shard holds the same tree) with the (N,) row -> leaf map
-        assembled from every shard's rows on the learner's device (the
-        JAX learner's local_row_leaf), which the booster's score update
-        reads. No host sync."""
+        """Grow one tree on the mesh; returns the output dict of the first
+        local shard (every shard holds the same tree) with the (N,) row ->
+        leaf map of this process's rows assembled from its local shards
+        on the learner's device (the JAX learner's local_row_leaf), which
+        the booster's score update reads. No host sync on a LocalMesh;
+        a ProcessMesh's lockstep check reads one small gather."""
         if engines:
             raise ValueError("the parallel learners take no engine "
                              "overrides")
@@ -261,19 +302,20 @@ class _MeshedTreeLearner(SerialTreeLearner):
         else:
             for st in self._dev_state.values():
                 st.fmask.copy_(fmask)
-        args = [[self._shard_rows_of(v, r) for r in range(self.n_shards)]
-                for v in (grad, hess, inbag)]
+        local = self.mesh.local_shards
+        args = {r: [self._shard_rows_of(v, r) for v in (grad, hess, inbag)]
+                for r in local}
 
         def shard(r):
-            return self._shard_fn(r, args[0][r], args[1][r], args[2][r],
-                                  self._shard_state(r).fmask)
+            return self._shard_fn(r, *args[r], self._shard_state(r).fmask)
 
-        outs = self.mesh.run(shard)
-        out = dict(outs[0])
+        with collective_guard(f"{self.name}:tree_build"):
+            outs = self.mesh.run(shard)
+        out = dict(outs[local[0]])
         if self.shard_rows:
             out["row_leaf"] = torch.cat(
-                [o["row_leaf"][:hi - lo].to(self.device)
-                 for o, (lo, hi) in zip(outs, self._rows)])
+                [outs[r]["row_leaf"][:hi - lo].to(self.device)
+                 for r, (lo, hi) in ((r, self._rows[r]) for r in local)])
         return out
 
     def _builder_kwargs(self):
@@ -477,23 +519,24 @@ class FeatureParallelTreeLearner(_MeshedTreeLearner):
         return ((f + k - 1) // k) * k
 
     def _place_bins(self, train_set):
-        """Each shard's feature rows (or, bundled, its features' slots)
-        over all rows on its device, and the replicated copy."""
+        """{shard: bins}: each local shard's feature rows (or, bundled,
+        its features' slots) over all rows on its device, and the
+        replicated copy."""
         full = super()._place_bins(train_set)          # (s_pad, n_pad)
         k = self.n_shards
+        devices = self.mesh.devices
         if train_set.bundle_plan is not None:
             stored = full[:train_set.bundle_plan.num_slots]
             self._keep_replicated_copy(stored)
             sel = self._setup_bundle_shards(train_set)
             s_loc = self._fp_s_loc
-            return [stored.index_select(0, torch.from_numpy(
+            return {t: stored.index_select(0, torch.from_numpy(
                 sel[t * s_loc:(t + 1) * s_loc]).to(stored.device))
-                .to(dev).contiguous()
-                for t, dev in enumerate(self.mesh.devices)]
+                .to(devices[t]).contiguous() for t in self.mesh.local_shards}
         self._keep_replicated_copy(full)
         f_loc = self.s_pad // k
-        return [full[t * f_loc:(t + 1) * f_loc].to(dev).contiguous()
-                for t, dev in enumerate(self.mesh.devices)]
+        return {t: full[t * f_loc:(t + 1) * f_loc].to(devices[t]).contiguous()
+                for t in self.mesh.local_shards}
 
     def _keep_replicated_copy(self, bins):
         # the reference stores ALL data on every machine in feature-
@@ -503,8 +546,8 @@ class FeatureParallelTreeLearner(_MeshedTreeLearner):
                 self.REPLICATED_BINS_MAX_BYTES:
             self._bins_replicated = None
             return
-        self._bins_replicated = {dev: bins.to(dev)
-                                 for dev in set(self.mesh.devices)}
+        self._bins_replicated = {self.mesh.devices[r]: bins.to(
+            self.mesh.devices[r]) for r in self.mesh.local_shards}
 
     def _setup_bundle_shards(self, train_set):
         """Bundled (EFB) data under feature sharding (learners.py:548-588):
@@ -571,7 +614,8 @@ class FeatureParallelTreeLearner(_MeshedTreeLearner):
         maps = {}
         if bundled:
             b_v = int(self.train_set.max_num_bin)
-            for r, dev in enumerate(self.mesh.devices):
+            for r in self.mesh.local_shards:
+                dev = self.mesh.devices[r]
                 lo = r * f_loc
                 maps[r] = (torch.from_numpy(
                     self._fp_src[lo:lo + f_loc].reshape(-1)).to(dev),

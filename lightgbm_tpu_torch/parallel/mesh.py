@@ -1,8 +1,11 @@
-"""The shard mesh and the communication layer of the parallel learners.
+"""The shard meshes and the communication layer of the parallel learners.
 
-Port of lightgbm_tpu/parallel/mesh.py for one process. The JAX package
-runs its learners' per-shard bodies under `shard_map` over a device mesh
-(`make_mesh` :94) and exchanges through XLA collectives. Here:
+Port of lightgbm_tpu/parallel/mesh.py. The JAX package runs its
+learners' per-shard bodies under `shard_map` over a device mesh
+(`make_mesh` :94) and exchanges through XLA collectives. Here two meshes
+share one interface (`run`, `rank`, `local_shards`, `all_gather`,
+`all_to_all`, `psum`, `fold_exchange`, `describe`, `collective_bytes`),
+so the exchanges, CommPlan and the learners run unchanged on either:
 
 - `LocalMesh` holds W shards. Shard r lives on `cards[r % D]` (the D
   cards the process sees, starting at the caller's), or on the CPU. The
@@ -27,6 +30,27 @@ runs its learners' per-shard bodies under `shard_map` over a device mesh
   the caller. Each call carries the collective's name, and a shard that
   reaches another collective than its peers fails the same way (a
   lockstep fault, never a hang).
+- `ProcessMesh` is one shard a process of a torch.distributed process
+  group (parallel/distributed.py): W is the world size, `run(fn)` calls
+  fn(rank) in the caller, and every collective is the backend's,
+  bit for bit LocalMesh's at the same W. `all_gather` is one flat
+  all-gather into a (W, ...) receive buffer; the tiled `all_to_all` is
+  all_to_all_single with the split axis moved to the front; `psum` an
+  all-gather and then LocalMesh's sum in shard order (never a backend
+  all_reduce, whose order of addition is not fixed). `fold_exchange`
+  sends the shard's stacked words in one all-gather (the allgather
+  exchanges) or in one all_to_all_single a feature group (reduce-
+  scatter), and folds them with ONE gather-fold launch whose
+  descriptors point into the receive buffer, in LocalMesh's order. The
+  transport (parallel/distributed.py) is gloo on the CPU, NCCL where
+  each rank has a card, or gloo over pinned host copies where ranks
+  share a card (the fold still runs on the card). Each collective's name
+  and shape advance a sequence number and a digest; one small host
+  all-gather at the end of every `run` (once a tree) compares them, and
+  a rank that reached other collectives than its peers raises
+  MeshLockstepError. A collective whose transport fails (a peer is gone)
+  raises MeshPeerLost, which an armed collective guard turns into the
+  watchdog's exit (parallel/heartbeat.py).
 - the exchange algorithms of the JAX module (`pair_allreduce`,
   `pair_reduce_scatter`, `compressed_allreduce`,
   `compressed_reduce_scatter`, `compressed_psum`). The four histogram
@@ -56,13 +80,19 @@ consumer's card (across cards) or marks the peer's tensors used on its
 own stream (record_stream), so that their memory outlives the fold.
 """
 
+import contextlib
 import math
 import threading
+import zlib
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.mesh_kernels import gather_fold
 from ..utils.log import Log
+from . import distributed
+from .heartbeat import CollectiveFailed
 from .machines import partition_blocks, partition_features
 
 COLLECTIVE_KINDS = ("hist_reduce", "split_gather", "leaf_sync")
@@ -78,6 +108,11 @@ class MeshLockstepError(MeshAborted):
     shards' MeshAborted follow from it)."""
 
 
+class MeshPeerLost(MeshAborted, CollectiveFailed):
+    """A process mesh's collective failed in its transport: a peer
+    process is gone."""
+
+
 class LocalMesh:
     """W shards in one process, a thread each (see the module doc)."""
 
@@ -86,6 +121,9 @@ class LocalMesh:
         if w < 1:
             raise ValueError(f"a mesh needs at least one shard, got {w}")
         self.n_shards = w
+        # every shard runs in this process
+        self.n_proc = 1
+        self.local_shards = list(range(w))
         dev = torch.device(device)
         if dev.type == "cuda":
             d = torch.cuda.device_count()
@@ -256,7 +294,8 @@ class LocalMesh:
 
         return self._collect("psum", x, total)
 
-    def fold_exchange(self, words, scatter=False, kind=None, recv_bytes=()):
+    def fold_exchange(self, words, scatter=False, kind=None, recv_bytes=(),
+                      groups=1):
         """The fixed-order compensated fold of every shard's `words`,
         one gather-fold launch on the caller's device: `words` is this
         shard's tuple of word tensors ((hi, lo), or the collapsed word
@@ -267,7 +306,9 @@ class LocalMesh:
         with `scatter`, that of this shard's owned feature block [r *
         F / W, (r + 1) * F / W): (..., F / W, B, 3). `recv_bytes` are
         accounted under `kind`, one entry a collective of the wire model
-        the exchange stands for."""
+        the exchange stands for; `groups` is the reduce-scatter's
+        feature-group count (ProcessMesh sends one all_to_all a
+        group)."""
         r = self.rank()
         w = self.n_shards
         dev = self.devices[r]
@@ -310,6 +351,222 @@ class LocalMesh:
 
 def _nbytes(x):
     return x.numel() * x.element_size()
+
+
+def _wire(t):
+    """The tensor the transport moves: bfloat16 travels as its bytes
+    (gloo moves no 16-bit integers; the first axis, which the
+    collectives split, keeps its length)."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+
+
+class ProcessMesh:
+    """One shard a process of the torch.distributed process group (see
+    the module doc): shard r is rank r, on this process's `device` (its
+    card, or the CPU). `devices[r]` is that device for the one shard this
+    process runs (`local_shards`)."""
+
+    def __init__(self, device):
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessMesh needs a torch.distributed "
+                               "process group (parallel/distributed.py "
+                               "init_from_config)")
+        w = dist.get_world_size()
+        self.n_shards = w
+        self.n_proc = w
+        self._rank = dist.get_rank()
+        self.local_shards = [self._rank]
+        self.device = torch.device(device)
+        self.devices = [self.device] * w
+        transport = distributed.transport()
+        if self.device.type == "cpu":
+            if transport == "nccl":
+                raise RuntimeError("an NCCL process group cannot move CPU "
+                                   "tensors: this rank trains on the CPU")
+        elif transport == "gloo":
+            # a gloo group made for a card: its tensors go over the host
+            transport = "gloo+pinned"
+        self.transport = transport
+        self._seq = 0
+        self._digest = 0
+        self.collective_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def describe(self):
+        """{shards, processes, rank, devices, transport}."""
+        return {"shards": self.n_shards, "processes": self.n_proc,
+                "rank": self._rank, "devices": [str(self.device)],
+                "transport": self.transport}
+
+    # ------------------------------------------------------------ running
+    def rank(self):
+        """This process's shard: its rank."""
+        return self._rank
+
+    def run(self, fn):
+        """fn(rank) in the caller with this process's device current, then
+        the lockstep check; returns {rank: result}."""
+        ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx:
+            out = fn(self._rank)
+        self._check_lockstep()
+        return {self._rank: out}
+
+    def _step(self, name, t):
+        """Advance the lockstep sequence and digest by one collective."""
+        self._seq += 1
+        self._digest = zlib.crc32(
+            f"{name}{tuple(t.shape)}{t.dtype}".encode(), self._digest)
+
+    def _check_lockstep(self):
+        mine = np.asarray([self._seq, self._digest], dtype=np.int64)
+        every = distributed.host_allgather(mine)
+        if (every != mine).any():
+            raise MeshLockstepError(
+                f"ranks out of lockstep: rank {self._rank} reached "
+                f"collective #{self._seq} (digest {self._digest:08x}), the "
+                "ranks' (count, digest): " + ", ".join(
+                    f"{int(c)}/{int(d):08x}" for c, d in every))
+
+    def _account(self, kind, nbytes):
+        if kind is not None:
+            self.collective_bytes[kind] += int(nbytes)
+
+    def _transfer(self, op, name, send, out):
+        """The backend collective `op(out, send)` of the contiguous
+        `send` into the contiguous receive buffer `out` on this device,
+        synchronous on the current stream: over the group's own device
+        tensors, or (gloo+pinned) through pinned host copies of both."""
+        self._step(name, send)
+        if self.transport == "gloo+pinned":
+            hs = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+            hs.copy_(send, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            hr = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._backend(op, name, hr, hs)
+            # the caching host allocator keeps hr until this copy ends
+            out.copy_(hr, non_blocking=True)
+        else:
+            self._backend(op, name, out, send)
+        return out
+
+    def _backend(self, op, name, out, send):
+        """The backend's collective; its failure (a peer is gone) raises
+        MeshPeerLost."""
+        try:
+            op(_wire(out), _wire(send))
+        except RuntimeError as e:
+            raise MeshPeerLost(
+                f"collective {name!r} #{self._seq} failed on rank "
+                f"{self._rank} ({self.transport}): {e}") from e
+
+    def _gather(self, name, x):
+        """(W, *x.shape): every rank's x in rank order."""
+        w = self.n_shards
+        send = x.contiguous().reshape(-1)
+        out = torch.empty(w * send.numel(), dtype=x.dtype,
+                          device=self.device)
+        self._transfer(distributed.all_gather_flat, name, send.to(self.device),
+                       out)
+        return out.view(w, *x.shape)
+
+    # -------------------------------------------------------- collectives
+    def all_gather(self, x, kind=None):
+        """(W, *x.shape): every shard's x stacked in shard order."""
+        self._account(kind, allgather_recv_bytes(_nbytes(x), self.n_shards))
+        return self._gather("all_gather", x)
+
+    def all_to_all(self, x, split_axis, kind=None):
+        """Tiled all-to-all (LocalMesh.all_to_all): piece j of x along
+        `split_axis` goes to shard j; the received pieces concatenate in
+        source order."""
+        w = self.n_shards
+        size = x.shape[split_axis]
+        if size % w:
+            raise ValueError(f"all_to_all: axis {split_axis} of size {size} "
+                             f"does not split into {w} pieces")
+        self._account(kind, alltoall_recv_bytes(_nbytes(x), w))
+        front = x.movedim(split_axis, 0)
+        send = front.contiguous().to(self.device)
+        out = torch.empty_like(send)
+        self._transfer(dist.all_to_all_single, "all_to_all", send, out)
+        return out.movedim(0, split_axis).contiguous()
+
+    def psum(self, x, kind=None):
+        """Sum of every shard's x, added in shard order in x's dtype
+        (LocalMesh.psum's bits): an all-gather, then the sum."""
+        self._account(kind, psum_recv_bytes(_nbytes(x), self.n_shards))
+        vals = self._gather("psum", x)
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = acc + v
+        return acc
+
+    def fold_exchange(self, words, scatter=False, kind=None, recv_bytes=(),
+                      groups=1):
+        """LocalMesh.fold_exchange over the process group: the shard's
+        stacked words go out in one all-gather (or, with `scatter`, one
+        all_to_all_single a group of 1/groups of each destination's owned
+        block: its feature groups when one leaf is exchanged), and ONE
+        gather-fold launch reads the receive buffer, word 0 of shards 0 ..
+        W-1 and then word 1, into this shard's result."""
+        w = self.n_shards
+        for n in recv_bytes:
+            self._account(kind, n)
+        nw = len(words)
+        lead = words[0].shape[:-3]
+        f, b, s = words[0].shape[-3:]
+        n_lead = math.prod(lead)
+        stacked = torch.stack([t.to(self.device) for t in words])
+        if not scatter:
+            cells = n_lead * f * b * s
+            recv = torch.empty(w * nw * cells, dtype=stacked.dtype,
+                               device=self.device)
+            self._transfer(distributed.all_gather_flat, "fold_exchange",
+                           stacked.reshape(-1), recv)
+            out = torch.empty((*lead, f, b, s), dtype=torch.float32,
+                              device=self.device)
+            comps = [(recv, (j * nw + i) * cells, f * b * s)
+                     for i in range(nw) for j in range(w)]
+            return gather_fold(comps, n_lead, f * b * s, out)
+        if f % w:
+            raise ValueError(f"fold_exchange: {f} features do not split "
+                             f"into {w} owned blocks")
+        f_loc = f // w
+        block = n_lead * f_loc * b * s      # one destination's owned cells
+        if groups < 1 or block % groups:
+            raise ValueError(f"fold_exchange: {groups} groups do not tile "
+                             f"an owned block of {block} cells")
+        chunk = block // groups
+        # (W destinations, words, owned block) in destination order
+        per_dest = stacked.reshape(nw, n_lead, w, f_loc * b * s).permute(
+            2, 0, 1, 3).reshape(w, nw, block)
+        recv = torch.empty((groups, w, nw, chunk), dtype=stacked.dtype,
+                           device=self.device)
+        for g in range(groups):
+            self._transfer(dist.all_to_all_single, "fold_exchange",
+                           per_dest[:, :, g * chunk:(g + 1) * chunk]
+                           .contiguous(), recv[g])
+        out = torch.empty((*lead, f_loc, b, s), dtype=torch.float32,
+                          device=self.device)
+        # component (source j, word i): chunk g of its owned block at
+        # recv[g, j, i], so one descriptor of `groups` rows covers it
+        comps = [(recv, (j * nw + i) * chunk, w * nw * chunk)
+                 for i in range(nw) for j in range(w)]
+        return gather_fold(comps, groups, chunk, out)
+
+
+def make_mesh(n_shards, device):
+    """The learners' mesh: a ProcessMesh when this process is a rank of a
+    process group of more than one process (n_shards must then be the
+    world size), else a LocalMesh of n_shards shards on `device`."""
+    if distributed.is_multi_host():
+        w = distributed.num_processes()
+        if int(n_shards) != w:
+            Log.fatal("num_machines=%d but the process group has %d "
+                      "ranks", int(n_shards), w)
+        return ProcessMesh(device)
+    return LocalMesh(n_shards, device)
 
 
 # ------------------------------------------------------------ precision
@@ -401,7 +658,8 @@ def pair_reduce_scatter(pair, mesh, n_shards, groups=1, kind="hist_reduce"):
     hi, lo = (t.contiguous() for t in pair)
     return mesh.fold_exchange((hi, lo), scatter=True, kind=kind,
                               recv_bytes=_group_recv_bytes(
-                                  hi, mesh, n_shards, groups, words=2))
+                                  hi, mesh, n_shards, groups, words=2),
+                              groups=groups)
 
 
 def compressed_reduce_scatter(pair, mesh, n_shards, groups=1,
@@ -413,7 +671,8 @@ def compressed_reduce_scatter(pair, mesh, n_shards, groups=1,
     word = _word(pair, precision)
     return mesh.fold_exchange((word,), scatter=True, kind=kind,
                               recv_bytes=_group_recv_bytes(
-                                  word, mesh, n_shards, groups))
+                                  word, mesh, n_shards, groups),
+                              groups=groups)
 
 
 def compressed_psum(x, mesh, precision="pair", kind="hist_reduce"):
@@ -492,7 +751,7 @@ class MeshTopology:
     def __init__(self, mesh, config=None):
         self.mesh = mesh
         self.n_shards = int(mesh.n_shards)
-        self.n_proc = 1
+        self.n_proc = int(getattr(mesh, "n_proc", 1))
         self.comm_precision = resolve_comm_precision(config) \
             if config is not None else "pair"
         self.hist_exchange = resolve_hist_exchange(config) \

@@ -35,6 +35,9 @@ data/prefetch.py, data/block_store.py):
   its start: the whole block is one device program).
 - ``hard_crash`` (flag): escalate `crash_at_iteration` to
   `os._exit(43)`, a kill with no cleanup.
+- ``fail_distributed_init`` (count): the next k attempts of
+  `torch.distributed.init_process_group` fail
+  (parallel/distributed.py).
 - ``truncate_checkpoint`` (count): the next k checkpoint saves write
   only the first half of the file's bytes.
 - ``corrupt_digest`` (count): the next k checkpoint saves flip a
@@ -42,17 +45,33 @@ data/prefetch.py, data/block_store.py):
 - ``crash_in_checkpoint_write`` (count): the next k checkpoint saves
   write half the payload to the sibling tmp file and `os._exit(43)`
   before the atomic rename.
-- ``rank_crash_in_prefetch`` (rank index; -1 = every rank; the port
-  runs one process, rank 0): `os._exit(43)` from the block-prefetch
-  producer thread right after a block read lands in its staging ring.
+- ``rank_crash_in_prefetch`` (rank index; -1 = every rank):
+  `os._exit(43)` from the block-prefetch producer thread right after a
+  block read lands in its staging ring.
 - ``bitrot_block_on_restart`` (block index): on a restarted attempt
   (LIGHTGBM_TPU_RESTART_ATTEMPT > 0) flip one byte of that block's file
   before the re-verification pass (BlockStore.reverify).
+
+Rank-targeted faults of the multi-process runtime (the value is
+``"rank:iteration"``, or a bare iteration to hit every rank; this
+process's rank comes from `set_rank`, which parallel/distributed.py
+calls, else from LIGHTGBM_TPU_RANK):
+
+- ``rank_crash_at_iteration`` (``rank:iter``): `os._exit(43)` the
+  matching rank just before boosting iteration k, a dead peer: the
+  survivors' collective watchdog or heartbeat monitor must end them
+  (parallel/heartbeat.py).
+- ``rank_hang_at_iteration`` (``rank:iter``): the matching rank sleeps
+  forever just before iteration k; its peers block in the next
+  collective until their watchdog (`collective_timeout_s`) fires.
+- ``heartbeat_stale`` (rank index; -1 = every rank): the matching
+  rank's heartbeat publisher stops writing while training continues.
 
 The one-shot kills are disarmed on a restarted attempt.
 """
 
 import os
+import time
 
 ENV_VAR = "LIGHTGBM_TPU_FAULTS"
 
@@ -184,6 +203,66 @@ def error_rate_fires(state, rate):
     return False
 
 
+# --------------------------------------------------------- rank targeting
+
+_rank = None
+
+
+def set_rank(rank):
+    """Record this process's distributed rank for rank-targeted faults
+    (parallel/distributed.py init_from_config calls it)."""
+    global _rank
+    _rank = int(rank)
+
+
+def current_rank():
+    if _rank is not None:
+        return _rank
+    try:
+        return int(os.environ.get("LIGHTGBM_TPU_RANK", "0"))
+    except ValueError:
+        return 0
+
+
+def _rank_iter_spec(name):
+    """A rank-targeted iteration fault's value: ``"rank:iter"`` targets
+    one rank, a bare integer every rank. Returns (rank or None,
+    iteration), or None when unarmed or unparsable."""
+    value = _active.get(name)
+    if value is None:
+        return None
+    if isinstance(value, int):
+        return None, value
+    rank_s, sep, iter_s = str(value).partition(":")
+    if not sep:
+        return None
+    try:
+        return int(rank_s), int(iter_s)
+    except ValueError:
+        return None
+
+
+def _rank_flag_fires(name, rank=None):
+    """A rank-valued fault: the value equal to `rank` (default this
+    process's) fires, -1 fires every rank."""
+    value = _active.get(name)
+    if value is None:
+        return False
+    try:
+        value = int(value)
+    except (TypeError, ValueError):
+        return False
+    if rank is None:
+        rank = current_rank()
+    return value in (-1, int(rank))
+
+
+def heartbeat_suppressed(rank=None):
+    """`heartbeat_stale`: True when `rank`'s heartbeat publisher must
+    skip its writes (the heartbeat service passes its own rank)."""
+    return _rank_flag_fires("heartbeat_stale", rank)
+
+
 # --------------------------------------------------------- training faults
 
 def _is_restarted_attempt():
@@ -205,19 +284,46 @@ def crash_if_reached(first_iteration, num_iterations=1):
         raise InjectedFault(f"injected crash at boosting iteration {k}")
 
 
+def rank_crash_if_reached(first_iteration, num_iterations=1):
+    """`rank_crash_at_iteration`: hard-kill (`os._exit(43)`) the
+    matching rank when iteration k falls inside [first_iteration,
+    first_iteration + num_iterations). No soft mode: a rank death its
+    peers must detect skips every finally and atexit path."""
+    spec = _rank_iter_spec("rank_crash_at_iteration")
+    if spec is None or _is_restarted_attempt():
+        return
+    rank, k = spec
+    if rank is not None and rank != current_rank():
+        return
+    if first_iteration <= k < first_iteration + num_iterations:
+        os._exit(HARD_CRASH_EXIT_CODE)
+
+
+def rank_hang_if_reached(first_iteration, num_iterations=1):
+    """`rank_hang_at_iteration`: the matching rank sleeps forever just
+    before iteration k (it stays alive and keeps heartbeating, so only
+    its peers' collective watchdog ends the run)."""
+    spec = _rank_iter_spec("rank_hang_at_iteration")
+    if spec is None or _is_restarted_attempt():
+        return
+    rank, k = spec
+    if rank is not None and rank != current_rank():
+        return
+    if first_iteration <= k < first_iteration + num_iterations:
+        from .log import Log
+        Log.warning("injected hang at boosting iteration %d (rank %d)",
+                    k, current_rank())
+        while True:
+            time.sleep(3600)
+
+
 def rank_crash_in_prefetch_if_reached():
-    """`rank_crash_in_prefetch`: hard-kill this process from the
+    """`rank_crash_in_prefetch`: hard-kill the matching rank from the
     prefetch producer thread (data/prefetch.py calls this right after a
-    block read lands in the staging ring). The port trains in one
-    process, rank 0: the value 0 or -1 fires."""
+    block read lands in the staging ring)."""
     if _is_restarted_attempt():
         return
-    value = _active.get("rank_crash_in_prefetch")
-    try:
-        value = int(value)
-    except (TypeError, ValueError):
-        return
-    if value in (-1, 0):
+    if _rank_flag_fires("rank_crash_in_prefetch"):
         os._exit(HARD_CRASH_EXIT_CODE)
 
 

@@ -6,8 +6,10 @@ Reference: include/LightGBM/utils/log.h:14-98. Fatal raises.
 access and slow-request logs, drift and skew warnings): with
 `LIGHTGBM_TPU_LOG_JSON=1` in the environment every line is one JSON
 object `{"ts", "level", ...}`, otherwise `event k=v ...` text. The flag
-is read per line, as in the JAX package. The rank prefix belongs to the
-distributed plane, which the port has not reached yet.
+is read per line, as in the JAX package. `Log.set_rank` (called when the
+process group comes up, parallel/distributed.py) prefixes every line
+with `[rank N]` (a "rank" field in JSON mode), so the interleaved logs
+of a process gang stay attributable.
 """
 
 import datetime
@@ -31,6 +33,12 @@ class LightGBMError(Exception):
 class Log:
     # levels: fatal=-1, warning=0, info=1, debug=2
     _level = 1
+    _rank = None        # set by set_rank(); None = no rank prefix
+
+    @classmethod
+    def set_rank(cls, rank) -> None:
+        """Prefix subsequent lines with `[rank N]`; None clears."""
+        cls._rank = int(rank) if rank is not None else None
 
     @classmethod
     def reset_log_level(cls, level: int) -> None:
@@ -78,6 +86,8 @@ class Log:
             return
         if _json_mode():
             rec = {"ts": _now(), "level": level, "event": str(event)}
+            if cls._rank is not None:
+                rec["rank"] = cls._rank
             rec.update(fields)
             sys.stdout.write(json.dumps(rec, default=str) + "\n")
             sys.stdout.flush()
@@ -89,11 +99,14 @@ class Log:
     def _write(cls, level_str, fmt, args):
         msg = (fmt % args) if args else str(fmt)
         if _json_mode():
-            sys.stdout.write(json.dumps({"ts": _now(), "level": level_str,
-                                         "msg": msg}) + "\n")
+            rec = {"ts": _now(), "level": level_str, "msg": msg}
+            if cls._rank is not None:
+                rec["rank"] = cls._rank
+            sys.stdout.write(json.dumps(rec) + "\n")
             sys.stdout.flush()
             return
-        sys.stdout.write(f"[LightGBM-Torch] [{level_str}] {msg}\n")
+        rank = "" if cls._rank is None else f"[rank {cls._rank}] "
+        sys.stdout.write(f"[LightGBM-Torch] {rank}[{level_str}] {msg}\n")
         sys.stdout.flush()
 
 

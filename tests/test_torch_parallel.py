@@ -30,8 +30,8 @@ Contracts (tests/test_parallel.py, tests/test_comm.py):
 - the meshed learners train on the per-iteration path, the CLI trains
   tree_learner=data num_machines=2, a crashed data-parallel run resumes
   to the uninterrupted text, a shard that raises ends training with its
-  error at once, and the multi-process settings are refused naming
-  ROADMAP queue 1 item 6b.
+  error at once, and out_of_core with a parallel learner (the
+  out-of-core gang learner) is refused naming ROADMAP queue 1 item 6b.
 """
 
 import time
@@ -390,16 +390,9 @@ def test_a_failing_shard_ends_training_with_its_error(data):
     assert time.perf_counter() - t0 < 10.0
 
 
-@pytest.mark.parametrize("extra", [
-    {"machine_list_file": "mlist.txt"}, {"heartbeat_timeout_s": 5},
-    {"collective_timeout_s": 5}, {"out_of_core": True}],
-    ids=["machine_list", "heartbeat", "collective_timeout", "out_of_core"])
+@pytest.mark.parametrize("extra", [{"out_of_core": True}],
+                         ids=["out_of_core"])
 def test_multi_process_settings_are_refused(data, extra):
     params = dict(BASE, tree_learner="data", num_machines=2, **extra)
     with pytest.raises(NotImplementedError, match="item 6b"):
         lgt.train(params, lgt.Dataset(*data, params=params), 1, device=CPU)
-    if "out_of_core" not in extra:
-        argv = [f"{k}={v}" for k, v in extra.items()]
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            Application(["task=train", "tree_learner=data",
-                         "num_machines=2"] + argv, device=CPU)

@@ -28,6 +28,12 @@
 - a shard that raises on the card ends training with its error;
 - with more than one card, the shards of every learner spread over the
   cards and the trees stay the serial ones (skips on one card).
+- a process gang of ranks (tests/test_torch_distributed.py's mesh
+  worker, one process a rank) gives an in-process LocalMesh's bits for
+  every collective and exchange, with one gather_fold an exchange into
+  the collective's receive buffer: two ranks sharing the card over gloo
+  with pinned host copies, and with more than one card min(cards, 4)
+  ranks over NCCL (skips on one card).
 
 They need a CUDA device and skip without one (`cuda` marker). They
 import neither JAX nor the JAX package:
@@ -267,3 +273,27 @@ def test_shards_spread_over_the_cards(learner, extra):
                                    atol=1e-6)
     np.testing.assert_allclose(np.ravel(par.predict(x)),
                                np.ravel(ser.predict(x)), atol=1e-5)
+
+
+@pytest.mark.parametrize("transport", ["gloo+pinned", "nccl"])
+def test_process_gang_exchanges_are_the_local_mesh(transport):
+    """A process gang on the card (tests/test_torch_distributed.py's mesh
+    ranks, one process a rank): every ProcessMesh collective and exchange
+    bit-equal to an in-process LocalMesh on the same inputs, one
+    gather_fold an exchange into the receive buffer, the lockstep fault
+    raised. Two ranks sharing one card over gloo with pinned host
+    copies; with two cards or more, min(cards, 4) ranks over NCCL."""
+    _need_card()
+    import test_torch_distributed as td
+    if transport == "nccl":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("NCCL needs a card a rank: one card here")
+        w = min(torch.cuda.device_count(), 4)
+    else:
+        w = 2
+    # NCCL comes from the topology (a card a rank); the shared card is
+    # forced (every rank on card 0)
+    reports = td._mesh_reports(w, "cuda", "auto" if transport == "nccl"
+                               else transport)
+    assert {r["transport"] for r in reports} == {transport}
+    td.check_mesh_reports(reports, w)
