@@ -143,10 +143,10 @@ Phases (any failure exits non-zero and prints no result line):
    its histogram kernels' share and its device launches by name: one
    compact_lookback a compact_rows, one gather_sort_hist a
    compacted_hist) beside the fused masked round of this run; 5-class
-   multiclass, 3 rounds per-iteration and fused (text equal, 5 x 62
+   multiclass, 2 rounds per-iteration and fused (text equal, 5 x 62
    compactions a replay);
 9. blockwise engine.train: a 100k-row valid set, early stopping after
-   5 rounds, evals_result, 10 rounds, against the per-iteration path
+   5 rounds, evals_result, 8 rounds, against the per-iteration path
    (a no-op callback): the same best iteration, trees and history
    (exact when the model text is equal, else within 1e-5 relative);
    once with the held-out labels (no stop) and once with labels drawn
@@ -154,7 +154,7 @@ Phases (any failure exits non-zero and prints no result line):
 9b. checkpoint and resume: on each path a run crashed in process
    (InjectedFault) and resumed from its snapshot directory into a fresh
    booster writes the uninterrupted run's model text byte for byte:
-   fused (10 rounds, snapshots every 4, crash at 6; the resumed graph
+   fused (8 rounds, snapshots every 4, crash at 6; the resumed graph
    updates the booster's own score), blockwise (the 100k-row valid set,
    early stopping: history and best iteration equal), per-iteration,
    GOSS fused and DART; each snapshot's checkpoint_write_s and bytes,
@@ -192,8 +192,8 @@ Phases (any failure exits non-zero and prints no result line):
    exchange (one gather-fold for the pair ones), device ms and host us
    an exchange (with --baseline the other checkout's exchanges on the
    same inputs in a process of their own, their results bit-equal);
-   then, launch counts read from zero, 2
-   per-iteration rounds on the bench data of the data learner
+   then, launch counts read from zero, 1
+   per-iteration round on the bench data of the data learner
    (reduce-scatter at the default comm_groups=2, which f_loc = 7 cuts
    to one group, and at comm_groups=7; allgather; partitioned_build=
    true), the feature learner and the voting learner: data and feature
@@ -205,7 +205,7 @@ Phases (any failure exits non-zero and prints no result line):
 9e. the multi-process runtime (parallel/distributed.py, the ProcessMesh):
    gangs of real processes, `python -m lightgbm_tpu_torch` with a
    machine list of localhost entries and LIGHTGBM_TPU_RANK, one process
-   a rank, each training the bench rows 3 rounds from the ingestion
+   a rank, each training the bench rows 2 rounds from the ingestion
    phase's binary cache: 2 ranks sharing card 0 (CUDA_VISIBLE_DEVICES=0)
    over gloo with pinned host copies, and where there are two cards or
    more also min(cards, 4) ranks over NCCL (a line says which ran and
@@ -215,7 +215,7 @@ Phases (any failure exits non-zero and prints no result line):
    in-process mesh's at the same W on the same rows (lightgbm_tpu_torch.
    train from the cache), every rank's model equal to rank 0's (the
    ranks' digests, logged), the histogram and mesh_fold launches the
-   ranks log; round ms (median of rounds 2-3) beside the in-process
+   ranks log; round ms (round 2) beside the in-process
    mesh's. One exchange of each kind (pair allgather, pair
    reduce-scatter at comm_groups 1, 2 and 7, bf16 reduce-scatter at 7)
    on a gang of rank processes: the rank's device kernels (one
@@ -226,13 +226,35 @@ Phases (any failure exits non-zero and prints no result line):
    LocalMesh's. The kill case: rank 1 hard-crashes before round 2;
    rank 0 must exit with 117 within collective_timeout_s (30 s) + 10 s,
    its log naming the collective, the iteration and the rank;
+9f. the out-of-core gang learner (data/ooc_parallel.py) and the
+   supervisor: the gang's exchange on the card (2 ranks' carries of a
+   1/63 leaf over their owned blocks of the bench bins, one gather_fold)
+   bit for bit its plain version, timed beside its bound; a gang of 2
+   CLI ranks (gloo over pinned copies sharing card 0; NCCL a card a rank
+   where there are two cards or more) over the ingestion TSV's block
+   store (the file route's, 4 blocks of 262,144 rows, built once), 3
+   rounds with telemetry=true: hist_pair_fold and mesh_fold launches a
+   rank as planned, the trees against the serial out-of-core learner's
+   on the same store, the journal's block_reshard records; the shrink
+   drill (rank 0 under `python -m lightgbm_tpu_torch.supervisor`, rank
+   1 killed before round 2): the survivor shrinks to 1 rank, resumes
+   from the round-2 snapshot byte-equal to a single-rank run resumed
+   from it, the store's build_count 1, no binning record; a same-topology
+   restart (both ranks supervised) byte-equal to the uninterrupted gang;
+9g. the training telemetry: the fused compacted path with telemetry=true
+   beside it without (the same syncs in a block, the same kernels in a
+   replay, the same model text, round times), the journal checked
+   against the schema; the roofline rows of hist_pair_fold (one
+   out-of-core round over the TSV's store) and mesh_fold (the gang's
+   exchange on a 2-shard mesh) from CUDA event pairs, against the
+   card's copy peak;
 10. multiclass: the bench matrix with its logit cut at the quintiles (5
-   classes), 10 rounds (50 trees) per-iteration, fused with the masked
+   classes), 5 rounds (25 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
    partitioned one (first round's trees against the masked ones), launch
    counts read from zero and counted through the replays (5 x (62
    masked_hist + 1 frontier_hist) a replay, or 5 x 63 seg_hist),
-   multi_logloss after 10 rounds below the first round's, each fused
+   multi_logloss after 5 rounds below the first round's, each fused
    round timed and one replay profiled; predict on 100k rows against a
    host traversal of the model text; the model frozen by
    CompiledPredictor and served through tree_raw with K = 5 (its sums
@@ -246,9 +268,9 @@ Phases (any failure exits non-zero and prints no result line):
    calls bitwise equal, three calls profiled in a fresh process (one
    device kernel each) and one call's PyTorch operators, timed with
    CUDA events beside its bound (the function's own bytes and the pair
-   arithmetic its labels need) and its plain version; 10 rounds
+   arithmetic its labels need) and its plain version; 5 rounds
    per-iteration and fused (one launch a round, counted through the
-   replays; NDCG@1,3,5 after 10 rounds above the first round's, model
+   replays; NDCG@1,3,5 after 5 rounds above the first round's, model
    text), and query-unit bagging (0.7, every 2 rounds) fused against
    its per-iteration loop;
 11a. GOSS (boosting=goss, learning_rate 0.25: a warm-up of 4 rounds,
@@ -320,8 +342,9 @@ Phases (any failure exits non-zero and prints no result line):
     serving, for bin_dense from the bench's construction, for
     lambdarank_pairs from the fused lambdarank run, for tree_lin_raw
     from the linear phase's serving, for hist_pair_fold from the
-    out-of-core runs, for mesh_fold from the parallel phase's runs and
-    the distributed phase's rank processes),
+    out-of-core runs and the gang's ranks, for mesh_fold from the
+    parallel phase's runs, the distributed phase's rank processes and
+    the gang's ranks),
     the card line, and the result line.
 
 Everything measured here is written to <out>/chip_smoke.json too.
@@ -351,10 +374,12 @@ N_FEATURES = 28
 MAX_BIN = 255
 # rounds of the binary bench, blockwise and categorical phases, kept
 # short so that the multiclass and lambdarank phases (NEW_ROUNDS each)
-# fit the run's time
+# fit the run's time; cut for the gang and telemetry phases: NEW_ROUNDS
+# from 10 to 5, BLOCKWISE_ROUNDS from 10 to 8 (the random labels' stop
+# at 6 still breaks inside the second block of 5)
 N_ROUNDS = 5
-NEW_ROUNDS = 10
-BLOCKWISE_ROUNDS = 10
+NEW_ROUNDS = 5
+BLOCKWISE_ROUNDS = 8
 CATEGORICAL_ROUNDS = 2
 N_CAT = 4
 N_CATEGORIES = 32
@@ -1625,7 +1650,8 @@ def phase_fused_sampled(torch, lgt, ds):
 
 
 COMPACT_PARAMS = dict(BENCH_PARAMS, hist_compaction="auto")
-MC_COMPACT_ROUNDS = 3
+# 2 rounds (3 before the gang and telemetry phases came): the run's time
+MC_COMPACT_ROUNDS = 2
 
 
 def compacted_plain_tree(torch, hk, booster):
@@ -2389,8 +2415,8 @@ def bench_subset(ds, **fields):
 
 
 def phase_multiclass(torch, lgt, hk, ds_bench, x, logit, timer):
-    """Multiclass at full width: 5 classes on the bench matrix, 10
-    rounds (50 trees) per-iteration (masked builder), fused (masked and
+    """Multiclass at full width: 5 classes on the bench matrix, 5
+    rounds (25 trees) per-iteration (masked builder), fused (masked and
     partitioned); multi_logloss falls; predict on 100k rows against the
     host traversal; the model frozen by CompiledPredictor and served
     through tree_raw with K = 5."""
@@ -2722,7 +2748,7 @@ def baseline_fused_rank(torch, x, label, counts):
 def phase_lambdarank(torch, lgt, hk, ds_bench, x, logit, timer, seed):
     """LambdaRank at full width: the bench matrix in queries of 50-200
     documents with relevance 0-4, max_position 20, default label_gain;
-    the pair gradients checked and timed; 10 rounds per-iteration and
+    the pair gradients checked and timed; 5 rounds per-iteration and
     fused (model text; one lambdarank_pairs launch a round, counted
     through the replays), NDCG@1,3,5 rises; query-unit bagging (0.7,
     every 2 rounds) fused against its per-iteration loop; with
@@ -4382,7 +4408,9 @@ def phase_ingest(torch, lgt, timer, x, y, seed, work):
 
 # ----------------------------------------------- checkpoint and resume
 
-RESUME_ROUNDS = 10
+# 8 rounds (10 before the gang and telemetry phases came): the fused
+# and blockwise crashes at 6 still resume from the snapshot at 4
+RESUME_ROUNDS = 8
 RESUME_PERIOD = 4
 
 
@@ -4800,7 +4828,8 @@ def phase_ooc_file(torch, lgt, hk, tsv, want_text):
     res = {"load_s": load_s, "train_s": time.time() - t0,
            "blocks": dso._core.block_store.num_blocks,
            "launches": hk.KERNELS["hist_pair_fold"].launches - before,
-           "model_text_equal": booster.model_to_string() == want_text}
+           "model_text_equal": booster.model_to_string() == want_text,
+           "model_text": booster.model_to_string()}
     log(f"ooc file route: block store built in {load_s:.2f} s "
         f"({res['blocks']} blocks), {N_ROUNDS} rounds in "
         f"{res['train_s']:.2f} s, model text equal to the in-RAM load's "
@@ -4810,8 +4839,9 @@ def phase_ooc_file(torch, lgt, hk, tsv, want_text):
 
 
 PARALLEL_SHARDS = 4
-# 2 rounds (3 before the distributed phase came): the run's time limit
-PARALLEL_ROUNDS = 2
+# 1 round (3 before the distributed phase came, 2 before the gang and
+# telemetry phases): the run's time limit
+PARALLEL_ROUNDS = 1
 # (name, parameters over BENCH_PARAMS); every case at PARALLEL_SHARDS
 PARALLEL_CASES = (
     ("data_rs", {"tree_learner": "data"}),
@@ -5257,8 +5287,11 @@ def phase_parallel(torch, lgt, hk, timer, ds, y, seed):
 
 
 DIST_SHARDS = 2          # ranks of the gangs on one card
-DIST_ROUNDS = 3
+# 2 rounds (3 before the gang and telemetry phases came): the run's time
+# limit; a round's time is read from round 2
+DIST_ROUNDS = 2
 DIST_KILL_TIMEOUT_S = 30  # collective_timeout_s of the kill case
+DIST_KILL_ROUNDS = 3      # the kill before round 2 needs a third round
 DIST_KILL_MARGIN_S = 10
 # (name, parameters over BENCH_PARAMS); each a gang of its own
 DIST_CASES = (
@@ -5391,9 +5424,10 @@ def free_port():
     return port
 
 
-def write_machine_list(path, w):
-    """W localhost entries on free ports; the first is the store."""
-    port = free_port()
+def write_machine_list(path, w, port=None):
+    """W localhost entries from `port` (a free port by default); the
+    first is the store."""
+    port = free_port() if port is None else port
     with open(path, "w") as f:
         f.write("".join(f"127.0.0.1 {port + r}\n" for r in range(w)))
     return path
@@ -5457,36 +5491,72 @@ def gang_launches(text):
                                            "process:", 1)[1].strip())
 
 
-def dist_cli_gang(lgt, w, cache, work, tag, extra, env=None):
-    """One CLI gang (python -m lightgbm_tpu_torch on W ranks) training
-    the bench rows from the binary cache; returns its record."""
-    params = dict({k: v for k, v in BENCH_PARAMS.items() if k != "verbose"},
-                  **extra)
-    model = os.path.join(work, f"{tag}.model.txt")
-    mlist = write_machine_list(os.path.join(work, f"{tag}.mlist"), w)
-    # a hung collective ends the gang well inside the run's time limit
-    argv = (["-m", "lightgbm_tpu_torch", "task=train", f"data={cache}",
-             f"num_trees={DIST_ROUNDS}", f"num_machines={w}",
-             f"machine_list_file={mlist}", f"output_model={model}",
-             "verbose=1", "metric_freq=0", "collective_timeout_s=120"]
-            + [f"{k}={v}" for k, v in params.items()])
+# one rank of the CLI gangs: the runs at argv[1] ([{"tag", "argv"}]), each
+# an Application on the card in turn in this one process (the process
+# group of the first run serves the rest), between markers that cut the
+# rank's log into the runs' own; the kernel launch counts start from
+# zero at each run
+DIST_RUNS_SRC = """
+import json, sys
+from lightgbm_tpu_torch.application import Application
+from lightgbm_tpu_torch.ops import hist_kernels as hk
+for run in json.load(open(sys.argv[1])):
+    print("DIST_RUN_BEGIN " + run["tag"], flush=True)
+    hk.reset_launch_counts()
+    Application(run["argv"]).run()
+    print("DIST_RUN_END " + run["tag"], flush=True)
+"""
+
+
+def dist_cli_gangs(w, cache, work, transport, cases, env=None):
+    """The CLI training runs of `cases` (each the argv of python -m
+    lightgbm_tpu_torch on the bench rows from the binary cache) on ONE
+    gang of W rank processes, one after another (DIST_RUNS_SRC: a rank
+    process a gang, not a process a run); returns ({tag: record}, the
+    gang's wall seconds)."""
+    params = {k: v for k, v in BENCH_PARAMS.items() if k != "verbose"}
+    key = transport.replace("+", "_")
+    mlist = write_machine_list(os.path.join(work, f"{key}_{w}.mlist"), w)
+    runs = []
+    for name, extra in cases:
+        tag = f"{name}_{key}_{w}"
+        model = os.path.join(work, f"{tag}.model.txt")
+        # a hung collective ends the gang well inside the run's limit
+        runs.append({"tag": tag, "model": model, "argv": (
+            ["task=train", f"data={cache}", f"num_trees={DIST_ROUNDS}",
+             f"num_machines={w}", f"machine_list_file={mlist}",
+             f"output_model={model}", "verbose=1", "metric_freq=0",
+             "collective_timeout_s=120"]
+            + [f"{k}={v}" for k, v in dict(params, **extra).items()])})
+    path = os.path.join(work, f"runs_{key}_{w}.json")
+    with open(path, "w") as f:
+        json.dump(runs, f)
     t0 = time.time()
-    ranks, _ = run_gang(argv, w, work, tag, env=env)
-    res = {"wall_s": time.time() - t0,
-           "exit_codes": [rc for rc, _, _ in ranks]}
+    ranks, _ = run_gang(["-c", DIST_RUNS_SRC, path], w, work,
+                        f"gangs_{key}_{w}", env=env, timeout=600)
+    wall = time.time() - t0
     for r, (rc, text, _) in enumerate(ranks):
-        check(rc == 0, f"distributed {tag}: rank {r} exited {rc}:\n"
+        check(rc == 0, f"distributed {key}: rank {r} exited {rc}:\n"
               f"{text[-3000:]}")
-        check(f"[rank {r}]" in text and "ranks hold the same model" in text,
-              f"distributed {tag}: rank {r} did not agree on the model")
-    text0 = ranks[0][1]
-    res["transport"] = text0.split("transport=", 1)[1].split()[0].rstrip(",")
-    res["round_ms"] = gang_round_ms(text0)
-    res["round_ms_median_2_3"] = float(np.median(res["round_ms"][1:3]))
-    res["launches"] = [gang_launches(t) for _, t, _ in ranks]
-    with open(model) as f:
-        res["model_text"] = f.read()
-    return res
+    out = {}
+    for run in runs:
+        tag = run["tag"]
+        pieces = [text.split(f"DIST_RUN_BEGIN {tag}\n", 1)[1].split(
+            f"DIST_RUN_END {tag}", 1)[0] for _, text, _ in ranks]
+        for r, piece in enumerate(pieces):
+            check(f"[rank {r}]" in piece
+                  and "ranks hold the same model" in piece,
+                  f"distributed {tag}: rank {r} did not agree on the model")
+        res = {"exit_codes": [rc for rc, _, _ in ranks],
+               "transport": ranks[0][1].split("transport=", 1)[1].split()[
+                   0].rstrip(","),
+               "round_ms": gang_round_ms(pieces[0]),
+               "launches": [gang_launches(p) for p in pieces]}
+        res["round_ms_median_2_3"] = float(np.median(res["round_ms"][1:3]))
+        with open(run["model"]) as f:
+            res["model_text"] = f.read()
+        out[tag] = res
+    return out, wall
 
 
 def dist_exchange_profile(torch, w, work, env):
@@ -5558,7 +5628,7 @@ def dist_kill_case(work, cache, w, env):
     mlist = write_machine_list(os.path.join(work, "kill.mlist"), w)
     params = {k: v for k, v in BENCH_PARAMS.items() if k != "verbose"}
     argv = (["-m", "lightgbm_tpu_torch", "task=train", f"data={cache}",
-             f"num_trees={DIST_ROUNDS}", f"num_machines={w}",
+             f"num_trees={DIST_KILL_ROUNDS}", f"num_machines={w}",
              "tree_learner=data", f"machine_list_file={mlist}",
              f"output_model={os.path.join(work, 'kill.model.txt')}",
              f"collective_timeout_s={DIST_KILL_TIMEOUT_S}", "verbose=0"]
@@ -5607,14 +5677,17 @@ def phase_distributed(torch, lgt, cache, work):
                "ranks share it over gloo with pinned host copies; no NCCL "
                "run")
     log(f"distributed: {why}")
-    res = {"cards": cards, "transports_why": why, "gangs": {}}
+    res = {"cards": cards, "transports_why": why, "gangs": {},
+           "gangs_wall_s": {}}
     params = dict(BENCH_PARAMS)
     ds = lgt.Dataset(cache, params=params)
     fold_launches = 0
     for transport, w, env, cases in gangs:
+        records, res["gangs_wall_s"][transport] = dist_cli_gangs(
+            w, cache, work, transport, cases, env=env)
         for name, extra in cases:
             tag = f"{name}_{transport.replace('+', '_')}_{w}"
-            gang = dist_cli_gang(lgt, w, cache, work, tag, extra, env=env)
+            gang = records[tag]
             local, local_ms = train_rounds(
                 torch, lgt, dict(params, num_machines=w, **extra), ds,
                 DIST_ROUNDS)
@@ -5651,6 +5724,462 @@ def phase_distributed(torch, lgt, cache, work):
             torch, w, work, env)
     res["kill"] = dist_kill_case(work, cache, DIST_SHARDS, gangs[0][2])
     res["mesh_fold_launches"] = fold_launches
+    return res
+
+
+GANG_SHARDS = 2
+GANG_ROUNDS = 3
+GANG_BLOCK_ROWS = 262_144
+# the drills' timeouts: a dead gloo peer fails the survivor's collective
+# at once; the barrier then waits 2 x max(heartbeat, collective, 5) s for
+# the dead rank's marker
+GANG_HEARTBEAT_S = 5
+GANG_COLLECTIVE_S = 5
+
+
+def gang_argv(tsv, work, tag, mlist, extra=()):
+    """The CLI arguments of one out-of-core gang rank: the ingestion
+    phase's TSV over its block store (the file route's, block_rows
+    262,144: 4 blocks), GANG_ROUNDS rounds, telemetry on (the journal
+    in the tag's snapshot directory)."""
+    params = {k: v for k, v in BENCH_PARAMS.items() if k != "verbose"}
+    return (["task=train", f"data={tsv}", "has_header=true",
+             "out_of_core=true", f"block_rows={GANG_BLOCK_ROWS}",
+             "tree_learner=data", f"num_machines={GANG_SHARDS}",
+             f"machine_list_file={mlist}", f"num_trees={GANG_ROUNDS}",
+             f"output_model={os.path.join(work, tag + '.model.txt')}",
+             f"snapshot_dir={os.path.join(work, tag + '.snaps')}",
+             "telemetry=true", "verbose=1", "metric_freq=0",
+             "enable_load_from_binary_file=false"]
+            + [f"{k}={v}" for k, v in params.items()] + list(extra))
+
+
+def gang_journal(work, tag):
+    from lightgbm_tpu_torch.telemetry import journal
+    recs, bad = journal.read_journal(os.path.join(work, tag + ".snaps",
+                                                  "journal.jsonl"))
+    check(bad == 0, f"gang {tag}: {bad} torn journal lines")
+    errors = [e for r in recs for e in journal.validate_record(r)]
+    check(not errors, f"gang {tag}: journal schema errors {errors[:5]}")
+    return recs
+
+
+def tree_structure(text):
+    """Each tree's (split features, thresholds, leaf counts) and leaf
+    values of a model text."""
+    from lightgbm_tpu_torch.models.gbdt import create_boosting
+    booster = create_boosting("gbdt", "cpu")
+    booster.load_model_from_string(text)
+    return [((t.split_feature_real.tolist(), t.threshold.tolist(),
+              t.leaf_count.tolist()), t.leaf_value)
+            for t in booster.models]
+
+
+def gang_exchange_case(torch, hk, mk, timer, ds_core, rng):
+    """The gang's exchange on the card: each rank's (acc, -comp) carry of
+    a 1/63 leaf over its owned blocks of the bench bins (hist_pair_fold
+    a block), folded by one gather_fold through a LocalMesh of
+    GANG_SHARDS shards on the card (the ProcessMesh folds its receive
+    buffer in the same order): bit for bit its plain version on the CPU
+    copies, timed beside its bound, its plain version and torch.sum."""
+    from lightgbm_tpu_torch.parallel import mesh as pm
+    f, n = ds_core.bins.shape
+    n_pad = -(-n // hk.HIST_CHUNK) * hk.HIST_CHUNK
+    bins = torch.zeros((f, n_pad), dtype=torch.uint8, device=DEVICE)
+    bins[:, :n] = torch.from_numpy(np.ascontiguousarray(ds_core.bins))
+    ghc = torch.zeros((3, n_pad), dtype=torch.float32)
+    ghc[0, :n] = torch.from_numpy(rng.randn(n).astype(np.float32))
+    ghc[1, :n] = torch.from_numpy((rng.rand(n) + 0.1).astype(np.float32))
+    ghc[2, :n] = 1.0
+    ghc = ghc.to(DEVICE)
+    row_leaf = torch.from_numpy(rng.randint(0, 63, n_pad).astype(
+        np.int32)).to(DEVICE)
+    leaf = torch.full((1,), 5, dtype=torch.int32, device=DEVICE)
+    blocks = [(s, min(s + GANG_BLOCK_ROWS, n_pad))
+              for s in range(0, n_pad, GANG_BLOCK_ROWS)]
+    from lightgbm_tpu_torch.parallel.machines import partition_blocks
+    words = []
+    for r in range(GANG_SHARDS):
+        lo, hi = partition_blocks(len(blocks), GANG_SHARDS, r)
+        acc = torch.zeros((1, f, MAX_BIN, 3), dtype=torch.float32,
+                          device=DEVICE)
+        comp = torch.zeros_like(acc)
+        for s, e in blocks[lo:hi]:
+            hk.hist_pair_fold(acc[0], comp[0], bins[:, s:e].contiguous(),
+                              ghc[:, s:e].contiguous(), row_leaf[s:e], leaf,
+                              MAX_BIN)
+        words.append((acc, (-comp).contiguous()))
+    mesh = pm.LocalMesh(GANG_SHARDS, DEVICE)
+
+    def exchange():
+        return mesh.run(lambda r: pm.pair_allreduce(words[r], mesh))
+
+    got = exchange()
+    comps = [(t.cpu(), 0, f * MAX_BIN * 3) for i in range(2)
+             for t in (words[r][i] for r in range(GANG_SHARDS))]
+    want = torch.empty((1, f, MAX_BIN, 3))
+    mk.gather_fold_plain(comps, 1, f * MAX_BIN * 3, want)
+    same = all(torch.equal(g.cpu().view(torch.int32), want.view(torch.int32))
+               for g in got)
+    stacked = torch.stack([t for i in range(2)
+                           for t in (words[r][i] for r in range(GANG_SHARDS))])
+    k, cells = 2 * GANG_SHARDS, f * MAX_BIN * 3
+    res = {"name": "mesh_fold",
+           "shape": {"K": k, "cells": [1, f, MAX_BIN, 3],
+                     "dtype": "float32", "what": "the gang's exchange"},
+           "max_abs_err": float((got[0].cpu() - want).abs().max()),
+           "bitwise_vs_cpu_plain": same,
+           "ms": timer(lambda: mk.mesh_fold(stacked), 50),
+           "exchange_ms": timer(exchange, 20),
+           "plain_ms": timer(lambda: mk.mesh_fold_plain(stacked), 10),
+           "library_ms": timer(lambda: torch.sum(stacked, 0), 50)}
+    res["bound_ms"], res["bound_by"] = fold_bound_ms_mesh(k, cells, 4)
+    log(f"gang exchange on the card ({GANG_SHARDS} ranks' carries of a "
+        f"1/63 leaf over {len(blocks)} blocks): bits = plain {same}; "
+        f"mesh_fold ms {res['ms']:.4f} (the exchange through the mesh "
+        f"{res['exchange_ms']:.4f}), bound {res['bound_ms']:.5f}, plain "
+        f"{res['plain_ms']:.4f}, torch.sum {res['library_ms']:.4f}")
+    check(same, "gang exchange: other bits than its plain version")
+    return res
+
+
+def start_supervised_gang(tsv, work, tag, env_by_rank, supervised, port):
+    """A gang of GANG_SHARDS ranks from `port`, each `python -m
+    lightgbm_tpu_torch` or, for the ranks in `supervised`, `python -m
+    lightgbm_tpu_torch.supervisor` (which relaunches it), snapshots
+    every round; returns the started processes and their log files."""
+    mlist = write_machine_list(os.path.join(work, f"{tag}.mlist"),
+                               GANG_SHARDS, port)
+    knobs = [f"heartbeat_timeout_s={GANG_HEARTBEAT_S}",
+             f"collective_timeout_s={GANG_COLLECTIVE_S}", "max_restarts=2",
+             "snapshot_freq=1"]
+    argv = gang_argv(tsv, work, tag, mlist, knobs)
+    procs, logs = [], []
+    for r in range(GANG_SHARDS):
+        e = dict(os.environ, LIGHTGBM_TPU_RANK=str(r))
+        e.pop("LIGHTGBM_TPU_FAULTS", None)
+        e.pop("LIGHTGBM_TPU_RESTART_ATTEMPT", None)
+        e.update(env_by_rank.get(None, {}))
+        e.update(env_by_rank.get(r, {}))
+        module = ("lightgbm_tpu_torch.supervisor" if r in supervised
+                  else "lightgbm_tpu_torch")
+        logs.append(open(os.path.join(work, f"{tag}.rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", module] + argv, env=e, stdout=logs[-1],
+            stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+    return procs, logs
+
+
+def finish_gangs(gangs, timeout=300):
+    """Wait for every process of the started `gangs` (killing those still
+    running at `timeout`); [[(exit code, log text)] a rank] a gang."""
+    t_end = time.monotonic() + timeout
+    try:
+        for procs, _ in gangs:
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, t_end - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    pass
+    finally:
+        for procs, _ in gangs:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    out = []
+    for procs, logs in gangs:
+        ranks = []
+        for p, f in zip(procs, logs):
+            f.seek(0)
+            ranks.append((p.returncode, f.read()))
+            f.close()
+        out.append(ranks)
+    return out
+
+
+def phase_gang(torch, lgt, hk, timer, tsv, serial_text, ds, work, env):
+    """The out-of-core gang learner (9f): the gang's exchange on the card
+    against its plain version; an uninterrupted gang of GANG_SHARDS ranks
+    over the TSV's shared block store (built once by the file route),
+    GANG_ROUNDS rounds, its trees against the serial out-of-core
+    learner's on the same store (the file route's first GANG_ROUNDS
+    trees), the ranks' hist_pair_fold and mesh_fold launches, the
+    journal's block_reshard records; the shrink drill (rank 0 under a
+    supervisor, rank 1 killed before round 2: the survivor shrinks to 1
+    rank and resumes from the round-2 snapshot, byte-equal to a
+    single-rank run resumed from that snapshot, the store not rebuilt, no
+    binning record); a same-topology restart (both ranks under
+    supervisors, rank 1 killed before round 2) byte-equal to the
+    uninterrupted gang."""
+    from lightgbm_tpu_torch.ops import mesh_kernels as mk
+    from lightgbm_tpu_torch.parallel.machines import partition_blocks
+    rng = np.random.RandomState(97)
+    res = {"exchange": gang_exchange_case(torch, hk, mk, timer, ds._core,
+                                          rng)}
+    store_dir = tsv + ".blocks"
+
+    def build_count():
+        with open(os.path.join(store_dir, "manifest.json")) as f:
+            return json.load(f)["build_count"]
+
+    blocks = -(-N_ROWS // GANG_BLOCK_ROWS)
+    # the uninterrupted gang
+    mlist = write_machine_list(os.path.join(work, "gang.mlist"), GANG_SHARDS)
+    t0 = time.time()
+    ranks, _ = run_gang(["-m", "lightgbm_tpu_torch"]
+                        + gang_argv(tsv, work, "gang", mlist), GANG_SHARDS,
+                        work, "gang", env=env)
+    res["gang_s"] = time.time() - t0
+    for r, (rc, text, _) in enumerate(ranks):
+        check(rc == 0, f"gang: rank {r} exited {rc}:\n{text[-3000:]}")
+        check("ranks hold the same model" in text,
+              f"gang: rank {r} did not agree on the model")
+    text0 = ranks[0][1]
+    res["transport"] = text0.split("transport=", 1)[1].split()[0].rstrip(",")
+    res["round_ms"] = gang_round_ms(text0)
+    res["launches"] = [gang_launches(t) for _, t, _ in ranks]
+    passes = GANG_ROUNDS * 63
+    owned = [partition_blocks(blocks, GANG_SHARDS, r)
+             for r in range(GANG_SHARDS)]
+    want_folds = [(hi - lo) * passes for lo, hi in owned]
+    folds = [c["hist_pair_fold"] for c in res["launches"]]
+    exchanges = [c["mesh_fold"] for c in res["launches"]]
+    with open(os.path.join(work, "gang.model.txt")) as f:
+        gang_text = f.read()
+    gang_trees = tree_structure(gang_text)
+    serial_trees = tree_structure(serial_text)[:GANG_ROUNDS]
+    res["trees_structurally_equal"] = [a[0] == b[0] for a, b in
+                                       zip(gang_trees, serial_trees)]
+    res["leaf_abs_diff"] = [float(np.max(np.abs(a[1] - b[1])))
+                            for a, b in zip(gang_trees, serial_trees)]
+    recs = gang_journal(work, "gang")
+    reshard = sorted([(r["rank"], r["shards"], r["block_lo"], r["block_hi"])
+                      for r in recs if r["event"] == "block_reshard"])
+    res["block_reshard"] = reshard
+    res["build_count"] = build_count()
+    log(f"gang ({GANG_SHARDS} ranks, {res['transport']}): {res['gang_s']:.1f}"
+        f" s, round ms {[round(v, 1) for v in res['round_ms']]}, launches a "
+        f"rank {res['launches']} (hist_pair_fold {want_folds} wanted, "
+        f"mesh_fold {passes} a rank), trees structurally equal to the "
+        f"serial out-of-core learner's {res['trees_structurally_equal']}, "
+        f"leaf abs diff {res['leaf_abs_diff']}, block_reshard {reshard}, "
+        f"store build_count {res['build_count']}")
+    check(folds == want_folds, f"gang: hist_pair_fold launches {folds}, "
+          f"not {want_folds}")
+    check(exchanges == [passes] * GANG_SHARDS,
+          f"gang: mesh_fold launches {exchanges}, not {passes} a rank")
+    check(all(res["trees_structurally_equal"])
+          and max(res["leaf_abs_diff"]) <= 1e-5,
+          "gang: trees differ from the serial out-of-core learner's")
+    check(reshard == [(r, GANG_SHARDS, lo, hi)
+                      for r, (lo, hi) in enumerate(owned)],
+          f"gang: block_reshard records {reshard}")
+    check(res["build_count"] == 1, "gang: the store was built again")
+
+    # the two drills at once (each a gang of its own, ports apart: a
+    # restart shifts them by its attempt): the shrink drill, rank 0
+    # supervised and rank 1 killed before round 2; the same-topology
+    # restart, both ranks supervised, rank 1 killed before round 2
+    drill_env = dict(env or {})
+    drill_env[1] = dict((env or {}).get(1, {}),
+                        LIGHTGBM_TPU_FAULTS="rank_crash_at_iteration=1:2")
+    port = free_port()
+    t0 = time.time()
+    shrink_ranks, restart_ranks = finish_gangs([
+        start_supervised_gang(tsv, work, "shrink", drill_env, {0}, port),
+        start_supervised_gang(tsv, work, "restart", drill_env, {0, 1},
+                              port + 8)])
+    res["drills_s"] = time.time() - t0
+    (rc0, out0), (rc1, out1) = shrink_ranks
+    recs = gang_journal(work, "shrink")
+    adopted = [(r["shards"], r["block_lo"], r["block_hi"]) for r in recs
+               if r["event"] == "block_reshard" and r.get("attempt", 0) >= 1]
+    res["shrink"] = {
+        "exit_codes": [rc0, rc1],
+        "shrunk": "shrinking the world to 1 rank(s)" in out0,
+        "resumed": "Resuming from checkpoint" in out0,
+        "adopted": adopted, "build_count": build_count(),
+        "binning_records": sum(r["event"] == "binning" for r in recs),
+        "restart_records": [(r.get("source"), r["exit_code"],
+                             r.get("survivors")) for r in recs
+                            if r["event"] == "restart"]}
+    # the reference: one rank resumed from the same round-2 snapshot
+    # (the CLI in this process, on the card)
+    from lightgbm_tpu_torch.application import Application
+    ref = os.path.join(work, "shrink.ref.snaps")
+    os.makedirs(ref)
+    snap = "snapshot.iter00000002.ckpt"
+    shutil.copy(os.path.join(work, "shrink.snaps", snap),
+                os.path.join(ref, snap))
+    params = {k: v for k, v in BENCH_PARAMS.items() if k != "verbose"}
+    Application(["task=train", f"data={tsv}", "has_header=true",
+                 "out_of_core=true", f"block_rows={GANG_BLOCK_ROWS}",
+                 f"num_trees={GANG_ROUNDS}", "snapshot_freq=1",
+                 f"snapshot_dir={ref}", "verbose=0", "metric_freq=0",
+                 "enable_load_from_binary_file=false",
+                 f"output_model={os.path.join(work, 'shrink.ref.model.txt')}"]
+                + [f"{k}={v}" for k, v in params.items()]).run()
+    with open(os.path.join(work, "shrink.model.txt")) as f:
+        shrunk_text = f.read()
+    with open(os.path.join(work, "shrink.ref.model.txt")) as f:
+        res["shrink"]["byte_equal_single_rank_resume"] = f.read() == \
+            shrunk_text
+    log(f"gang shrink drill: {res['shrink']}")
+    s = res["shrink"]
+    check(rc1 == 43 and rc0 == 0, f"gang shrink drill: exit codes "
+          f"{[rc0, rc1]}:\n{out0[-3000:]}")
+    check(s["shrunk"] and s["resumed"]
+          and s["adopted"] == [(1, 0, blocks)]
+          and s["build_count"] == 1 and s["binning_records"] == 0
+          and s["byte_equal_single_rank_resume"],
+          f"gang shrink drill: {s}")
+
+    # the same-topology restart: the barrier saw both ranks, the world
+    # stayed 2
+    (rc0, out0), (rc1, out1) = restart_ranks
+    with open(os.path.join(work, "restart.model.txt")) as f:
+        restarted = f.read()
+    res["restart"] = {"exit_codes": [rc0, rc1],
+                      "same_world": "restarting rank 0 as rank 0 of 2"
+                                    in out0,
+                      "resumed": "Resuming from checkpoint" in out0,
+                      "byte_equal_uninterrupted": restarted == gang_text,
+                      "build_count": build_count()}
+    log(f"gang same-topology restart: {res['restart']}")
+    check(res["restart"]["exit_codes"] == [0, 0]
+          and res["restart"]["same_world"] and res["restart"]["resumed"]
+          and res["restart"]["byte_equal_uninterrupted"]
+          and res["restart"]["build_count"] == 1,
+          f"gang same-topology restart: {res['restart']}:\n{out0[-3000:]}")
+    res["mesh_fold_launches"] = sum(exchanges)
+    res["hist_pair_fold_launches"] = sum(folds)
+    return res
+
+
+TELEMETRY_ROUNDS = N_ROUNDS
+
+
+def phase_telemetry(torch, lgt, hk, ds, tsv, work):
+    """The training telemetry (9g) on the fused compacted path: a booster
+    with telemetry=true beside one without, each captured
+    (warm_up_fused), two blocks of TELEMETRY_ROUNDS timed, the host syncs
+    of a block listed, one replay's device kernels by name: the same
+    syncs, the same kernels and the same model text with telemetry on.
+    The journal of the telemetry booster checked against the schema
+    (run_start, one iteration record a block, comm, memory). Then one
+    out-of-core round over the TSV's store and the gang's exchange with
+    the roofline table on: its hist_pair_fold and mesh_fold rows (CUDA
+    event pairs, resolved at the read) against the card's copy peak."""
+    from lightgbm_tpu_torch.ops import mesh_kernels as mk
+    from lightgbm_tpu_torch.parallel import mesh as pm
+    from lightgbm_tpu_torch.telemetry import journal, roofline
+    res = {}
+    jdir = os.path.join(work, "telemetry")
+    allowed = transfer_line()
+    roofline.TABLE.reset()
+    boosters = {"off": lgt.Booster(dict(COMPACT_PARAMS), ds),
+                "on": lgt.Booster(dict(COMPACT_PARAMS, telemetry=True,
+                                       telemetry_dir=jdir), ds)}
+    for name, booster in boosters.items():
+        check(booster.gbdt.warm_up_fused(TELEMETRY_ROUNDS),
+              f"telemetry {name}: not eligible for the fused trainer")
+        res[name] = {"block_ms": []}
+    # blocks in turns: off, on, on, off, off, on
+    for name in ("off", "on", "on", "off", "off", "on"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boosters[name].gbdt.train_many(TELEMETRY_ROUNDS)
+        torch.cuda.synchronize()
+        res[name]["block_ms"].append(1e3 * (time.perf_counter() - t0))
+    for name, booster in boosters.items():
+        sites = sync_sites(
+            torch, lambda: booster.gbdt.train_many(TELEMETRY_ROUNDS))
+        runner = fused_runner(booster)
+        text = booster.model_to_string()
+        prof = profile_replay(torch, runner, reps=3)
+        res[name].update({
+            "round_ms": float(np.median(res[name]["block_ms"]))
+            / TELEMETRY_ROUNDS,
+            "sync_sites": sites,
+            "launches_per_replay": dict(runner.graph.launches),
+            "replay_kernels": prof["hist_kernel_launches"],
+            "replay_device_ops": prof["device_ops"],
+            "replay_busy_ms": prof["device_busy_ms"], "model_text": text})
+    boosters["on"].gbdt.close_telemetry()
+    # every launch the telemetry booster's capture made was left out of
+    # the roofline table (a replay runs without the wrappers)
+    res["captured_unrecorded"] = roofline.TABLE.captured_unrecorded
+    del boosters, booster, runner
+    on, off = res["on"], res["off"]
+    res["same_model_text"] = on.pop("model_text") == off.pop("model_text")
+    recs, bad = journal.read_journal(journal.journal_path(jdir, 0))
+    errors = [e for r in recs for e in journal.validate_record(r)]
+    events = [r["event"] for r in recs]
+    blocks = [r for r in recs if r["event"] == "iteration"]
+    res["journal"] = {"records": len(recs), "torn": bad,
+                      "schema_errors": errors[:5],
+                      "events": {e: events.count(e) for e in set(events)},
+                      "blocks": [(r.get("block"), r.get("fused"))
+                                 for r in blocks]}
+    log(f"telemetry on the fused compacted path: round ms on "
+        f"{on['round_ms']:.2f} against off {off['round_ms']:.2f} (blocks "
+        f"{[round(v, 1) for v in on['block_ms']]} / "
+        f"{[round(v, 1) for v in off['block_ms']]}); syncs in a block on "
+        f"{on['sync_sites']} off {off['sync_sites']}; a replay's kernels on "
+        f"{on['replay_kernels']} ({on['replay_device_ops']} device ops) off "
+        f"{off['replay_kernels']} ({off['replay_device_ops']}); model text "
+        f"equal {res['same_model_text']}; launches of the capture left "
+        f"out of the roofline table {res['captured_unrecorded']}; journal "
+        f"{res['journal']}")
+    check(on["sync_sites"] == off["sync_sites"] == [allowed],
+          f"telemetry: a block's syncs {on['sync_sites']} (off "
+          f"{off['sync_sites']})")
+    check(on["launches_per_replay"] == off["launches_per_replay"]
+          and on["replay_kernels"] == off["replay_kernels"]
+          and on["replay_device_ops"] == off["replay_device_ops"],
+          "telemetry: a replay launches other kernels with telemetry on")
+    check(res["same_model_text"], "telemetry: the model text differs")
+    check(res["captured_unrecorded"] > 0,
+          "telemetry: the capture's launches were not noted")
+    check(bad == 0 and not errors and events[0] == "run_start"
+          and len(blocks) == 4
+          and all(b == (TELEMETRY_ROUNDS, True)
+                  for b in res["journal"]["blocks"])
+          and "comm" in events and "memory" in events,
+          f"telemetry: journal {res['journal']}")
+
+    # the roofline rows of the gang's kernels, timed by CUDA events
+    roofline.TABLE.reset()
+    params = dict(BENCH_PARAMS, has_header=True, out_of_core=True,
+                  block_rows=262_144, telemetry=True, telemetry_dir=jdir)
+    booster = lgt.train(params, lgt.Dataset(tsv, params=params), 1,
+                        verbose_eval=False)
+    torch.cuda.synchronize()
+    booster.gbdt.close_telemetry()
+    del booster
+    roofline.TABLE.enabled = True
+    rng = np.random.RandomState(5)
+    words = exchange_words(rng, GANG_SHARDS, (1, N_FEATURES, MAX_BIN, 3))
+    mesh = pm.LocalMesh(GANG_SHARDS, DEVICE)
+    dev = [[t.to(DEVICE) for t in ws] for ws in words]
+    for _ in range(50):
+        mesh.run(lambda r: pm.pair_allreduce((dev[0][r], dev[1][r]), mesh))
+    snap = roofline.TABLE.snapshot(warn_fraction=0.5)
+    roofline.TABLE.enabled = False
+    res["roofline"] = snap
+    peak = snap["peak_bytes_per_s"]
+    rows = {k: snap["kernels"].get(k) for k in ("hist_pair_fold",
+                                                 "mesh_fold")}
+    log(f"roofline (CUDA events, copy peak {peak / 1e9:.1f} GB/s): "
+        + "; ".join(f"{k}: {v['calls']} calls, {v['seconds'] * 1e3:.3f} "
+                    f"ms, {v['bytes_per_s'] / 1e9:.2f} GB/s = "
+                    f"{v['pct_of_peak']}% of the peak"
+                    for k, v in rows.items() if v))
+    check(all(rows.values()) and rows["hist_pair_fold"]["calls"] >= 63 * 4
+          and rows["mesh_fold"]["calls"] == 50 * GANG_SHARDS,
+          f"telemetry: roofline rows {rows}")
     return res
 
 
@@ -5749,19 +6278,19 @@ def main():
 
         x, y, logit = make_data(N_ROWS, args.seed, with_logit=True)
         t0 = time.time()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-            ds, report["ingest"], bin_cases = phase_ingest(
-                torch, lgt, timer, x, y, args.seed, work)
-            report["ingest"]["phase_s"] = time.time() - t0
-            t0 = time.time()
-            report["ooc_file"] = phase_ooc_file(
-                torch, lgt, hk, report["ingest"].pop("tsv"),
-                report["ingest"].pop("text_model"))
-            report["ooc_file"]["phase_s"] = time.time() - t0
-            # the bench rows' binary cache outlives the TSV's directory:
-            # the distributed phase's gangs load it
-            cache = os.path.join(dist_work, "bench.bin")
-            os.replace(report["ingest"].pop("cache"), cache)
+        # the ingestion phase's files stay until the end: the
+        # distributed phase's gangs load its binary cache, the gang
+        # phase its TSV over the file route's block store
+        ds, report["ingest"], bin_cases = phase_ingest(
+            torch, lgt, timer, x, y, args.seed, dist_work)
+        report["ingest"]["phase_s"] = time.time() - t0
+        t0 = time.time()
+        tsv = report["ingest"].pop("tsv")
+        report["ooc_file"] = phase_ooc_file(
+            torch, lgt, hk, tsv, report["ingest"].pop("text_model"))
+        report["ooc_file"]["phase_s"] = time.time() - t0
+        serial_text = report["ooc_file"].pop("model_text")
+        cache = report["ingest"].pop("cache")
         booster, report["main"] = phase_main(torch, lgt, hk, ds, y)
         report["plain_tree"] = phase_plain_tree(torch, hk, booster)
         report["predict"] = phase_predict(torch, booster, x)
@@ -5806,6 +6335,18 @@ def main():
                                                   dist_work)
         report["distributed"]["phase_s"] = time.time() - t0
         log(f"distributed phase: {report['distributed']['phase_s']:.1f} s")
+        t0 = time.time()
+        gang_env = ({None: {"CUDA_VISIBLE_DEVICES": "0"}}
+                    if torch.cuda.device_count() < 2 else None)
+        report["gang"] = phase_gang(torch, lgt, hk, timer, tsv, serial_text,
+                                    ds, dist_work, gang_env)
+        report["gang"]["phase_s"] = time.time() - t0
+        log(f"gang phase: {report['gang']['phase_s']:.1f} s")
+        t0 = time.time()
+        report["telemetry"] = phase_telemetry(torch, lgt, hk, ds, tsv,
+                                              dist_work)
+        report["telemetry"]["phase_s"] = time.time() - t0
+        log(f"telemetry phase: {report['telemetry']['phase_s']:.1f} s")
         del booster, part
         t0 = time.time()
         report["multiclass"] = phase_multiclass(torch, lgt, hk, ds, x,
@@ -5926,7 +6467,8 @@ def main():
     kernels.append(kernel_line(
         report["ooc"]["kernel_cases"][0],
         report["ooc"]["launches"]["hist_pair_fold"]
-        + report["ooc_file"]["launches"], hist_src,
+        + report["ooc_file"]["launches"]
+        + report["gang"]["hist_pair_fold_launches"], hist_src,
         "lightgbm_tpu/ops/histogram.py:277 (XLA hist_pair_fold_block, and "
         "hist_pair_fold_collapse :324; no Pallas counterpart)"))
     # the mesh's exchange fold at the default reduce-scatter's owned
@@ -5934,7 +6476,8 @@ def main():
     # phase's rank processes
     kernels.append(kernel_line(
         mesh_cases[0], report["parallel"]["launches"]["mesh_fold"]
-        + report["distributed"]["mesh_fold_launches"],
+        + report["distributed"]["mesh_fold_launches"]
+        + report["gang"]["mesh_fold_launches"],
         "lightgbm_tpu_torch/csrc/mesh.cu",
         "lightgbm_tpu/parallel/mesh.py:138 (XLA kahan_fold under "
         "pair_allreduce :161, pair_reduce_scatter :216 and compressed_* "

@@ -35,9 +35,16 @@ on the resume point before and after a restore, every rank captures at a
 snapshot point (the global train score is a gather), only rank 0
 writes snapshots and the model, and at the end the ranks check that they
 hold the same model (a digest of its text on every rank) and log the
-kernel launches of their process. The training telemetry, the profiler
-trace and the run history are a later slice and raise
-NotImplementedError naming ROADMAP queue 1 item 7.
+kernel launches of their process.
+
+Telemetry (application.py:132-152, :326-441): `telemetry=true` opens the
+booster's run journal in `telemetry_dir` (default: the shared run
+directory), with `resume`, `checkpoint` and `run_end` records from here;
+rank 0 merges the ranks' journals at the end. Under a process group
+rank r serves /trainz on `telemetry_port + r`. `profile=<dir>` writes a
+torch.profiler Chrome trace of the training loop into that directory
+(where the JAX package wrote a jax.profiler trace); `run_history=<file>`
+appends one `run_summary` record on rank 0 (telemetry/history.py).
 """
 
 import hashlib
@@ -114,17 +121,50 @@ class Predictor:
         return predict_fun
 
 
-def _check_slice(cfg):
-    """Refuse the CLI settings whose code paths are later slices: the
-    training telemetry (item 7)."""
-    later = []
-    if cfg.telemetry or cfg.profile or cfg.run_history:
-        later.append("telemetry, profile and run_history (training "
-                     "telemetry, item 7)")
-    if later:
-        raise NotImplementedError(
-            "lightgbm_tpu_torch's CLI does not run " + "; ".join(later)
-            + " yet: a later slice of the port adds it (ROADMAP.md queue 1)")
+DEFAULT_PROFILE_DIR = "lightgbm_torch_trace"
+
+
+def profile_dir(value):
+    """The `profile` knob's trace directory: a path, or "1"/"true" for
+    the default directory under the working directory."""
+    value = str(value or "")
+    if value.lower() in ("1", "true", "+"):
+        return DEFAULT_PROFILE_DIR
+    return value
+
+
+class profiled:
+    """Context manager writing a torch.profiler Chrome trace of its body
+    into `directory` (trace.rank<r>.json; nothing when `directory` is
+    empty). CUDA activity is recorded when a card is initialised."""
+
+    def __init__(self, directory, rank=0):
+        self.directory = profile_dir(directory)
+        self.rank = int(rank)
+        self._prof = None
+
+    def __enter__(self):
+        if not self.directory:
+            return self
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._prof is None:
+            return False
+        self._prof.__exit__(exc_type, exc, tb)
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory,
+                            f"trace.rank{self.rank:04d}.json")
+        self._prof.export_chrome_trace(path)
+        Log.info("Wrote torch.profiler trace to %s", path)
+        return False
 
 
 class Application:
@@ -134,7 +174,6 @@ class Application:
     def __init__(self, argv, device=None):
         params = self._load_parameters(argv)
         self.config = Config.from_params(params)
-        _check_slice(self.config)
         self.device = device
         self.boosting = None
         self.objective = None
@@ -171,6 +210,11 @@ class Application:
     # -------------------------------------------------------------- training
     def init_train(self):
         cfg = self.config
+        if cfg.telemetry and not cfg.telemetry_dir:
+            # the journal beside the other shared run state (heartbeats,
+            # snapshots, the restart barrier): one timeline a run
+            cfg.telemetry_dir = (cfg.snapshot_dir
+                                 or cfg.output_model + ".snapshots")
         if cfg.is_parallel:
             # multi-process membership (the reference's Network::Init,
             # application.cpp:189); a no-op without a machine list
@@ -178,6 +222,10 @@ class Application:
             Log.info("Parallel training over %d shards (tree_learner=%s, "
                      "%d process(es))", cfg.num_machines, cfg.tree_learner,
                      distributed.num_processes())
+            if cfg.telemetry_port > 0:
+                # every rank of a one-host gang binds its own /trainz:
+                # rank r serves on telemetry_port + r
+                cfg.telemetry_port += distributed.process_rank()
         self.boosting = create_boosting(cfg.boosting_type, self.device,
                                         cfg.input_model)
         self.objective = create_objective(cfg.objective, cfg)
@@ -261,6 +309,9 @@ class Application:
                         snap_dir)
         if state is not None:
             self.boosting.restore_training_state(state)
+            if self.boosting.journal is not None:
+                self.boosting.journal.event(
+                    "resume", iteration=int(self.boosting.iter))
         if multi:
             self._agree("restored", self.boosting.iter, snap_dir)
         return manager
@@ -288,10 +339,19 @@ class Application:
             if manager is None or b.iter <= 0 \
                     or b.iter % cfg.snapshot_freq:
                 return
+            # timed from the capture (device -> host copies) through the
+            # atomic write, as callback._Checkpoint.save_now times it
+            t0 = time.time()
             state = b.capture_training_state()
             if rank == 0:
                 path = manager.save(state, b.iter)
+                write_s = time.time() - t0
                 heartbeat.notify_checkpoint(b.iter, path)
+                b.metrics.observe("checkpoint_write_s", write_s)
+                if b.journal is not None:
+                    b.journal.event("checkpoint", iteration=int(b.iter),
+                                    path=str(path),
+                                    write_s=round(write_s, 6))
             if multi:
                 with heartbeat.collective_guard("snapshot_write_barrier"):
                     distributed.host_allgather(np.asarray([b.iter],
@@ -305,7 +365,43 @@ class Application:
             boundary = (b.iter // cfg.snapshot_freq + 1) * cfg.snapshot_freq
             return min(step, max(1, boundary - b.iter))
 
+        b.tracer.reset()
         start = time.time()
+        with profiled(cfg.profile, rank):
+            self._train_loop(b, manager, maybe_snapshot, snap_clamp, start)
+        if b.tracer.acc:
+            Log.debug("Per-phase timers:\n%s", b.tracer.report())
+        if multi:
+            self._agree_on_model()
+        if rank == 0:   # every rank holds the same model
+            b.save_model_to_file(-1, cfg.output_model)
+        if b.journal is not None:
+            # the last memory and set-up records before run_end, so that
+            # record stays the timeline's last
+            b.finalize_introspection()
+            b.journal.event("run_end", iterations=int(b.iter),
+                            train_s=round(time.time() - start, 3))
+            if multi:
+                # every rank's run_end on shared storage before rank 0
+                # merges
+                with heartbeat.collective_guard("journal_merge_barrier"):
+                    distributed.host_allgather(np.asarray([b.iter],
+                                                          np.int64))
+        if cfg.run_history and rank == 0:
+            from .telemetry import history
+            history.append_run_summary(
+                cfg.run_history, "train",
+                **history.booster_summary(
+                    b, train_s=round(time.time() - start, 3)))
+        heartbeat.shutdown()
+        b.close_telemetry(merge=rank == 0)
+        Log.info("Finished training")
+
+    def _train_loop(self, b, manager, maybe_snapshot, snap_clamp, start):
+        """application.cpp:222-238: one fused block (cut at the snapshot
+        cadence), fused blocks of metric_freq iterations, or the
+        per-iteration loop."""
+        cfg = self.config
         if b._fused_eligible():
             # the whole run as fused blocks (gbdt.train_many), cut at the
             # snapshot cadence when snapshots are on
@@ -358,12 +454,6 @@ class Application:
                 if is_finished:
                     break
                 maybe_snapshot()
-        if multi:
-            self._agree_on_model()
-        if rank == 0:   # every rank holds the same model
-            b.save_model_to_file(-1, cfg.output_model)
-        heartbeat.shutdown()
-        Log.info("Finished training")
 
     def _agree_on_model(self):
         """Every rank must hold the same trees: a rank out of step would

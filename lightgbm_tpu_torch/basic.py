@@ -131,6 +131,13 @@ class Dataset:
             if ref_core is not None:
                 self._core = loader.load_from_file_align_with_other_dataset(
                     self.data, ref_core)
+            elif cfg.out_of_core and cfg.num_machines > 1:
+                # a rank of a process group trains its owned blocks of
+                # the gang's shared store (io/dataset.py load_from_file)
+                from .parallel import distributed
+                self._core = loader.load_from_file(
+                    self.data, rank=distributed.process_rank(),
+                    num_machines=cfg.num_machines)
             else:
                 self._core = loader.load_from_file(self.data)
         else:

@@ -679,28 +679,20 @@ class Config:
 
     def check_slice(self):
         """Reject settings whose code paths the port does not have yet,
-        each naming its item of ROADMAP.md queue 1: training runs the
-        serial learner with any of its histogram engines (masked,
-        frontier, gather-compacted; models/tree_learner.py), the
-        leaf-contiguous builder (partitioned_build=true) or the
-        out-of-core streaming learner (out_of_core=true), with gbdt,
-        dart or goss boosting and constant or linear leaves; and the
-        data-, feature- and voting-parallel learners on an in-process
-        mesh of num_machines shards or on a process group of num_machines
-        ranks from a machine list (parallel/learners.py,
+        each naming its item of ROADMAP.md queue 1. Training runs every
+        learner of the JAX package: the serial learner with any of its
+        histogram engines (masked, frontier, gather-compacted;
+        models/tree_learner.py), the leaf-contiguous builder
+        (partitioned_build=true), the out-of-core streaming learner
+        (out_of_core=true) and its gang over one shared store
+        (tree_learner=data, data/ooc_parallel.py), with gbdt, dart or
+        goss boosting and constant or linear leaves; and the data-,
+        feature- and voting-parallel learners on an in-process mesh of
+        num_machines shards or on a process group of num_machines ranks
+        from a machine list (parallel/learners.py,
         parallel/distributed.py), with heartbeats and collective timeouts
-        (parallel/heartbeat.py). The out-of-core gang learner of the
-        multi-process runtime is item 6b."""
-        later = []
-        if self.out_of_core and self.tree_learner != "serial":
-            later.append(f"out_of_core with tree_learner="
-                         f"{self.tree_learner} (the out-of-core gang "
-                         "learner of the multi-process runtime, item 6b)")
-        if later:
-            raise NotImplementedError(
-                "lightgbm_tpu_torch does not run " + "; ".join(later)
-                + " yet: a later slice of the port adds it (ROADMAP.md "
-                "queue 1)")
+        (parallel/heartbeat.py). Nothing of training is refused now; the
+        registry follower of serving is (serving/server.py)."""
 
     def check_param_conflict(self):
         """Reference config.cpp:139-187."""

@@ -1,6 +1,5 @@
 """On-disk packed-bin block store: the out-of-core quantized dataset
-(port of lightgbm_tpu/data/block_store.py :50-699, the single-process
-parts).
+(port of lightgbm_tpu/data/block_store.py).
 
 The in-RAM path holds the whole (F, N) bin matrix on the host and the
 card. Out of core, the matrix is binned once into fixed-row-count blocks
@@ -25,6 +24,13 @@ reads a store the other wrote:
 
 Every defect a truncated, bit-rotted or stale store can show surfaces as
 a BlockStoreError naming the file and the defect.
+
+A gang of W processes shares one store (:698-829): rank 0 builds it (or
+reuses it), its peers wait for a signature-matching manifest and adopt
+it (`load_block_store_gang`), and each rank takes its contiguous owned
+block range as a local-row view (`gang_view_of`, OutOfCoreGangView).
+Every rank gathers every rank's range and checks that they tile the
+store (`_check_gang_tiling`) before any histogram is built.
 """
 
 import io
@@ -32,6 +38,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 import weakref
 
 import numpy as np
@@ -406,8 +413,8 @@ class OutOfCoreDataset(CoreDataset):
         is_cat = self.feature_is_categorical()
         m = sf.shape[0]
         t_idx = np.arange(m)[:, None]
-        out = np.zeros((m, store.num_rows), np.int64)
-        for b in range(store.num_blocks):
+        out = np.zeros((m, self.num_data), np.int64)
+        for b, s in self._block_starts():
             blk = np.asarray(store.read_block(b))
             rows = np.arange(blk.shape[1])[None, :]
             node = np.where(n_splits > 0, 0, -1).astype(np.int32)[:, None]
@@ -420,9 +427,14 @@ class OutOfCoreDataset(CoreDataset):
                 go_left = np.where(is_cat[feat], fv == th, fv <= th)
                 nxt = np.where(go_left, lc[t_idx, nd], rc[t_idx, nd])
                 node = np.where(node < 0, node, nxt)
-            s = store.row_start_of(b)
             out[:, s:s + blk.shape[1]] = np.where(node < 0, ~node, 0)
         return out
+
+    def _block_starts(self):
+        """(block, first row of the block in this dataset's rows) of the
+        blocks its rows come from: every block of the store."""
+        store = self.block_store
+        return [(b, store.row_start_of(b)) for b in range(store.num_blocks)]
 
     def device_bins(self, device):
         Log.fatal("out-of-core dataset has no resident bin matrix; "
@@ -634,6 +646,15 @@ def build_block_store_from_file(loader, filename, directory):
     Log.info("Built block store %s: %d rows x %d features, %d blocks "
              "of %d rows (%s)", str(directory), n, len(mappers),
              len(writer._blocks), writer.block_rows, np.dtype(dtype).name)
+    # a journal is usually not open yet at load time (the booster opens
+    # it later), so the manifest's build_count is the durable record;
+    # when one is current the binning pass lands on the timeline too
+    from ..telemetry import journal as run_journal
+    j = run_journal.current()
+    if j is not None:
+        j.event("binning", rows=int(n), blocks=len(writer._blocks),
+                directory=str(directory), features=len(mappers),
+                build_count=int(build_count))
 
 
 def open_block_store_dataset(directory, verify=True):
@@ -643,15 +664,17 @@ def open_block_store_dataset(directory, verify=True):
     return _dataset_from_sidecar(store.load_sidecar(), store)
 
 
-def _try_open_matching(cfg, directory, filename):
+def _try_open_matching(cfg, directory, filename, warn_mismatch=True):
     """The store at `directory` when its manifest matches this (source,
-    binning, block geometry) signature; None otherwise."""
+    binning, block geometry) signature; None otherwise (quietly for a
+    gang peer polling for rank 0's build)."""
     if not os.path.exists(os.path.join(directory, MANIFEST_NAME)):
         return None
     try:
         cand = BlockStore.open(directory, verify=cfg.ooc_verify)
     except BlockStoreError as e:
-        Log.warning("Ignoring unusable block store: %s", e)
+        if warn_mismatch:
+            Log.warning("Ignoring unusable block store: %s", e)
         return None
     if (cand.manifest.get("source") == source_signature(filename)
             and cand.manifest.get("binning") == _binning_signature(cfg)
@@ -659,8 +682,10 @@ def _try_open_matching(cfg, directory, filename):
         Log.info("Reusing block store %s (%d blocks)", directory,
                  cand.num_blocks)
         return cand
-    Log.warning("Block store %s was built from a different (source, "
-                "binning, block_rows) signature; rebuilding", directory)
+    if warn_mismatch:
+        Log.warning("Block store %s was built from a different (source, "
+                    "binning, block_rows) signature; rebuilding",
+                    directory)
     return None
 
 
@@ -675,3 +700,139 @@ def load_or_build_block_store(loader, filename):
         build_block_store_from_file(loader, filename, directory)
         store = BlockStore.open(directory, verify=cfg.ooc_verify)
     return _dataset_from_sidecar(store.load_sidecar(), store)
+
+
+# --------------------------------------------------- shared-store gang
+
+class _OffsetBinsView:
+    """A gang rank's local-row traversal view: local row r is global row
+    r + row_lo of the shared store."""
+
+    def __init__(self, store, row_lo, num_rows):
+        self._view = _BlockBinsView(store)
+        self._off = int(row_lo)
+        self.shape = (store.num_stored, int(num_rows))
+
+    def __getitem__(self, key):
+        feat, rows = key
+        return self._view[feat, np.asarray(rows) + self._off]
+
+
+class OutOfCoreGangView(OutOfCoreDataset):
+    """One rank's view of a SHARED block store: the store handle and
+    this rank's contiguous owned block range (parallel/machines.py
+    partition_blocks). Rows are local (the metadata sliced to the owned
+    rows, num_data the owned rows), so the booster's row-sharded
+    process-group path (local scores, the global snapshot gather and
+    re-slice in rank order) applies unchanged; only the gang learner
+    (data/ooc_parallel.py) reads the shared store behind those rows."""
+
+    def __init__(self):
+        super().__init__()
+        self.gang_rank = 0
+        self.gang_world = 1
+        self.block_lo = 0
+        self.block_hi = 0
+        self.row_lo = 0
+        self.row_hi = 0
+        self.global_num_data = 0
+
+    @property
+    def num_data(self):
+        return self.row_hi - self.row_lo
+
+    def traversal_bins(self):
+        return _OffsetBinsView(self.block_store, self.row_lo,
+                               self.num_data)
+
+    def _block_starts(self):
+        """The owned blocks, each at its first local row."""
+        store = self.block_store
+        return [(b, store.row_start_of(b) - self.row_lo)
+                for b in range(self.block_lo, self.block_hi)]
+
+
+def gang_view_of(ds, rank, num_machines):
+    """One rank's gang view of a whole-store OutOfCoreDataset. The world
+    size runs through the `stale_ownership` fault: an armed rank derives
+    its range from a stale (one larger) world, and the cross-rank tiling
+    check (_check_gang_tiling) must catch it."""
+    from ..parallel.machines import partition_blocks
+    store = ds.block_store
+    world = faults.stale_ownership_world(num_machines)
+    blo, bhi = partition_blocks(store.num_blocks, world, int(rank))
+    row_lo = (store.row_start_of(blo) if blo < store.num_blocks
+              else store.num_rows)
+    row_hi = (store.row_start_of(bhi) if bhi < store.num_blocks
+              else store.num_rows)
+    view = OutOfCoreGangView()
+    view.block_store = store
+    view.bin_mappers = ds.bin_mappers
+    view.used_feature_map = ds.used_feature_map
+    view.real_feature_idx = ds.real_feature_idx
+    view.feature_names = list(ds.feature_names)
+    view.num_total_features = ds.num_total_features
+    view.label_idx = ds.label_idx
+    view.metadata = ds.metadata.subset(np.arange(row_lo, row_hi))
+    view.gang_rank = int(rank)
+    view.gang_world = int(num_machines)
+    view.block_lo, view.block_hi = int(blo), int(bhi)
+    view.row_lo, view.row_hi = int(row_lo), int(row_hi)
+    view.global_num_data = int(store.num_rows)
+    return view
+
+
+def _check_gang_tiling(view, num_blocks, num_machines):
+    """COLLECTIVE: every rank gathers every rank's claimed block range
+    (parallel/distributed.py host_allgather) and checks that they tile
+    the store exactly; a rank that fails raises a BlockStoreError before
+    any histogram is built."""
+    from ..parallel import distributed
+    from ..parallel.heartbeat import collective_guard
+    from ..parallel.machines import check_block_tiling
+    if distributed.num_processes() != num_machines:
+        Log.fatal("num_machines=%d but %d processes are running; block "
+                  "ownership would not tile the store", num_machines,
+                  distributed.num_processes())
+    mine = np.asarray([view.block_lo, view.block_hi], dtype=np.int64)
+    with collective_guard("ooc:ownership_gather"):
+        ranges = distributed.host_allgather(mine).reshape(-1, 2)
+    try:
+        check_block_tiling([tuple(int(v) for v in r) for r in ranges],
+                           num_blocks)
+    except ValueError as e:
+        raise BlockStoreError(str(e))
+
+
+def load_block_store_gang(loader, filename, rank, num_machines):
+    """The gang's entry: ONE shared store, built once. Rank 0 reuses or
+    stream-builds it (load_or_build_block_store); its peers poll for a
+    signature-matching manifest (written last and atomically, so a
+    matching open is a complete store) for up to ooc_build_wait_s. Every
+    rank then takes its owned-block view and checks the tiling."""
+    cfg = loader.config
+    directory = cfg.ooc_dir or (str(filename) + ".blocks")
+    if int(rank) == 0:
+        ds = load_or_build_block_store(loader, filename)
+    else:
+        store = None
+        deadline = time.monotonic() + float(cfg.ooc_build_wait_s)
+        while store is None:
+            store = _try_open_matching(cfg, directory, filename,
+                                       warn_mismatch=False)
+            if store is None:
+                if time.monotonic() >= deadline:
+                    raise BlockStoreError(
+                        f"rank {rank}: no signature-matching block store "
+                        f"appeared at {directory} within "
+                        f"{cfg.ooc_build_wait_s:.0f}s (ooc_build_wait_s): "
+                        "did rank 0's build fail?")
+                time.sleep(0.5)
+        ds = _dataset_from_sidecar(store.load_sidecar(), store)
+    view = gang_view_of(ds, rank, num_machines)
+    _check_gang_tiling(view, ds.block_store.num_blocks, num_machines)
+    Log.info("Rank %d/%d owns blocks [%d, %d) = rows [%d, %d) of %d "
+             "(shared store %s)", rank, num_machines, view.block_lo,
+             view.block_hi, view.row_lo, view.row_hi,
+             view.global_num_data, directory)
+    return view

@@ -1,5 +1,5 @@
 """Out-of-core tree learner: leaf-wise builds over a streamed block store
-(port of lightgbm_tpu/data/ooc_learner.py :57-530, the serial learner).
+(port of lightgbm_tpu/data/ooc_learner.py).
 
 The serial learner keeps the whole (F, N_pad) bin matrix on the device.
 Out of core that matrix is the term that cannot exist, so this learner
@@ -31,6 +31,17 @@ per-class builds; the feature sampler is the only host RNG (captured by
 GBDT._rng_registry). The fused trainer stays off (streams_blocks): the
 host drives every pass. Linear leaves stream the blocks through the fit
 (_BlockChunks).
+
+The hooks of the gang learner (data/ooc_parallel.py; :119, :204,
+:290-310, :541-565): the learner streams and partitions its owned block
+range (`_owned_block_range`, the whole store here), reports its
+(world, rank) (`_gang_shape`), and ends every pass with `_combine_pair`
+(here the local pair as the builder's (value, residual)). It journals
+one `block_reshard` record an incarnation (its block range), and on a
+restarted attempt (LIGHTGBM_TPU_RESTART_ATTEMPT > 0) checks the crc32
+of every block it owns again before the first pass. The prefetcher's
+counters go into the booster's metrics registry after every tree and
+into the iteration records (`journal_fields`).
 """
 
 import os
@@ -77,6 +88,8 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
 
     name = "out_of_core"
     streams_blocks = True
+    # the booster's MetricsRegistry (models/gbdt.py sets it)
+    metrics = None
 
     def init(self, train_set):
         store = getattr(train_set, "block_store", None)
@@ -90,12 +103,22 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
                       train_set.num_features)
         super().init(train_set)
         cfg = self.config
-        attempt = int(os.environ.get("LIGHTGBM_TPU_RESTART_ATTEMPT", "0")
-                      or 0)
-        if attempt > 0:
-            # the store sat on disk through a kill: check every block's
-            # crc32 again before the first pass
-            store.reverify(0, store.num_blocks)
+        # the contiguous owned block range over the (possibly shared)
+        # store, derived at every init: a restart that changed the world
+        # re-shards ownership here and never re-bins
+        blo, bhi = self._owned_block_range(store)
+        self._blk_lo, self._blk_hi = int(blo), int(bhi)
+        self._restart_attempt = int(
+            os.environ.get("LIGHTGBM_TPU_RESTART_ATTEMPT", "0") or 0)
+        self._reshard_journaled = False
+        if self._restart_attempt > 0:
+            # the store sat on disk through a kill, and this rank may
+            # have just adopted blocks: check the crc32 of every block
+            # it owns now before the first pass
+            store.reverify(self._blk_lo, self._blk_hi)
+            Log.info("restart attempt %d: re-verified owned blocks "
+                     "[%d, %d)", self._restart_attempt, self._blk_lo,
+                     self._blk_hi)
         n_spans = -(-self.n_pad // store.block_rows)
         if n_spans > 1 and store.block_rows % HIST_CHUNK:
             Log.fatal("block_rows=%d must be a multiple of HIST_CHUNK=%d "
@@ -104,10 +127,11 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
         spans = []
         for i in range(n_spans):
             s = i * store.block_rows
-            data_rows = store.block_rows_of(i) if i < store.num_blocks else 0
+            blk = self._blk_lo + i
+            data_rows = store.block_rows_of(blk) if blk < self._blk_hi else 0
             # the last span ends at the in-RAM N_pad: a zero chunk folded
             # past it would still change the bits
-            spans.append((i if data_rows else None,
+            spans.append((blk if data_rows else None,
                           min(s + store.block_rows, self.n_pad) - s,
                           data_rows))
         self.prefetcher = BlockPrefetcher(
@@ -120,9 +144,19 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
                 self.device)
         self._ghc_src = None
         self._ghc_spans = None
+        self._stats_prev = self._journal_prev = self.prefetcher.stats()
         Log.info("Out-of-core: %d blocks x %d rows (%s), resident bin "
                  "budget %.1f MB", store.num_blocks, store.block_rows,
                  store.dtype.name, self.prefetcher.resident_bytes() / 1e6)
+
+    def _owned_block_range(self, store):
+        """(lo, hi) block range this learner streams and partitions: the
+        whole store (the gang learner owns its rank's range)."""
+        return 0, store.num_blocks
+
+    def _gang_shape(self):
+        """(world, rank) of this incarnation: (1, 0) here."""
+        return 1, 0
 
     def _partitioned_enabled(self, cfg):
         return False
@@ -166,14 +200,20 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
                 hist_kernels.hist_pair_fold(acc[j], comp[j], blk, ghc[i], rl,
                                             leaf_ids[j:j + 1], b,
                                             scratch=self._fold_scratch)
+        pair = self._combine_pair(acc, comp)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self.prefetcher.note_pass_wall(time.perf_counter() - t0)
+        return pair
+
+    def _combine_pair(self, acc, comp):
+        """The pass's local Kahan carry -> the builder's (value,
+        residual) pair (the gang learner exchanges it first)."""
         return acc, (-comp) + 0.0
 
     def _masked_fn(self, bins, ghc_t, row_leaf, leaf_id, num_bins):
         hi, lo = self._pass(ghc_t, row_leaf, leaf_id.reshape(1))
-        return hi[0], lo[0]
+        return hi[0], (None if lo is None else lo[0])
 
     def _frontier_fn(self, bins, ghc_t, row_leaf, leaf_ids, num_bins):
         return self._pass(ghc_t, row_leaf, leaf_ids)
@@ -185,8 +225,9 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
         store = self.train_set.block_store
         fi = int(feat.reshape(-1)[0])
         col = np.zeros(self.n_pad, dtype=store.dtype)
-        for i in range(store.num_blocks):
-            s = store.row_start_of(i)
+        base = store.row_start_of(self._blk_lo)
+        for i in range(self._blk_lo, self._blk_hi):
+            s = store.row_start_of(i) - base
             col[s:s + store.block_rows_of(i)] = store.feature_rows(i, fi)
         return torch.from_numpy(col).to(self.device).to(torch.int32)
 
@@ -196,7 +237,10 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
         engines.setdefault("masked_fn", self._masked_fn)
         engines.setdefault("frontier_fn", self._frontier_fn)
         engines.setdefault("split_col_fn", self._split_col_fn)
-        return super().train_device(grad, hess, inbag, fmask, **engines)
+        engines.setdefault("hist_psum_fn", _collapse_pair)
+        out = super().train_device(grad, hess, inbag, fmask, **engines)
+        self._account_telemetry()
+        return out
 
     def linear_fit_context(self):
         """(chunks, bin_value_table, fit_chunk) for the linear-leaf fit:
@@ -215,3 +259,65 @@ class OutOfCoreTreeLearner(SerialTreeLearner):
     def stats(self):
         """The prefetcher's counters (prefetch.BlockPrefetcher.stats)."""
         return self.prefetcher.stats()
+
+    # ------------------------------------------------------------ telemetry
+    def _account_telemetry(self):
+        """The prefetcher's counters since the last tree into the
+        booster's registry: bytes read, the consumer's wait and the
+        reader's busy seconds, the overlap."""
+        if self.metrics is None:
+            return
+        stats = self.prefetcher.stats()
+        prev, self._stats_prev = self._stats_prev, stats
+        self.metrics.inc("transfer_bytes", int(stats["prefetch_bytes"]
+                                               - prev["prefetch_bytes"]))
+        self.metrics.observe("prefetch_wait_s", stats["prefetch_wait_s"]
+                             - prev["prefetch_wait_s"])
+        self.metrics.observe("prefetch_read_s", stats["prefetch_read_s"]
+                             - prev["prefetch_read_s"])
+        self.metrics.set("prefetch_depth", self.prefetcher.depth)
+        self.metrics.set("prefetch_overlap_pct",
+                         stats["prefetch_overlap_pct"])
+
+    def _journal_reshard_once(self):
+        """One `block_reshard` record an incarnation: this rank's owned
+        block range, derived from the current world (lazy: the journal
+        opens after the learner's init). Across an elastic restart its
+        shards and range change while no `binning` record appears."""
+        if self._reshard_journaled:
+            return
+        from ..telemetry import journal as run_journal
+        j = run_journal.current()
+        if j is None:
+            return
+        self._reshard_journaled = True
+        world, rank = self._gang_shape()
+        j.event("block_reshard",
+                blocks=int(self.train_set.block_store.num_blocks),
+                shards=int(world), rank=int(rank),
+                block_lo=int(self._blk_lo), block_hi=int(self._blk_hi),
+                rows=int(self.num_data), attempt=int(self._restart_attempt),
+                learner=self.name)
+
+    def journal_fields(self):
+        """The prefetch fields of the booster's iteration record, deltas
+        against the last record (a multiclass iteration's K builds share
+        one record)."""
+        self._journal_reshard_once()
+        stats = self.prefetcher.stats()
+        prev, self._journal_prev = self._journal_prev, stats
+        return {
+            "prefetch_wait_s": round(stats["prefetch_wait_s"]
+                                     - prev["prefetch_wait_s"], 6),
+            "prefetch_bytes": int(stats["prefetch_bytes"]
+                                  - prev["prefetch_bytes"]),
+            "prefetch_overlap_pct": stats["prefetch_overlap_pct"],
+        }
+
+
+def _collapse_pair(pair):
+    """The builder's histogram of a pass: value + residual, or the
+    value alone where the pass already folded the pair (the gang's
+    exchange gives the folded histogram)."""
+    hi, lo = pair
+    return hi if lo is None else hi + lo

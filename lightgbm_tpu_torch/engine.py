@@ -20,6 +20,7 @@ snapshot cadence, with a snapshot at each block boundary.
 """
 
 import collections
+import time
 from operator import attrgetter
 
 import numpy as np
@@ -150,7 +151,35 @@ def train(params, train_set, num_boost_round=100, valid_sets=None,
     training state (trees, scores, sampling RNG, early-stop trackers,
     eval history) is restored and training continues from the
     snapshot's iteration, to the model text of an uninterrupted run with
-    the same params and data. Without one it is a cold start."""
+    the same params and data. Without one it is a cold start.
+
+    Telemetry: `telemetry=true` opens the booster's run journal
+    (models/gbdt.py), as the CLI's does; `profile=<dir>` writes a
+    torch.profiler Chrome trace of the training into that directory and
+    `run_history=<file>` appends one `run_summary` record at the end, as
+    the CLI does (application.py)."""
+    from .application import profiled
+    knobs = dict(params or {})
+    start = time.time()
+    with profiled(knobs.get("profile", "")):
+        booster = _train(params, train_set, num_boost_round, valid_sets,
+                         valid_names, fobj, feval, init_model, feature_name,
+                         categorical_feature, early_stopping_rounds,
+                         evals_result, verbose_eval, learning_rates,
+                         callbacks, resume_from, device)
+    path = booster.config.run_history
+    if path:
+        from .telemetry import history
+        history.append_run_summary(
+            path, "train", **history.booster_summary(
+                booster.gbdt, train_s=round(time.time() - start, 3)))
+    return booster
+
+
+def _train(params, train_set, num_boost_round, valid_sets, valid_names,
+           fobj, feval, init_model, feature_name, categorical_feature,
+           early_stopping_rounds, evals_result, verbose_eval, learning_rates,
+           callbacks, resume_from, device):
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     predictor = _init_predictor(init_model, device)

@@ -48,8 +48,9 @@ the same mappers, and the dataset records `global_num_data` and
 The two-round load stores only the rank's rows. Pre-partitioned files
 (is_pre_partition) and tree_learner=feature keep every row.
 
-A later slice of the port: the training-time dataset profile (ROADMAP
-queue 1 item 7).
+The training-time dataset profile (io/profile.py) is made by the booster
+from the dataset's host bins when it saves a model
+(models/gbdt.py _training_profile).
 """
 
 import os
@@ -583,6 +584,13 @@ class DatasetLoader:
                 Log.warning("max_bad_rows=%d is not applied on the "
                             "out-of-core streaming load path: malformed "
                             "rows still abort the load", cfg.max_bad_rows)
+            if num_machines > 1:
+                # a gang over ONE shared store: rank 0 builds it, its
+                # peers adopt their owned block ranges, nobody re-bins
+                # (data/block_store.py load_block_store_gang)
+                from ..data.block_store import load_block_store_gang
+                return load_block_store_gang(self, filename, rank,
+                                             num_machines)
             from ..data.block_store import load_or_build_block_store
             return load_or_build_block_store(self, filename)
         bin_path = str(filename) + ".bin"

@@ -10,9 +10,10 @@ NaN through the same rule. `DatasetProfile.from_dataset(core)` builds it
 from a constructed dataset, `save(model_profile_path(model))` writes the
 ``<model>.profile.json`` sidecar that CompiledPredictor.from_model_file
 discovers. The bounds travel with the counts, so a serving process bins
-incoming rows as training did without the dataset. (The JAX package
-also captures the profile at binning and writes the sidecar with every
-saved model; in the port that comes with its telemetry slice.)
+incoming rows as training did without the dataset. The booster writes
+the sidecar with every saved model (models/gbdt.py save_model_to_file),
+from the training set's host bins at the first save, where the JAX
+package captures the profile at binning.
 
 `group_counts` folds a mapper's bins into at most `profile_bins` groups
 (contiguous, even in bin space) before PSI — the baseline and the

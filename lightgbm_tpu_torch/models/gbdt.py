@@ -68,7 +68,11 @@ import torch
 
 from ..ops import hist_kernels, traverse_kernels
 from ..parallel import heartbeat
+from ..telemetry import disttrace
+from ..telemetry import journal as run_journal
 from ..telemetry.quality import tree_coeff_importance
+from ..telemetry.registry import MetricsRegistry
+from ..telemetry.trace import SpanTracer
 from ..utils import common, faults, guardrails
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError, Log
@@ -398,6 +402,19 @@ class GBDT:
         self._row_query = None
         self._device_model_cache = None
         self._fused_cache = {}
+        # per-booster telemetry (telemetry/): the span tracer, the
+        # metrics registry, the run journal (telemetry=true), the
+        # /trainz server, the split-ledger tracker (quality_telemetry),
+        # the collective wait profiler (comm_telemetry)
+        self.tracer = SpanTracer()
+        self.metrics = MetricsRegistry()
+        self.journal = None
+        self._trainz_server = None
+        self.quality = None
+        self.dataset_profile = None
+        self._last_metric_values = {}
+        self.comm_profile = None
+        self._collectives_seen = {}
 
     # ------------------------------------------------------------------ init
     def init(self, config, train_data, objective, training_metrics=()):
@@ -425,6 +442,9 @@ class GBDT:
         self.label_idx = train_data.label_idx
         self.feature_names = list(train_data.feature_names)
         self.train_data = train_data
+        # the out-of-core learner feeds the prefetcher's counters in
+        self.tree_learner.metrics = self.metrics
+        self._setup_telemetry(config)
 
     def add_valid_dataset(self, valid_data, valid_metrics):
         """gbdt.cpp:117-147."""
@@ -461,6 +481,8 @@ class GBDT:
         self._fused_cache = {}
         self.tree_learner.config = config
         self.tree_learner.init(self.train_data)
+        self.tree_learner.metrics = self.metrics
+        self._setup_telemetry(config)
 
     def merge_from(self, other):
         """Continued training (gbdt.h:44-61): the other booster's trees go
@@ -468,6 +490,262 @@ class GBDT:
         self.models = list(other.models) + self.models
         self.num_init_iteration += len(other.models) // max(self.num_class, 1)
         self._device_model_cache = None
+
+    # ------------------------------------------------------------- telemetry
+    def _setup_telemetry(self, config):
+        """The `telemetry*` knobs (gbdt.py:463-605): the tracer's
+        torch.profiler ranges, the split-ledger tracker, the run journal
+        (rank-suffixed JSONL in telemetry_dir), the collective timing
+        sink and the comm profiler, the crash flight recorder, the
+        kernels' roofline table and the opt-in /trainz endpoint.
+        Idempotent per booster: a reset_config rebuild opens no second
+        journal."""
+        self.tracer.profiler_annotations = bool(
+            getattr(config, "telemetry_jax_annotations", False))
+        self._telemetry_trace = bool(getattr(config, "telemetry_trace",
+                                             False))
+        self._roofline_warn_fraction = float(
+            getattr(config, "roofline_warn_fraction", 0.0) or 0.0)
+        if (getattr(config, "quality_telemetry", False)
+                and self.quality is None and self.train_data is not None):
+            from ..telemetry.quality import QualityTracker
+            self.quality = QualityTracker(self.max_feature_idx + 1,
+                                          self.feature_names)
+        if not getattr(config, "telemetry", False):
+            return
+        import weakref
+        from ..telemetry import roofline
+        roofline.TABLE.enabled = True
+        ref = weakref.ref(self)   # process-wide hooks must not pin us
+        if (self.comm_profile is None
+                and getattr(config, "comm_telemetry", True)):
+            from ..telemetry.comm_profile import CommProfiler
+            self.comm_profile = CommProfiler(rank=faults.current_rank())
+
+        def timing_sink(name, seconds):
+            gbdt = ref()
+            if gbdt is None:
+                heartbeat.bind_timing_sink(None)
+                return
+            gbdt.metrics.observe("sync_wait_s", seconds)
+            if gbdt.comm_profile is not None:
+                gbdt.comm_profile.record(name, seconds)
+
+        heartbeat.bind_timing_sink(timing_sink)
+        self._timing_sink_fn = timing_sink
+        if self.comm_profile is not None:
+            prof = self.comm_profile
+
+            def beat_extra():
+                return {"comm_wait_s": round(prof.cum_wait_s, 6)}
+
+            heartbeat.bind_beat_extra(beat_extra)
+            self._beat_extra_fn = beat_extra
+        if self.journal is None:
+            directory = (getattr(config, "telemetry_dir", "")
+                         or getattr(config, "snapshot_dir", ""))
+            if not directory:
+                Log.warning("telemetry=true but neither telemetry_dir "
+                            "nor snapshot_dir is set; run journal "
+                            "disabled")
+            else:
+                rank = faults.current_rank()
+                self.journal = run_journal.RunJournal(
+                    directory, rank=rank,
+                    meta={"num_ranks": int(getattr(config, "num_machines",
+                                                   1) or 1)})
+                run_journal.set_current(self.journal)
+                self.tracer.rank = rank
+                self._trace_recorder = disttrace.configure(
+                    journal=self.journal, rank=rank, service="train",
+                    sample_rate=float(getattr(config, "trace_sample_rate",
+                                              0.01) or 0.0),
+                    slow_ms=float(getattr(config, "slow_request_ms",
+                                          0.0) or 0.0),
+                    slow_only=bool(getattr(config, "trace_slow_only",
+                                           False)))
+                if getattr(config, "blackbox", True):
+                    flight = disttrace.FLIGHT.configure(directory,
+                                                        rank=rank)
+                    self._flight_armed = flight.enabled
+                    tracer, metrics = self.tracer, self.metrics
+                    jpath = self.journal.path
+                    flight.add_source("spans", lambda: tracer.recent(None))
+                    flight.add_source("metrics", metrics.snapshot)
+                    flight.add_source(
+                        "journal_tail", lambda: run_journal.tail(jpath,
+                                                                 n=20))
+                    flight.install_sigquit()
+        port = int(getattr(config, "telemetry_port", 0) or 0)
+        if port > 0 and self._trainz_server is None:
+            from ..telemetry import trainz
+
+            def iteration_fn():
+                gbdt = ref()
+                return gbdt.iter if gbdt is not None else -1
+
+            def quality_fn():
+                gbdt = ref()
+                if gbdt is None or gbdt.quality is None:
+                    return None
+                return gbdt.quality.snapshot()
+
+            def comm_fn():
+                gbdt = ref()
+                if gbdt is None or gbdt.comm_profile is None:
+                    return None
+                return gbdt.comm_profile.snapshot()
+
+            self._trainz_server = trainz.start_trainz(
+                trainz.build_sources(
+                    iteration_fn=iteration_fn, tracer=self.tracer,
+                    registry=self.metrics, journal=self.journal,
+                    roofline_warn_fraction=self._roofline_warn_fraction,
+                    quality_fn=(quality_fn if self.quality is not None
+                                else None),
+                    comm_fn=(comm_fn if self.comm_profile is not None
+                             else None)),
+                port=port)
+
+    def _account_collectives(self):
+        """The meshed learner's collective_bytes{_kind} counters of the
+        tree just built (parallel/mesh.py CommPlan) into the registry:
+        each counter advances by its growth since the last tree."""
+        learner = self.tree_learner
+        if learner is None or not getattr(learner, "collective_bytes", None):
+            return
+        for key, total in learner.collective_bytes.items():
+            grown = int(total) - self._collectives_seen.get(key, 0)
+            if grown:
+                self.metrics.inc(key, grown)
+                self._collectives_seen[key] = int(total)
+
+    def _journal_iteration(self, **fields):
+        """One journal record a completed iteration (or fused block:
+        `block` is the iteration count it covers); the phase seconds ride
+        as deltas, so the records sum back to the run's totals."""
+        if self.journal is None:
+            return
+        self.journal.iteration(self.iter,
+                               phases=self.tracer.delta_snapshot(),
+                               **fields)
+        self._journal_comm()
+        self._journal_introspection()
+
+    def _journal_comm(self):
+        """One `comm` record an iteration or block (comm_telemetry): the
+        collective waits since the last record, and the overlap."""
+        if self.comm_profile is None:
+            return
+        rec = self.comm_profile.flush(self.iter)
+        if rec is None:
+            return
+        self.metrics.set("comm_overlap_pct", rec["overlap_pct"])
+        self.metrics.set("comm_wait_s", rec["wait_s"])
+        if self.journal is not None:
+            self.journal.event("comm", **rec)
+
+    def _journal_introspection(self):
+        """Memory watermarks (the allocator's counters and the host RSS:
+        no device sync) and the set-up ledger's new entries, at every
+        iteration or block boundary."""
+        from ..telemetry import ledger
+        mem = ledger.sample_memory()
+        if mem:
+            self.journal.event("memory", iteration=int(self.iter), **mem)
+            for key, val in mem.items():
+                self.metrics.set(key, val)
+        for entry in ledger.LEDGER.drain():
+            self.journal.event("compile", label=entry["label"]
+                               or entry["event"],
+                               seconds=round(entry["seconds"], 6),
+                               cache_hit=bool(entry["cache_hit"]))
+
+    def _journal_quality(self):
+        """One `quality` record a completed iteration or block
+        (quality_telemetry; gbdt.py:688-715); the registry's quality_*
+        gauges move even without a journal."""
+        if self.quality is None:
+            return
+        delta = self.quality.sync(self.models)
+        ledger = self.quality.ledger
+        self.metrics.set("quality_trees_total", int(ledger.n_trees))
+        self.metrics.set("quality_splits_total", int(ledger.n_splits))
+        self.metrics.set("quality_gain_total", float(ledger.gain_sums.sum()))
+        top = self.quality.snapshot()["top_features"]
+        if top:
+            self.metrics.set("quality_top_feature_gain",
+                             float(top[0]["gain"]))
+        if delta is not None and self.journal is not None:
+            if self._last_metric_values:
+                delta["values"] = dict(self._last_metric_values)
+            self.journal.event("quality", iteration=int(self.iter), **delta)
+
+    def finalize_introspection(self):
+        """The last memory and set-up records, the `telemetry_trace`
+        span-ring dump and the roofline warning; the CLI calls it before
+        `run_end`, close_telemetry as a fallback. Once only."""
+        if self.journal is None or getattr(self, "_introspection_done",
+                                           False):
+            return
+        self._introspection_done = True
+        self._journal_introspection()
+        if getattr(self, "_telemetry_trace", False):
+            self.journal.event("spans", epoch_ts=self.tracer.epoch_wall,
+                               spans=self.tracer.recent(n=None))
+        self._warn_roofline()
+
+    def close_telemetry(self, merge=False):
+        """End of run: drain the introspection, close the journal (after
+        an optional rank-0 merge), stop /trainz and drop this booster's
+        process-wide hooks. Safe to call twice."""
+        if self.journal is not None:
+            self.finalize_introspection()
+            rec = getattr(self, "_trace_recorder", None)
+            if rec is not None:
+                rec.flush_pending()
+                if disttrace.get_recorder() is rec:
+                    disttrace.set_recorder(None)
+                self._trace_recorder = None
+            if getattr(self, "_flight_armed", False):
+                disttrace.FLIGHT.disarm()
+                self._flight_armed = False
+            if merge:
+                run_journal.merge_journals(self.journal.directory)
+            self.journal.close()
+            if run_journal.current() is self.journal:
+                run_journal.set_current(None)
+            self.journal = None
+        if self._trainz_server is not None:
+            from ..telemetry import trainz
+            trainz.stop_trainz(self._trainz_server)
+            self._trainz_server = None
+        if (getattr(self, "_timing_sink_fn", None) is not None
+                and heartbeat._TIMING_SINK is self._timing_sink_fn):
+            heartbeat.bind_timing_sink(None)
+        self._timing_sink_fn = None
+        if (getattr(self, "_beat_extra_fn", None) is not None
+                and heartbeat._BEAT_EXTRA is self._beat_extra_fn):
+            heartbeat.bind_beat_extra(None)
+        self._beat_extra_fn = None
+
+    def _warn_roofline(self):
+        """roofline_warn_fraction: name every kernel whose achieved
+        bytes/s fell below that fraction of the measured copy peak."""
+        frac = getattr(self, "_roofline_warn_fraction", 0.0)
+        if frac <= 0:
+            return
+        from ..telemetry import roofline
+        snap = roofline.TABLE.snapshot(warn_fraction=frac)
+        for name, k in (snap.get("kernels") or {}).items():
+            if k.get("below_peak_fraction"):
+                Log.warning(
+                    "roofline: kernel [%s] achieved %.2f GB/s = %.1f%% "
+                    "of the %.2f GB/s copy peak (< %.0f%% warn fraction; "
+                    "%d calls, %.3fs)", name, k["bytes_per_s"] / 1e9,
+                    k.get("pct_of_peak", 0.0),
+                    snap["peak_bytes_per_s"] / 1e9, 100.0 * frac,
+                    k["calls"], k["seconds"])
 
     # -------------------------------------------------------- checkpointing
     def _rng_registry(self):
@@ -729,8 +1007,9 @@ class GBDT:
         if gradients is None or hessians is None:
             if self.objective is None:
                 Log.fatal("No object function provided")
-            gradients, hessians = self.objective.get_gradients(
-                self._score_for_boosting())
+            with self.tracer.phase("gradients"):
+                gradients, hessians = self.objective.get_gradients(
+                    self._score_for_boosting())
         else:
             gradients = torch.as_tensor(
                 np.asarray(gradients, dtype=np.float32)).reshape(
@@ -746,24 +1025,40 @@ class GBDT:
                 # no tree and no iteration: the model list stays
                 # iter * num_class long
                 return False
-        inbag = self._bagging(self.iter, gradients, hessians)
+        with self.tracer.phase("bagging"):
+            inbag = self._bagging(self.iter, gradients, hessians)
         learner = self.tree_learner
         n = self.num_data
         linear = bool(getattr(self.config, "linear_tree", False))
+        norms = None
+        new_leaves = 0
         for k in range(self.num_class):
-            out = learner.train_device(gradients[k], hessians[k], inbag)
+            with self.tracer.phase("build"):
+                out = learner.train_device(gradients[k], hessians[k], inbag)
+            self.metrics.inc("tree_build_dispatches")
             extra = ()
             if policy == "raise":
                 # the guard's flag rides on the tree's one transfer
                 extra = ((torch.isfinite(gradients[k]).all()
                           & torch.isfinite(hessians[k]).all()),)
-            with heartbeat.collective_guard("leaf_count_sync"):
+            if self.journal is not None and k == 0:
+                # the iteration record's gradient and hessian RMS ride on
+                # the first tree's transfer (no sync of their own)
+                extra += tuple(torch.sqrt(torch.mean(
+                    torch.square(t.double()))).float().reshape(())
+                    for t in (gradients, hessians))
+            with self.tracer.phase("host_sync"), \
+                    heartbeat.collective_guard("leaf_count_sync"):
                 host, extras = learner.fetch(out, extra)  # the one sync
-            if learner.meshed:
-                # the mesh's wire bytes of this tree (parallel/mesh.py
-                # CommPlan), a 0-split tree's root exchange included
+            if self.journal is not None and k == 0:
+                norms = extras[-2:]
+                extras = extras[:-2]
+            if hasattr(learner, "account_tree_collectives"):
+                # the wire bytes of this tree (parallel/mesh.py CommPlan),
+                # a 0-split tree's root exchange included
                 learner.account_tree_collectives()
-            if extra and not extras[0]:
+                self._account_collectives()
+            if policy == "raise" and not extras[0]:
                 guardrails.guard_gradients(gradients.cpu().numpy(),
                                            hessians.cpu().numpy(),
                                            self.iter, policy)
@@ -779,23 +1074,39 @@ class GBDT:
                 Log.info("Stopped training because there are no more leafs "
                          "that meet the split requirements.")
                 return True
-            if linear:
-                self.train_score_updater.add_score_by_values(
-                    values * self.shrinkage_rate, k)
-                for updater in self.valid_score_updaters:
-                    updater.add_score_by_tree(tree, k)
-            else:
-                self.train_score_updater.add_score_by_partition(
-                    out["leaf_value"] * self.shrinkage_rate,
-                    out["row_leaf"][:n], k)
-                for updater in self.valid_score_updaters:
-                    updater.add_score_by_device_tree(
-                        out, tree.max_depth, self.shrinkage_rate, k)
+            with self.tracer.phase("score_upd"):
+                if linear:
+                    self.train_score_updater.add_score_by_values(
+                        values * self.shrinkage_rate, k)
+                    for updater in self.valid_score_updaters:
+                        updater.add_score_by_tree(tree, k)
+                else:
+                    self.train_score_updater.add_score_by_partition(
+                        out["leaf_value"] * self.shrinkage_rate,
+                        out["row_leaf"][:n], k)
+                    for updater in self.valid_score_updaters:
+                        updater.add_score_by_device_tree(
+                            out, tree.max_depth, self.shrinkage_rate, k)
+            new_leaves += tree.num_leaves
             self.models.append(tree)
         self.iter += 1
         self._device_model_cache = None
+        self.metrics.inc("leaves_total", new_leaves)
+        self.metrics.set("iteration", self.iter)
+        if self.journal is not None:
+            # learners with per-iteration IO counters (the out-of-core
+            # learner's prefetch deltas) add theirs (journal_fields)
+            fields_fn = getattr(learner, "journal_fields", None)
+            extra_fields = fields_fn() if callable(fields_fn) else {}
+            if norms is not None:
+                extra_fields.update(grad_norm=float(norms[0]),
+                                    hess_norm=float(norms[1]))
+            self._journal_iteration(leaf_count=int(new_leaves),
+                                    **extra_fields)
+        self._journal_quality()
         if is_eval:
-            return self.eval_and_check_early_stopping()
+            with self.tracer.phase("eval"):
+                return self.eval_and_check_early_stopping()
         return False
 
     def _score_for_boosting(self):
@@ -942,14 +1253,16 @@ class GBDT:
         fmasks = np.stack([[learner._sample_features() for _ in range(k)]
                            for _ in range(num_iters)])
         base = self.train_score_updater.score.clone()
-        stacked = runner.run(num_iters, fmasks, self._fused_inbag_fn(),
-                             self.iter)
-        policy = getattr(self.config, "nonfinite_guard", "raise")
-        parts = [stacked.reshape(-1)]
-        if policy != "off":
-            parts.append(torch.isfinite(runner.score).all().reshape(1)
-                         .to(torch.int32))
-        flat = torch.cat(parts).cpu().numpy()     # ONE transfer a block
+        with self.tracer.phase("fused_block", iterations=num_iters), \
+                heartbeat.collective_guard("fused_block"):
+            stacked = runner.run(num_iters, fmasks, self._fused_inbag_fn(),
+                                 self.iter)
+            policy = getattr(self.config, "nonfinite_guard", "raise")
+            parts = [stacked.reshape(-1)]
+            if policy != "off":
+                parts.append(torch.isfinite(runner.score).all().reshape(1)
+                             .to(torch.int32))
+            flat = torch.cat(parts).cpu().numpy()  # ONE transfer a block
         if policy != "off" and not flat[-1]:
             # the iterations inside the graph cannot be guarded one by
             # one; the block boundary is where divergence shows
@@ -972,6 +1285,14 @@ class GBDT:
                 hosts[t][c], shrink=self.shrinkage_rate))
         self.iter += t_eff
         self._device_model_cache = None
+        self.metrics.inc("tree_build_dispatches", len(kept))
+        self.metrics.inc("transfer_bytes", int(flat.nbytes))
+        self.metrics.set("iteration", self.iter)
+        if self.journal is not None and t_eff > 0:
+            # one record a block: the iterations inside the captured
+            # graph have no host phases of their own
+            self._journal_iteration(block=int(t_eff), fused=True)
+        self._journal_quality()
         return FusedBlock(stacked, t_eff, k_stop, n_before, base, rng)
 
     def _block_trees(self, block, i0, i1):
@@ -1062,6 +1383,10 @@ class GBDT:
         del self.models[-self.num_class:]
         self.iter -= 1
         self._device_model_cache = None
+        if self.quality is not None:
+            # the split ledger follows the surviving trees now: a
+            # retrained iteration restores the list's length
+            self.quality.sync(self.models)
 
     # ------------------------------------------------------------ evaluation
     def eval_and_check_early_stopping(self):
@@ -1089,6 +1414,10 @@ class GBDT:
         for updater in [self.train_score_updater] + self.valid_score_updaters:
             updater.sub_score_by_trees(dropped, self.num_class)
         self._device_model_cache = None
+        if self.journal is not None:
+            self.journal.event("truncate", iteration=int(self.iter),
+                               dropped_iters=int(k), reason="early_stop")
+        self._journal_quality()
 
     def output_metric(self, it):
         """gbdt.cpp:292-349: print metrics, track early stopping."""
@@ -1097,12 +1426,14 @@ class GBDT:
         ret = ""
         msg_lines = []
         met_pairs = []
+        met_values = {}
         if need_output:
             for metric in self.training_metrics:
                 scores = metric.eval(self.train_score_updater.host_score())
                 for name, sc in zip(metric.names, scores):
                     line = f"Iteration:{it}, training {name} : {sc:g}"
                     Log.info("%s", line)
+                    met_values[f"training {name}"] = float(sc)
                     if self.early_stopping_round > 0:
                         msg_lines.append(line)
         if need_output or self.early_stopping_round > 0:
@@ -1112,6 +1443,7 @@ class GBDT:
                         self.valid_score_updaters[i].host_score())
                     for name, sc in zip(metric.names, scores):
                         line = f"Iteration:{it}, valid_{i + 1} {name} : {sc:g}"
+                        met_values[f"valid_{i + 1} {name}"] = float(sc)
                         if need_output:
                             Log.info("%s", line)
                         if self.early_stopping_round > 0:
@@ -1128,6 +1460,12 @@ class GBDT:
         msg = "\n".join(msg_lines)
         for i, j in met_pairs:
             self.best_msg[i][j] = msg
+        if met_values:
+            # the latest values ride the next `quality` record too
+            self._last_metric_values = met_values
+        if self.journal is not None and met_values:
+            self.journal.event("metrics", iteration=int(it),
+                               values=met_values)
         return ret
 
     def _updater(self, data_idx):
@@ -1143,6 +1481,13 @@ class GBDT:
             score = self._updater(data_idx).host_score()
             for metric in metrics:
                 out.extend(metric.eval(score))
+        if out:
+            # the latest values ride the next `quality` record (the
+            # Python API's evaluation path)
+            prefix = "training" if data_idx == 0 else f"valid_{data_idx}"
+            self._last_metric_values.update(
+                {f"{prefix} {n}": float(v)
+                 for n, v in zip(self.get_eval_names(data_idx), out)})
         return out
 
     def get_eval_names(self, data_idx):
@@ -1460,6 +1805,30 @@ class GBDT:
     def save_model_to_file(self, num_iteration, filename):
         with open(filename, "w") as f:
             f.write(self.save_model_to_string(num_iteration))
+        profile = self._training_profile()
+        if profile is not None:
+            # the training-time baseline distribution travels with the
+            # model: <model>.profile.json is what the serving drift
+            # monitor loads (io/profile.py, serving/drift.py)
+            from ..io.profile import model_profile_path
+            try:
+                profile.save(model_profile_path(filename))
+            except OSError as e:
+                Log.warning("could not write dataset profile next to %s: "
+                            "%s", filename, e)
+
+    def _training_profile(self):
+        """The training set's baseline distribution (io/profile.py), made
+        at the first save from its host bins and kept. None for a rank's
+        row block (it would profile one shard's slice, as the JAX
+        package skips it) or a dataset whose bins stay on disk."""
+        data = self.train_data
+        if (self.dataset_profile is None and data is not None
+                and getattr(data, "bins", None) is not None
+                and getattr(data, "global_num_data", None) is None):
+            from ..io.profile import DatasetProfile
+            self.dataset_profile = DatasetProfile.from_dataset(data)
+        return self.dataset_profile
 
     def dump_model(self):
         """JSON dump (gbdt.cpp:431-466)."""

@@ -826,12 +826,20 @@ def tree_from_host(host, dataset, shrink=1.0, table=None) -> Tree:
 def create_tree_learner(learner_type, config, device=None):
     """Factory (src/treelearner/tree_learner.cpp:8-19;
     tree_learner.py:929-962): the serial learner, with out_of_core=true
-    the block-store streaming learner (data/ooc_learner.py), or the data-,
-    feature- and voting-parallel learners on an in-process shard mesh
-    (parallel/learners.py). The out-of-core gang learner of
-    tree_learner=data is a later slice (Config.check_slice refuses
-    it)."""
-    if getattr(config, "out_of_core", False) and learner_type == "serial":
+    the block-store streaming learner (data/ooc_learner.py) or, with
+    tree_learner=data and num_machines > 1, the gang learner over one
+    shared store (data/ooc_parallel.py); or the data-, feature- and
+    voting-parallel learners on a shard mesh (parallel/learners.py)."""
+    if getattr(config, "out_of_core", False):
+        if learner_type == "data" and int(getattr(config, "num_machines",
+                                                  1)) > 1:
+            from ..data.ooc_parallel import OutOfCoreGangLearner
+            return OutOfCoreGangLearner(config, device)
+        if learner_type != "serial":
+            Log.fatal("out_of_core=true supports tree_learner=serial or "
+                      "tree_learner=data with num_machines>1 (got %s); "
+                      "feature/voting-parallel need per-shard feature "
+                      "stores", learner_type)
         from ..data.ooc_learner import OutOfCoreTreeLearner
         return OutOfCoreTreeLearner(config, device)
     if learner_type == "serial":

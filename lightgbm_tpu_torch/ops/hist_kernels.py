@@ -67,6 +67,8 @@ import threading
 
 import torch
 
+from ..telemetry import roofline
+
 HIST_CHUNK = 4096
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -593,6 +595,17 @@ def _stream(dev):
         return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _scan_bytes(bins, words, num_bins, features=None):
+    """Bytes a histogram call streams for the roofline table
+    (telemetry/roofline.py): its bins, the (3, N) statistics and the
+    (N,) row map read once, and `words` (F, B, 3) float32 words (its
+    histograms or carry) written once."""
+    n = bins.shape[-1]
+    f = bins.shape[0] if features is None else features
+    return (bins.numel() * bins.element_size() + 16 * n
+            + int(words) * f * int(num_bins) * 12)
+
+
 def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
     _check_shapes(bins, ghc_t, row_leaf, leaf_ids, num_bins)
     for t in (bins, ghc_t, row_leaf, leaf_ids):
@@ -614,10 +627,12 @@ def _launch(name, bins, ghc_t, row_leaf, leaf_ids, num_bins):
               row_leaf.data_ptr(), leaf_ids.data_ptr())
     tail = (f, n, b, partials.data_ptr(), hi.data_ptr(), lo.data_ptr(),
             _stream(dev))
-    if name == "masked_hist":
-        status = lib.masked_hist(*common, *tail)
-    else:
-        status = lib.frontier_hist(*common, num_leaf, *tail)
+    with roofline.timed(name, dev, lambda: _scan_bytes(bins, num_leaf, b),
+                        n):
+        if name == "masked_hist":
+            status = lib.masked_hist(*common, *tail)
+        else:
+            status = lib.frontier_hist(*common, num_leaf, *tail)
     if status != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.hist_status_string(status).decode()}")
@@ -633,7 +648,11 @@ def masked_hist(bins, ghc_t, row_leaf, leaf_id, num_bins):
     leaf_id a (1,) int32 tensor on the same device (read by the kernel
     from device memory, no host sync)."""
     if bins.device.type == "cpu":
-        return masked_hist_plain(bins, ghc_t, row_leaf, leaf_id, num_bins)
+        with roofline.timed("masked_hist", bins.device,
+                            lambda: _scan_bytes(bins, 1, num_bins),
+                            lambda: bins.shape[-1]):
+            return masked_hist_plain(bins, ghc_t, row_leaf, leaf_id,
+                                     num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"masked_hist: unsupported device {bins.device}")
     hi, lo = _launch("masked_hist", bins, ghc_t, row_leaf,
@@ -645,7 +664,12 @@ def frontier_hist(bins, ghc_t, row_leaf, leaf_ids, num_bins):
     """((L, F, B, 3) value, residual) for L distinct leaf ids in one
     pass over the bins; arguments as masked_hist, leaf_ids (L,) int32."""
     if bins.device.type == "cpu":
-        return frontier_hist_plain(bins, ghc_t, row_leaf, leaf_ids, num_bins)
+        with roofline.timed("frontier_hist", bins.device,
+                            lambda: _scan_bytes(bins, leaf_ids.shape[0],
+                                                num_bins),
+                            lambda: bins.shape[-1]):
+            return frontier_hist_plain(bins, ghc_t, row_leaf, leaf_ids,
+                                       num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"frontier_hist: unsupported device {bins.device}")
     return _launch("frontier_hist", bins, ghc_t, row_leaf, leaf_ids,
@@ -725,8 +749,11 @@ def hist_pair_fold(acc, comp, bins, ghc_t, row_leaf, leaf_id, num_bins,
     if scratch is not None:
         _check_fold_scratch(scratch, bins, num_bins)
     if bins.device.type == "cpu":
-        return hist_pair_fold_plain(acc, comp, bins, ghc_t, row_leaf,
-                                    leaf_id, num_bins)
+        with roofline.timed("hist_pair_fold", bins.device,
+                            lambda: _scan_bytes(bins, 2, num_bins),
+                            lambda: bins.shape[-1]):
+            return hist_pair_fold_plain(acc, comp, bins, ghc_t, row_leaf,
+                                        leaf_id, num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"hist_pair_fold: unsupported device {bins.device}")
     for t in (bins, ghc_t, row_leaf, leaf_id):
@@ -737,12 +764,13 @@ def hist_pair_fold(acc, comp, bins, ghc_t, row_leaf, leaf_id, num_bins,
     b = int(num_bins)
     if scratch is None:
         scratch = FoldScratch(n, f, b, bins.device)
-    status = lib.hist_pair_fold(bins.data_ptr(), _BIN_BYTES[bins.dtype],
-                                ghc_t.data_ptr(), row_leaf.data_ptr(),
-                                leaf_id.data_ptr(), f, n, b,
-                                scratch.partials.data_ptr(),
-                                scratch.counters.data_ptr(), acc.data_ptr(),
-                                comp.data_ptr(), _stream(bins.device))
+    with roofline.timed("hist_pair_fold", bins.device,
+                        lambda: _scan_bytes(bins, 2, b), n):
+        status = lib.hist_pair_fold(
+            bins.data_ptr(), _BIN_BYTES[bins.dtype], ghc_t.data_ptr(),
+            row_leaf.data_ptr(), leaf_id.data_ptr(), f, n, b,
+            scratch.partials.data_ptr(), scratch.counters.data_ptr(),
+            acc.data_ptr(), comp.data_ptr(), _stream(bins.device))
     if status != 0:
         raise RuntimeError("hist_pair_fold launch failed: "
                            f"{lib.hist_status_string(status).decode()}")
@@ -845,7 +873,10 @@ def compact_rows(row_leaf, leaf_id, out_src, out_cnt, flags=None):
     once by its owner; without it a zeroed one is made for the call.
     Returns (out_src, out_cnt)."""
     if row_leaf.device.type == "cpu":
-        return compact_rows_plain(row_leaf, leaf_id, out_src, out_cnt)
+        with roofline.timed("compact_rows", row_leaf.device,
+                            lambda: 8 * row_leaf.numel(),
+                            lambda: row_leaf.numel()):
+            return compact_rows_plain(row_leaf, leaf_id, out_src, out_cnt)
     if row_leaf.device.type != "cuda":
         raise ValueError(f"compact_rows: unsupported device {row_leaf.device}")
     _check_compact_shapes(row_leaf, leaf_id, out_src, out_cnt)
@@ -859,10 +890,12 @@ def compact_rows(row_leaf, leaf_id, out_src, out_cnt, flags=None):
     if flags is None:
         flags = torch.zeros(need, dtype=torch.int32, device=dev)
     _scratch_tensor("compact_rows flags", flags, torch.int32, need, dev)
-    status = lib.compact_rows(row_leaf.data_ptr(), leaf_id.data_ptr(), n,
-                              out_src.data_ptr(), out_src.shape[0],
-                              out_cnt.data_ptr(), flags.data_ptr(),
-                              _stream(dev))
+    # the row map read, the positions written (at most one a row)
+    with roofline.timed("compact_rows", dev, 8 * n, n):
+        status = lib.compact_rows(row_leaf.data_ptr(), leaf_id.data_ptr(),
+                                  n, out_src.data_ptr(), out_src.shape[0],
+                                  out_cnt.data_ptr(), flags.data_ptr(),
+                                  _stream(dev))
     if status != 0:
         raise RuntimeError("compact_rows launch failed: "
                            f"{lib.compact_status_string(status).decode()}")
@@ -881,7 +914,10 @@ def compacted_hist(bins, ghc_t, src, cnt, num_bins, rows=None,
     without them the call makes its own (words zeroed, rows copied from
     bins). The route (compacted_hist_route) follows num_bins."""
     if bins.device.type == "cpu":
-        return compacted_hist_plain(bins, ghc_t, src, cnt, num_bins)
+        with roofline.timed("compacted_hist", bins.device,
+                            lambda: _scan_bytes(bins, 1, num_bins),
+                            lambda: bins.shape[-1]):
+            return compacted_hist_plain(bins, ghc_t, src, cnt, num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"compacted_hist: unsupported device {bins.device}")
     _check_compacted_shapes(bins, ghc_t, src, cnt, num_bins)
@@ -919,14 +955,16 @@ def compacted_hist(bins, ghc_t, src, cnt, num_bins, rows=None,
         _scratch_tensor(f"compacted_hist {name}", t, dtype, size, dev)
     hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    status = lib.compacted_hist(bins.data_ptr(),
-                                rows.data_ptr() if sorted_route else None,
-                                rows.shape[1] if sorted_route else 0,
-                                bin_bytes, ghc_t.data_ptr(),
-                                src.data_ptr(), cnt.data_ptr(), f, n, b,
-                                partials.data_ptr(), words.data_ptr(),
-                                gathered.data_ptr(), hi.data_ptr(),
-                                lo.data_ptr(), _stream(dev))
+    # the leaf's row count stays on the card: the bytes count the
+    # whole array's (an upper bound)
+    with roofline.timed("compacted_hist", dev,
+                        lambda: _scan_bytes(bins, 1, b), n):
+        status = lib.compacted_hist(
+            bins.data_ptr(), rows.data_ptr() if sorted_route else None,
+            rows.shape[1] if sorted_route else 0, bin_bytes,
+            ghc_t.data_ptr(), src.data_ptr(), cnt.data_ptr(), f, n, b,
+            partials.data_ptr(), words.data_ptr(), gathered.data_ptr(),
+            hi.data_ptr(), lo.data_ptr(), _stream(dev))
     if status != 0:
         raise RuntimeError(
             "compacted_hist launch failed: "
@@ -945,7 +983,11 @@ def seg_hist(words, ghc_t, bounds, num_bins):
     on the same device (read by the kernel from device memory, no host
     sync); num_bins <= 256."""
     if words.device.type == "cpu":
-        return seg_hist_plain(words, ghc_t, bounds, num_bins)
+        with roofline.timed("seg_hist", words.device,
+                            lambda: _scan_bytes(words, 1, num_bins,
+                                                features=4 * words.shape[0]),
+                            lambda: words.shape[-1]):
+            return seg_hist_plain(words, ghc_t, bounds, num_bins)
     if words.device.type != "cuda":
         raise ValueError(f"seg_hist: unsupported device {words.device}")
     _check_seg_shapes(words, ghc_t, bounds, num_bins)
@@ -960,9 +1002,12 @@ def seg_hist(words, ghc_t, bounds, num_bins):
                            dtype=torch.float32, device=dev)
     hi = torch.empty((f, b, 3), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    status = lib.seg_hist(words.data_ptr(), ghc_t.data_ptr(),
-                          bounds.data_ptr(), f, n, b, partials.data_ptr(),
-                          hi.data_ptr(), lo.data_ptr(), _stream(dev))
+    with roofline.timed("seg_hist", dev,
+                        lambda: _scan_bytes(words, 1, b, features=f), n):
+        status = lib.seg_hist(words.data_ptr(), ghc_t.data_ptr(),
+                              bounds.data_ptr(), f, n, b,
+                              partials.data_ptr(), hi.data_ptr(),
+                              lo.data_ptr(), _stream(dev))
     if status != 0:
         raise RuntimeError("seg_hist launch failed: "
                            f"{lib.seg_status_string(status).decode()}")

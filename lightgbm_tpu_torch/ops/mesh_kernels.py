@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..telemetry import roofline
 from . import hist_kernels
 
 KERNELS = {"mesh_fold": hist_kernels.KERNELS["mesh_fold"]}
@@ -125,9 +126,14 @@ def _launch(lib, table, k, bf16, lead, run, out_ptr, out_stride, device):
     if k > MAX_COMPS:
         state = torch.empty(2 * lead * run, dtype=torch.float32,
                             device=device)
-    status = lib.gather_fold(table, k, bf16, lead, run, out_ptr, out_stride,
-                             None if state is None else state.data_ptr(),
-                             hist_kernels._stream(device))
+    # K components read, the result written once
+    with roofline.timed("mesh_fold", device,
+                        lead * run * (k * (2 if bf16 else 4) + 4),
+                        lead * run):
+        status = lib.gather_fold(table, k, bf16, lead, run, out_ptr,
+                                 out_stride,
+                                 None if state is None else state.data_ptr(),
+                                 hist_kernels._stream(device))
     if status != 0:
         raise RuntimeError("mesh_fold launch failed: "
                            f"{lib.mesh_status_string(status).decode()}")
@@ -144,7 +150,11 @@ def gather_fold(comps, lead, run, out, out_stride=None):
     (i, e) its element offset + i * stride + e. Returns out."""
     out_stride = run if out_stride is None else out_stride
     if comps and comps[0][0].device.type == "cpu":
-        return gather_fold_plain(comps, lead, run, out, out_stride)
+        t0 = comps[0][0]
+        with roofline.timed("mesh_fold", t0.device,
+                            lead * run * (len(comps) * t0.element_size()
+                                          + 4), lead * run):
+            return gather_fold_plain(comps, lead, run, out, out_stride)
     device = _check_gather(comps, lead, run, out, out_stride)
     if device.type != "cuda":
         raise ValueError(f"gather_fold: unsupported device {device}")
@@ -164,7 +174,11 @@ def mesh_fold(comps):
     """The fixed-order compensated fold of the (K, ...) float32 or
     bfloat16 components -> (...) float32 (kahan_fold's `s - c`)."""
     if comps.device.type == "cpu":
-        return mesh_fold_plain(comps)
+        with roofline.timed("mesh_fold", comps.device,
+                            lambda: comps.numel() * comps.element_size()
+                            + 4 * comps[0].numel(),
+                            lambda: comps[0].numel()):
+            return mesh_fold_plain(comps)
     if comps.device.type != "cuda":
         raise ValueError(f"mesh_fold: unsupported device {comps.device}")
     _check(comps)

@@ -136,6 +136,10 @@ class CollectiveWatchdog:
                 watchdog_marker_path(self.marker_dir, self.rank), marker)
         _flight_dump("collective_watchdog", collective=name,
                      iteration=int(iteration), timeout_s=self.timeout_s)
+        # the abort lands in the run journal's timeline, where the
+        # supervisor's restart and the resume follow it
+        _journal_abort(EXIT_WATCHDOG, "collective_watchdog",
+                       collective=name, iteration=int(iteration))
         if self.on_expire is not None:
             self.on_expire(name, iteration)
             return
@@ -154,6 +158,7 @@ class CollectiveWatchdog:
             timer.daemon = True
             timer.start()
         start = time.monotonic()
+        _GUARDED.depth = getattr(_GUARDED, "depth", 0) + 1
         try:
             yield
         except CollectiveFailed as e:
@@ -162,6 +167,7 @@ class CollectiveWatchdog:
                 self._expire(name, self.iteration, cause=e)
             raise
         finally:
+            _GUARDED.depth -= 1
             if timer is not None:
                 timer.cancel()
             elapsed = time.monotonic() - start
@@ -227,6 +233,16 @@ class HeartbeatService:
             beat["done"] = True
         if self.last_snapshot is not None:
             beat["snapshot_iteration"] = int(self.last_snapshot[0])
+        if _BEAT_EXTRA is not None:
+            # the telemetry piggyback: this rank's cumulative collective
+            # wait (telemetry/comm_profile.py), for the peers' straggler
+            # deltas
+            try:
+                extra = _BEAT_EXTRA() or {}
+                beat.update({k: v for k, v in extra.items()
+                             if k not in beat})
+            except Exception:   # telemetry must never kill the beat
+                pass
         atomic_write_json(heartbeat_path(self.directory, self.rank), beat)
 
     def notify_snapshot(self, iteration, path):
@@ -304,6 +320,8 @@ class HeartbeatService:
                 dead, ", ".join(f"{ages[r]:.1f}s" for r in dead),
                 self.timeout_s, report or "n/a")
             _flight_dump("peer_lost", dead_ranks=[int(r) for r in dead])
+            _journal_abort(EXIT_PEER_LOST, "peer_lost",
+                           dead_ranks=[int(r) for r in dead])
             if self.on_peer_lost is not None:
                 self.on_peer_lost(dead)
             else:
@@ -350,6 +368,8 @@ class HeartbeatService:
 WATCHDOG = CollectiveWatchdog(0.0)
 _SERVICE = None
 _TIMING_SINK = None   # (collective name, elapsed s) -> None
+_BEAT_EXTRA = None    # () -> dict merged into each published beat
+_GUARDED = threading.local()   # depth of measuring guarded sections
 
 
 def bind_timing_sink(fn):
@@ -360,6 +380,23 @@ def bind_timing_sink(fn):
     _TIMING_SINK = fn
 
 
+def bind_beat_extra(fn):
+    """Merge `fn()`'s dict into every published beat; None unbinds."""
+    global _BEAT_EXTRA
+    _BEAT_EXTRA = fn
+
+
+def report_timing(name, elapsed):
+    """Hand one measured wait to the bound timing sink (a no-op without
+    one, or inside a guarded section, which times it already): the
+    process mesh reports its transfers through it."""
+    if _TIMING_SINK is not None and not getattr(_GUARDED, "depth", 0):
+        try:
+            _TIMING_SINK(name, elapsed)
+        except Exception:   # telemetry must never kill training
+            pass
+
+
 def _flight_dump(reason, **fields):
     """Best-effort blackbox dump (telemetry/disttrace.py FLIGHT) from an
     abort path: the dump is evidence, the abort proceeds regardless."""
@@ -367,6 +404,20 @@ def _flight_dump(reason, **fields):
         from ..telemetry import disttrace
         disttrace.FLIGHT.dump(reason, **fields)
     except Exception:   # evidence collection must never mask the abort
+        pass
+
+
+def _journal_abort(exit_code, reason, **fields):
+    """Best-effort `abort` record into the active run journal (no-op
+    without one): one O_APPEND line, safe from the watchdog or monitor
+    thread just before os._exit."""
+    try:
+        from ..telemetry import journal as run_journal
+        j = run_journal.current()
+        if j is not None:
+            j.event("abort", exit_code=int(exit_code), reason=reason,
+                    **fields)
+    except Exception:   # telemetry must never mask the abort itself
         pass
 
 
@@ -420,3 +471,4 @@ def shutdown(done=True):
         _SERVICE = None
     WATCHDOG.timeout_s = 0.0
     bind_timing_sink(None)
+    bind_beat_extra(None)

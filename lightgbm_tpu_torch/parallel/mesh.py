@@ -83,6 +83,7 @@ own stream (record_stream), so that their memory outlives the fold.
 import contextlib
 import math
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -91,7 +92,7 @@ import torch.distributed as dist
 
 from ..ops.mesh_kernels import gather_fold
 from ..utils.log import Log
-from . import distributed
+from . import distributed, heartbeat
 from .heartbeat import CollectiveFailed
 from .machines import partition_blocks, partition_features
 
@@ -453,8 +454,14 @@ class ProcessMesh:
     def _backend(self, op, name, out, send):
         """The backend's collective; its failure (a peer is gone) raises
         MeshPeerLost."""
+        t0 = time.monotonic() if heartbeat._TIMING_SINK is not None else None
         try:
             op(_wire(out), _wire(send))
+            if t0 is not None:
+                # the transport's own wait, apart from the guarded
+                # section around it (telemetry/comm_profile.py)
+                heartbeat.report_timing(f"mesh:{name}",
+                                        time.monotonic() - t0)
         except RuntimeError as e:
             raise MeshPeerLost(
                 f"collective {name!r} #{self._seq} failed on rank "
@@ -712,8 +719,8 @@ class CommPlan:
     after each tree the booster accounts `per_tree(iterations)`.
     `account(counters, n)` adds them into a dict of
     `collective_bytes_{kind}` counters and their total
-    `collective_bytes` (the port has no metrics registry yet: ROADMAP
-    queue 1 item 7)."""
+    `collective_bytes`, the learner's; the booster moves their growth
+    into its metrics registry (models/gbdt.py _account_collectives)."""
 
     def __init__(self):
         self.root = {k: 0 for k in COLLECTIVE_KINDS}

@@ -1,5 +1,5 @@
-"""Telemetry of the port's serving path (lightgbm_tpu/telemetry/, the
-part serving reads).
+"""Telemetry of the port (lightgbm_tpu/telemetry/): serving's and
+training's.
 
 - `registry.MetricsRegistry`: thread-safe counters, gauges and
   histograms; the serving /metricz accounting (serving/metrics.py) is
@@ -12,8 +12,13 @@ part serving reads).
   crash flight recorder.
 - `ledger.LEDGER`: set-up work a process pays before its first answer
   (kernel-library builds, per-bucket warm-up), and `sample_memory`.
-- `quality.tree_coeff_importance`: the "coeff" feature importance of
-  linear-leaf trees.
+- `quality`: the "coeff" feature importance of linear-leaf trees, the
+  split ledger and the booster's `QualityTracker` (quality records).
+- the training timeline: `journal` (the run journal, its schema, rank
+  merging), `trace.SpanTracer` (a booster's phases), `comm_profile`
+  (collective waits from the heartbeat timing sink), `history` (one
+  run_summary a run), `roofline` (kernel calls timed by CUDA events
+  against the card's copy peak) and `trainz` (the /trainz endpoint).
 
 stdlib and numpy only; importing it touches no device.
 """

@@ -66,6 +66,12 @@ calls, else from LIGHTGBM_TPU_RANK):
   collective until their watchdog (`collective_timeout_s`) fires.
 - ``heartbeat_stale`` (rank index; -1 = every rank): the matching
   rank's heartbeat publisher stops writing while training continues.
+- ``stale_ownership`` (rank index; -1 = every rank): the matching rank
+  derives its owned block range of a shared block store from a world
+  ONE LARGER than the real one, a stale ownership lease after an
+  elastic re-shard; the gang's cross-rank tiling check
+  (data/block_store.py, parallel/machines.py check_block_tiling) must
+  refuse to train rather than drop or double-count blocks.
 
 The one-shot kills are disarmed on a restarted attempt.
 """
@@ -361,6 +367,17 @@ def bitrot_block_if_armed(block_path_of, lo, hi):
         byte = f.read(1)
         f.seek(-1, os.SEEK_END)
         f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def stale_ownership_world(num_shards):
+    """`stale_ownership`: the world size the matching rank derives its
+    owned block range from, one larger than the real one (a lease from
+    before an elastic re-shard); the identity when unarmed or for other
+    ranks. Not disarmed on a restart: the stale view is a property of
+    the lease, and the tiling check must catch it on every attempt."""
+    if _rank_flag_fires("stale_ownership"):
+        return int(num_shards) + 1
+    return int(num_shards)
 
 
 def mangle_checkpoint_blob(blob):

@@ -181,12 +181,20 @@ def test_command_line_overrides_config_file(run):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["telemetry=true"], "item 7"),
+    (["telemetry=true", "profile=trace", "run_history=h.jsonl"], "item 7"),
 ], ids=["telemetry"])
 def test_later_slice_settings_name_their_item(argv, item):
-    with pytest.raises(NotImplementedError) as err:
-        Application(["task=train"] + argv, device=CPU)
-    assert "ROADMAP" in str(err.value) and item in str(err.value)
+    """The training telemetry of ROADMAP queue 1 item 7 has landed: the
+    CLI takes telemetry, profile and run_history as the JAX CLI does
+    (tests/test_torch_telemetry.py runs them); no CLI setting names
+    the item any more."""
+    app = Application(["task=train"] + argv, device=CPU)
+    japp = JApplication(["task=train"] + argv)
+    for key in ("telemetry", "profile", "run_history"):
+        assert getattr(app.config, key) == getattr(japp.config, key)
+    assert app.config.telemetry and app.config.profile == "trace"
+    import lightgbm_tpu_torch.application as application
+    assert item not in open(application.__file__).read()
 
 
 def test_main_reports_and_exits_1(tmp_path):

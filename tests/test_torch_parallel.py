@@ -44,6 +44,7 @@ import lightgbm_tpu as lgj
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.application import Application
 from lightgbm_tpu_torch.parallel import learners as tl
+from lightgbm_tpu_torch.utils.log import LightGBMError
 
 CPU = "cpu"
 ROUNDS = 3
@@ -393,6 +394,13 @@ def test_a_failing_shard_ends_training_with_its_error(data):
 @pytest.mark.parametrize("extra", [{"out_of_core": True}],
                          ids=["out_of_core"])
 def test_multi_process_settings_are_refused(data, extra):
+    """The out-of-core gang learner has landed (item 6b): it trains on a
+    process group's ranks over a shared block store
+    (tests/test_torch_elastic_ooc.py). Without a process group it needs
+    a gang dataset view, and a matrix spilled by one process is none:
+    both packages refuse it the same way."""
     params = dict(BASE, tree_learner="data", num_machines=2, **extra)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(LightGBMError, match="gang dataset view"):
         lgt.train(params, lgt.Dataset(*data, params=params), 1, device=CPU)
+    with pytest.raises(Exception, match="gang dataset view"):
+        lgj.train(dict(params), lgj.Dataset(*data, params=dict(params)), 1)

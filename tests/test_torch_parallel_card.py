@@ -34,12 +34,24 @@
   the collective's receive buffer: two ranks sharing the card over gloo
   with pinned host copies, and with more than one card min(cards, 4)
   ranks over NCCL (skips on one card).
+- the out-of-core gang learner (data/ooc_parallel.py) on two CLI ranks
+  sharing the card over gloo with pinned host copies, over one shared
+  block store: both ranks hold one model, every pass launched
+  hist_pair_fold for each owned block and mesh_fold once an exchange,
+  its trees have the serial out-of-core learner's leaf counts and its
+  training log loss is the serial learner's within 1e-3 relative. The
+  gang's fold order parts from the serial carry's in the last bit of
+  some histogram cells, so a near-tie split can part (on this fixture it
+  does: predictions move by up to 1.4e-3); tests/test_torch_elastic_ooc.py
+  holds the trees against the JAX package's gang learner on the CPU.
 
 They need a CUDA device and skip without one (`cuda` marker). They
 import neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_parallel_card.py -m cuda --noconftest
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -297,3 +309,75 @@ def test_process_gang_exchanges_are_the_local_mesh(transport):
                                else transport)
     assert {r["transport"] for r in reports} == {transport}
     td.check_mesh_reports(reports, w)
+
+
+def test_out_of_core_gang_on_the_card(tmp_path):
+    _need_card()
+    import ast
+    import subprocess
+    import sys
+    import test_torch_distributed as td
+    rng = np.random.RandomState(5)
+    n, f, rounds, leaves = 20000, 6, 3, 15
+    x = rng.rand(n, f)
+    y = ((x[:, 0] + x[:, 1] * x[:, 2]) > 0.9).astype(int)
+    csv = tmp_path / "tr.csv"
+    np.savetxt(csv, np.column_stack([y, x]), delimiter=",", fmt="%.6f")
+    mlist = td._machine_list(tmp_path / "mlist.txt", 2)
+    common = ["task=train", f"data={csv}", "objective=binary",
+              f"num_leaves={leaves}", f"num_iterations={rounds}",
+              "out_of_core=true", "block_rows=4096",
+              "device_row_chunk=4096", "hist_compaction=false",
+              "min_data_in_leaf=10", "metric_freq=0",
+              "enable_load_from_binary_file=false", "verbose=1"]
+    argv = common + ["tree_learner=data", "num_machines=2",
+                     f"machine_list_file={mlist}",
+                     f"output_model={tmp_path / 'gang.txt'}"]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, LIGHTGBM_TPU_RANK=str(r),
+                   CUDA_VISIBLE_DEVICES="0", PYTHONPATH=td.REPO)
+        env.pop("LIGHTGBM_TPU_FAULTS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch"] + argv, env=env,
+            cwd=str(tmp_path), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+        outs.append((p.returncode, out))
+    launches = []
+    for r, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {r}:\n{out[-3000:]}"
+        assert "transport=gloo+pinned" in out
+        line = [ln for ln in out.splitlines()
+                if "kernel launches in this process:" in ln][-1]
+        launches.append(ast.literal_eval(line.split(
+            "kernel launches in this process:", 1)[1].strip()))
+    # rank 0 owns 3 blocks, rank 1 two; a pass a split and the root
+    passes = rounds * leaves
+    assert [c["hist_pair_fold"] for c in launches] == [3 * passes,
+                                                       2 * passes]
+    assert [c["mesh_fold"] for c in launches] == [passes, passes]
+    params = {"objective": "binary", "num_leaves": leaves,
+              "min_data_in_leaf": 10, "hist_compaction": "false",
+              "device_row_chunk": 4096, "out_of_core": True,
+              "block_rows": 4096, "verbose": -1,
+              "enable_load_from_binary_file": False,
+              "ooc_dir": str(tmp_path / "serial_blocks")}
+    serial = lgt.train(params, lgt.Dataset(str(csv), params=params), rounds)
+    gang = lgt.Booster(model_file=str(tmp_path / "gang.txt"))
+    assert len(gang.gbdt.models) == len(serial.gbdt.models) == rounds
+    assert [t.num_leaves for t in gang.gbdt.models] == \
+        [t.num_leaves for t in serial.gbdt.models]
+
+    def logloss(p):
+        p = np.clip(p, 1e-15, 1 - 1e-15)
+        return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+    np.testing.assert_allclose(logloss(gang.predict(x)),
+                               logloss(serial.predict(x)), rtol=1e-3)
