@@ -25,6 +25,13 @@ $(TARGET): src_native/c_api_shim.cpp
 test-capi: $(TARGET)
 	$(PYTHON) -m pytest tests/test_c_api.py -q
 
+# the PyTorch port's C API (lightgbm_tpu_torch/native/c_api_shim.cpp),
+# built where the port builds it at first use
+# (lightgbm_tpu_torch/csrc/build/capi_<hash>/lib_lightgbm_torch.so)
+.PHONY: lib_lightgbm_torch
+lib_lightgbm_torch:
+	$(PYTHON) -c "from lightgbm_tpu_torch import native; print(native.build_library())"
+
 # static-analysis gate (graftlint, lightgbm_tpu/analysis/ — docs/
 # Static-Analysis.md): first the fixture corpus self-check (every rule
 # must flag its known-bad snippets and stay silent on its known-good

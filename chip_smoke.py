@@ -248,6 +248,24 @@ Phases (any failure exits non-zero and prints no result line):
    out-of-core round over the TSV's store) and mesh_fold (the gang's
    exchange on a 2-shard mesh) from CUDA event pairs, against the
    card's copy peak;
+9h. the public surfaces at full width, scikit-learn present or not
+   (the H100 machine has none): LGBMClassifier(device="cuda") with a
+   100k-row eval set and early stopping (the blockwise route) against
+   lgt.train with the parameters fit() built, the same valid set and
+   route (model text byte-equal, best iteration and history equal),
+   predict_proba on 100k rows; LGBMRanker on the lambdarank phase's
+   queries (the fused route: one lambdarank_pairs launch a replay); a
+   5-class LGBMClassifier on 250,000 rows; an LGBMRegressor with a
+   callable objective (the per-iteration loop). Then the C API through
+   ctypes in this process (lib_lightgbm_torch.so, built with g++ from
+   lightgbm_tpu_torch/native/c_api_shim.cpp): DatasetCreateFromMat on
+   the float32 matrix (one bin_dense launch) and FromCSR (the same
+   bins), BoosterCreate with device_predict=true, UpdateOneIter x 5
+   (model text byte-equal to lgt.train's per-iteration loop), one
+   UpdateOneIterCustom, ResetTrainingData onto a 500,000-row second
+   matrix, one more round, SaveModel (byte-equal to the Python API's
+   same calls), PredictForMat on 100,000 rows (tree_raw; bit-equal to
+   Booster.predict); each call's time beside the Python call's;
 10. multiclass: the bench matrix with its logit cut at the quintiles (5
    classes), 5 rounds (25 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
@@ -335,7 +353,9 @@ Phases (any failure exits non-zero and prints no result line):
     p50, stages on one row, pairs won, the tree_leaf dispatch's host
     microseconds;
 14. a `kernels` JSON line (launches from the fused phases, binary,
-    bundled, multiclass and lambdarank, for compact_rows and
+    bundled, multiclass and lambdarank, and the estimators' and C API's
+    runs of 9h, which also add to bin_dense, lambdarank_pairs and
+    tree_raw, for compact_rows and
     compacted_hist from the compacted phase's fused runs, binary and
     multiclass, and the bundled phase's, for the
     traversal kernels from the serving main path and the multiclass
@@ -6183,6 +6203,396 @@ def phase_telemetry(torch, lgt, hk, ds, tsv, work):
     return res
 
 
+# ------------------------------------------ estimators and the C API (9h)
+
+API_VALID_ROWS = 100_000
+API_PREDICT_ROWS = 100_000
+API_MC_ROWS = 250_000
+API_RESET_ROWS = 500_000
+API_EARLY_STOP = 2
+API_CALL_REPS = 2000
+API_PREDICT_TURNS = 6
+
+
+def api_counts(torch):
+    """Every kernel's launches since the last api_reset, by name."""
+    from lightgbm_tpu_torch.ops import bin_kernels, hist_kernels, \
+        traverse_kernels
+    torch.cuda.synchronize()
+    out = {}
+    for mod in (hist_kernels, traverse_kernels, bin_kernels):
+        out.update(mod.launch_counts())
+    return out
+
+
+def api_reset():
+    from lightgbm_tpu_torch.ops import bin_kernels, hist_kernels, \
+        traverse_kernels
+    for mod in (hist_kernels, traverse_kernels, bin_kernels):
+        mod.reset_launch_counts()
+
+
+def add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def synced_s(torch, fn):
+    """(fn's result, host seconds to a device sync after it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def recorded_train(sk):
+    """Replace the estimators' train() by one that records the
+    parameters fit() hands it; returns (the record, undo)."""
+    calls, real = [], sk.train
+
+    def train(params, *args, **kwargs):
+        calls.append(dict(params))
+        return real(params, *args, **kwargs)
+    sk.train = train
+
+    def undo():
+        sk.train = real
+    return calls, undo
+
+
+def estimator_cases(torch, lgt, x, y, logit, seed, launches):
+    """The estimators on the card, scikit-learn or not: a classifier with
+    an eval set and early stopping (blockwise) beside lgt.train with the
+    parameters fit() built, the same valid set and route (model text
+    byte-equal); a ranker on the lambdarank phase's queries and a 5-class
+    classifier (fast path); a regressor with a callable objective (the
+    per-iteration loop)."""
+    from lightgbm_tpu_torch import sklearn as sk
+    res = {"sklearn_installed": sk.SKLEARN_INSTALLED}
+    kw = dict(num_leaves=BENCH_PARAMS["num_leaves"], max_bin=MAX_BIN,
+              learning_rate=BENCH_PARAMS["learning_rate"],
+              n_estimators=NEW_ROUNDS, device=DEVICE)
+    other = {"hist_compaction": "false"}
+    xv, yv = make_valid(API_VALID_ROWS, seed)
+    xp = x[:API_PREDICT_ROWS]
+
+    calls, undo = recorded_train(sk)
+    try:
+        api_reset()
+        clf = lgt.LGBMClassifier(**kw)
+        _, fit_s = synced_s(torch, lambda: clf.fit(
+            x, y, eval_set=[(xv, yv)], early_stopping_rounds=API_EARLY_STOP,
+            verbose=False, other_params=other))
+        counts = api_counts(torch)
+    finally:
+        undo()
+    add_counts(launches, counts)
+    params = calls[0]
+    ev = {}
+    booster, train_s = synced_s(torch, lambda: lgt.train(
+        params, lgt.Dataset(x, y, max_bin=MAX_BIN, params=params),
+        NEW_ROUNDS, valid_sets=[lgt.Dataset(xv, yv, max_bin=MAX_BIN,
+                                            params=params)],
+        early_stopping_rounds=API_EARLY_STOP, evals_result=ev,
+        verbose_eval=False))
+    proba, predict_s = synced_s(torch, lambda: clf.predict_proba(xp))
+    text_equal = clf.booster().model_to_string() == booster.model_to_string()
+    acc = float(np.mean(clf.predict(xv) == yv))
+    res["classifier"] = {
+        "fit_s": fit_s, "train_s": train_s, "predict_proba_s": predict_s,
+        "best_iteration": clf.best_iteration,
+        "train_best_iteration": booster.best_iteration,
+        "model_text_equal": text_equal, "history_equal":
+            clf.evals_result_ == ev, "valid_accuracy": acc,
+        "fused_runner": bool(clf.booster().gbdt._fused_cache),
+        "launches": counts}
+    log(f"api: LGBMClassifier fit {fit_s:.2f} s against lgt.train "
+        f"{train_s:.2f} s (same route), best iteration "
+        f"{clf.best_iteration}, model text equal {text_equal}, valid "
+        f"accuracy {acc:.4f}, predict_proba {predict_s:.3f} s, launches "
+        f"{counts}")
+    check(text_equal, "api: LGBMClassifier's model differs from lgt.train's")
+    check(clf.best_iteration == booster.best_iteration and
+          clf.evals_result_ == ev, "api: another best iteration or history")
+    check(res["classifier"]["fused_runner"],
+          "api: the classifier's fit did not take the blockwise route")
+    check(proba.shape == (len(xp), 2) and np.isfinite(proba).all()
+          and np.allclose(proba.sum(1), 1.0), "api: bad predict_proba")
+    check(acc > 0.7, f"api: valid accuracy {acc}")
+    check(counts["bin_dense"] >= 1 and counts["masked_hist"] > 0
+          and counts["frontier_hist"] > 0,
+          f"api: classifier launches {counts}")
+    del clf, booster
+
+    label, counts_q = rank_queries(logit, seed)
+    api_reset()
+    rank = lgt.LGBMRanker(**kw)
+    _, fit_s = synced_s(torch, lambda: rank.fit(
+        x, label, group=counts_q, eval_at=list(RANK_EVAL_AT), verbose=False,
+        other_params=dict(other, max_position=20)))
+    counts = api_counts(torch)
+    add_counts(launches, counts)
+    score = rank.predict(xp)
+    first = np.concatenate([[0], np.cumsum(counts_q)[:-1]])
+    whole = first[first + counts_q <= len(xp)]
+    top = [label[s + int(np.argmax(score[s:s + c]))]
+           for s, c in zip(whole, counts_q[:len(whole)])]
+    res["ranker"] = {"fit_s": fit_s, "launches": counts,
+                     "top_relevance": float(np.mean(top)),
+                     "mean_relevance": float(label[:len(xp)].mean()),
+                     "queries": len(counts_q),
+                     "queries_scored": len(whole)}
+    log(f"api: LGBMRanker fit {fit_s:.2f} s on {len(counts_q)} queries, "
+        f"top document's relevance {res['ranker']['top_relevance']:.3f} "
+        f"against {res['ranker']['mean_relevance']:.3f}, launches {counts}")
+    check(rank.booster().current_iteration() == NEW_ROUNDS,
+          "api: the ranker stopped early")
+    check(counts["lambdarank_pairs"] == NEW_ROUNDS + 1,
+          f"api: ranker launches {counts} (the warm-up step and a replay "
+          f"a round)")
+    check(res["ranker"]["top_relevance"] > res["ranker"]["mean_relevance"],
+          "api: the ranker's top documents are no better than the mean")
+    del rank
+
+    xm, ym = x[:API_MC_ROWS], multiclass_labels(logit)[:API_MC_ROWS]
+    api_reset()
+    mc = lgt.LGBMClassifier(**kw)
+    _, fit_s = synced_s(torch, lambda: mc.fit(xm, ym, verbose=False,
+                                               other_params=other))
+    counts = api_counts(torch)
+    add_counts(launches, counts)
+    proba = mc.predict_proba(xp)
+    acc = float(np.mean(mc.predict(xp) == multiclass_labels(logit)[
+        :API_PREDICT_ROWS]))
+    res["multiclass"] = {"rows": API_MC_ROWS, "fit_s": fit_s,
+                         "launches": counts, "accuracy": acc}
+    log(f"api: LGBMClassifier (5 classes, {API_MC_ROWS} rows) fit "
+        f"{fit_s:.2f} s, accuracy {acc:.4f}, launches {counts}")
+    check(mc.n_classes_ == MC_CLASSES and proba.shape == (len(xp), MC_CLASSES)
+          and np.allclose(proba.sum(1), 1.0), "api: bad multiclass proba")
+    check(len(mc.booster().gbdt.models) == NEW_ROUNDS * MC_CLASSES,
+          "api: the multiclass fit stopped early")
+    check(acc > 0.35, f"api: multiclass accuracy {acc}")
+    del mc
+
+    def l2(y_true, y_pred):
+        return y_pred - y_true, np.ones(len(y_true))
+
+    api_reset()
+    reg = lgt.LGBMRegressor(objective=l2, **kw)
+    _, fit_s = synced_s(torch, lambda: reg.fit(x, logit, verbose=False,
+                                                other_params=other))
+    counts = api_counts(torch)
+    add_counts(launches, counts)
+    mse = float(np.mean((reg.predict(xp) - logit[:len(xp)]) ** 2))
+    res["custom_objective"] = {"fit_s": fit_s, "launches": counts,
+                               "mse": mse,
+                               "variance": float(np.var(logit[:len(xp)]))}
+    log(f"api: LGBMRegressor with a callable objective fit {fit_s:.2f} s, "
+        f"mse {mse:.4f} against variance "
+        f"{res['custom_objective']['variance']:.4f}, launches {counts}")
+    check(mse < res["custom_objective"]["variance"],
+          "api: the custom objective did not fit")
+    check(not reg.booster().gbdt._fused_cache,
+          "api: a callable objective took the fused path")
+    return res
+
+
+def call_us(fn, reps=API_CALL_REPS):
+    """Median host microseconds of a call, over `reps` calls in batches
+    of 100."""
+    times = []
+    for _ in range(reps // 100):
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e4)
+    return float(np.median(times))
+
+
+def capi_cases(torch, lgt, x, y, seed, work, launches):
+    """The C API through ctypes in this process (lib_lightgbm_torch.so,
+    its bridge on the card): DatasetCreateFromMat (bin_dense) and the
+    same data through DatasetCreateFromCSR (host binning: the same bins);
+    BoosterCreate (device_predict=true), UpdateOneIter x NEW_ROUNDS, one
+    UpdateOneIterCustom, ResetTrainingData onto a second matrix, one more
+    round, SaveModel, PredictForMat on 100,000 rows (tree_raw). The same
+    calls through the Python API in turns with the C API's: model texts
+    byte-equal (after the first rounds also to lgt.train's per-iteration
+    loop), predictions bit-equal; each call's time beside the Python
+    call's. The launch counts cover both APIs' calls."""
+    import ctypes
+
+    import scipy.sparse as sp
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.config import str2map
+
+    t0 = time.perf_counter()
+    lib = native.load_library(device=DEVICE)
+    res = {"build_s": time.perf_counter() - t0,
+           "library": os.path.relpath(native.library_path())}
+    params = dict(BENCH_PARAMS, device_predict="true")
+    pstr = " ".join(f"{k}={v}" for k, v in params.items()).encode()
+    params = str2map(pstr.decode())
+    f32 = 0
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+
+    def ok(ret):
+        check(ret == 0, f"api: C API call failed: "
+              f"{lib.LGBM_GetLastError().decode()}")
+
+    def from_mat(mat, label, reference=None):
+        h = ctypes.c_void_p()
+        ok(lib.LGBM_DatasetCreateFromMat(
+            ptr(mat), f32, ctypes.c_int32(mat.shape[0]),
+            ctypes.c_int32(mat.shape[1]), 1, f"max_bin={MAX_BIN}".encode(),
+            reference, ctypes.byref(h)))
+        ok(lib.LGBM_DatasetSetField(h, b"label", ptr(label),
+                                    ctypes.c_int64(len(label)), f32))
+        return h
+
+    def payload(h):
+        return ctypes.cast(h, ctypes.py_object).value
+
+    api_reset()
+    train, res["create_from_mat_s"] = synced_s(torch, lambda: from_mat(x, y))
+    mat_counts = api_counts(torch)
+    py_ds, res["python_dataset_s"] = synced_s(torch, lambda: lgt.Dataset(
+        x, y, params={"max_bin": MAX_BIN}).construct(DEVICE))
+    csr = sp.csr_matrix(x)
+    h_csr = ctypes.c_void_p()
+    _, res["create_from_csr_s"] = synced_s(torch, lambda: ok(
+        lib.LGBM_DatasetCreateFromCSR(
+            ptr(csr.indptr.astype(np.int64)), 3, ptr(csr.indices),
+            ptr(csr.data), f32, ctypes.c_int64(len(csr.indptr)),
+            ctypes.c_int64(csr.nnz), ctypes.c_int64(x.shape[1]),
+            f"max_bin={MAX_BIN}".encode(), None, ctypes.byref(h_csr))))
+    bins_equal = bool(np.array_equal(payload(h_csr).core.bins,
+                                     payload(train).core.bins)
+                      and np.array_equal(py_ds._core.bins,
+                                         payload(train).core.bins))
+    ok(lib.LGBM_DatasetFree(h_csr))
+    del csr
+    res["bins_equal"] = bins_equal
+    log(f"api: DatasetCreateFromMat {res['create_from_mat_s']:.2f} s "
+        f"(Dataset.construct {res['python_dataset_s']:.2f} s), "
+        f"FromCSR {res['create_from_csr_s']:.2f} s, bins equal "
+        f"{bins_equal}, launches {mat_counts}")
+    check(bins_equal, "api: the C API's datasets bin differently")
+    check(mat_counts["bin_dense"] == 1,
+          f"api: DatasetCreateFromMat launched {mat_counts}")
+
+    x2, y2 = make_valid(API_RESET_ROWS, seed + 3)
+    train2 = from_mat(x2, y2, reference=train)
+    py_ds2 = lgt.Dataset(x2, y2, reference=py_ds)
+    counts_total = api_counts(torch)
+
+    # the same calls through the C API and through the Python API, a
+    # round of each in turns (the C API first in even rounds), then the
+    # custom round, the reset and one more round
+    api_reset()
+    b = ctypes.c_void_p()
+    ok(lib.LGBM_BoosterCreate(train, pstr, ctypes.byref(b)))
+    pb = lgt.Booster(params, py_ds)
+    fin = ctypes.c_int()
+    rounds = {"capi": [], "python": []}
+    steps = {"capi": lambda: ok(lib.LGBM_BoosterUpdateOneIter(
+        b, ctypes.byref(fin))), "python": pb.update}
+    for r in range(NEW_ROUNDS):
+        for side in (("capi", "python") if r % 2 == 0
+                     else ("python", "capi")):
+            rounds[side].append(1e3 * synced_s(torch, steps[side])[1])
+    first_model = os.path.join(work, "capi_first.txt")
+    ok(lib.LGBM_BoosterSaveModel(b, -1, first_model.encode()))
+    pred = np.zeros(len(y), np.float32)
+    n = ctypes.c_int64()
+    ok(lib.LGBM_BoosterGetPredict(b, 0, ctypes.byref(n), ptr(pred)))
+    grad = (pred - y).astype(np.float32)
+    hess = (pred * (1.0 - pred)).astype(np.float32)
+    ok(lib.LGBM_BoosterUpdateOneIterCustom(b, ptr(grad), ptr(hess),
+                                           ctypes.byref(fin)))
+    pb.update(fobj=lambda preds, data: (grad, hess))
+    _, res["reset_s"] = synced_s(torch, lambda: ok(
+        lib.LGBM_BoosterResetTrainingData(b, train2)))
+    ok(lib.LGBM_BoosterUpdateOneIter(b, ctypes.byref(fin)))
+    pb.update(train_set=py_ds2)
+    model = os.path.join(work, "capi_model.txt")
+    ok(lib.LGBM_BoosterSaveModel(b, -1, model.encode()))
+    with open(model) as f:
+        text_equal = f.read() == pb.model_to_string()
+    xp = np.ascontiguousarray(x[:API_PREDICT_ROWS])
+    out = np.zeros(len(xp))
+
+    def capi_predict():
+        ok(lib.LGBM_BoosterPredictForMat(
+            b, ptr(xp), f32, ctypes.c_int32(len(xp)),
+            ctypes.c_int32(xp.shape[1]), 1, 0, ctypes.c_int64(-1),
+            ctypes.byref(n), ptr(out)))
+        return out.copy()
+    predict = {"capi": [], "python": []}
+    answers = {}
+    predicts = {"capi": capi_predict, "python": lambda: pb.predict(xp)}
+    for r in range(API_PREDICT_TURNS):
+        for side in (("capi", "python") if r % 2 == 0
+                     else ("python", "capi")):
+            answers[side], s = synced_s(torch, predicts[side])
+            predict[side].append(s)
+    capi_counts = api_counts(torch)
+    add_counts(counts_total, capi_counts)
+    add_counts(launches, counts_total)
+    pred_equal = bool(np.array_equal(answers["capi"], answers["python"]))
+
+    # lgt.train's per-iteration loop on the same data and parameters
+    ref = lgt.train(params, py_ds, NEW_ROUNDS, verbose_eval=False,
+                    callbacks=[lambda env: None])
+    with open(first_model) as f:
+        first_equal = f.read() == ref.model_to_string()
+    del ref
+    it = ctypes.c_int64()
+    res.update(
+        launches=counts_total, capi_round_ms=rounds["capi"],
+        python_round_ms=rounds["python"], capi_predict_s=predict["capi"],
+        python_predict_s=predict["python"],
+        first_model_equal_train=first_equal,
+        model_text_equal=text_equal, predictions_bit_equal=pred_equal,
+        current_iteration_us=call_us(lambda: lib.
+                                     LGBM_BoosterGetCurrentIteration(
+                                         b, ctypes.byref(it))),
+        python_current_iteration_us=call_us(pb.current_iteration))
+    log(f"api: rounds in turns, C API "
+        f"{[round(v, 1) for v in rounds['capi']]} ms against Booster.update "
+        f"{[round(v, 1) for v in rounds['python']]} ms; model text equal to "
+        f"lgt.train's {first_equal}, after the custom round and the reset "
+        f"{text_equal}; PredictForMat on {len(xp)} rows "
+        f"{[round(v, 4) for v in predict['capi']]} s against "
+        f"Booster.predict {[round(v, 4) for v in predict['python']]} s, "
+        f"bit-equal {pred_equal}; a call {res['current_iteration_us']:.2f} "
+        f"us against {res['python_current_iteration_us']:.2f} us; reset "
+        f"{res['reset_s']:.2f} s; launches {capi_counts}")
+    check(first_equal, "api: the C API's model differs from lgt.train's")
+    check(text_equal, "api: the C API's model differs from the Python API's "
+          "after the custom round and the reset")
+    check(pred_equal, "api: PredictForMat differs from Booster.predict")
+    check(capi_counts.get("tree_raw", 0) >= 1,
+          f"api: PredictForMat launched {capi_counts}")
+    ok(lib.LGBM_BoosterFree(b))
+    for h in (train, train2):
+        ok(lib.LGBM_DatasetFree(h))
+    return res
+
+
+def phase_api(torch, lgt, x, y, logit, seed, work):
+    """9h: the estimators and the C API at full width (the bench matrix,
+    BENCH_PARAMS, NEW_ROUNDS rounds). Returns the report and the launch
+    counts of every kernel in the phase."""
+    launches = {}
+    res = estimator_cases(torch, lgt, x, y, logit, seed, launches)
+    res["capi"] = capi_cases(torch, lgt, x, y, seed, work, launches)
+    res["launches"] = launches
+    return res
+
+
 def kernel_line(case, launches, source, replaces):
     """One entry of the `kernels` JSON line."""
     return {"name": case["name"], "route": "cuda", "source": source,
@@ -6347,6 +6757,11 @@ def main():
                                               dist_work)
         report["telemetry"]["phase_s"] = time.time() - t0
         log(f"telemetry phase: {report['telemetry']['phase_s']:.1f} s")
+        t0 = time.time()
+        report["api"] = phase_api(torch, lgt, x, y, logit, args.seed,
+                                  dist_work)
+        report["api"]["phase_s"] = time.time() - t0
+        log(f"api phase: {report['api']['phase_s']:.1f} s")
         del booster, part
         t0 = time.time()
         report["multiclass"] = phase_multiclass(torch, lgt, hk, ds, x,
@@ -6395,13 +6810,19 @@ def main():
                                 ("multiclass", "fused_partitioned"),
                                 ("lambdarank", "fused")))
 
+    def api_launches(name):
+        """A kernel's launches in the estimators' and the C API's runs."""
+        return report["api"]["launches"].get(name, 0)
+
     hist_src = "lightgbm_tpu_torch/csrc/hist.cu"
     kernels = [
         # each kernel at its main-path shape, launches from the fused
-        # paths
-        kernel_line(cases[0], fused_launches("masked_hist"), hist_src,
+        # paths and the estimators' and C API's runs
+        kernel_line(cases[0], fused_launches("masked_hist")
+                    + api_launches("masked_hist"), hist_src,
                     "lightgbm_tpu/ops/pallas_hist.py:62"),
-        kernel_line(cases[1], fused_launches("frontier_hist"), hist_src,
+        kernel_line(cases[1], fused_launches("frontier_hist")
+                    + api_launches("frontier_hist"), hist_src,
                     "lightgbm_tpu/ops/pallas_hist.py:81"),
         kernel_line(seg_cases[0], fused_launches("seg_hist"),
                     "lightgbm_tpu_torch/csrc/seg_hist.cu",
@@ -6440,7 +6861,7 @@ def main():
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:76 "
                     "(XLA device_traverse, no Pallas counterpart)"),
         kernel_line(serve_cases["tree_raw"], serve_counts["tree_raw"]
-                    + mc_serve.get("tree_raw", 0),
+                    + mc_serve.get("tree_raw", 0) + api_launches("tree_raw"),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:110 "
                     "(XLA device_traverse, no Pallas counterpart)")]
     # linear-leaf serving's value stage, launches from the linear phase's
@@ -6451,14 +6872,16 @@ def main():
         "and _lintransformed_kernel :183; no Pallas counterpart)"))
     # the dataset's binning kernel, launches from the bench's construction
     kernels.append(kernel_line(
-        bin_cases[0], report["ingest"]["launches"]["bin_dense"],
+        bin_cases[0], report["ingest"]["launches"]["bin_dense"]
+        + api_launches("bin_dense"),
         "lightgbm_tpu_torch/csrc/bin.cu",
         "lightgbm_tpu/io/dataset.py:156 (XLA _bin_dense_on_device, no "
         "Pallas counterpart)"))
     # the LambdaRank pair gradients, launches from the fused lambdarank
     # run; the JAX package computes them as XLA
     kernels.append(kernel_line(
-        report["lambdarank"]["gradients"], fused_launches("lambdarank_pairs"),
+        report["lambdarank"]["gradients"], fused_launches("lambdarank_pairs")
+        + api_launches("lambdarank_pairs"),
         "lightgbm_tpu_torch/csrc/rank.cu",
         "lightgbm_tpu/objectives/rank_device.py:54 (XLA "
         "make_lambdarank_gradfn, no Pallas counterpart)"))

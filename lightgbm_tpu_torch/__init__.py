@@ -19,7 +19,10 @@ frontier histogram engines (the JAX learner's selection off the TPU:
 compacted above 4,096 rows by default) or the leaf-contiguous builder
 (partitioned_build=true), the fused
 multi-iteration trainer (one boosting iteration captured as a CUDA
-graph and replayed), continued training, cv, prediction and serving.
+graph and replayed), continued training, cv, prediction and serving,
+the scikit-learn estimators (sklearn.py; they run without scikit-learn
+too) and the C API (capi_bridge.py behind lib_lightgbm_torch.so, built
+from native/c_api_shim.cpp at first use).
 ROADMAP.md lists the modules still to port.
 """
 
@@ -33,4 +36,16 @@ __version__ = "0.1.0"
 
 __all__ = ["Dataset", "Booster", "LightGBMError", "train", "cv",
            "print_evaluation", "record_evaluation", "reset_parameter",
-           "early_stopping", "EarlyStopException"]
+           "early_stopping", "EarlyStopException", "LGBMModel",
+           "LGBMRegressor", "LGBMClassifier", "LGBMRanker"]
+
+_ESTIMATORS = ("LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker")
+
+
+def __getattr__(name):
+    # the estimators load sklearn.py, and scikit-learn with it where it
+    # is installed, at their first use, not with the package
+    if name in _ESTIMATORS:
+        from . import sklearn
+        return getattr(sklearn, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

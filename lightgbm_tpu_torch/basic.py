@@ -16,7 +16,7 @@ parent's bins (`subset`, for cv), and continued training: a predictor
 attached to a Dataset seeds its init scores and the new Booster merges
 the predictor's trees (basic.py:182-390, 1227-1231). Custom objectives
 run through `update(fobj=...)`, custom metrics through
-`eval*(feval=...)`.
+`eval*(feval=...)`; `update(train_set=...)` replaces the training data.
 """
 
 import numpy as np
@@ -405,11 +405,16 @@ class Booster:
         self.gbdt.reset_config(self.config, self.objective)
 
     # ------------------------------------------------------------- training
-    def update(self, fobj=None):
+    def update(self, train_set=None, fobj=None):
         """One boosting iteration (basic.py:1304-1341); with `fobj`, its
         (grad, hess) of the transformed train predictions and the
-        training Dataset, class-major, drive the iteration. Returns
-        True when no further splits are possible."""
+        training Dataset, class-major, drive the iteration. A
+        `train_set` other than the current one first replaces the
+        training data (GBDT.reset_training_data: bins aligned with the
+        old data's, the same predictor, a new objective on its labels).
+        Returns True when no further splits are possible."""
+        if train_set is not None and train_set is not self._train_dataset:
+            self._replace_train_set(train_set)
         if fobj is None:
             return self.gbdt.train_one_iter(is_eval=False)
         grad, hess = fobj(self.gbdt.get_predict_at(0), self._train_dataset)
@@ -420,6 +425,20 @@ class Booster:
             raise ValueError("Length of grad and hess should be equal with "
                              "num_data * num_class")
         return self.gbdt.train_one_iter(grad, hess, is_eval=False)
+
+    def _replace_train_set(self, train_set):
+        """New training data without a round (c_api.cpp
+        ResetTrainingData): built on the booster's device with the same
+        predictor, the objective made anew on its labels."""
+        if train_set._predictor is not self._init_predictor:
+            raise LightGBMError("Replace training data failed, you should "
+                                "use same predictor for these data")
+        core = train_set.construct(self.gbdt.device)._core
+        self._train_dataset = train_set
+        if self.objective is not None:
+            self.objective = self._make_objective(core)
+        self.gbdt.reset_training_data(self.config, core, self.objective,
+                                      self._create_metrics(core))
 
     def rollback_one_iter(self):
         """Drop the last iteration's trees and their scores

@@ -7,8 +7,9 @@ query-unit bagging (_bagging :769-832), the hooks its subclasses DART
 (models/dart.py, _score_for_boosting) and GOSS (models/goss.py, in-bag
 weights from the gradients) override, linear leaves (linear_tree=true:
 _fit_linear_tree refits each leaf on the host in float64, :961-994),
-continued training (merge_from), parameter resets, metric output with
-early stopping, prediction and the model text (save_model_to_string /
+continued training (merge_from), parameter and training-data resets
+(reset_config, reset_training_data), metric output with early
+stopping, prediction and the model text (save_model_to_string /
 load_model_from_string :1837-1945; format version 2 when a tree is
 linear), and the training state of a checkpoint
 (capture_training_state / restore_training_state :1969-2195; a
@@ -418,11 +419,32 @@ class GBDT:
 
     # ------------------------------------------------------------------ init
     def init(self, config, train_data, objective, training_metrics=()):
-        """gbdt.cpp:42-115 (first init only; resetting data is a later
-        slice)."""
-        config.check_slice()
+        """gbdt.cpp:42-115: the first training data, through
+        reset_training_data."""
         self.iter = 0
         self.num_class = config.num_class
+        self.config = None
+        self.train_data = None
+        self.reset_training_data(config, train_data, objective,
+                                 training_metrics)
+
+    def reset_training_data(self, config, train_data, objective,
+                            training_metrics=()):
+        """gbdt.cpp:42-115 (lightgbm_tpu/models/gbdt.py:390): a new config
+        and objective, and new training data binned with the old data's
+        mappers. The learner is initialised on the data (on the card the
+        compacted engine's scratch is made for its row count); the bag,
+        the row -> query map and the fused runners go, since a captured
+        graph holds the old tensors' addresses and the old objective. On
+        new data a new ScoreUpdater starts from its init score and this
+        booster's own trees are replayed onto it (merged init trees are
+        covered by the init score, gbdt.cpp:77-79)."""
+        config.check_slice()
+        data_changed = train_data is not self.train_data
+        if (data_changed and self.train_data is not None
+                and not self.train_data.check_align(train_data)):
+            Log.fatal("cannot reset training data, since new training data "
+                      "has different bin mappers")
         self.config = config
         self.early_stopping_round = config.early_stopping_round
         self.shrinkage_rate = config.learning_rate
@@ -431,17 +453,28 @@ class GBDT:
         if objective is not None and objective.name == "binary":
             self.sigmoid = config.sigmoid
         self.apply_predict_config(config)
-        self.tree_learner = create_tree_learner(config.tree_learner, config,
-                                                self.device)
+        self._bag_rows = self._bag_window = None
+        self._row_query = None
+        self._fused_cache = {}
+        if self.tree_learner is None:
+            self.tree_learner = create_tree_learner(config.tree_learner,
+                                                    config, self.device)
+        else:
+            self.tree_learner.config = config
         self.tree_learner.init(train_data)
-        self.training_metrics = list(training_metrics)
-        self.train_score_updater = ScoreUpdater(train_data, self.num_class,
-                                                self.device)
-        self.num_data = train_data.num_data
-        self.max_feature_idx = train_data.num_total_features - 1
-        self.label_idx = train_data.label_idx
-        self.feature_names = list(train_data.feature_names)
-        self.train_data = train_data
+        if data_changed:
+            self.training_metrics = list(training_metrics)
+            self.train_score_updater = ScoreUpdater(
+                train_data, self.num_class, self.device)
+            first = self.num_init_iteration * self.num_class
+            self.train_score_updater.add_score_by_trees(
+                self.models[first:first + self.iter * self.num_class],
+                self.num_class)
+            self.num_data = train_data.num_data
+            self.max_feature_idx = train_data.num_total_features - 1
+            self.label_idx = train_data.label_idx
+            self.feature_names = list(train_data.feature_names)
+            self.train_data = train_data
         # the out-of-core learner feeds the prefetcher's counters in
         self.tree_learner.metrics = self.metrics
         self._setup_telemetry(config)
@@ -465,24 +498,9 @@ class GBDT:
 
     def reset_config(self, config, objective):
         """A new config and objective on the same training data
-        (gbdt.py:390-441 with the data unchanged): the learner takes the
-        config, the bagging and fused caches go (a graph holds the old
-        learner's shapes and the old objective)."""
-        config.check_slice()
-        self.config = config
-        self.early_stopping_round = config.early_stopping_round
-        self.shrinkage_rate = config.learning_rate
-        self.objective = objective
-        self.sigmoid = -1.0
-        if objective is not None and objective.name == "binary":
-            self.sigmoid = config.sigmoid
-        self.apply_predict_config(config)
-        self._bag_rows = self._bag_window = None
-        self._fused_cache = {}
-        self.tree_learner.config = config
-        self.tree_learner.init(self.train_data)
-        self.tree_learner.metrics = self.metrics
-        self._setup_telemetry(config)
+        (gbdt.py:390-441 with the data unchanged)."""
+        self.reset_training_data(config, self.train_data, objective,
+                                 self.training_metrics)
 
     def merge_from(self, other):
         """Continued training (gbdt.h:44-61): the other booster's trees go
@@ -784,12 +802,15 @@ class GBDT:
         Collective, so every rank captures at a snapshot point even
         though only rank 0 writes the file."""
         from ..parallel.distributed import host_allgather
-        local = self.train_score_updater.score.cpu().numpy().astype(
-            np.float32, copy=False)
         counts = self._allgather_row_counts()
-        padded = np.zeros((local.shape[0], int(counts.max())), np.float32)
-        padded[:, :local.shape[1]] = local
         with heartbeat.collective_guard("snapshot_score_gather"):
+            # the score's copy waits on the device work the last
+            # collectives queued
+            local = self.train_score_updater.score.cpu().numpy().astype(
+                np.float32, copy=False)
+            padded = np.zeros((local.shape[0], int(counts.max())),
+                              np.float32)
+            padded[:, :local.shape[1]] = local
             blocks = host_allgather(padded)
         return np.concatenate([blocks[r][:, :int(c)]
                                for r, c in enumerate(counts)], axis=1)
@@ -1803,8 +1824,10 @@ class GBDT:
         return "\n".join(lines) + "\n"
 
     def save_model_to_file(self, num_iteration, filename):
-        with open(filename, "w") as f:
-            f.write(self.save_model_to_string(num_iteration))
+        # crash-atomic: a kill mid-save never leaves a truncated model
+        # where a valid one stood (utils/checkpoint.py)
+        from ..utils.checkpoint import atomic_write_text
+        atomic_write_text(filename, self.save_model_to_string(num_iteration))
         profile = self._training_profile()
         if profile is not None:
             # the training-time baseline distribution travels with the

@@ -15,8 +15,11 @@ setup(
     packages=find_packages(include=["lightgbm_tpu", "lightgbm_tpu.*",
                                     "lightgbm_tpu_torch",
                                     "lightgbm_tpu_torch.*"]),
-    # the port's CUDA sources, compiled with nvcc at first use
-    package_data={"lightgbm_tpu_torch": ["csrc/*.cu"]},
+    # the port's CUDA sources, compiled with nvcc at first use, its C
+    # API shim, compiled with g++ at first use, and its lint baseline
+    package_data={"lightgbm_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                         "native/*.cpp",
+                                         "analysis/lint_baseline.json"]},
     python_requires=">=3.10",
     install_requires=["numpy", "pandas", "jax"],
     # lightgbm_tpu_torch, the PyTorch/CUDA port, needs torch instead
