@@ -266,6 +266,34 @@ Phases (any failure exits non-zero and prints no result line):
    matrix, one more round, SaveModel (byte-equal to the Python API's
    same calls), PredictForMat on 100,000 rows (tree_raw; bit-equal to
    Booster.predict); each call's time beside the Python call's;
+9i. the fleet (run after 13, whose 100-round model is v1): a
+   challenger v2 trained on the same bench data at learning rate 0.05,
+   100 rounds on the fused masked trainer; tree_leaf on v2 bit for bit
+   its plain version at the 64-row request shape; a registry
+   (lightgbm_tpu_torch.fleet) with a run journal; v1 published,
+   promoted and served by make_server in process on the card, with a
+   registry follower (attach_follower, polled by hand); 8 client threads
+   POST the same 64 rows in a loop while v2 is published and promoted
+   and follower.poll_once() swaps it in: no response other than 200,
+   every response bit for bit one version's answers from a fresh
+   CompiledPredictor of that version (the answers a coalesced batch of 1
+   to 8 copies gives each copy) and never the other's, every request
+   sent after the flip v2's, cold_dispatches 0 after the flip, /metricz
+   model_version 2 and swap_count 1, v2's served answers within the
+   serving phase's bound of the host f64 traversal; swap seconds (load
+   and warm), the challenger's warmup_s, client p50/p99 before, during
+   and after the swap; a rollback (v1's bytes back); a corrupt v3 (a
+   byte flipped after publish) refused while v1 serves; launch counts
+   of all that read from zero; then `python -m lightgbm_tpu_torch.serve
+   --registry DIR --follow --poll-s 0.2` as a process on the card and
+   `python -m lightgbm_tpu_torch.fleet promote --version 2`: the
+   process's /metricz shows v2 within 10 polls past its own swap
+   seconds, its answers v2's; a FleetAggregator over the in-process
+   server and a /trainz endpoint of the challenger's booster: the
+   replica's request count and p99 equal the server's /metricz, the
+   Prometheus page parses; the telemetry phase's journal and the
+   registry's exported with lightgbm_tpu_torch.telemetry.export and
+   validated (promote and rollback instants present);
 10. multiclass: the bench matrix with its logit cut at the quintiles (5
    classes), 5 rounds (25 trees) per-iteration, fused with the masked
    builder (model text against the per-iteration one) and with the
@@ -323,7 +351,7 @@ Phases (any failure exits non-zero and prints no result line):
    rounds with each builder: categorical splits, the same first tree,
    predict against the host traversal;
 13. serving (lightgbm_tpu_torch.serving): the bench model trained 100
-    rounds (fused masked) and frozen from its model text with
+    rounds (fused masked), saved (9i's v1) and frozen from its model text with
     CompiledPredictor.from_model_file (max_batch_rows 4096) in f32 and
     bf16; tree_leaf bit for bit against its plain version on the card
     over 100k rows with NaN, +-inf, +-1e10 and -0.5 planted, also on a
@@ -358,8 +386,8 @@ Phases (any failure exits non-zero and prints no result line):
     tree_raw, for compact_rows and
     compacted_hist from the compacted phase's fused runs, binary and
     multiclass, and the bundled phase's, for the
-    traversal kernels from the serving main path and the multiclass
-    serving, for bin_dense from the bench's construction, for
+    traversal kernels from the serving main path, the multiclass
+    serving and the fleet phase, for bin_dense from the bench's construction, for
     lambdarank_pairs from the fused lambdarank run, for tree_lin_raw
     from the linear phase's serving, for hist_pair_fold from the
     out-of-core runs and the gang's ranks, for mesh_fold from the
@@ -3382,14 +3410,14 @@ def compare_predictors(torch, pred, base, rows, pairs=10):
     return out
 
 
-def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
+def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed, work):
     """The serving path at full width: the bench model trained 100
-    rounds (fused masked trainer), frozen from its model text in f32 and
-    bf16 (max_batch_rows 4096); the traversal kernels held against their
+    rounds (fused masked trainer), saved as `work`/bench_model.txt (the
+    fleet phase's v1) and frozen from its model text in f32 and bf16
+    (max_batch_rows 4096); the traversal kernels held against their
     plain versions and timed; bench.py serving_probe's numbers; the HTTP
     server. Launch counts of the serving main path (probe + HTTP) are
-    read from zero."""
-    import tempfile
+    read from zero. Returns (results, kernel cases, model path)."""
     from lightgbm_tpu_torch.models.gbdt import GBDT
     from lightgbm_tpu_torch.ops import traverse_kernels as tk
     from lightgbm_tpu_torch.serving import CompiledPredictor
@@ -3402,22 +3430,21 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
     res["train_s"] = time.perf_counter() - t0
     check(len(booster.gbdt.models) == SERVE_ROUNDS,
           "the serving model stopped early")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "bench_model.txt")
-        booster.save_model(path)
-        t0 = time.perf_counter()
-        pred = CompiledPredictor.from_model_file(path, max_batch_rows=SERVE_BUCKET)
-        res["warmup_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bf16 = CompiledPredictor.from_model_file(
-            path, max_batch_rows=SERVE_BUCKET, serving_precision="bf16")
-        res["warmup_bf16_s"] = time.perf_counter() - t0
-        host = GBDT(device="cpu")
-        with open(path) as f:
-            host.load_model_from_string(f.read())
-        if BASELINE is not None:
-            base_pred = baseline_module("serving").CompiledPredictor \
-                .from_model_file(path, max_batch_rows=SERVE_BUCKET)
+    path = os.path.join(work, "bench_model.txt")
+    booster.save_model(path)
+    t0 = time.perf_counter()
+    pred = CompiledPredictor.from_model_file(path, max_batch_rows=SERVE_BUCKET)
+    res["warmup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf16 = CompiledPredictor.from_model_file(
+        path, max_batch_rows=SERVE_BUCKET, serving_precision="bf16")
+    res["warmup_bf16_s"] = time.perf_counter() - t0
+    host = GBDT(device="cpu")
+    with open(path) as f:
+        host.load_model_from_string(f.read())
+    if BASELINE is not None:
+        base_pred = baseline_module("serving").CompiledPredictor \
+            .from_model_file(path, max_batch_rows=SERVE_BUCKET)
     host.force_host_predict = True
     res.update(num_trees=pred.num_trees, depth=pred.depth,
                node_slots=int(pred._forest.sf.shape[1]),
@@ -3506,7 +3533,448 @@ def phase_serving(torch, lgt, ds, x, cat_booster, cat_x, timer, seed):
           f"predict differs from the host path: {res['vs_host_path']}")
     check(res["bf16_vs_exact"] <= bf16.accuracy_bound,
           "bf16 predict outside its accuracy bound")
-    return res, cases
+    return res, cases, path
+
+
+# ------------------------------------------------------------ the fleet (9i)
+
+FLEET_CLIENTS = 8
+FLEET_ROWS = 64
+FLEET_WARM_REQUESTS = 40      # responses before the swap
+FLEET_AFTER_S = 1.0           # clients keep running after the flip
+FLEET_POLL_S = 0.2            # the CLI follower's poll interval
+FLEET_CLI_POLLS = 10          # the CLI follower must swap within these
+FLEET_CHALLENGER_LR = 0.05
+
+
+def fleet_answers(pred, rows, clients=FLEET_CLIENTS):
+    """The bytes a response for `rows` may carry from `pred`: the batcher
+    scores a coalesced batch of m copies of the request (m = 1 ..
+    clients) in one predict, whose f64 product's last bit follows the
+    batch's row count, so every copy's slice of every such batch."""
+    out = set()
+    n = len(rows)
+    for m in range(1, clients + 1):
+        got = pred.predict(np.tile(rows, (m, 1)))
+        out.update(got[j * n:(j + 1) * n].tobytes() for j in range(m))
+    return out
+
+
+def latency_ms(samples):
+    """p50/p99 (ms) and count of (start, end) host-clock pairs."""
+    lat = 1e3 * np.array([t1 - t0 for t0, t1 in samples])
+    if not len(lat):
+        return {"requests": 0}
+    return {"requests": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def fleet_traffic(url, rows, swap):
+    """FLEET_CLIENTS threads POST `rows` to /predict in a loop; once
+    FLEET_WARM_REQUESTS answers are in, `swap()` runs, and the clients
+    keep going FLEET_AFTER_S more. Returns [(start, end, status, answer
+    bytes)] and the swap's (start, end, result)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    body = json.dumps({"rows": rows.tolist()}).encode()
+    stop = threading.Event()
+    done = threading.Condition()
+    entries = []
+
+    def client():
+        while not stop.is_set():
+            req = urllib.request.Request(
+                url + "/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    status, out = r.status, np.asarray(
+                        json.loads(r.read())["predictions"]).tobytes()
+            except urllib.error.HTTPError as e:
+                status, out = e.code, b""
+            except OSError as e:  # a refused or torn connection
+                status, out = repr(e), b""
+            with done:
+                entries.append((t0, time.perf_counter(), status, out))
+                done.notify_all()
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        with done:
+            check(done.wait_for(lambda: len(entries) >= FLEET_WARM_REQUESTS,
+                                timeout=120), "fleet: the clients got no "
+                  "answers before the swap")
+        t0 = time.perf_counter()
+        result = swap()
+        t1 = time.perf_counter()
+        time.sleep(FLEET_AFTER_S)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+    check(not any(t.is_alive() for t in threads), "fleet: a client hung")
+    return list(entries), (t0, t1, result)
+
+
+def serve_cli_follow(reg_dir, work, rows, want, swap_s):
+    """`python -m lightgbm_tpu_torch.serve --registry DIR --follow` as one
+    process on the card: it serves CURRENT (v1); `python -m
+    lightgbm_tpu_torch.fleet promote --version 2` moves the pointer, and
+    its /metricz must show version 2 within FLEET_CLI_POLLS polls (plus
+    the process's own swap seconds, from its hot_swap log line); one
+    request then gives v2's answers bit for bit."""
+    import re
+    import urllib.request
+    from lightgbm_tpu_torch.fleet import ModelRegistry
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "lightgbm_tpu_torch.serve", "--registry",
+           reg_dir, "--follow", "--poll-s", str(FLEET_POLL_S), "--port", "0"]
+    if DEVICE != "cuda":
+        cmd += ["--device", DEVICE]
+    log_path = os.path.join(work, "fleet_serve.log")
+    res = {}
+    with open(log_path, "w+") as log_f:
+        t_start = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                cwd=root)
+        try:
+            ready = None
+            while ready is None and time.perf_counter() - t_start < 300:
+                check(proc.poll() is None, "fleet: the serve process died: "
+                      + open(log_path).read()[-2000:])
+                time.sleep(0.05)
+                ready = re.search(r"^SERVING (\S+)$", open(log_path).read(),
+                                  re.M)
+            check(ready is not None, "fleet: the serve process never served")
+            url = ready.group(1)
+            res["startup_s"] = time.perf_counter() - t_start
+
+            def metricz():
+                with urllib.request.urlopen(url + "/metricz",
+                                            timeout=60) as r:
+                    return json.loads(r.read())
+
+            res["version_before"] = metricz()["model_version"]
+            t0 = time.perf_counter()
+            promote = subprocess.run(
+                [sys.executable, "-m", "lightgbm_tpu_torch.fleet", "promote",
+                 "--registry", reg_dir, "--version", "2"],
+                capture_output=True, text=True, timeout=300, cwd=root)
+            check(promote.returncode == 0,
+                  f"fleet promote failed: {promote.stderr[-2000:]}")
+            res["promote_cli_s"] = time.perf_counter() - t0
+            # the pointer's own wall time: the follower may swap before
+            # the promote command has exited
+            t_pointer = ModelRegistry(reg_dir).current()["ts"]
+            mz = metricz()
+            while mz["model_version"] != 2 and time.time() - t_pointer < 120:
+                time.sleep(0.02)
+                mz = metricz()
+            res["seen_s"] = time.time() - t_pointer
+            check(mz["model_version"] == 2,
+                  "fleet: the serve process never swapped to v2")
+            res["metricz"] = {k: mz[k] for k in (
+                "model_version", "swap_count", "cold_dispatches",
+                "warmup_s")}
+            req = urllib.request.Request(
+                url + "/predict", data=json.dumps(
+                    {"rows": rows.tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = np.asarray(json.loads(r.read())["predictions"])
+            res["answers_v2"] = got.tobytes() == want
+        finally:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        res["exit_code"] = proc.returncode
+        log_f.seek(0)
+        text = log_f.read()
+    m = re.search(r"hot_swap version=2 .*?swap_s=([0-9.]+)", text)
+    check(m is not None, "fleet: the serve process logged no hot_swap to "
+          "v2: " + text[-2000:])
+    res["swap_s"] = float(m.group(1))
+    # seen_s also holds the promote command's exit where the swap was
+    # done before it: an upper bound on the follower's delay
+    res["detect_s"] = res["seen_s"] - res["swap_s"]
+    log(f"fleet CLI follower: startup {res['startup_s']:.1f}s, promote "
+        f"command {res['promote_cli_s']:.1f}s, v2 seen {res['seen_s']:.3f}s "
+        f"after the pointer moved (its swap "
+        f"{res['swap_s']:.3f}s, detection {res['detect_s']:.3f}s; in "
+        f"process {swap_s:.3f}s), metricz {res['metricz']}, answers v2 "
+        f"{res['answers_v2']}, exit {res['exit_code']}")
+    check(res["version_before"] == 1,
+          f"fleet: the serve process started on v{res['version_before']}")
+    check(res["detect_s"] <= FLEET_CLI_POLLS * FLEET_POLL_S,
+          f"fleet: the follower took {res['detect_s']:.3f}s past its "
+          f"swap, over {FLEET_CLI_POLLS} polls of {FLEET_POLL_S}s")
+    check(res["metricz"]["swap_count"] == 1
+          and res["metricz"]["cold_dispatches"] == 0,
+          f"fleet: the serve process's metricz {res['metricz']}")
+    check(res["answers_v2"], "fleet: the serve process's answers are not "
+          "v2's")
+    check(res["exit_code"] == 0, "fleet: the serve process did not drain")
+    return res
+
+
+def phase_fleet(torch, lgt, ds, x, v1_path, telemetry_dir, work, card):
+    """The fleet at full width (9i): the serving phase's 100-round model
+    is v1, a challenger trained on the same data at learning rate 0.05 is
+    v2. A registry with a journal; v1 served in process on the card with
+    a registry follower; 8 clients of 64-row requests while v2 is
+    published, promoted and swapped in by poll_once; a rollback; a
+    corrupt v3 refused; the CLI follower as a process; the aggregator
+    over the server and a /trainz endpoint; the journals exported."""
+    from lightgbm_tpu_torch.fleet import ModelRegistry
+    from lightgbm_tpu_torch.fleet.hotswap import attach_follower
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.ops import traverse_kernels as tk
+    from lightgbm_tpu_torch.serving import CompiledPredictor, make_server
+    from lightgbm_tpu_torch.telemetry import aggregate, export, prometheus
+    from lightgbm_tpu_torch.telemetry import trainz
+    from lightgbm_tpu_torch.telemetry.journal import RunJournal
+    import threading
+    import urllib.request
+
+    res = {}
+    t0 = time.perf_counter()
+    challenger = lgt.train(dict(BENCH_PARAMS, learning_rate=FLEET_CHALLENGER_LR),
+                           ds, SERVE_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    res["challenger_train_s"] = time.perf_counter() - t0
+    check(len(challenger.gbdt.models) == SERVE_ROUNDS,
+          "fleet: the challenger stopped early")
+    v2_path = os.path.join(work, "challenger.txt")
+    challenger.save_model(v2_path)
+    rows = np.ascontiguousarray(x[:FLEET_ROWS], dtype=np.float32)
+
+    # the answers each version may give (fresh predictors on the card),
+    # the kernel against its plain version at the request's shape, and
+    # the challenger's plain version: the host f64 traversal
+    refs = {}
+    for v, path in ((1, v1_path), (2, v2_path)):
+        pred = CompiledPredictor.from_model_file(
+            path, max_batch_rows=SERVE_BUCKET, device=DEVICE)
+        refs[v] = {"pred": pred, "lone": pred.predict(rows).tobytes(),
+                   "answers": fleet_answers(pred, rows)}
+    res["leaf_check"] = check_leaves(torch, tk, refs[2]["pred"], rows,
+                                     "challenger, 64 rows")
+    v2_pred = refs[2]["pred"]
+    host = GBDT(device="cpu")
+    with open(v2_path) as f:
+        host.load_model_from_string(f.read())
+    host.force_host_predict = True
+    v2_host = np.asarray(host.predict(rows), np.float64).ravel()
+    res["v1_v2_max_diff"] = float(np.abs(
+        refs[1]["pred"].predict(rows) - v2_pred.predict(rows)).max())
+    res["coalesced_forms"] = {v: len(r["answers"]) for v, r in refs.items()}
+    check(res["v1_v2_max_diff"] > 1e-3,
+          f"fleet: v1 and v2 answer alike ({res['v1_v2_max_diff']:.3g})")
+
+    jdir = os.path.join(work, "fleet_journal")
+    journal = RunJournal(jdir, rank=0, source="fleet")
+    reg_dir = os.path.join(work, "registry")
+    registry = ModelRegistry(reg_dir, journal=journal)
+    v1 = registry.publish(v1_path, metadata={"source": "9i serving model"})
+    registry.promote(v1, reason="9i incumbent")
+
+    tk.reset_launch_counts()
+    srv = make_server(CompiledPredictor.from_model_file(
+        registry.model_path(v1), max_batch_rows=SERVE_BUCKET, device=DEVICE),
+        host="127.0.0.1", port=0, max_wait_ms=2.0, model_version=v1)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    follower = attach_follower(srv, registry, poll_s=3600)
+    swapper = follower.swapper
+    tz = None
+    agg = None
+
+    def post():
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps({"rows": rows.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return np.asarray(json.loads(r.read())["predictions"])
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def swap():
+        v2 = registry.publish(v2_path, metadata={
+            "source": "9i challenger", "parent_version": v1})
+        registry.promote(v2, reason="9i challenger")
+        return follower.poll_once()
+
+    try:
+        before = post()
+        res["lone_v1_equal"] = before.tobytes() == refs[1]["lone"]
+        entries, (s0, s1, swapped) = fleet_traffic(url, rows, swap)
+        res["swap"] = {"poll_once": swapped, "poll_once_s": s1 - s0,
+                       "swap_s": swapper.stats["last_swap_s"],
+                       "warmup_s": swapper.stats["last_warmup_s"]}
+        statuses = [e[2] for e in entries]
+        which = [(e[3] in refs[1]["answers"], e[3] in refs[2]["answers"])
+                 for e in entries]
+        late = [w for e, w in zip(entries, which) if e[0] > s1]
+        res["traffic"] = {
+            "requests": len(entries),
+            "not_200": len([c for c in statuses if c != 200]),
+            "v1": sum(a and not b for a, b in which),
+            "v2": sum(b and not a for a, b in which),
+            "neither_or_both": sum(a == b for a, b in which),
+            "after_flip_not_v2": sum(w != (False, True) for w in late),
+            "before": latency_ms([e[:2] for e in entries if e[1] < s0]),
+            "during": latency_ms([e[:2] for e in entries
+                                  if e[0] < s1 and e[1] > s0]),
+            "after": latency_ms([e[:2] for e in entries if e[0] > s1])}
+        mz = get("/metricz")
+        res["metricz_after_swap"] = {k: mz[k] for k in (
+            "model_version", "swap_count", "cold_dispatches", "error_count",
+            "request_count", "batch_count")}
+        res["cold_dispatches_after_swap"] = \
+            srv.predictor.stats["cold_dispatches"]
+        served_v2 = [np.frombuffer(e[3]).ravel() for e in entries
+                     if e[3] in refs[2]["answers"]]
+        res["v2_vs_host"] = {
+            "max_abs_diff": float(max(np.abs(a - v2_host).max()
+                                      for a in served_v2))
+            if served_v2 else None, "tol": coalesced_tol(v2_pred)}
+        t, sw = res["traffic"], res["swap"]
+        log(f"fleet on {card}: swap (load + warm) {sw['swap_s']:.3f}s, "
+            f"poll_once {sw['poll_once_s']:.3f}s, challenger warmup_s "
+            f"{sw['warmup_s']:.3f}; {t['requests']} responses (v1 {t['v1']}, "
+            f"v2 {t['v2']}, neither or both {t['neither_or_both']}, not 200 "
+            f"{t['not_200']}); client latency before {t['before']}, during "
+            f"{t['during']}, after {t['after']}; metricz "
+            f"{res['metricz_after_swap']}; v2 vs the host f64 traversal "
+            f"{res['v2_vs_host']}; challenger trained in "
+            f"{res['challenger_train_s']:.1f}s, v1/v2 differ by "
+            f"{res['v1_v2_max_diff']:.3g}")
+        check(res["lone_v1_equal"], "fleet: v1's served answer differs")
+        check(swapped == 2, f"fleet: poll_once returned {swapped}")
+        check(t["not_200"] == 0, f"fleet: {t['not_200']} requests failed "
+              f"({sorted(set(map(str, statuses)))})")
+        check(t["neither_or_both"] == 0 and t["v1"] > 0 and t["v2"] > 0,
+              f"fleet: responses by version {t}")
+        check(t["after_flip_not_v2"] == 0,
+              "fleet: a request sent after the flip was not scored by v2")
+        check(res["cold_dispatches_after_swap"] == 0
+              and res["metricz_after_swap"]["cold_dispatches"] == 0,
+              "fleet: the swapped-in predictor dispatched cold")
+        m = res["metricz_after_swap"]
+        check(m["model_version"] == 2 and m["swap_count"] == 1
+              and m["error_count"] == 0, f"fleet: metricz {m}")
+        check(res["v2_vs_host"]["max_abs_diff"] is not None
+              and res["v2_vs_host"]["max_abs_diff"]
+              <= res["v2_vs_host"]["tol"],
+              f"fleet: v2 against the host path {res['v2_vs_host']}")
+
+        # rollback: v1's bytes are back
+        registry.rollback(reason="9i drill")
+        res["rollback"] = {"poll_once": follower.poll_once(),
+                           "byte_equal": post().tobytes() == before.tobytes()}
+        # a corrupt v3 (a byte flipped after publish) is refused while v1
+        # serves
+        v3 = registry.publish(v2_path, metadata={"source": "9i corrupt"})
+        with open(registry.model_path(v3), "r+b") as f:
+            f.seek(100)
+            b = f.read(1)
+            f.seek(100)
+            f.write(bytes([b[0] ^ 0xFF]))
+        registry._write_pointer(v3, registry.current(), "9i corrupt drill")
+        res["corrupt"] = {"poll_once": follower.poll_once(),
+                          "failed_swaps": swapper.stats["failed_swaps"],
+                          "model_version": srv.model_version,
+                          "byte_equal": post().tobytes() == before.tobytes()}
+        res["launches"] = tk.launch_counts()
+        log(f"fleet: rollback {res['rollback']}, corrupt v3 "
+            f"{res['corrupt']}, main path launches {res['launches']}")
+        check(res["rollback"] == {"poll_once": 1, "byte_equal": True},
+              f"fleet: rollback {res['rollback']}")
+        check(res["corrupt"] == {"poll_once": None, "failed_swaps": 1,
+                                 "model_version": 1, "byte_equal": True},
+              f"fleet: corrupt v3 {res['corrupt']}")
+        check(res["launches"].get("tree_leaf", 0) > 0,
+              f"fleet: the main path launched no tree_leaf: "
+              f"{res['launches']}")
+
+        # the real entry points: the serve CLI follows, the fleet CLI
+        # promotes
+        registry.promote(v1, reason="9i CLI drill")
+        res["cli"] = serve_cli_follow(reg_dir, work, rows, refs[2]["lone"],
+                                      sw["swap_s"])
+
+        # the aggregator over this server and a /trainz endpoint
+        tz = trainz.start_trainz(trainz.build_sources(
+            iteration_fn=challenger.current_iteration), port=0)
+        check(tz is not None, "fleet: /trainz did not bind")
+        agg = aggregate.FleetAggregator(
+            [f"serve=127.0.0.1:{srv.server_address[1]}",
+             f"train=127.0.0.1:{tz.server_address[1]}"], poll_s=3600)
+        snap = agg.poll_once()
+        mz = get("/metricz")
+        replica = snap["targets"][f"127.0.0.1:{srv.server_address[1]}"]
+        fleet = snap["fleet"]
+        page = agg.prometheus()
+        res["aggregator"] = {
+            "replica_requests": replica["data"]["request_count"],
+            "replica_p99_ms": replica["data"]["latency_p99_ms"],
+            "metricz_requests": mz["request_count"],
+            "metricz_p99_ms": mz["latency_p99_ms"], "fleet": fleet,
+            "prometheus_samples": len(prometheus.parse(page)),
+            "prometheus_lint": prometheus.lint_names(page)}
+        a = res["aggregator"]
+        log(f"fleet aggregator: {a}")
+        check(replica["ok"] and a["replica_requests"] == a["metricz_requests"]
+              and a["replica_p99_ms"] == a["metricz_p99_ms"],
+              f"fleet: the aggregator's replica differs from /metricz: {a}")
+        check(fleet["serve_replicas"] == 1 and fleet["train_ranks"] == 1
+              and fleet["unreachable"] == 0
+              and fleet["request_count"] == a["metricz_requests"],
+              f"fleet: the fleet view {fleet}")
+        check(a["prometheus_samples"] > 0 and not a["prometheus_lint"],
+              f"fleet: the aggregator's page {a['prometheus_lint']}")
+    finally:
+        if agg is not None:
+            agg.stop()
+        trainz.stop_trainz(tz)
+        follower.stop()
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        thread.join(10)
+        journal.close()
+
+    # the journals through the port's exporter
+    res["export"] = {}
+    for name, src in (("telemetry", telemetry_dir), ("registry", jdir)):
+        trace, out = export.export_trace(src, os.path.join(
+            work, f"trace_{name}.json"))
+        events = trace["traceEvents"]
+        res["export"][name] = {
+            "events": len(events), "errors": export.validate_trace(trace),
+            "instants": sorted({e["name"] for e in events
+                                if e.get("ph") == "i"})}
+    log(f"fleet export: {res['export']}")
+    check(not any(e["errors"] for e in res["export"].values()),
+          f"fleet: an exported trace is invalid: {res['export']}")
+    check({"promote v1", "promote v2", "rollback v1"}
+          <= set(res["export"]["registry"]["instants"]),
+          f"fleet: the registry trace's instants "
+          f"{res['export']['registry']['instants']}")
+    return res
 
 
 # ------------------------------------------------- GOSS, DART, linear leaves
@@ -6784,9 +7252,16 @@ def main():
         report["linear"]["phase_s"] = time.time() - t0
         report["categorical"], cat_booster, cat_x = phase_categorical(
             torch, lgt, args.seed)
-        serving, serve_cases = phase_serving(torch, lgt, ds, x, cat_booster,
-                                             cat_x, timer, args.seed)
+        serving, serve_cases, serve_model = phase_serving(
+            torch, lgt, ds, x, cat_booster, cat_x, timer, args.seed,
+            dist_work)
         report["serving"] = serving
+        t0 = time.time()
+        report["fleet"] = phase_fleet(
+            torch, lgt, ds, x, serve_model,
+            os.path.join(dist_work, "telemetry"), dist_work, card)
+        report["fleet"]["phase_s"] = time.time() - t0
+        log(f"fleet phase: {report['fleet']['phase_s']:.1f} s on {card}")
         del ds, cat_booster
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -6850,18 +7325,23 @@ def main():
                     "lightgbm_tpu/ops/histogram.py:573 (XLA "
                     "compacted_histograms; off the TPU the host route "
                     "_compacted_bincount :527; no Pallas counterpart)")]
-    # the serving path's kernels, launches from its requests; the JAX
-    # package runs this walk as XLA under the jitted serving kernels
+    # the serving path's kernels, launches from its requests and the
+    # fleet phase's (the hot swap's warm-up and the requests around it);
+    # the JAX package runs this walk as XLA under the jitted serving
+    # kernels
     trav_src = "lightgbm_tpu_torch/csrc/traverse.cu"
     serve_counts = report["serving"]["launches"]
     mc_serve = report["multiclass"]["serving_launches"]
+    fleet_counts = report["fleet"]["launches"]
     kernels += [
         kernel_line(serve_cases["tree_leaf"], serve_counts["tree_leaf"]
-                    + mc_serve.get("tree_leaf", 0),
+                    + mc_serve.get("tree_leaf", 0)
+                    + fleet_counts.get("tree_leaf", 0),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:76 "
                     "(XLA device_traverse, no Pallas counterpart)"),
         kernel_line(serve_cases["tree_raw"], serve_counts["tree_raw"]
-                    + mc_serve.get("tree_raw", 0) + api_launches("tree_raw"),
+                    + mc_serve.get("tree_raw", 0) + api_launches("tree_raw")
+                    + fleet_counts.get("tree_raw", 0),
                     trav_src, "lightgbm_tpu/serving/compiled_model.py:110 "
                     "(XLA device_traverse, no Pallas counterpart)")]
     # linear-leaf serving's value stage, launches from the linear phase's

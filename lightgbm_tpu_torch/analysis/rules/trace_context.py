@@ -11,7 +11,7 @@ exactly the trace that no longer stitches. The fleet router forwards
 the context, the replicas continue it, the load generator originates
 it; this rule keeps the invariant as new hops appear.
 
-Scope: ``lightgbm_tpu_torch/fleet/`` (still to be ported) and
+Scope: ``lightgbm_tpu_torch/fleet/`` and
 ``lightgbm_tpu_torch/serving/`` — the processes that forward requests
 to other processes. Flagged calls:
 

@@ -15,7 +15,7 @@ multiplies the number of outbound calls, the invariant gets a lint.
 
 Scope: ``lightgbm_tpu_torch/serving/``, ``lightgbm_tpu_torch/fleet/``
 and ``lightgbm_tpu_torch/telemetry/aggregate.py`` — the processes that
-talk to other processes (the last two are still to be ported). Flagged calls:
+talk to other processes. Flagged calls:
 
 - ``urlopen(...)`` without a ``timeout=`` kwarg (or third positional);
 - ``HTTPConnection(...)`` / ``HTTPSConnection(...)`` without a

@@ -300,8 +300,8 @@ class Config:
     # phases line up with XLA device traces (`profile=1` workflow)
     telemetry_jax_annotations: bool = False
     # dump the tracer's recent-span ring into the journal at close (a
-    # `spans` record) so `tools/export_trace.py` renders fine-grained
-    # per-thread slices next to the journal timeline
+    # `spans` record) so `python -m lightgbm_tpu_torch.telemetry.export`
+    # renders fine-grained per-thread slices next to the journal timeline
     telemetry_trace: bool = False
     # warn at end of run for histogram kernels whose live achieved
     # bytes/s (telemetry/roofline.py) fall below this fraction of the
@@ -335,7 +335,7 @@ class Config:
     # abort (exit 117/118), SIGQUIT and unhandled serving exceptions
     blackbox: bool = True
     # documented default port for the fleet aggregator CLI
-    # (`python -m lightgbm_tpu.telemetry.aggregate --port`); multi-rank
+    # (`python -m lightgbm_tpu_torch.telemetry.aggregate --port`); multi-rank
     # CLI runs offset `telemetry_port` by rank so every rank of a
     # single-host gang is scrapable (application.py)
     aggregate_port: int = 0

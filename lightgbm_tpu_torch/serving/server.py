@@ -28,8 +28,10 @@ batcher (one predictor snapshot per coalesced batch — a response is
 never scored by two model versions). SIGTERM drains: connections keep
 being ACCEPTED but new POSTs bounce with a retryable 503 while in-flight
 requests finish (bounded by --drain-timeout-s); only then does the
-listener close and the process exit. Following a fleet model registry
-(`--registry`, `--follow`) comes with the port's fleet slice.
+listener close and the process exit. `--registry DIR` serves the
+registry's CURRENT version (fleet/registry.py, manifest verified) and
+`--follow` hot-swaps to every later promotion or rollback
+(fleet/hotswap.py).
 
 Resilience: an `X-Deadline-Ms` header carries the client's remaining
 budget — requests that expire in the queue are dropped BEFORE dispatch
@@ -776,11 +778,12 @@ def main(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8099)
     ap.add_argument("--registry", default="",
-                    help="fleet model-registry directory: not yet in "
-                         "lightgbm_tpu_torch (ROADMAP queue 1 item 7)")
+                    help="fleet model-registry directory: serve its "
+                         "CURRENT version (the model argument is the "
+                         "fallback while nothing is promoted)")
     ap.add_argument("--follow", action="store_true",
-                    help="poll the registry and hot-swap (with "
-                         "--registry; not yet in lightgbm_tpu_torch)")
+                    help="poll the registry and hot-swap to every "
+                         "promotion or rollback (needs --registry)")
     ap.add_argument("--poll-s", type=float, default=2.0,
                     help="registry poll interval for --follow")
     ap.add_argument("--serving-precision", default="f32",
@@ -865,15 +868,27 @@ def main(argv=None):
                     help="diverging-row count that triggers the "
                          "structured skew_warn log (mirrors skew_warn)")
     args = ap.parse_args(argv)
-    if args.registry or args.follow:
-        ap.error("--registry/--follow need the fleet model registry, "
-                 "which lightgbm_tpu_torch does not have yet (ROADMAP "
-                 "queue 1 item 7): serve a model file")
+    if args.follow and not args.registry:
+        ap.error("--follow requires --registry")
 
     t0 = time.time()
+    registry = None
     model_path, model_version = args.model, None
+    if args.registry:
+        from ..fleet.registry import ModelRegistry
+        registry = ModelRegistry(args.registry)
+        cur = registry.current()
+        if cur is not None:
+            model_version = int(cur["version"])
+            # same CRC discipline as every follower hot-swap: bit rot
+            # in the live version must fail the boot, not get served
+            registry.verify(model_version)
+            model_path = registry.model_path(model_version)
+            Log.info("serving registry %s CURRENT v%d (manifest "
+                     "verified)", args.registry, model_version)
     if not model_path:
-        ap.error("no model: pass a model file")
+        ap.error("no model: pass a model file or --registry with a "
+                 "promoted version")
     predictor = CompiledPredictor.from_model_file(
         model_path, num_iteration=args.num_iteration,
         max_batch_rows=args.max_batch_rows,
@@ -912,6 +927,8 @@ def main(argv=None):
         # SIGQUIT -> blackbox without killing the process: live
         # inspection of a replica that looks wedged
         disttrace.FLIGHT.install_sigquit()
+    # the swap path re-applies this knob to every challenger
+    # (fleet/hotswap.py HotSwapper)
     srv.num_iteration = args.num_iteration
     Log.info("serving %s on http://%s:%d (%d trees, %s on %s, load+warm "
              "%.2fs, %d kernel libraries found built)", model_path,
@@ -932,6 +949,13 @@ def main(argv=None):
     serve_thread = threading.Thread(target=srv.serve_forever,
                                     daemon=True)
     serve_thread.start()
+    follower = None
+    if args.follow:
+        from ..fleet.hotswap import attach_follower
+        follower = attach_follower(srv, registry, poll_s=args.poll_s,
+                                   serving_precision=args.serving_precision)
+        Log.info("following registry %s every %.1fs", args.registry,
+                 args.poll_s)
     try:
         while not stop.wait(0.2):
             pass
@@ -943,6 +967,8 @@ def main(argv=None):
         # hanging on an un-accepted socket), let in-flight requests
         # finish, THEN stop the listener and tear down
         srv.draining = True
+        if follower is not None:
+            follower.stop()
         drained = drain(srv, timeout_s=args.drain_timeout_s)
         srv.shutdown()
         serve_thread.join(timeout=10)

@@ -1,6 +1,6 @@
 """Fault injection (port of lightgbm_tpu/utils/faults.py): the training
-fire points of the checkpoint and out-of-core paths, and the serving
-chaos hooks.
+fire points of the checkpoint and out-of-core paths, the serving
+chaos hooks and the model registry's.
 
 Activation is env- or API-driven:
 
@@ -25,6 +25,10 @@ global still applies to every server that has no override:
 - ``wedge_batcher`` (flag): the MicroBatcher worker parks before taking
   work until the fault clears — the queue grows and admission control
   must shed; clearing the fault un-wedges without a restart.
+- ``corrupt_registry_version`` (count): the next k
+  `ModelRegistry.verify` calls raise RegistryError as if the manifest
+  checksums failed (fleet/registry.py) — a torn publish the follower
+  must refuse to swap.
 
 Training faults (models/gbdt.py, utils/checkpoint.py,
 data/prefetch.py, data/block_store.py):

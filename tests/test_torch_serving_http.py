@@ -665,7 +665,11 @@ def test_serve_cli_on_the_cpu_without_jax(served):
     assert "IMPORTED []" in rest, rest[-2000:]
 
 
-def test_serve_cli_flags_and_registry_error(served):
+def test_serve_cli_flags_and_registry_error(tmp_path, capsys):
+    """The CLI's flags, and its refusals: `--follow` without
+    `--registry`, and a registry with nothing promoted and no model
+    file to fall back on."""
+    from lightgbm_tpu_torch.serving.server import main
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch.serve",
                         "--help"], capture_output=True, text=True,
@@ -673,11 +677,15 @@ def test_serve_cli_flags_and_registry_error(served):
     assert r.returncode == 0
     for flag in ("--device", "--serving-precision", "--profile",
                  "--drift-sample-rate", "--skew-sample-rate",
-                 "--trace-dir", "--deadline-default-ms"):
+                 "--trace-dir", "--deadline-default-ms", "--registry",
+                 "--follow", "--poll-s"):
         assert flag in r.stdout
-    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch.serve",
-                        served[0], "--registry", "/nonexistent",
-                        "--device", "cpu"], capture_output=True, text=True,
-                       timeout=120, cwd=REPO, env=env)
-    assert r.returncode == 2
-    assert "queue 1 item 7" in r.stderr
+    with pytest.raises(SystemExit) as e:
+        main(["--follow", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "--follow requires --registry" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        main(["--registry", str(tmp_path / "empty"), "--follow",
+              "--device", "cpu"])
+    assert e.value.code == 2
+    assert "no model" in capsys.readouterr().err
